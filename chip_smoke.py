@@ -5,14 +5,18 @@
 
 Phases, each of which exits non-zero when it fails:
   1. device  — the card's name and power limit (no card: exit 1);
-  2. build   — both CUDA kernels from src/repro_torch/csrc, one nvcc each,
-               in parallel;
+  2. build   — the three CUDA kernels from src/repro_torch/csrc, one nvcc
+               each, all started together;
   3. kernels — each kernel against its plain PyTorch version on the card:
                fused scoring at D=4096, H=512, L=128 over an 8192-doc tile
                for Q in {1, 4, 5} (and its Q=1 single-query form);
                contrastive at (Q=4, n=128, p=64) and (Q=1, n=512, p=256),
                all-positive, all-negative and tied batches; the phase-2
                autograd.Function's gradient against plain autograd;
+               flash attention against the masked-einsum oracle at the
+               offline path's shape (b=8, s=512, 32 heads over 8 KV heads,
+               head_dim 128, causal) and at small window / q_offset /
+               ragged / non-causal shapes, in f32 and bf16;
   4. main    — ScaleDocEngine.query() for three queries over a synthetic
                corpus of 131,072 documents at D=4096 (noise: see NOISE),
                with ProxyConfig() defaults and
@@ -22,7 +26,19 @@ Phases, each of which exits non-zero when it fails:
   5. times   — each kernel and its plain version with CUDA events at the
                main path's shapes, their bounds, the per-stage split of
                one scoring pass, and the train / score / calibrate split of
-               one query.
+               one query;
+  6. offline — the offline path: ScaleDocEngine.from_corpus with an
+               EmbeddingService over llama3-8b at full width (32 layers,
+               bf16, weights drawn on the card from a seed) into a store of
+               2,048 documents of 512 tokens: 2048 finite rows of width
+               4096, flash launched 32 times per batch, the kernel path's
+               pooled embeddings against the plain einsum path's (per-row
+               cosine >= COS_MIN), a killed-and-resumed ingest bit-identical
+               to an uninterrupted one, and one query() over the store;
+  7. flash   — the flash kernel, its plain version and PyTorch's
+               scaled_dot_product_attention (a yardstick the port never
+               calls) at the offline path's shape, and its share of one
+               embedding batch.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -40,6 +56,7 @@ SRC = ROOT / "src"
 
 # NVIDIA H100 SXM published peaks (data sheet, dense, at 700 W)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 N_DOCS = 131_072
@@ -56,6 +73,17 @@ TILE = 8192
 F1_MIN = 0.85
 F32_TOL = 1e-5                       # the reference kernels' f32 tolerance
 LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
+# tests/test_kernels.py's flash attention tolerances (rtol = atol)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# the offline path: llama3-8b over make_corpus's tokens
+OFF_ARCH = "llama3-8b"
+OFF_DOCS, OFF_DOC_LEN, OFF_VOCAB, OFF_BATCH = 2048, 512, 32768, 8
+RESUME_DOCS, RESUME_CUT = 128, 64    # the kill/resume drill
+# 32 bf16 layers of random weights: the kernel (f32 softmax, bf16 out)
+# and the einsum path (probabilities rounded to bf16) round at other
+# places, so pooled embeddings agree in direction, not to the last bit
+COS_MIN = 0.999
+FLASH_SHAPE = (8, 512, 32, 8, 128)   # b, s, heads, KV heads, head_dim
 
 
 def fail(msg: str) -> None:
@@ -80,6 +108,231 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def flash_checks(dev, rng) -> dict:
+    """The flash kernel against the masked-einsum oracle on the card."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.flash_attention import ref as f_ref
+    b, s, h, kv, hd = FLASH_SHAPE
+    cases = [  # name, (b, sq, skv, h, kv, hd), causal, window, q_offset
+        ("path shape causal", (b, s, s, h, kv, hd), True, 0, 0),
+        ("window=24", (2, 128, 128, 4, 4, 32), True, 24, 0),
+        ("q_offset=skv-sq", (1, 32, 96, 2, 2, 16), True, 0, 64),
+        ("ragged s=200 GQA 4:1", (2, 200, 200, 8, 2, 128), True, 0, 0),
+        ("non-causal s=200", (1, 200, 200, 4, 1, 128), False, 0, 0),
+    ]
+    errs = {}
+    for name, (b, sq, skv, h, kv, hd), causal, window, q_off in cases:
+        base = [torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                             device=dev)
+                for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                              (b, skv, kv, hd))]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dt) for x in base)
+            kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                      q_offset=q_off)
+            got = f_ops.flash_attention_fwd(q, k, v, **kw)
+            want = f_ref.ref_attention(q, f_ref.expand_kv(k, h // kv),
+                                       f_ref.expand_kv(v, h // kv), **kw)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[str(dt).split(".")[1]]
+            err = (got.float() - want.float()).abs().max().item()
+            key = f"flash {name} {str(dt).split('.')[1]}"
+            log(f"[kernels] {key}: max abs err {err:.3e} (rtol = atol = "
+                f"{tol:g})")
+            if got.dtype != dt or not torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"{key} disagrees with the einsum oracle")
+            errs[key] = err
+    return errs
+
+
+def offline_phase(dev) -> dict:
+    """ScaleDocEngine.from_corpus over llama3-8b, then its checks."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.config import CascadeConfig, ProxyConfig, get_arch
+    from repro_torch.core.encoder import tree_leaves
+    from repro_torch.core.oracle import SimulatedOracle
+    from repro_torch.data import make_corpus, make_query
+    from repro_torch.engine import ScaleDocEngine, build_index
+    from repro_torch.engine.store import DATA_NAME
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import EmbeddingService
+
+    cfg = get_arch(OFF_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[offline] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, "
+        f"{cfg.dtype}, {n_params / 1e9:.3f} B params drawn on the card in "
+        f"{init_s:.1f} s")
+    t0 = time.perf_counter()
+    corpus = make_corpus(0, n_docs=OFF_DOCS, dim=128, with_tokens=True,
+                         vocab=OFF_VOCAB, doc_len=OFF_DOC_LEN)
+    docs = [corpus.tokens[i] for i in range(OFF_DOCS)]
+    n_tokens = OFF_DOCS * OFF_DOC_LEN
+    log(f"[offline] corpus: {OFF_DOCS} docs x {OFF_DOC_LEN} tokens "
+        f"(vocab {OFF_VOCAB}) = {n_tokens} tokens, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    service = EmbeddingService(cfg, params, batch_size=OFF_BATCH, device=dev)
+    t0 = time.perf_counter()
+    digest = service.params_digest()
+    digest_s = time.perf_counter() - t0
+    log(f"[offline] params digest {digest} in {digest_s:.1f} s")
+
+    work = ROOT / "build" / "chip_smoke_stores"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        # -- the path: every count 0 just before, read just after ---------
+        for kern in (f_ops.KERNEL, s_ops.KERNEL, c_ops.KERNEL):
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = ScaleDocEngine.from_corpus(
+            service, docs, work / "store", proxy_cfg=ProxyConfig(),
+            cascade_cfg=CascadeConfig(accuracy_target=0.9), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = f_ops.KERNEL.launches
+        st = engine.ingest_result.stats
+        store = engine.store
+        emb = store.get(np.arange(len(store)))
+        log(f"[offline] from_corpus: {len(store)} x {store.dim} rows in "
+            f"{wall:.1f} s: {st.docs / wall:.1f} docs/s, "
+            f"{n_tokens / wall:.0f} tokens/s; {st.batches} batches, "
+            f"{st.commits} commits; flash launches {launches}")
+        split = {f: getattr(st, f) for f in (
+            "host_io_seconds", "compute_seconds", "stall_seconds",
+            "write_seconds", "wall_seconds")}
+        split["overlap_fraction"] = st.overlap_fraction
+        split["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        log(f"[offline] IngestStats: {json.dumps(split)}")
+        if emb.shape != (OFF_DOCS, cfg.d_model) or not np.isfinite(
+                emb).all():
+            fail(f"the store is not {OFF_DOCS} finite rows of width "
+                 f"{cfg.d_model}: {emb.shape}")
+        if st.batches != OFF_DOCS // OFF_BATCH or \
+                launches != cfg.num_layers * st.batches:
+            fail(f"flash launched {launches} times over {st.batches} "
+                 f"batches; expected {cfg.num_layers} per batch")
+
+        # -- the kernel path against the plain einsum path, one batch ----
+        batch = np.stack(docs[:OFF_BATCH]).astype(np.int32)
+        got = service.embed_batch(batch)
+        plain = EmbeddingService(cfg, params, batch_size=OFF_BATCH,
+                                 device=dev, attn_impl="einsum")
+        want = plain.embed_batch(batch)
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+        p_err = (got - want).abs().max().item()
+        same_as_store = bool(np.array_equal(got.cpu().numpy(),
+                                            emb[:OFF_BATCH]))
+        log(f"[offline] kernel path vs einsum path, batch 0: min per-row "
+            f"cosine {cos.min().item():.6f} (>= {COS_MIN}), max abs err "
+            f"{p_err:.3e} (|x| max {want.abs().max().item():.3e}); "
+            f"bitwise equal to the store's rows: {same_as_store}")
+        if not cos.min().item() >= COS_MIN:
+            fail("the kernel path's embeddings disagree with the einsum "
+                 "path's")
+
+        # -- kill / resume drill -----------------------------------------
+        part_docs = docs[:RESUME_DOCS]
+        full = build_index(service, part_docs, work / "full")
+        killed = build_index(service, part_docs, work / "killed",
+                             max_docs=RESUME_CUT)
+        if not killed.interrupted or len(killed.store) != RESUME_CUT:
+            fail(f"max_docs={RESUME_CUT} left {len(killed.store)} rows")
+        resumed = build_index(service, part_docs, work / "killed")
+        a = (work / "full" / DATA_NAME).read_bytes()
+        b = (work / "killed" / DATA_NAME).read_bytes()
+        prefix = emb[:RESUME_DOCS].tobytes() == a
+        log(f"[offline] kill at {RESUME_CUT} of {RESUME_DOCS} docs, resume "
+            f"from row {resumed.stats.resumed_rows}: embeddings.bin "
+            f"bit-identical to an uninterrupted run: {a == b} ({len(a)} "
+            f"bytes); equal to the full store's first rows: {prefix}")
+        if a != b or resumed.stats.resumed_rows != RESUME_CUT \
+                or full.interrupted:
+            fail("the resumed store differs from the uninterrupted one")
+
+        # -- one query over the store -------------------------------------
+        q = make_query(corpus, 100, selectivity=0.2)
+        pos = np.nonzero(q.truth)[0][:4]
+        e_q = emb[pos].mean(axis=0)
+        e_q = (e_q / (np.linalg.norm(e_q) + 1e-9)).astype(np.float32)
+        tq = time.perf_counter()
+        qs = engine.query(e_q, SimulatedOracle(q.truth), ground_truth=q.truth,
+                          seed=0)
+        q_wall = time.perf_counter() - tq
+        log(f"[offline] query (sel {q.selectivity:.2f}) over the store: F1 "
+            f"{qs.cascade.achieved_f1:.4f} (no bar: random weights), oracle "
+            f"calls {qs.oracle_calls_total} of {OFF_DOCS}, {q_wall:.2f} s")
+        if not np.isfinite(qs.scores).all() or \
+                qs.oracle_calls_total > OFF_DOCS:
+            fail("the query over the offline store failed")
+
+        # one embedding batch on the card, and the flash share of it
+        batch_dev = torch.as_tensor(batch, device=dev)
+        batch_ms = cuda_ms(lambda: service.embed_batch(batch_dev), 5,
+                           warmup=1)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"arch": cfg.name, "params": n_params, "init_seconds": init_s,
+            "digest_seconds": digest_s, "n_docs": OFF_DOCS,
+            "tokens": n_tokens, "wall_seconds": wall,
+            "docs_per_second": OFF_DOCS / wall,
+            "tokens_per_second": n_tokens / wall, "batches": st.batches,
+            "flash_launches": launches, "ingest_stats": split,
+            "pooled_min_cosine": cos.min().item(),
+            "pooled_max_abs_err": p_err, "resume_bit_identical": a == b,
+            "query": {"f1": qs.cascade.achieved_f1,
+                      "oracle_calls": qs.oracle_calls_total,
+                      "wall_seconds": q_wall},
+            "embed_batch_ms": batch_ms}
+
+
+def flash_times(dev) -> dict:
+    """The flash kernel, its plain version and SDPA at the path's shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.flash_attention import ref as f_ref
+    b, s, h, kv, hd = FLASH_SHAPE
+    gen = torch.Generator(dev).manual_seed(1)
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale = hd ** -0.5
+    g = h // kv
+    ms = cuda_ms(lambda: f_ops.flash_attention_fwd(q, k, v, scale=scale),
+                 20)
+    plain_ms = cuda_ms(lambda: f_ref.attention_blocked(
+        q, f_ref.expand_kv(k, g), f_ref.expand_kv(v, g), scale,
+        causal=True), 10)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(
+                             qt, kt, vt, is_causal=True, scale=scale,
+                             enable_gqa=True), 20)
+    flops = 4 * b * h * hd * s * (s + 1) // 2
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "fp32_fma_bound_ms": flops / PEAK_FP32_FLOPS * 1e3}
 
 
 def main() -> None:
@@ -121,9 +374,10 @@ def main() -> None:
               "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # -- 2. build ----------------------------------------------------------
-    build_s = _build.build_all(["fused_scoring", "contrastive"])
-    log(f"[build] fused_scoring.cu + contrastive.cu in {build_s:.1f} s")
-    for name in ("fused_scoring", "contrastive"):
+    names = ("fused_scoring", "contrastive", "flash_attention")
+    build_s = _build.build_all(names)
+    log(f"[build] {', '.join(n + '.cu' for n in names)} in {build_s:.1f} s")
+    for name in names:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -192,7 +446,8 @@ def main() -> None:
         f"{not a[0].grad.any().item()}")
     if not (g_err <= F32_TOL and not a[0].grad.any().item()):
         fail("phase2 gradient disagrees with plain autograd")
-    report["checks"] = {**checks, **c_errs, "phase2 grad": g_err}
+    f_errs = flash_checks(dev, rng)
+    report["checks"] = {**checks, **c_errs, "phase2 grad": g_err, **f_errs}
 
     # -- 4. main path: ScaleDocEngine.query() ------------------------------
     t0 = time.perf_counter()
@@ -328,6 +583,34 @@ def main() -> None:
                        "fused_flops": fused_flops, "fused_bytes": fused_bytes,
                        "contrastive_flops": con_flops,
                        "contrastive_bytes": con_bytes}
+
+    # -- 6. offline path: from_corpus over llama3-8b ----------------------
+    del engine, store, corpus, docs
+    torch.cuda.empty_cache()
+    offline = offline_phase(dev)
+    report["offline"] = offline
+
+    # -- 7. flash times ------------------------------------------------------
+    ft = flash_times(dev)
+    kernels.append(
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+         "launches": offline["flash_launches"],
+         "max_abs_err": max(f_errs.values()),
+         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+         "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+         "library_ms": ft["library_ms"]})
+    share = offline["flash_launches"] // offline["batches"] * ft["ms"] \
+        / offline["embed_batch_ms"]
+    log(f"[times] flash_attention: {ft['ms']:.4f} ms, plain "
+        f"{ft['plain_ms']:.4f} ms, SDPA {ft['library_ms']:.4f} ms, bound "
+        f"{ft['bound_ms']:.5f} ms ({ft['bound_by']}; {ft['fp32_fma_bound_ms']:.4f}"
+        f" ms at the FP32 peak), {offline['flash_launches']} launches per "
+        f"from_corpus; one embedding batch {offline['embed_batch_ms']:.2f} ms"
+        f", of which flash {100 * share:.1f}%")
+    ft["share_of_embed_batch"] = share
+    report["times"]["flash"] = ft
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

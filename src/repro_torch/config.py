@@ -1,16 +1,141 @@
-"""Configuration dataclasses of the proxy, its optimizer and the cascade.
+"""Configuration dataclasses and the architecture registry.
 
-Copies of ``repro.config.base``'s ``ProxyConfig``, ``CascadeConfig`` and
-``OptimizerConfig`` (and its ``replace``), kept here so the port imports
-nothing of the JAX package. Field names and defaults are the same, so a
-config of one package reads as a config of the other.
+Copies of ``repro.config.base``'s ``ModelConfig`` (with ``MoEConfig``,
+``SSMConfig``, ``RWKVConfig`` and the block-kind constants),
+``ProxyConfig``, ``CascadeConfig`` and ``OptimizerConfig`` (and its
+``replace``), and of ``repro.config.registry``, kept here so the port
+imports nothing of the JAX package. Field names and defaults are the
+same, so a config of one package reads as a config of the other; the
+offline store's ``config_digest`` hashes ``dataclasses.asdict`` of a
+``ModelConfig`` and so depends on every field.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# model configuration
+# ---------------------------------------------------------------------------
+
+BLOCK_ATTN = "attn"            # full (causal) attention
+BLOCK_LOCAL_ATTN = "local"     # sliding-window attention
+BLOCK_MAMBA2 = "mamba2"        # Mamba2 / SSD block
+BLOCK_RWKV6 = "rwkv6"          # RWKV6 (Finch) time-mix block
+BLOCK_SHARED_ATTN = "shared"   # shared-weight attention block (Zamba2)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    num_shared_experts: int = 0
+    router_aux_weight: float = 0.01
+
+    @property
+    def enabled(self) -> bool:
+        return self.num_experts > 0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 64
+    conv_width: int = 4
+    head_dim: int = 64
+    expand: int = 2
+    chunk: int = 128
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description. One instance per architecture."""
+    name: str = "unnamed"
+    family: str = "dense"        # dense | moe | hybrid | ssm | audio | vlm
+
+    num_layers: int = 2
+    d_model: int = 128
+    num_heads: int = 2
+    num_kv_heads: int = 2
+    d_ff: int = 512
+    vocab_size: int = 1024
+    head_dim: int = 0            # 0 -> d_model // num_heads
+
+    block_pattern: Tuple[str, ...] = (BLOCK_ATTN,)
+    sliding_window: int = 0      # window for BLOCK_LOCAL_ATTN layers
+
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    rwkv: RWKVConfig = field(default_factory=RWKVConfig)
+
+    encoder_layers: int = 0
+    encoder_d_ff: int = 0
+    frontend: str = "none"
+
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    act: str = "silu"            # mlp activation
+    dtype: str = "bfloat16"      # activation/param dtype
+
+    remat: str = "full"
+    scan_layers: bool = True
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.num_heads)
+
+    @property
+    def padded_vocab_size(self) -> int:
+        """Vocab padded to a multiple of 256, as the JAX package pads it."""
+        return ((self.vocab_size + 255) // 256) * 256
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+_SMOKE: Dict[str, ModelConfig] = {}
+
+
+def register(full: ModelConfig, smoke: ModelConfig) -> ModelConfig:
+    if full.name in _REGISTRY:
+        raise ValueError(f"duplicate arch {full.name!r}")
+    _REGISTRY[full.name] = full
+    _SMOKE[full.name] = smoke
+    return full
+
+
+def _ensure_loaded() -> None:
+    import repro_torch.configs  # noqa: F401  (registers every config)
+
+
+def get_arch(name: str) -> ModelConfig:
+    """The full-size config of a registered architecture."""
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def get_smoke_arch(name: str) -> ModelConfig:
+    """The reduced same-family config the CPU tests use."""
+    _ensure_loaded()
+    return _SMOKE[name]
+
+
+# ---------------------------------------------------------------------------
+# proxy, optimizer and cascade
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ProxyConfig
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, tree_map
 
 Params = Dict[str, Any]
 
@@ -84,13 +84,6 @@ def decision_scores(params: Params, e_q: torch.Tensor,
     return (1.0 + cos) / 2.0
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every non-dict leaf of a nested dictionary."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def tree_leaves(tree) -> list:
     """Leaves in sorted-key order (the order ``jax.tree.leaves`` uses)."""
     if isinstance(tree, dict):
@@ -100,9 +93,9 @@ def tree_leaves(tree) -> list:
 
 def params_from_jax(tree, device="cpu") -> Params:
     """The JAX package's param tree (numpy or jax arrays) -> the port's
-    params on ``device``. Both keep ``w`` as ``(in, out)``."""
-    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
-                                           device=device), tree)
+    float32 params on ``device``. Both keep ``w`` as ``(in, out)``."""
+    from repro_torch.models import params_from_jax as carry
+    return carry(tree, device, torch.float32)
 
 
 def params_to_numpy(params: Params):

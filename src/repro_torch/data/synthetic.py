@@ -1,18 +1,19 @@
 """Synthetic document corpora with planted semantics.
 
 A numpy copy of ``repro.data.synthetic``'s ``make_corpus`` and
-``make_query``: the same seed gives the same arrays in both packages
-(the token sequences the JAX package can add for its LM examples are
-not ported).
+``make_query``: the same seed gives the same arrays in both packages,
+the token sequences of ``with_tokens=True`` included.
 
 Topic-mixture embeddings ``e_d = normalize(W_d @ T + noise)``; queries
 plant a concept over three topics (two drivers the query embedding
 points at, one hidden negative topic, a mild interaction term) whose
-threshold is set by the requested selectivity.
+threshold is set by the requested selectivity. Token sequences come
+from topic-dependent unigram tables (the offline LM's input).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -22,6 +23,7 @@ class Corpus:
     embeds: np.ndarray        # (N, D) float32, L2-normalized
     topic_weights: np.ndarray  # (N, k)
     topics: np.ndarray        # (k, D)
+    tokens: Optional[np.ndarray] = None  # (N, L) int32
 
 
 @dataclasses.dataclass
@@ -33,8 +35,27 @@ class Query:
     topic_b: int = 0
 
 
+def sample_tokens(cdf: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """Inverse-CDF draws: per row, the first index whose cdf exceeds u.
+
+    cdf (N, V), u (N, L) -> (N, L) int32. This is the JAX package's
+    ``(u[..., None] < cdf[:, None, :]).argmax(-1)`` without its
+    (N, L, V) array: ``searchsorted(side="right")`` gives the same first
+    index, and a u at or above the row's last cdf entry (no index
+    exceeds it, so ``argmax`` of an all-false row is 0) maps to 0.
+    """
+    vocab = cdf.shape[1]
+    out = np.empty(u.shape, np.int32)
+    for i in range(u.shape[0]):
+        idx = np.searchsorted(cdf[i], u[i], side="right")
+        out[i] = np.where(idx >= vocab, 0, idx)
+    return out
+
+
 def make_corpus(seed: int, n_docs: int = 10_000, dim: int = 256,
-                n_topics: int = 16, noise: float = 0.03) -> Corpus:
+                n_topics: int = 16, noise: float = 0.03,
+                with_tokens: bool = False, vocab: int = 256,
+                doc_len: int = 64) -> Corpus:
     rng = np.random.default_rng(seed)
     topics = rng.normal(size=(n_topics, dim)).astype(np.float32)
     topics /= np.linalg.norm(topics, axis=1, keepdims=True)
@@ -43,7 +64,16 @@ def make_corpus(seed: int, n_docs: int = 10_000, dim: int = 256,
     w /= w.sum(axis=1, keepdims=True)
     e = w @ topics + noise * rng.normal(size=(n_docs, dim)).astype(np.float32)
     e /= np.linalg.norm(e, axis=1, keepdims=True)
-    return Corpus(embeds=e, topic_weights=w, topics=topics)
+    tokens = None
+    if with_tokens:
+        # topic-dependent unigram tables
+        tables = rng.dirichlet(np.full(vocab, 0.05), size=n_topics)
+        probs = w @ tables
+        probs /= probs.sum(axis=1, keepdims=True)
+        cdf = np.cumsum(probs, axis=1)
+        u = rng.random((n_docs, doc_len))
+        tokens = sample_tokens(cdf, u)
+    return Corpus(embeds=e, topic_weights=w, topics=topics, tokens=tokens)
 
 
 def make_query(corpus: Corpus, seed: int, selectivity: float = 0.3,

@@ -22,6 +22,10 @@ same training and calibration samples; the proxy's own draws come from a
 torch seed derived from the same pair (the JAX package folds it into a
 threefry key, which torch cannot reproduce).
 
+``from_corpus`` runs the offline phase first (``repro_torch.engine
+.ingest``: the LM embeds every document into a persistent store) and
+builds the engine over that store.
+
 Not ported yet (each raises ``NotImplementedError``): compound
 predicates and their planner, ``SemanticTopK``, ``degrade`` other than
 ``"fail"``, the cross-query ``QueryOptimizer``, ``session_view`` and
@@ -138,6 +142,39 @@ class ScaleDocEngine:
         self._proxies: Dict[str, Dict] = {}          # leaf.key -> params
         self._decisions: Dict[tuple, LeafArtifact] = {}
         self._lock = threading.RLock()
+        # populated by from_corpus(): the offline phase's accounting
+        self.ingest_result = None
+
+    # -- construction from a raw corpus (offline phase) ------------------
+
+    @classmethod
+    def from_corpus(cls, service, docs_tokens, path, *,
+                    proxy_cfg: Optional[ProxyConfig] = None,
+                    cascade_cfg: Optional[CascadeConfig] = None,
+                    ingest_mesh=None, max_docs: Optional[int] = None,
+                    ingest_kwargs: Optional[Dict] = None,
+                    device="cuda", **engine_kwargs) -> "ScaleDocEngine":
+        """Run (or resume) the offline representation phase, then build
+        an engine over the persisted store.
+
+        ``service`` is a ``repro_torch.runtime.serve_loop
+        .EmbeddingService``; ``docs_tokens`` a sequence of 1-D int token
+        arrays; ``path`` a store directory (created on first use, resumed
+        from the last durable row afterwards; a completed store skips
+        embedding entirely). ``ingest_kwargs`` reach the ``Ingestor``
+        (``commit_every_batches``, ``prefetch_depth``, ...);
+        ``ingest_mesh`` must be None (multi-card ingest is not ported).
+        The engine runs on ``device`` over the ``MemmapStore`` and keeps
+        the offline accounting as ``engine.ingest_result``.
+        """
+        from repro_torch.engine.ingest import build_index
+        result = build_index(service, docs_tokens, path,
+                             max_docs=max_docs, mesh=ingest_mesh,
+                             **(ingest_kwargs or {}))
+        engine = cls(result.store, proxy_cfg, cascade_cfg, device=device,
+                     **engine_kwargs)
+        engine.ingest_result = result
+        return engine
 
     def session_view(self, *args, **kwargs):
         raise NotImplementedError("session views (the serving planes) are "

@@ -11,8 +11,9 @@ The JAX package's ``device_put`` double buffering becomes: the prefetch
 thread copies each chunk off the ``DocumentStore`` into one of two
 pinned host buffers, issues a ``non_blocking`` host-to-device copy on a
 side stream and records an event after it; the compute stream waits on
-that event before it reads the chunk. A pinned buffer is refilled only
-after the event of the copy that last read it has completed.
+that event before it reads the chunk (``HostStager``, which the offline
+ingest's batch feeder shares). A pinned buffer is refilled only after
+the event of the copy that last read it has completed.
 
 Proxy groups always go through the fused multi-query kernel
 (``repro_torch.kernels.fused_scoring``), one MLP pass per tile for all
@@ -81,45 +82,43 @@ class ScoringStats:
         return max(0.0, 1.0 - self.stall_seconds / self.host_io_seconds)
 
 
-class _Prefetcher:
-    """Background thread that pages store chunks host -> device ahead of
-    the scoring compute, through a bounded queue.
+class PrefetchThread:
+    """Background producer thread feeding a bounded queue ahead of a
+    device-compute consumer (``repro.engine.executor.PrefetchThread``).
 
-    ``PREFETCH_DEPTH`` bounds how many chunks may be resident beyond the
-    one being consumed. Exceptions in the producer are re-raised in the
-    consumer; if the consumer dies (or abandons the iterator), the stop
-    event unblocks the producer so the thread and its queued buffers are
-    released. The consumer records how long it stalled on an empty queue
-    (``stall_seconds``); the producer its host-side work (``io_seconds``).
+    ``depth`` bounds how many items may be resident beyond the one being
+    consumed (2 = double buffering). Exceptions in the producer are
+    re-raised in the consumer; if the consumer dies (or abandons the
+    iterator), the stop event unblocks the producer so the thread and its
+    queued buffers are released. The consumer records how long it
+    stalled on an empty queue (``stall_seconds``); the producer its
+    host-side work (``io_seconds``). Subclasses implement
+    ``_produce(*args)`` (the arguments given after ``depth``), pushing
+    items through ``_put`` and returning when it reports the consumer
+    gone. The scoring ``_Prefetcher`` and the ingest batch feeder share
+    this lifecycle.
     """
 
     _DONE = object()
 
-    def __init__(self, store, chunk: int, put_fn):
-        self._queue: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
+    def __init__(self, depth: int, *args):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._stop = threading.Event()
         self.io_seconds = 0.0
         self.stall_seconds = 0.0
-        self._thread = threading.Thread(target=self._run,
-                                        args=(store, chunk, put_fn),
+        self._thread = threading.Thread(target=self._run, args=args,
                                         daemon=True)
         self._thread.start()
 
-    def _run(self, store, chunk, put_fn):
+    def _run(self, *args):
         try:
-            for start, block in _iter_chunks(store, chunk):
-                if self._stop.is_set():
-                    return
-                t0 = time.perf_counter()
-                dev, event = put_fn(block)
-                self.io_seconds += time.perf_counter() - t0
-                nbytes = block.shape[0] * block.shape[1] * 4
-                if not self._put((start, block.shape[0], nbytes, dev,
-                                  event)):
-                    return
+            self._produce(*args)
             self._put(self._DONE)
         except BaseException as exc:  # surfaced on the consumer side
             self._put(exc)
+
+    def _produce(self, *args):
+        raise NotImplementedError
 
     def _put(self, item) -> bool:
         while not self._stop.is_set():
@@ -151,29 +150,83 @@ class _Prefetcher:
             self._thread.join(timeout=5.0)
 
 
-class _StagingRing:
-    """Pinned host buffers reused round-robin. ``acquire`` hands out the
-    next buffer only after the event recorded by its last ``release``
-    (the copy that read it) has completed."""
+class _Prefetcher(PrefetchThread):
+    """Pages store chunks host -> device ahead of the scoring compute."""
 
-    def __init__(self, slots: int, shape: Tuple[int, int], pin: bool):
-        self.shape = shape
-        self._bufs = [torch.empty(shape, dtype=torch.float32,
-                                  pin_memory=pin) for _ in range(slots)]
-        self._events: List[Optional[object]] = [None] * slots
+    def __init__(self, store, chunk: int, put_fn):
+        super().__init__(PREFETCH_DEPTH, store, chunk, put_fn)
+
+    def _produce(self, store, chunk, put_fn):
+        for start, block in _iter_chunks(store, chunk):
+            if self._stop.is_set():
+                return
+            t0 = time.perf_counter()
+            dev, event = put_fn(block)
+            self.io_seconds += time.perf_counter() - t0
+            nbytes = block.shape[0] * block.shape[1] * 4
+            if not self._put((start, block.shape[0], nbytes, dev, event)):
+                return
+
+
+class HostStager:
+    """Copies (rows, cols) host arrays to ``device`` as ``dtype``.
+
+    On the card each array goes into one of ``STAGING_SLOTS`` pinned
+    host buffers, reused round-robin (a buffer is refilled only after the
+    event of the copy that last read it has completed, and grows to the
+    largest array seen), and a ``non_blocking`` copy is started on a side
+    stream; the call returns ``(tensor, event)``. The consumer calls
+    ``wait`` before it reads the tensor. On the CPU it returns a copy
+    and no event.
+    """
+
+    def __init__(self, device: torch.device, dtype=torch.float32):
+        self.device = device
+        self.dtype = dtype
+        self._np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        self._bufs: List[torch.Tensor] = []
+        self._events: List[Optional[object]] = [None] * STAGING_SLOTS
         self._next = 0
+        self._stream = None
 
-    def acquire(self) -> Tuple[int, torch.Tensor]:
+    def _acquire(self, numel: int) -> Tuple[int, torch.Tensor]:
         slot = self._next
-        self._next = (slot + 1) % len(self._bufs)
+        self._next = (slot + 1) % STAGING_SLOTS
         event = self._events[slot]
         if event is not None:
             event.synchronize()
             self._events[slot] = None
+        if self._bufs[slot].numel() < numel:
+            self._bufs[slot] = torch.empty(numel, dtype=self.dtype,
+                                           pin_memory=True)
         return slot, self._bufs[slot]
 
-    def release(self, slot: int, event) -> None:
+    def __call__(self, block: np.ndarray):
+        if self.device.type == "cpu":
+            return torch.tensor(np.asarray(block, self._np_dtype)), None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._bufs = [torch.empty(0, dtype=self.dtype, pin_memory=True)
+                          for _ in range(STAGING_SLOTS)]
+        rows, cols = block.shape
+        slot, buf = self._acquire(rows * cols)
+        host = buf[:rows * cols].view(rows, cols)
+        np.copyto(host.numpy(), block, casting="same_kind")
+        with torch.cuda.stream(self._stream):
+            dev = torch.empty((rows, cols), dtype=self.dtype,
+                              device=self.device)
+            dev.copy_(host, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
         self._events[slot] = event
+        return dev, event
+
+    def wait(self, tensor: torch.Tensor, event) -> None:
+        """Make the current stream wait for ``tensor``'s copy."""
+        if event is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(event)
+            tensor.record_stream(compute)
 
 
 class ScoringExecutor:
@@ -187,32 +240,7 @@ class ScoringExecutor:
     def __init__(self, *, chunk: int = 8192, device="cuda"):
         self.device = resolve_device(device)
         self.chunk = chunk
-        self._ring: Optional[_StagingRing] = None
-        self._copy_stream = None
-
-    def _put(self, dim: int):
-        if self.device.type == "cpu":
-            return lambda block: (torch.tensor(
-                np.asarray(block, np.float32)), None)
-        if self._ring is None or self._ring.shape != (self.chunk, dim):
-            self._ring = _StagingRing(STAGING_SLOTS, (self.chunk, dim),
-                                      pin=True)
-            self._copy_stream = torch.cuda.Stream(self.device)
-        ring, stream, dev = self._ring, self._copy_stream, self.device
-
-        def put(block: np.ndarray):
-            rows = block.shape[0]
-            slot, buf = ring.acquire()
-            np.copyto(buf[:rows].numpy(), block, casting="same_kind")
-            with torch.cuda.stream(stream):
-                tile = torch.empty((rows, dim), dtype=torch.float32,
-                                   device=dev)
-                tile.copy_(buf[:rows], non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(stream)
-            ring.release(slot, event)
-            return tile, event
-        return put
+        self._stager = HostStager(self.device)
 
     def score(self, params, e_q, store) -> Tuple[np.ndarray, ScoringStats]:
         """One predicate over the collection -> ((N,) scores, stats)."""
@@ -233,19 +261,14 @@ class ScoringExecutor:
                     ScoringStats(docs_scored=n))
         t0 = time.perf_counter()
         groups, zq_stacks = group_jobs(jobs, self.device)
-        pre = _Prefetcher(store, self.chunk,
-                          self._put(store.dim if hasattr(store, "dim")
-                                    else store.shape[1]))
+        pre = _Prefetcher(store, self.chunk, self._stager)
         out = np.empty((n, len(jobs)), np.float32)
         tiles = nbytes = 0
         compute_s = 0.0
         paths = set()
         for start, rows, tile_bytes, tile, event in pre:
             tc = time.perf_counter()
-            if event is not None:
-                compute = torch.cuda.current_stream(self.device)
-                compute.wait_event(event)
-                tile.record_stream(compute)
+            self._stager.wait(tile, event)
             for (params, cols), zq in zip(groups, zq_stacks):
                 s = score_tile_multi(params, zq, tile)
                 paths.add("matmul" if params is None else "fused")

@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels.contrastive import ops as c_ops
 from repro_torch.kernels.contrastive import ref as c_ref
+from repro_torch.kernels.flash_attention import ops as f_ops
+from repro_torch.kernels.flash_attention import ref as f_ref
 from repro_torch.kernels.fused_scoring import ops as s_ops
 from repro_torch.kernels.fused_scoring import ref as s_ref
 
@@ -18,6 +20,9 @@ F32 = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels.py's f32 tolerance
 # the contrastive losses are sums of up to n LSE terms of size 1/tau ~ 14;
 # tests/test_kernels.py holds the Pallas kernel to its reference with this
 LOSS = dict(rtol=1e-4, atol=1e-5)
+# tests/test_kernels.py's flash attention tolerances
+FLASH = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+         torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 
 
 @pytest.fixture
@@ -149,3 +154,112 @@ def test_executor_on_card_matches_cpu(cuda, kind, tmp_path):
             assert s_ops.KERNEL.launches == before + 3
         outs.append(scores)
     np.testing.assert_allclose(outs[0], outs[1], **F32)
+
+
+def _attention_inputs(b, sq, skv, h, kv, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, s, n, hd)).astype(np.float32)
+            for s, n in ((sq, h), (skv, kv), (skv, kv))]
+
+
+# (b, sq, skv, h, kv_heads, hd, causal, window, q_offset): the embedding
+# path's shape, tests/test_kernels.py's grid and q_offset case, GQA,
+# ragged lengths and a head narrower than the kernel's tile
+FLASH_CASES = [
+    (8, 512, 512, 32, 8, 128, True, 0, 0),
+    (2, 64, 64, 3, 3, 16, True, 0, 0),
+    (1, 48, 48, 2, 2, 8, False, 0, 0),
+    (2, 128, 128, 4, 4, 32, True, 24, 0),
+    (1, 32, 96, 2, 2, 16, True, 0, 64),
+    (2, 200, 200, 8, 2, 64, True, 0, 0),
+    (1, 200, 200, 4, 1, 128, False, 0, 0),
+    (1, 77, 200, 4, 2, 128, True, 24, 123),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    b, sq, skv, h, kv, hd, causal, window, q_offset = case
+    q, k, v = (_t(x, cuda).to(dtype)
+               for x in _attention_inputs(b, sq, skv, h, kv, hd))
+    scale = hd ** -0.5
+    before = f_ops.KERNEL.launches
+    got = f_ops.flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                    window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert f_ops.KERNEL.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    g = h // kv
+    want = f_ref.ref_attention(q, f_ref.expand_kv(k, g),
+                               f_ref.expand_kv(v, g), scale=scale,
+                               causal=causal, window=window,
+                               q_offset=q_offset)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **FLASH[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 16, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        f_ops.flash_attention_fwd(q, q, q, scale=1.0)
+    q = torch.zeros((1, 16, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        f_ops.flash_attention_fwd(q, q, q, scale=1.0)
+    q = torch.zeros((1, 16, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="see none"):
+        f_ops.flash_attention_fwd(q, q, q, scale=1.0, window=4, q_offset=40)
+
+
+@pytest.mark.cuda
+def test_embedding_service_runs_the_kernel(cuda):
+    """On the card every attention layer of the prefill launches the
+    kernel, and the pooled embeddings agree with the plain einsum path."""
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import EmbeddingService
+    cfg = get_smoke_arch("llama3-8b")
+    params = build_model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 40)).astype(np.int32)
+    tokens[1, 25:] = 0
+    before = f_ops.KERNEL.launches
+    got = EmbeddingService(cfg, params, device=cuda).embed_batch(tokens)
+    torch.cuda.synchronize()
+    assert f_ops.KERNEL.launches == before + cfg.num_layers
+    want = EmbeddingService(cfg, params, device=cuda,
+                            attn_impl="einsum").embed_batch(tokens)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **F32)
+
+
+@pytest.mark.cuda
+def test_build_index_on_card_matches_cpu(cuda, tmp_path):
+    """The ingest's pinned-staging, side-stream feeder on the card gives
+    the CPU run's store, and every layer of every batch launches the
+    flash kernel."""
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.data import make_corpus
+    from repro_torch.engine import build_index
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime.serve_loop import EmbeddingService
+    cfg = get_smoke_arch("llama3-8b")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    corpus = make_corpus(0, n_docs=40, dim=16, with_tokens=True,
+                         vocab=cfg.vocab_size, doc_len=30)
+    docs = [corpus.tokens[i][:10 + i % 20] for i in range(40)]
+    stores = []
+    for dev in (cuda, torch.device("cpu")):
+        svc = EmbeddingService(cfg, tree_map(lambda t: t.to(dev), params),
+                               batch_size=8, device=dev)
+        before = f_ops.KERNEL.launches
+        res = build_index(svc, docs, tmp_path / dev.type,
+                          commit_every_batches=2)
+        if dev is cuda:
+            assert f_ops.KERNEL.launches == before + \
+                cfg.num_layers * res.stats.batches
+        stores.append(res.store.get(np.arange(40)))
+    np.testing.assert_allclose(stores[0], stores[1], **F32)

@@ -61,6 +61,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.core.trainer import train_proxy, train_proxy_multi
     from repro_torch.engine import ScaleDocEngine, ScoringExecutor
     from repro_torch.kernels.fused_scoring import ops
+    from repro_torch.runtime.serve_loop import EmbeddingService
     docs = np.zeros((80, 8), np.float32)
     cfg = ProxyConfig(embed_dim=8, hidden_dim=8, latent_dim=8, proj_dim=4)
     calls = [
@@ -71,6 +72,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         lambda: scoring.score_collection({}, docs[0], docs),
         lambda: scoring.direct_embedding_scores(docs[0], docs),
         lambda: ops.score_collection({}, docs[0], docs),
+        lambda: EmbeddingService(None, {}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -148,12 +148,13 @@ def test_staging_ring_waits_for_the_copy_before_reuse():
         def synchronize(self):
             self.waited = True
 
-    ring = t_exec._StagingRing(2, (4, 3), pin=False)
-    s0, b0 = ring.acquire()
+    stager = t_exec.HostStager(torch.device("cpu"))
+    stager._bufs = [torch.empty(12) for _ in range(t_exec.STAGING_SLOTS)]
+    s0, b0 = stager._acquire(12)
     e0 = Event()
-    ring.release(s0, e0)
-    s1, b1 = ring.acquire()
-    ring.release(s1, Event())
+    stager._events[s0] = e0
+    s1, b1 = stager._acquire(12)
+    stager._events[s1] = Event()
     assert not e0.waited and s1 != s0
-    s2, b2 = ring.acquire()
+    s2, b2 = stager._acquire(12)
     assert s2 == s0 and b2 is b0 and e0.waited
