@@ -5,7 +5,7 @@
 
 Phases, each of which exits non-zero when it fails:
   1. device  — the card's name and power limit (no card: exit 1);
-  2. build   — the three CUDA kernels from src/repro_torch/csrc, one nvcc
+  2. build   — the four CUDA kernels from src/repro_torch/csrc, one nvcc
                each, all started together;
   3. kernels — each kernel against its plain PyTorch version on the card:
                fused scoring at D=4096, H=512, L=128 over an 8192-doc tile
@@ -17,6 +17,10 @@ Phases, each of which exits non-zero when it fails:
                offline path's shape (b=8, s=512, 32 heads over 8 KV heads,
                head_dim 128, causal) and at small window / q_offset /
                ragged / non-causal shapes, in f32 and bf16;
+               the WKV6 intra-chunk kernel against its plain version, all
+               four outputs, at the rwkv6-7b path's shape (b=8, nc=4,
+               Q=128, H=64, K=64), a ragged chunk (Q=100), K=16, Q=1 and
+               lw = -200, and ops.wkv6 against the sequential recurrence;
   4. main    — ScaleDocEngine.query() for three queries over a synthetic
                corpus of 131,072 documents at D=4096 (noise: see NOISE),
                with ProxyConfig() defaults and
@@ -38,7 +42,18 @@ Phases, each of which exits non-zero when it fails:
   7. flash   — the flash kernel, its plain version and PyTorch's
                scaled_dot_product_attention (a yardstick the port never
                calls) at the offline path's shape, and its share of one
-               embedding batch.
+               embedding batch;
+  8. rwkv    — the llama3-8b weights freed, the same offline path over
+               rwkv6-7b at full width (32 layers, bf16, weights drawn on
+               the card) and the same corpus: 2048 finite rows of width
+               4096, the WKV6 kernel launched 32 times per batch, the
+               kernel path's pooled embeddings against the plain direct
+               scan's (per-row cosine >= RWKV_COS_MIN), each time-mix
+               layer in both modes on one hidden state (>= LAYER_COS_MIN),
+               the kill/resume drill and one query() over the store;
+  9. wkv6    — the WKV6 kernel and its plain version at the rwkv6-7b
+               path's shape, its bound (exponentials, FP32 operations and
+               bytes), and its share of one embedding batch.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -58,6 +73,9 @@ SRC = ROOT / "src"
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# exponentials: 16 MUFU results per clock per SM, 132 SMs at the 1.98 GHz
+# boost clock that the FP32 peak above implies (132 * 128 * 2 * 1.98e9)
+PEAK_EXP = 132 * 16 * 1.98e9
 
 N_DOCS = 131_072
 DIM = 4096
@@ -84,6 +102,22 @@ RESUME_DOCS, RESUME_CUT = 128, 64    # the kill/resume drill
 # places, so pooled embeddings agree in direction, not to the last bit
 COS_MIN = 0.999
 FLASH_SHAPE = (8, 512, 32, 8, 128)   # b, s, heads, KV heads, head_dim
+# the rwkv6-7b offline path (same corpus and batch as llama3-8b)
+RWKV_ARCH = "rwkv6-7b"
+WKV6_TOL = 1e-5            # of max |plain|: tests/test_kernels.py's bar
+WKV6_SHAPE = (8, 4, 128, 64, 64)     # b, chunks, Q, heads, head_dim
+# Each time-mix layer, fed one hidden state, in kernel and direct mode:
+# their f32 outputs differ in summation order only, so after the bf16
+# cast a row differs in a few last bits at most
+LAYER_COS_MIN = 0.9999
+# The pooled embeddings after 32 random bf16 RWKV6 layers: the model
+# amplifies a last-bit difference of the time-mix's f32 output with
+# depth, so two exact evaluations that only round differently drift
+# apart. The run measures that spread (the kernel path against itself
+# with every WKV6 output moved one f32 ulp up) beside the kernel-vs-
+# direct cosine; this bar only rules out gross faults, and the
+# per-layer check above holds the kernel
+RWKV_COS_MIN = 0.95
 
 
 def fail(msg: str) -> None:
@@ -149,8 +183,113 @@ def flash_checks(dev, rng) -> dict:
     return errs
 
 
-def offline_phase(dev) -> dict:
-    """ScaleDocEngine.from_corpus over llama3-8b, then its checks."""
+def wkv6_inputs(rng, b, nc, q, h, k, extreme=False):
+    """tests/test_kernels.py's WKV6 inputs, chunked: r, k, v at scale
+    0.5, lw = -exp(2N - 1) (or -200), u at 0.3, cum the within-chunk
+    cumsum of lw; numpy float32."""
+    import numpy as np
+    r, kk, v = ((0.5 * rng.normal(size=(b, nc, q, h, k))).astype(np.float32)
+                for _ in range(3))
+    lw = (np.full((b, nc, q, h, k), -200.0, np.float32) if extreme else
+          -np.exp(2.0 * rng.normal(size=(b, nc, q, h, k)) - 1.0).astype(
+              np.float32))
+    u = (0.3 * rng.normal(size=(h, k))).astype(np.float32)
+    return r, kk, v, np.cumsum(lw, axis=2, dtype=np.float32), lw, u
+
+
+def wkv6_checks(dev, rng) -> dict:
+    """The WKV6 kernel against its plain version on the card, all four
+    outputs, and ops.wkv6 against the sequential recurrence."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops as w_ops
+    from repro_torch.kernels.wkv6 import ref as w_ref
+    cases = [  # name, (b, nc, Q, H, K), lw = -200
+        ("path shape", WKV6_SHAPE, False),
+        ("ragged chunk Q=100", (2, 2, 100, 4, 64), False),
+        ("K=16", (2, 4, 64, 8, 16), False),
+        ("Q=1", (1, 37, 1, 4, 64), False),
+        ("lw=-200 Q=16", (1, 2, 16, 1, 16), True),
+        ("lw=-200 Q=128", (1, 2, 128, 2, 64), True),
+    ]
+    errs = {}
+    for name, shape, extreme in cases:
+        args = [torch.tensor(x, device=dev)
+                for x in wkv6_inputs(rng, *shape, extreme=extreme)]
+        got = w_ops.wkv6_intra_chunk(*args)
+        want = w_ref.wkv6_intra_chunk(*args)
+        torch.cuda.synchronize()
+        for out, g, w in zip(("y_intra", "s_inj", "a_end", "r_dec"), got,
+                             want):
+            # a_end under lw = -200 underflows to 0 everywhere
+            scale = w.abs().max().item() or 1e-30
+            err = (g - w).abs().max().item()
+            key = f"wkv6 {name} {out}"
+            log(f"[kernels] {key}: max abs err {err:.3e}, {err / scale:.3e}"
+                f" of max |plain| {scale:.3e} (tol {WKV6_TOL:g})")
+            if g.shape != w.shape or not torch.isfinite(g).all() or \
+                    not err <= WKV6_TOL * scale:
+                fail(f"{key} disagrees with its plain version")
+            errs[key] = err
+    # tests/test_kernels.py's shape: chunks short enough that one ulp of
+    # |cum| stays well below the tolerance (the chunked form and the
+    # sequential product round the decay differently)
+    b, s, h, k, chunk = 1, 96, 4, 32, 32
+    r, kk, v, _, lw, u = (torch.tensor(x, device=dev) for x in
+                          wkv6_inputs(rng, b, 1, s, h, k))
+    r, kk, v, lw = (x.reshape(b, s, h, k) for x in (r, kk, v, lw))
+    got = w_ops.wkv6(r, kk, v, lw, u, chunk=chunk)
+    want = w_ref.ref_wkv6(r, kk, v, lw, u)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    log(f"[kernels] ops.wkv6 (b={b}, s={s}: {s // chunk} chunks of "
+        f"{chunk}) vs the sequential recurrence: {err / scale:.3e} of max "
+        f"|ref| (tol {WKV6_TOL:g})")
+    if not err <= WKV6_TOL * scale:
+        fail("ops.wkv6 disagrees with the sequential recurrence")
+    errs["ops.wkv6 vs sequential"] = err
+    return errs
+
+
+def all_kernels():
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    from repro_torch.kernels.wkv6 import ops as w_ops
+    return {"fused_scoring": s_ops.KERNEL, "contrastive": c_ops.KERNEL,
+            "flash_attention": f_ops.KERNEL, "wkv6": w_ops.KERNEL}
+
+
+def rwkv_layer_checks(cfg, params, tokens) -> float:
+    """Each RWKV6 layer's time-mix at full width on the hidden state the
+    kernel path feeds it, in kernel and in direct mode; returns the
+    least per-row cosine over the layers."""
+    import torch
+    from repro_torch.models import rwkv
+    from repro_torch.models.common import rmsnorm_apply
+    from repro_torch.models.transformer import group_params
+    worst = 1.0
+    with torch.inference_mode():
+        x = torch.nn.functional.embedding(tokens, params["embed"]["table"])
+        for g in range(cfg.num_layers):
+            p = group_params(params, g)["p0"]
+            h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+            got = rwkv.timemix_apply(p["time"], h, cfg, mode="kernel")
+            want = rwkv.timemix_apply(p["time"], h, cfg, mode="direct")
+            cos = torch.nn.functional.cosine_similarity(
+                got.float().flatten(1), want.float().flatten(1), dim=1)
+            worst = min(worst, cos.min().item())
+            x = x + got
+            h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+            x = x + rwkv.channelmix_apply(p["channel"], h, cfg)
+    return worst
+
+
+def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
+                  tag: str, cos_min: float) -> dict:
+    """ScaleDocEngine.from_corpus over ``arch``, then its checks:
+    ``kernel`` is the kernel each of its layers launches once per batch,
+    ``plain_opts`` the service options of its plain path, whose pooled
+    embeddings must reach a per-row cosine of ``cos_min``."""
     import shutil
 
     import numpy as np
@@ -161,43 +300,42 @@ def offline_phase(dev) -> dict:
     from repro_torch.data import make_corpus, make_query
     from repro_torch.engine import ScaleDocEngine, build_index
     from repro_torch.engine.store import DATA_NAME
-    from repro_torch.kernels.contrastive import ops as c_ops
-    from repro_torch.kernels.flash_attention import ops as f_ops
-    from repro_torch.kernels.fused_scoring import ops as s_ops
     from repro_torch.models import build_model
     from repro_torch.runtime.serve_loop import EmbeddingService
 
-    cfg = get_arch(OFF_ARCH)
+    cfg = get_arch(arch)
+    kernels = all_kernels()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"[offline] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
-        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, "
-        f"{cfg.dtype}, {n_params / 1e9:.3f} B params drawn on the card in "
-        f"{init_s:.1f} s")
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers of "
+        f"{'/'.join(cfg.block_pattern)}, d={cfg.d_model}, {cfg.num_heads} "
+        f"heads over {cfg.num_kv_heads} KV heads, {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B params drawn on the card in {init_s:.1f} s"
+        f", {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
     t0 = time.perf_counter()
     corpus = make_corpus(0, n_docs=OFF_DOCS, dim=128, with_tokens=True,
                          vocab=OFF_VOCAB, doc_len=OFF_DOC_LEN)
     docs = [corpus.tokens[i] for i in range(OFF_DOCS)]
     n_tokens = OFF_DOCS * OFF_DOC_LEN
-    log(f"[offline] corpus: {OFF_DOCS} docs x {OFF_DOC_LEN} tokens "
+    log(f"[{tag}] corpus: {OFF_DOCS} docs x {OFF_DOC_LEN} tokens "
         f"(vocab {OFF_VOCAB}) = {n_tokens} tokens, made in "
         f"{time.perf_counter() - t0:.1f} s")
     service = EmbeddingService(cfg, params, batch_size=OFF_BATCH, device=dev)
     t0 = time.perf_counter()
     digest = service.params_digest()
     digest_s = time.perf_counter() - t0
-    log(f"[offline] params digest {digest} in {digest_s:.1f} s")
+    log(f"[{tag}] params digest {digest} in {digest_s:.1f} s")
 
     work = ROOT / "build" / "chip_smoke_stores"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
         # -- the path: every count 0 just before, read just after ---------
-        for kern in (f_ops.KERNEL, s_ops.KERNEL, c_ops.KERNEL):
+        for kern in kernels.values():
             kern.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -206,46 +344,73 @@ def offline_phase(dev) -> dict:
             cascade_cfg=CascadeConfig(accuracy_target=0.9), device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = f_ops.KERNEL.launches
+        counts = {name: kern.launches for name, kern in kernels.items()}
+        launches = counts[kernel]
         st = engine.ingest_result.stats
         store = engine.store
         emb = store.get(np.arange(len(store)))
-        log(f"[offline] from_corpus: {len(store)} x {store.dim} rows in "
+        log(f"[{tag}] from_corpus: {len(store)} x {store.dim} rows in "
             f"{wall:.1f} s: {st.docs / wall:.1f} docs/s, "
             f"{n_tokens / wall:.0f} tokens/s; {st.batches} batches, "
-            f"{st.commits} commits; flash launches {launches}")
+            f"{st.commits} commits; launches {json.dumps(counts)}")
         split = {f: getattr(st, f) for f in (
             "host_io_seconds", "compute_seconds", "stall_seconds",
             "write_seconds", "wall_seconds")}
         split["overlap_fraction"] = st.overlap_fraction
         split["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        log(f"[offline] IngestStats: {json.dumps(split)}")
+        log(f"[{tag}] IngestStats: {json.dumps(split)}")
         if emb.shape != (OFF_DOCS, cfg.d_model) or not np.isfinite(
                 emb).all():
             fail(f"the store is not {OFF_DOCS} finite rows of width "
                  f"{cfg.d_model}: {emb.shape}")
         if st.batches != OFF_DOCS // OFF_BATCH or \
                 launches != cfg.num_layers * st.batches:
-            fail(f"flash launched {launches} times over {st.batches} "
+            fail(f"{kernel} launched {launches} times over {st.batches} "
                  f"batches; expected {cfg.num_layers} per batch")
 
-        # -- the kernel path against the plain einsum path, one batch ----
+        # -- the kernel path against the plain path, one batch -----------
         batch = np.stack(docs[:OFF_BATCH]).astype(np.int32)
         got = service.embed_batch(batch)
         plain = EmbeddingService(cfg, params, batch_size=OFF_BATCH,
-                                 device=dev, attn_impl="einsum")
+                                 device=dev, **plain_opts)
         want = plain.embed_batch(batch)
         cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
         p_err = (got - want).abs().max().item()
         same_as_store = bool(np.array_equal(got.cpu().numpy(),
                                             emb[:OFF_BATCH]))
-        log(f"[offline] kernel path vs einsum path, batch 0: min per-row "
-            f"cosine {cos.min().item():.6f} (>= {COS_MIN}), max abs err "
+        log(f"[{tag}] kernel path vs {plain_opts}, batch 0: min per-row "
+            f"cosine {cos.min().item():.6f} (>= {cos_min}), max abs err "
             f"{p_err:.3e} (|x| max {want.abs().max().item():.3e}); "
             f"bitwise equal to the store's rows: {same_as_store}")
-        if not cos.min().item() >= COS_MIN:
-            fail("the kernel path's embeddings disagree with the einsum "
-                 "path's")
+        if not cos.min().item() >= cos_min:
+            fail(f"the kernel path's embeddings disagree with {plain_opts}")
+        layer_cos = spread_cos = None
+        if "rwkv_mode" in plain_opts:
+            from repro_torch.models import rwkv
+            wkv6 = rwkv.wkv6_ops.wkv6
+
+            def one_ulp_up(*args, **kw):
+                y = wkv6(*args, **kw)
+                return torch.nextafter(y, torch.full_like(y, float("inf")))
+            rwkv.wkv6_ops.wkv6 = one_ulp_up
+            try:
+                other = service.embed_batch(batch)
+            finally:
+                rwkv.wkv6_ops.wkv6 = wkv6
+            spread_cos = torch.nn.functional.cosine_similarity(
+                got, other, dim=1).min().item()
+            log(f"[{tag}] spread: the kernel path against itself with every "
+                f"WKV6 output one f32 ulp up, batch 0: min per-row cosine "
+                f"{spread_cos:.6f}, max abs err "
+                f"{(got - other).abs().max().item():.3e}")
+            layer_cos = rwkv_layer_checks(cfg, params,
+                                          torch.as_tensor(batch, device=dev))
+            log(f"[{tag}] each of the {cfg.num_layers} time-mix layers on "
+                f"the kernel path's hidden state, kernel vs direct: min "
+                f"per-row cosine {layer_cos:.7f} (>= {LAYER_COS_MIN})")
+            if not layer_cos >= LAYER_COS_MIN:
+                fail("a time-mix layer's kernel path disagrees with its "
+                     "direct path")
 
         # -- kill / resume drill -----------------------------------------
         part_docs = docs[:RESUME_DOCS]
@@ -258,7 +423,7 @@ def offline_phase(dev) -> dict:
         a = (work / "full" / DATA_NAME).read_bytes()
         b = (work / "killed" / DATA_NAME).read_bytes()
         prefix = emb[:RESUME_DOCS].tobytes() == a
-        log(f"[offline] kill at {RESUME_CUT} of {RESUME_DOCS} docs, resume "
+        log(f"[{tag}] kill at {RESUME_CUT} of {RESUME_DOCS} docs, resume "
             f"from row {resumed.stats.resumed_rows}: embeddings.bin "
             f"bit-identical to an uninterrupted run: {a == b} ({len(a)} "
             f"bytes); equal to the full store's first rows: {prefix}")
@@ -275,7 +440,7 @@ def offline_phase(dev) -> dict:
         qs = engine.query(e_q, SimulatedOracle(q.truth), ground_truth=q.truth,
                           seed=0)
         q_wall = time.perf_counter() - tq
-        log(f"[offline] query (sel {q.selectivity:.2f}) over the store: F1 "
+        log(f"[{tag}] query (sel {q.selectivity:.2f}) over the store: F1 "
             f"{qs.cascade.achieved_f1:.4f} (no bar: random weights), oracle "
             f"calls {qs.oracle_calls_total} of {OFF_DOCS}, {q_wall:.2f} s")
         if not np.isfinite(qs.scores).all() or \
@@ -288,13 +453,17 @@ def offline_phase(dev) -> dict:
                            warmup=1)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"arch": cfg.name, "params": n_params, "init_seconds": init_s,
+    return {"arch": cfg.name, "kernel": kernel, "params": n_params,
+            "init_seconds": init_s,
             "digest_seconds": digest_s, "n_docs": OFF_DOCS,
             "tokens": n_tokens, "wall_seconds": wall,
             "docs_per_second": OFF_DOCS / wall,
             "tokens_per_second": n_tokens / wall, "batches": st.batches,
-            "flash_launches": launches, "ingest_stats": split,
+            "launches": launches, "launch_counts": counts,
+            "ingest_stats": split,
             "pooled_min_cosine": cos.min().item(),
+            "layer_min_cosine": layer_cos,
+            "one_ulp_spread_min_cosine": spread_cos,
             "pooled_max_abs_err": p_err, "resume_bit_identical": a == b,
             "query": {"f1": qs.cascade.achieved_f1,
                       "oracle_calls": qs.oracle_calls_total,
@@ -333,6 +502,44 @@ def flash_times(dev) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
             "fp32_fma_bound_ms": flops / PEAK_FP32_FLOPS * 1e3}
+
+
+def wkv6_times(dev) -> dict:
+    """The WKV6 kernel, its plain version and the whole ops.wkv6 at the
+    rwkv6-7b path's shape, and the kernel's bound: the larger of its
+    exponentials over the MUFU rate, its FP32 operations over the FP32
+    peak and its bytes over the memory rate."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.wkv6 import ops as w_ops
+    from repro_torch.kernels.wkv6 import ref as w_ref
+    b, nc, q, h, k = WKV6_SHAPE
+    args = [torch.tensor(x, device=dev) for x in
+            wkv6_inputs(np.random.default_rng(1), b, nc, q, h, k)]
+    ms = cuda_ms(lambda: w_ops.wkv6_intra_chunk(*args), 20)
+    plain_ms = cuda_ms(lambda: w_ref.wkv6_intra_chunk(*args), 5, warmup=1)
+    seq = [x.reshape(b, nc * q, h, k) for x in (args[0], args[1], args[2],
+                                                  args[4])]
+    op_ms = cuda_ms(lambda: w_ops.wkv6(*seq, args[5]), 20)
+    blocks = b * nc * h
+    pairs = q * (q - 1) // 2
+    # pairs j < t: one exp per channel; r_dec, dec_end: one per element;
+    # a_end: one per channel
+    exps = blocks * (pairs * k + 2 * q * k + k)
+    # per pair and channel: the difference, r * exp, * k, the sum over
+    # channels, and A v; r.u.k and its v term; cum - lw and r_dec;
+    # dec_end and k * dec_end; the (K, Q) x (Q, K) s_inj product
+    flops = blocks * (6 * pairs * k + 9 * q * k + 2 * q * k * k)
+    nbytes = 4 * (blocks * (7 * q * k + k * k + k) + h * k)
+    terms = {"operations": max(exps / PEAK_EXP, flops / PEAK_FP32_FLOPS),
+             "bytes": nbytes / PEAK_BYTES}
+    bound_by = max(terms, key=terms.get)
+    return {"ms": ms, "plain_ms": plain_ms, "op_ms": op_ms,
+            "bound_ms": terms[bound_by] * 1e3, "bound_by": bound_by,
+            "exps": exps, "flops": flops, "bytes": nbytes,
+            "exp_bound_ms": exps / PEAK_EXP * 1e3,
+            "flop_bound_ms": flops / PEAK_FP32_FLOPS * 1e3,
+            "byte_bound_ms": nbytes / PEAK_BYTES * 1e3}
 
 
 def main() -> None:
@@ -374,7 +581,7 @@ def main() -> None:
               "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # -- 2. build ----------------------------------------------------------
-    names = ("fused_scoring", "contrastive", "flash_attention")
+    names = ("fused_scoring", "contrastive", "flash_attention", "wkv6")
     build_s = _build.build_all(names)
     log(f"[build] {', '.join(n + '.cu' for n in names)} in {build_s:.1f} s")
     for name in names:
@@ -447,7 +654,9 @@ def main() -> None:
     if not (g_err <= F32_TOL and not a[0].grad.any().item()):
         fail("phase2 gradient disagrees with plain autograd")
     f_errs = flash_checks(dev, rng)
-    report["checks"] = {**checks, **c_errs, "phase2 grad": g_err, **f_errs}
+    w_errs = wkv6_checks(dev, rng)
+    report["checks"] = {**checks, **c_errs, "phase2 grad": g_err, **f_errs,
+                        **w_errs}
 
     # -- 4. main path: ScaleDocEngine.query() ------------------------------
     t0 = time.perf_counter()
@@ -587,7 +796,8 @@ def main() -> None:
     # -- 6. offline path: from_corpus over llama3-8b ----------------------
     del engine, store, corpus, docs
     torch.cuda.empty_cache()
-    offline = offline_phase(dev)
+    offline = offline_phase(dev, OFF_ARCH, "flash_attention",
+                            dict(attn_impl="einsum"), "offline", COS_MIN)
     report["offline"] = offline
 
     # -- 7. flash times ------------------------------------------------------
@@ -596,21 +806,61 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash.py:101",
-         "launches": offline["flash_launches"],
+         "launches": offline["launches"],
          "max_abs_err": max(f_errs.values()),
          "ms": ft["ms"], "plain_ms": ft["plain_ms"],
          "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
          "library_ms": ft["library_ms"]})
-    share = offline["flash_launches"] // offline["batches"] * ft["ms"] \
+    share = offline["launches"] // offline["batches"] * ft["ms"] \
         / offline["embed_batch_ms"]
     log(f"[times] flash_attention: {ft['ms']:.4f} ms, plain "
         f"{ft['plain_ms']:.4f} ms, SDPA {ft['library_ms']:.4f} ms, bound "
         f"{ft['bound_ms']:.5f} ms ({ft['bound_by']}; {ft['fp32_fma_bound_ms']:.4f}"
-        f" ms at the FP32 peak), {offline['flash_launches']} launches per "
+        f" ms at the FP32 peak), {offline['launches']} launches per "
         f"from_corpus; one embedding batch {offline['embed_batch_ms']:.2f} ms"
         f", of which flash {100 * share:.1f}%")
     ft["share_of_embed_batch"] = share
     report["times"]["flash"] = ft
+
+    # -- 8. the rwkv6-7b offline path ----------------------------------------
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"[rwkv] after freeing the llama3-8b weights: {held:.3f} GB "
+        f"allocated")
+    if held > 1.0:
+        fail(f"{held:.2f} GB still allocated after the llama3-8b phase")
+    rwkv = offline_phase(dev, RWKV_ARCH, "wkv6", dict(rwkv_mode="direct"),
+                         "rwkv", RWKV_COS_MIN)
+    report["rwkv"] = rwkv
+
+    # -- 9. wkv6 times -------------------------------------------------------
+    wt = wkv6_times(dev)
+    kernels.append(
+        {"name": "wkv6_intra_chunk", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/wkv6/wkv6.py:93",
+         "launches": rwkv["launches"],
+         "max_abs_err": max(w_errs.values()),
+         "ms": wt["ms"], "plain_ms": wt["plain_ms"],
+         "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"],
+         "library_ms": None})
+    per_batch = rwkv["launches"] // rwkv["batches"]
+    wt["share_of_embed_batch"] = per_batch * wt["ms"] / rwkv["embed_batch_ms"]
+    wt["wkv6_op_share_of_embed_batch"] = \
+        per_batch * wt["op_ms"] / rwkv["embed_batch_ms"]
+    log(f"[times] wkv6_intra_chunk: {wt['ms']:.4f} ms, plain "
+        f"{wt['plain_ms']:.4f} ms, bound {wt['bound_ms']:.4f} ms "
+        f"({wt['bound_by']}: exp {wt['exp_bound_ms']:.4f} ms for "
+        f"{wt['exps']:.4g} exps, FP32 {wt['flop_bound_ms']:.4f} ms for "
+        f"{wt['flops']:.4g} FLOP, bytes {wt['byte_bound_ms']:.4f} ms for "
+        f"{wt['bytes']:.4g} B), {rwkv['launches']} launches per from_corpus;"
+        f" ops.wkv6 (cumsum, kernel, combine) {wt['op_ms']:.4f} ms; one "
+        f"embedding batch {rwkv['embed_batch_ms']:.2f} ms, of which the "
+        f"kernel {100 * wt['share_of_embed_batch']:.1f}% and ops.wkv6 "
+        f"{100 * wt['wkv6_op_share_of_embed_batch']:.1f}%")
+    report["times"]["wkv6"] = wt
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

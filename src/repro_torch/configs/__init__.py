@@ -1,4 +1,4 @@
 """Registered architectures (``repro.configs``): importing the package
-registers each config module's ``FULL`` and ``SMOKE``. Only llama3-8b
-is ported so far."""
-from repro_torch.configs import llama3_8b  # noqa: F401
+registers each config module's ``FULL`` and ``SMOKE``. Ported so far:
+llama3-8b (dense) and rwkv6-7b (attention-free)."""
+from repro_torch.configs import llama3_8b, rwkv6_7b  # noqa: F401

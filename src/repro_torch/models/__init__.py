@@ -1,5 +1,6 @@
-"""The port's models (``repro.models``): the dense decoder-only LM of the
-offline embedding path, and the carry of JAX weights into it."""
+"""The port's models (``repro.models``): the decoder-only LM of the
+offline embedding path (dense attention and RWKV6 blocks), and the carry
+of JAX weights into it."""
 from __future__ import annotations
 
 import numpy as np

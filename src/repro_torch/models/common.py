@@ -43,9 +43,11 @@ def dense_init(generator: torch.Generator, in_dim: int,
 
 def embed_init(generator: torch.Generator, vocab: int, dim: int,
                dtype: torch.dtype) -> torch.Tensor:
+    """A standard normal times 0.02, drawn in float32 and scaled in place
+    before the cast, so the table is never held twice in float32."""
     w = torch.randn((vocab, dim), generator=generator,
                     device=generator.device, dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 def rmsnorm_init(dim: int, dtype: torch.dtype, device) -> Params:

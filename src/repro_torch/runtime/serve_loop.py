@@ -7,8 +7,10 @@ over the non-pad positions of the last block's raw output (no final
 norm; token id 0 is padding wherever it appears). The durable offline
 job that writes those embeddings into a store lives in
 ``repro_torch.engine.ingest``, which drives this service batch by batch
-(``embed_batch``). On the card the attention of every layer is the
-hand-written flash kernel. ``generate`` (decode) is not ported.
+(``embed_batch``). On the card the attention of every attention layer
+is the hand-written flash kernel, and the WKV6 recurrence of every
+RWKV6 layer the hand-written intra-chunk kernel. ``generate`` (decode)
+is not ported.
 """
 from __future__ import annotations
 
@@ -62,18 +64,21 @@ class EmbeddingService:
     without a card unless given ``device="cpu"``). The service treats
     them as read-only: their digest is computed once.
     ``attn_impl="einsum"`` or ``"blocked"`` runs a plain attention path
-    in place of the flash kernel, for comparison.
+    in place of the flash kernel, and ``rwkv_mode="direct"`` the plain
+    chunked WKV6 scan in place of the WKV6 kernel, for comparison.
     """
 
     def __init__(self, cfg: ModelConfig, params, batch_size: int = 8,
-                 device="cuda", attn_impl: str = "flash"):
+                 device="cuda", attn_impl: str = "flash",
+                 rwkv_mode: str = "kernel"):
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params are on {table.device}, the service "
                              f"runs on {self.device}")
         self.cfg = cfg
-        self.model = build_model(cfg, attn_impl=attn_impl)
+        self.model = build_model(cfg, attn_impl=attn_impl,
+                                 rwkv_mode=rwkv_mode)
         self.params = params
         self.batch_size = batch_size
         self._digest: Optional[str] = None

@@ -15,6 +15,8 @@ from repro_torch.kernels.flash_attention import ops as f_ops
 from repro_torch.kernels.flash_attention import ref as f_ref
 from repro_torch.kernels.fused_scoring import ops as s_ops
 from repro_torch.kernels.fused_scoring import ref as s_ref
+from repro_torch.kernels.wkv6 import ops as w_ops
+from repro_torch.kernels.wkv6 import ref as w_ref
 
 F32 = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels.py's f32 tolerance
 # the contrastive losses are sums of up to n LSE terms of size 1/tau ~ 14;
@@ -263,3 +265,117 @@ def test_build_index_on_card_matches_cpu(cuda, tmp_path):
                 cfg.num_layers * res.stats.batches
         stores.append(res.store.get(np.arange(40)))
     np.testing.assert_allclose(stores[0], stores[1], **F32)
+
+
+def _wkv6_sequence(b, s, h, k, seed=0):
+    """tests/test_kernels.py's WKV6 inputs, drawn with numpy: r, k, v
+    (b, s, h, k) at scale 0.5, lw = -exp(2N - 1), u (h, k) at 0.3."""
+    rng = np.random.default_rng(seed)
+    r, kk, v = ((0.5 * rng.normal(size=(b, s, h, k))).astype(np.float32)
+                for _ in range(3))
+    lw = -np.exp(2.0 * rng.normal(size=(b, s, h, k)) - 1.0).astype(
+        np.float32)
+    u = (0.3 * rng.normal(size=(h, k))).astype(np.float32)
+    return r, kk, v, lw, u
+
+
+def _wkv6_inputs(b, nc, q, h, k, seed=0, extreme=False):
+    """Chunked kernel inputs (r, k, v, cum, lw, u): (b, nc, q, h, k) and
+    u (h, k), cum the within-chunk cumsum of lw; ``extreme`` sets lw to
+    -200 (tests/test_kernels.py:213)."""
+    r, kk, v, lw, u = _wkv6_sequence(b, nc * q, h, k, seed)
+    r, kk, v, lw = (x.reshape(b, nc, q, h, k) for x in (r, kk, v, lw))
+    if extreme:
+        lw = np.full_like(lw, -200.0)
+    cum = np.cumsum(lw, axis=2, dtype=np.float32)
+    return r, kk, v, cum, lw, u
+
+
+# (b, nc, Q, H, K, extreme decay): the rwkv6-7b embedding path's shape
+# (b=8, s=512), a ragged chunk (s=200 -> Q=100), K=16, Q=1, and lw = -200
+# at tests/test_kernels.py:213's shape and at a full chunk
+WKV6_CASES = [
+    (8, 4, 128, 64, 64, False),
+    (2, 2, 100, 4, 64, False),
+    (2, 4, 64, 8, 16, False),
+    (1, 37, 1, 4, 64, False),
+    (1, 2, 16, 1, 16, True),
+    (1, 2, 128, 2, 64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WKV6_CASES)
+def test_wkv6_kernel_matches_plain(cuda, case):
+    """All four outputs to 1e-5 of max |plain| (tests/test_kernels.py's
+    bar for the Pallas kernel)."""
+    *shape, extreme = case
+    args = [_t(x, cuda) for x in _wkv6_inputs(*shape, extreme=extreme)]
+    before = w_ops.KERNEL.launches
+    got = w_ops.wkv6_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert w_ops.KERNEL.launches == before + 1
+    want = w_ref.wkv6_intra_chunk(*args)
+    for name, g, w in zip(("y_intra", "s_inj", "a_end", "r_dec"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        err = ((g - w).abs().max() / (w.abs().max() + 1e-9)).item()
+        assert err < 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,k,chunk", [(2, 64, 2, 16, 16),
+                                           (1, 96, 4, 32, 32),
+                                           (2, 40, 2, 16, 16)])
+def test_wkv6_matches_sequential_on_card(cuda, b, s, h, k, chunk):
+    """tests/test_kernels.py's shapes: the kernel, then the combine."""
+    r, kk, v, lw, u = (_t(x, cuda) for x in _wkv6_sequence(b, s, h, k))
+    before = w_ops.KERNEL.launches
+    got = w_ops.wkv6(r, kk, v, lw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert w_ops.KERNEL.launches == before + 1
+    want = w_ref.ref_wkv6(r, kk, v, lw, u)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err < 1e-5, err
+
+
+@pytest.mark.cuda
+def test_wkv6_refuses_what_it_does_not_take(cuda):
+    def args(shape=(1, 2, 16, 2, 16), dtype=torch.float32):
+        x = torch.zeros(shape, dtype=dtype, device=cuda)
+        return [x, x, x, x, x, torch.zeros(shape[3:], dtype=dtype,
+                                           device=cuda)]
+    before = w_ops.KERNEL.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        w_ops.wkv6_intra_chunk(*args((1, 1, 16, 1, 80)))
+    with pytest.raises(ValueError, match="chunk length"):
+        w_ops.wkv6_intra_chunk(*args((1, 1, 129, 1, 16)))
+    with pytest.raises(TypeError):
+        w_ops.wkv6_intra_chunk(*args(dtype=torch.bfloat16))
+    a = args()
+    a[0] = torch.zeros((1, 2, 16, 16, 2), device=cuda).transpose(3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        w_ops.wkv6_intra_chunk(*a)
+    assert w_ops.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+def test_rwkv_embedding_service_runs_the_kernel(cuda):
+    """On the card every RWKV6 layer of the prefill launches the WKV6
+    kernel once, and the pooled embeddings agree with the plain direct
+    scan's."""
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import EmbeddingService
+    cfg = get_smoke_arch("rwkv6-7b")
+    params = build_model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 200)).astype(np.int32)
+    tokens[1, 25:] = 0
+    before = w_ops.KERNEL.launches
+    got = EmbeddingService(cfg, params, device=cuda).embed_batch(tokens)
+    torch.cuda.synchronize()
+    assert w_ops.KERNEL.launches == before + cfg.num_layers
+    want = EmbeddingService(cfg, params, device=cuda,
+                            rwkv_mode="direct").embed_batch(tokens)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **F32)

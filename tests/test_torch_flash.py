@@ -136,8 +136,9 @@ def test_attn_apply_matches_jax(impl, window):
 
 
 def test_unported_model_paths_raise():
-    """KV caches and the other block families are not ported: they
-    raise rather than run something else."""
+    """KV caches, the other block families and the clamped "factored"
+    RWKV6 lowering are not ported: they raise rather than run something
+    else."""
     from repro_torch.config import MoEConfig
     from repro_torch.models import build_model
     cfg = ModelConfig(d_model=16, num_heads=2, num_kv_heads=2, d_ff=32,
@@ -146,8 +147,11 @@ def test_unported_model_paths_raise():
     with pytest.raises(NotImplementedError):
         model._group_fullseq(torch.zeros(1, 2, 16), {}, None,
                              positions=torch.arange(2), collect_cache=True)
-    for bad in (dict(block_pattern=("rwkv6",)),
-                dict(block_pattern=("attn", "mamba2")),
+    with pytest.raises(NotImplementedError, match="factored"):
+        build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
+                                block_pattern=("rwkv6",)),
+                    rwkv_mode="factored")
+    for bad in (dict(block_pattern=("attn", "mamba2")),
                 dict(moe=MoEConfig(num_experts=4, top_k=2)),
                 dict(encoder_layers=2)):
         with pytest.raises(NotImplementedError):
