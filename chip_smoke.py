@@ -48,12 +48,20 @@ Phases, each of which exits non-zero when it fails:
                the card) and the same corpus: 2048 finite rows of width
                4096, the WKV6 kernel launched 32 times per batch, the
                kernel path's pooled embeddings against the plain direct
-               scan's (per-row cosine >= RWKV_COS_MIN), each time-mix
-               layer in both modes on one hidden state (>= LAYER_COS_MIN),
-               the kill/resume drill and one query() over the store;
+               scan's (per-row cosine >= RWKV_COS_MIN), the kill/resume
+               drill and one query() over the store; then the 32 blocks
+               run by hand on one batch: each layer's recurrence through
+               the kernel and the direct scan on the kernel path's inputs
+               (relative error and f32 ulp distance; time-mix outputs at
+               a per-row cosine >= LAYER_COS_MIN), and how three other
+               exact evaluations (the direct scan, the kernel with each
+               output one f32 ulp up, the kernel at chunk 64) drift from
+               the kernel path with depth (the direct scan's after
+               RWKV_DEPTH layers >= RWKV_DEPTH_COS_MIN);
   9. wkv6    — the WKV6 kernel and its plain version at the rwkv6-7b
-               path's shape, its bound (exponentials, FP32 operations and
-               bytes), and its share of one embedding batch.
+               path's shape, its bound (exponentials in the sub-chunk
+               form, FP32 operations and bytes), and its share of one
+               embedding batch.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -106,18 +114,24 @@ FLASH_SHAPE = (8, 512, 32, 8, 128)   # b, s, heads, KV heads, head_dim
 RWKV_ARCH = "rwkv6-7b"
 WKV6_TOL = 1e-5            # of max |plain|: tests/test_kernels.py's bar
 WKV6_SHAPE = (8, 4, 128, 64, 64)     # b, chunks, Q, heads, head_dim
-# Each time-mix layer, fed one hidden state, in kernel and direct mode:
-# their f32 outputs differ in summation order only, so after the bf16
-# cast a row differs in a few last bits at most
-LAYER_COS_MIN = 0.9999
+# Each time-mix layer, fed the kernel path's hidden state, with the
+# recurrence through the kernel and through the direct scan: their f32
+# outputs differ in summation order only, so after the bf16 cast a row's
+# direction moves by 1 - cos ~ 1e-7 (measured); a kernel that drops or
+# misweights one term moves it by orders of magnitude more
+LAYER_COS_MIN = 0.999999
 # The pooled embeddings after 32 random bf16 RWKV6 layers: the model
 # amplifies a last-bit difference of the time-mix's f32 output with
 # depth, so two exact evaluations that only round differently drift
-# apart. The run measures that spread (the kernel path against itself
-# with every WKV6 output moved one f32 ulp up) beside the kernel-vs-
-# direct cosine; this bar only rules out gross faults, and the
-# per-layer check above holds the kernel
+# apart. The run measures that drift at each depth for the direct scan
+# and for two perturbations of the kernel path itself; this bar only
+# rules out gross faults, and the per-layer check above holds the kernel
 RWKV_COS_MIN = 0.95
+# ... and the drift from the direct scan after the first few layers,
+# before the amplification takes over (1 - cos measured at 2.2e-5)
+RWKV_DEPTH, RWKV_DEPTH_COS_MIN = 4, 0.9999
+SPREAD_CHUNK = 64          # the other chunk length of the drift check
+SUB = 16                   # rows of a sub-chunk in the WKV6 bound
 
 
 def fail(msg: str) -> None:
@@ -259,37 +273,96 @@ def all_kernels():
             "flash_attention": f_ops.KERNEL, "wkv6": w_ops.KERNEL}
 
 
-def rwkv_layer_checks(cfg, params, tokens) -> float:
-    """Each RWKV6 layer's time-mix at full width on the hidden state the
-    kernel path feeds it, in kernel and in direct mode; returns the
-    least per-row cosine over the layers."""
+def rwkv_checks(cfg, params, tokens, pooled) -> dict:
+    """The rwkv6 blocks run by hand on one batch of ``tokens``, so that
+    the recurrence can be swapped; ``pooled`` is the service's embedding
+    of the batch, which the kernel path must reproduce. Per layer, on the
+    kernel path's inputs: the recurrence through the kernel and through
+    the direct scan (error over max |y|, f32 ulp distance) and the
+    time-mix output of each (per-row cosine). With depth: the per-row
+    cosine of the pooled hidden state of three other exact evaluations
+    against the kernel path's."""
     import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.wkv6 import ops as w_ops
     from repro_torch.models import rwkv
     from repro_torch.models.common import rmsnorm_apply
     from repro_torch.models.transformer import group_params
-    worst = 1.0
+
+    def ulp_up(*args, chunk):
+        y = w_ops.wkv6(*args, chunk=chunk)
+        return torch.nextafter(y, torch.full_like(y, float("inf")))
+
+    others = {"direct": rwkv.WKV6["direct"],
+              "one ulp up": ulp_up,
+              f"chunk {SPREAD_CHUNK}":
+                  lambda *args, chunk: w_ops.wkv6(*args, chunk=SPREAD_CHUNK)}
+
+    def block(p, x, wkv):
+        h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        *args, g = rwkv.timemix_inputs(p["time"], h, cfg)
+        y = wkv(*args, p["time"]["u"], chunk=rwkv.CHUNK)
+        x = x + rwkv.timemix_output(p["time"], y, g, cfg)
+        h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        return x + rwkv.channelmix_apply(p["channel"], h, cfg), (args, g, y)
+
+    mask = (tokens > 0)[..., None]
+
+    def pool(x):                     # as EmbeddingService.embed_batch
+        m = mask.to(x.dtype)
+        return (torch.sum(x * m, dim=1)
+                / torch.clamp(torch.sum(m, dim=1), min=1.0)).float()
+
+    def row_cos(a, b):               # in float64: 1 - cos reaches 1e-7
+        return F.cosine_similarity(a.double().flatten(1),
+                                   b.double().flatten(1), dim=1).min().item()
+
+    def ordered(y):                  # f32 bits as integers in value order
+        i = y.view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    layer = {"min_cosine": 1.0, "max_rel_err": 0.0, "max_ulps": 0,
+             "min_share_0_ulps": 1.0, "min_share_within_1_ulp": 1.0,
+             "min_share_within_16_ulps": 1.0}
+    drift = {name: {} for name in others}
     with torch.inference_mode():
-        x = torch.nn.functional.embedding(tokens, params["embed"]["table"])
-        for g in range(cfg.num_layers):
-            p = group_params(params, g)["p0"]
-            h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-            got = rwkv.timemix_apply(p["time"], h, cfg, mode="kernel")
-            want = rwkv.timemix_apply(p["time"], h, cfg, mode="direct")
-            cos = torch.nn.functional.cosine_similarity(
-                got.float().flatten(1), want.float().flatten(1), dim=1)
-            worst = min(worst, cos.min().item())
-            x = x + got
-            h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-            x = x + rwkv.channelmix_apply(p["channel"], h, cfg)
-    return worst
+        x = F.embedding(tokens, params["embed"]["table"])
+        xs = dict.fromkeys(others, x)
+        for depth in range(1, cfg.num_layers + 1):
+            p = group_params(params, depth - 1)["p0"]
+            x_next, (args, g, y) = block(p, x, w_ops.wkv6)
+            y_d = others["direct"](*args, p["time"]["u"], chunk=rwkv.CHUNK)
+            ulps = (ordered(y) - ordered(y_d)).abs()
+            layer["max_rel_err"] = max(layer["max_rel_err"], (
+                (y - y_d).abs().max() / y_d.abs().max()).item())
+            layer["max_ulps"] = max(layer["max_ulps"], ulps.max().item())
+            for key, n in (("min_share_0_ulps", 0),
+                           ("min_share_within_1_ulp", 1),
+                           ("min_share_within_16_ulps", 16)):
+                layer[key] = min(layer[key],
+                                 (ulps <= n).float().mean().item())
+            layer["min_cosine"] = min(layer["min_cosine"], row_cos(
+                rwkv.timemix_output(p["time"], y, g, cfg),
+                rwkv.timemix_output(p["time"], y_d, g, cfg)))
+            del args, g, y, y_d, ulps
+            x = x_next
+            for name, wkv in others.items():
+                xs[name] = block(p, xs[name], wkv)[0]
+            if depth & (depth - 1) == 0 or depth == cfg.num_layers:
+                for name in others:
+                    drift[name][depth] = row_cos(pool(x), pool(xs[name]))
+        hand_err = (pool(x) - pooled).abs().max().item()
+    return {"layer": layer, "drift_min_cosine": drift,
+            "hand_run_vs_service_max_abs_err": hand_err}
 
 
 def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
-                  tag: str, cos_min: float) -> dict:
+                  tag: str, cos_min: float) -> tuple:
     """ScaleDocEngine.from_corpus over ``arch``, then its checks:
     ``kernel`` is the kernel each of its layers launches once per batch,
     ``plain_opts`` the service options of its plain path, whose pooled
-    embeddings must reach a per-row cosine of ``cos_min``."""
+    embeddings must reach a per-row cosine of ``cos_min``. Returns the
+    report, the service and its first batch of tokens."""
     import shutil
 
     import numpy as np
@@ -384,34 +457,6 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
             f"bitwise equal to the store's rows: {same_as_store}")
         if not cos.min().item() >= cos_min:
             fail(f"the kernel path's embeddings disagree with {plain_opts}")
-        layer_cos = spread_cos = None
-        if "rwkv_mode" in plain_opts:
-            from repro_torch.models import rwkv
-            wkv6 = rwkv.wkv6_ops.wkv6
-
-            def one_ulp_up(*args, **kw):
-                y = wkv6(*args, **kw)
-                return torch.nextafter(y, torch.full_like(y, float("inf")))
-            rwkv.wkv6_ops.wkv6 = one_ulp_up
-            try:
-                other = service.embed_batch(batch)
-            finally:
-                rwkv.wkv6_ops.wkv6 = wkv6
-            spread_cos = torch.nn.functional.cosine_similarity(
-                got, other, dim=1).min().item()
-            log(f"[{tag}] spread: the kernel path against itself with every "
-                f"WKV6 output one f32 ulp up, batch 0: min per-row cosine "
-                f"{spread_cos:.6f}, max abs err "
-                f"{(got - other).abs().max().item():.3e}")
-            layer_cos = rwkv_layer_checks(cfg, params,
-                                          torch.as_tensor(batch, device=dev))
-            log(f"[{tag}] each of the {cfg.num_layers} time-mix layers on "
-                f"the kernel path's hidden state, kernel vs direct: min "
-                f"per-row cosine {layer_cos:.7f} (>= {LAYER_COS_MIN})")
-            if not layer_cos >= LAYER_COS_MIN:
-                fail("a time-mix layer's kernel path disagrees with its "
-                     "direct path")
-
         # -- kill / resume drill -----------------------------------------
         part_docs = docs[:RESUME_DOCS]
         full = build_index(service, part_docs, work / "full")
@@ -462,13 +507,11 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
             "launches": launches, "launch_counts": counts,
             "ingest_stats": split,
             "pooled_min_cosine": cos.min().item(),
-            "layer_min_cosine": layer_cos,
-            "one_ulp_spread_min_cosine": spread_cos,
             "pooled_max_abs_err": p_err, "resume_bit_identical": a == b,
             "query": {"f1": qs.cascade.achieved_f1,
                       "oracle_calls": qs.oracle_calls_total,
                       "wall_seconds": q_wall},
-            "embed_batch_ms": batch_ms}
+            "embed_batch_ms": batch_ms}, service, batch
 
 
 def flash_times(dev) -> dict:
@@ -506,9 +549,10 @@ def flash_times(dev) -> dict:
 
 def wkv6_times(dev) -> dict:
     """The WKV6 kernel, its plain version and the whole ops.wkv6 at the
-    rwkv6-7b path's shape, and the kernel's bound: the larger of its
-    exponentials over the MUFU rate, its FP32 operations over the FP32
-    peak and its bytes over the memory rate."""
+    rwkv6-7b path's shape, and the kernel's bound: the largest of the
+    function's exponentials over the MUFU rate and its FP32 operations
+    over the FP32 peak, both as the sub-chunk form needs them, and its
+    bytes over the memory rate."""
     import numpy as np
     import torch
     from repro_torch.kernels.wkv6 import ops as w_ops
@@ -523,13 +567,27 @@ def wkv6_times(dev) -> dict:
     op_ms = cuda_ms(lambda: w_ops.wkv6(*seq, args[5]), 20)
     blocks = b * nc * h
     pairs = q * (q - 1) // 2
-    # pairs j < t: one exp per channel; r_dec, dec_end: one per element;
-    # a_end: one per channel
-    exps = blocks * (pairs * k + 2 * q * k + k)
-    # per pair and channel: the difference, r * exp, * k, the sum over
-    # channels, and A v; r.u.k and its v term; cum - lw and r_dec;
-    # dec_end and k * dec_end; the (K, Q) x (Q, K) s_inj product
-    flops = blocks * (6 * pairs * k + 9 * q * k + 2 * q * k * k)
+    # The least exponentials that keep every exponent <= 0 (the sub-chunk
+    # form of chunked GLA/RWKV6 kernels): the rows cut into sub-chunks of
+    # SUB; a pair inside one sub-chunk takes one exp per channel; a pair
+    # (t, j) across sub-chunks factors through the last row e of j's
+    # sub-chunk, exp(cum_{t-1}[t] - cum[e]) * exp(cum[e] - cum[j]), one exp
+    # per (t, earlier sub-chunk, channel) and one per (j, channel); then
+    # r_dec and dec_end, one per element, and a_end, one per channel.
+    # This kernel takes one per (t, j, channel) instead: exps_kernel.
+    sizes = [min(SUB, q - i) for i in range(0, q, SUB)]
+    inner = sum(m * (m - 1) // 2 for m in sizes)
+    t_side = sum(i * m for i, m in enumerate(sizes))
+    exps = blocks * k * (inner + t_side + q + 2 * q + 1)
+    exps_kernel = blocks * k * (pairs + 2 * q + 1)
+    # FLOP of that form: per channel, 4 per inner pair (the difference,
+    # r * exp, * k, the sum), 2 per crossing pair (a dot product) and 2
+    # per factor (its difference and scale); A v, 2 per pair and channel;
+    # r.u.k and its v term, cum - lw, r_dec, dec_end and k * dec_end, 9
+    # per element; the (K, Q) x (Q, K) s_inj product
+    flops = blocks * (4 * inner * k + 2 * (pairs - inner) * k
+                      + 2 * (t_side + q) * k + 2 * pairs * k + 9 * q * k
+                      + 2 * q * k * k)
     nbytes = 4 * (blocks * (7 * q * k + k * k + k) + h * k)
     terms = {"operations": max(exps / PEAK_EXP, flops / PEAK_FP32_FLOPS),
              "bytes": nbytes / PEAK_BYTES}
@@ -537,6 +595,7 @@ def wkv6_times(dev) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "op_ms": op_ms,
             "bound_ms": terms[bound_by] * 1e3, "bound_by": bound_by,
             "exps": exps, "flops": flops, "bytes": nbytes,
+            "exps_kernel": exps_kernel,
             "exp_bound_ms": exps / PEAK_EXP * 1e3,
             "flop_bound_ms": flops / PEAK_FP32_FLOPS * 1e3,
             "byte_bound_ms": nbytes / PEAK_BYTES * 1e3}
@@ -796,8 +855,10 @@ def main() -> None:
     # -- 6. offline path: from_corpus over llama3-8b ----------------------
     del engine, store, corpus, docs
     torch.cuda.empty_cache()
-    offline = offline_phase(dev, OFF_ARCH, "flash_attention",
-                            dict(attn_impl="einsum"), "offline", COS_MIN)
+    offline, service, _ = offline_phase(dev, OFF_ARCH, "flash_attention",
+                                        dict(attn_impl="einsum"), "offline",
+                                        COS_MIN)
+    del service
     report["offline"] = offline
 
     # -- 7. flash times ------------------------------------------------------
@@ -831,8 +892,37 @@ def main() -> None:
         f"allocated")
     if held > 1.0:
         fail(f"{held:.2f} GB still allocated after the llama3-8b phase")
-    rwkv = offline_phase(dev, RWKV_ARCH, "wkv6", dict(rwkv_mode="direct"),
-                         "rwkv", RWKV_COS_MIN)
+    rwkv, service, batch = offline_phase(dev, RWKV_ARCH, "wkv6",
+                                         dict(rwkv_mode="direct"), "rwkv",
+                                         RWKV_COS_MIN)
+    tokens = torch.as_tensor(batch, device=dev)
+    rc = rwkv_checks(service.cfg, service.params, tokens,
+                     service.embed_batch(tokens))
+    n_layers = service.cfg.num_layers
+    del service
+    lay, drift = rc["layer"], rc["drift_min_cosine"]
+    log(f"[rwkv] the {n_layers} blocks by hand on batch 0 (pooled: max abs "
+        f"err {rc['hand_run_vs_service_max_abs_err']:.3e} against the "
+        f"service's); each layer's recurrence, kernel vs direct scan on the "
+        f"kernel path's inputs: max abs err {lay['max_rel_err']:.3e} of max "
+        f"|y|, f32 ulp distance max {lay['max_ulps']}, least share of "
+        f"elements at 0 ulps {lay['min_share_0_ulps']:.4f}, within 1 ulp "
+        f"{lay['min_share_within_1_ulp']:.4f}, within 16 ulps "
+        f"{lay['min_share_within_16_ulps']:.4f}; time-mix outputs: min "
+        f"per-row cosine 1 - {1 - lay['min_cosine']:.3e} (>= "
+        f"{LAYER_COS_MIN})")
+    for name, by_depth in drift.items():
+        log(f"[rwkv] drift of the pooled hidden state, kernel path vs "
+            f"{name}: min per-row cosine after " + ", ".join(
+                f"{d} layers {c:.6f}" for d, c in by_depth.items()))
+    if not lay["min_cosine"] >= LAYER_COS_MIN:
+        fail("a time-mix layer's kernel path disagrees with its direct path")
+    if not drift["direct"][RWKV_DEPTH] >= RWKV_DEPTH_COS_MIN:
+        fail(f"after {RWKV_DEPTH} layers the kernel path has drifted from "
+             f"the direct scan")
+    if not rc["hand_run_vs_service_max_abs_err"] <= F32_TOL:
+        fail("the hand-run blocks do not reproduce the service's embeddings")
+    rwkv["checks"] = rc
     report["rwkv"] = rwkv
 
     # -- 9. wkv6 times -------------------------------------------------------
@@ -853,8 +943,9 @@ def main() -> None:
     log(f"[times] wkv6_intra_chunk: {wt['ms']:.4f} ms, plain "
         f"{wt['plain_ms']:.4f} ms, bound {wt['bound_ms']:.4f} ms "
         f"({wt['bound_by']}: exp {wt['exp_bound_ms']:.4f} ms for "
-        f"{wt['exps']:.4g} exps, FP32 {wt['flop_bound_ms']:.4f} ms for "
-        f"{wt['flops']:.4g} FLOP, bytes {wt['byte_bound_ms']:.4f} ms for "
+        f"{wt['exps']:.4g} exps in the sub-chunk form, where this kernel "
+        f"takes {wt['exps_kernel']:.4g}; FP32 {wt['flop_bound_ms']:.4f} ms "
+        f"for {wt['flops']:.4g} FLOP, bytes {wt['byte_bound_ms']:.4f} ms for "
         f"{wt['bytes']:.4g} B), {rwkv['launches']} launches per from_corpus;"
         f" ops.wkv6 (cumsum, kernel, combine) {wt['op_ms']:.4f} ms; one "
         f"embedding batch {rwkv['embed_batch_ms']:.2f} ms, of which the "

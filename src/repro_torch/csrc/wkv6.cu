@@ -20,11 +20,17 @@
 //
 // What bounds it: at the rwkv6-7b embedding path's shape (b=8, s=512 ->
 // nc=4 chunks of Q=128, H=64 heads of K=64; 2,048 blocks) one launch
-// evaluates b*nc*H*(Q(Q-1)/2*K + 2QK + K) = 1.10e9 exponentials, 0.26 ms
-// at the H100's 16 MUFU results per clock per SM (132 SMs, 1.98 GHz);
-// its ~8.7 GFLOP of FP32 take 0.13 ms at 67 TFLOP/s, and its 0.50 GB of
-// reads and writes 0.15 ms at 3.35 TB/s. So it is bound by the
-// exponentials, which this design evaluates once per (t, j, k) term.
+// reads and writes 0.50 GB, 0.15 ms at 3.35 TB/s, and that is its
+// bound. The function needs fewer exponentials than this design takes:
+// cut the rows into sub-chunks of 16; a pair (t, j) in different
+// sub-chunks factors through the last row e of j's sub-chunk as
+// exp(cum_{t-1}[t] - cum[e]) * exp(cum[e] - cum[j]), both exponents
+// <= 0, so only pairs inside one sub-chunk need an exp per term: 2.35e8
+// exponentials in all, 0.06 ms at the H100's 16 MUFU results per clock
+// per SM (132 SMs, 1.98 GHz), and ~7.0 GFLOP of FP32, 0.10 ms at 67
+// TFLOP/s. This design evaluates one exponential per (t, j, k) term,
+// b*nc*H*(Q(Q-1)/2*K + 2QK + K) = 1.10e9 of them (0.26 ms), which
+// keeps it simple and exact.
 //
 // Design. The Pallas kernel builds the (Q, Q, 16) pairwise-decay slab in
 // VMEM (1 MiB at Q=128), which does not fit a block's shared memory, so

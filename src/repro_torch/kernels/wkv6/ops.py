@@ -6,9 +6,8 @@ computes the plain PyTorch version (``ref.wkv6_intra_chunk``) for CPU
 tensors; it never falls back from one to the other. ``wkv6_chunked`` is
 the kernel followed by the inter-chunk combine (plain PyTorch, as the
 JAX package leaves its ``lax.scan`` outside the Pallas kernel), and
-``wkv6`` the entry the RWKV6 time-mix calls: it cuts the sequence into
-chunks of ``chunk_len`` tokens and takes the within-chunk cumsum of the
-log-decay.
+``wkv6`` the entry the RWKV6 time-mix calls: ``ref.wkv6_by_chunks``
+over ``wkv6_chunked``.
 """
 from __future__ import annotations
 
@@ -24,17 +23,6 @@ KERNEL = CudaKernel("wkv6", "wkv6_intra_chunk_launch",
 
 MAX_CHUNK = 128             # the longest chunk (rows of a block)
 MAX_HEAD_DIM = 64           # the widest head (channels of a row)
-
-
-def chunk_len(s: int, chunk: int = 128) -> int:
-    """The chunk length for a sequence of ``s`` tokens: ``min(chunk, s)``,
-    decremented until it divides ``s`` (s=200 gives 100; a prime s above
-    ``chunk`` gives 1), as ``repro.models.rwkv`` and ``repro.kernels.wkv6
-    .ops`` pick it."""
-    q = min(chunk, s)
-    while s % q:
-        q -= 1
-    return q
 
 
 def _check(r, k, v, cum, lw, u) -> None:
@@ -88,10 +76,6 @@ def wkv6_chunked(r, k, v, cum, lw, u) -> torch.Tensor:
 def wkv6(r, k, v, lw, u, *, chunk: int = 128) -> torch.Tensor:
     """r, k, v, lw: (b, s, H, K) float32; u: (H, K) -> y (b, s, H, K)
     float32: S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T, y_t = r_t^T
-    S_{t-1} + (r_t . u . k_t) v_t."""
-    b, s, H, K = r.shape
-    Q = chunk_len(s, chunk)
-    nc = s // Q
-    rs, ks, vs, lws = (t.reshape(b, nc, Q, H, K) for t in (r, k, v, lw))
-    cum = torch.cumsum(lws, dim=2)
-    return wkv6_chunked(rs, ks, vs, cum, lws, u).reshape(b, s, H, K)
+    S_{t-1} + (r_t . u . k_t) v_t, through the kernel."""
+    return ref.wkv6_by_chunks(r, k, v, lw, u, chunk=chunk,
+                              chunked=wkv6_chunked)

@@ -7,11 +7,15 @@
 (batch, chunk, head) at once, with the pairwise decay built one slab of
 ``K_SLAB`` channels at a time as the Pallas kernel builds it.
 ``chunk_combine`` is the inter-chunk state scan that follows the kernel,
-``wkv6_chunked``'s ``lax.scan`` written as a loop over chunks.
+the JAX ``wkv6_chunked``'s ``lax.scan`` written as a loop over chunks;
+``wkv6_chunked`` is the two in turn, and ``wkv6_by_chunks`` the whole
+recurrence over a sequence with a given chunked step: with
+``wkv6_chunked`` it is the exact plain scan (the time-mix's ``direct``
+mode), with the kernel's ``ops.wkv6_chunked`` it is ``ops.wkv6``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -83,3 +87,34 @@ def chunk_combine(y_intra, s_inj, a_end, r_dec) -> torch.Tensor:
                                                 r_dec[:, c], S)
         S = a_end[:, c, :, :, None] * S + s_inj[:, c]
     return ys
+
+
+def chunk_len(s: int, chunk: int = 128) -> int:
+    """The chunk length for a sequence of ``s`` tokens: ``min(chunk, s)``,
+    decremented until it divides ``s`` (s=200 gives 100; a prime s above
+    ``chunk`` gives 1), as ``repro.models.rwkv`` and ``repro.kernels.wkv6
+    .ops`` pick it."""
+    q = min(chunk, s)
+    while s % q:
+        q -= 1
+    return q
+
+
+def wkv6_chunked(r, k, v, cum, lw, u) -> torch.Tensor:
+    """The full recurrence over chunked inputs (b, nc, Q, H, K): the
+    plain intra-chunk step, then the combine."""
+    return chunk_combine(*wkv6_intra_chunk(r, k, v, cum, lw, u))
+
+
+def wkv6_by_chunks(r, k, v, lw, u, *, chunk: int = 128,
+                   chunked: Callable = wkv6_chunked) -> torch.Tensor:
+    """r, k, v, lw: (b, s, H, K) float32; u: (H, K) -> y (b, s, H, K)
+    float32: S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T, y_t = r_t^T
+    S_{t-1} + (r_t . u . k_t) v_t. The sequence is cut into chunks of
+    ``chunk_len(s, chunk)`` tokens, the log-decay summed within each and
+    ``chunked`` applied to them."""
+    b, s, H, K = r.shape
+    Q = chunk_len(s, chunk)
+    rs, ks, vs, lws = (t.reshape(b, s // Q, Q, H, K) for t in (r, k, v, lw))
+    cum = torch.cumsum(lws, dim=2)
+    return chunked(rs, ks, vs, cum, lws, u).reshape(b, s, H, K)

@@ -9,7 +9,9 @@ with w_t in (0, 1) produced per channel by a LoRA on the shifted input.
   * ``kernel`` — the default: ``kernels.wkv6.ops.wkv6``, the hand-written
     CUDA intra-chunk kernel on the card (its plain version on the CPU)
     followed by the inter-chunk combine;
-  * ``direct`` — the JAX package's exact chunked scan, in plain PyTorch.
+  * ``direct`` — the same exact chunked scan in plain PyTorch
+    (``kernels.wkv6.ref.wkv6_by_chunks``: the kernel's plain version and
+    the same combine), as the JAX package's ``direct`` mode computes it.
 The JAX package's third mode, ``factored``, clamps the decay for a
 lossy training lowering; it is not ported and raises. Types follow the
 JAX package: projections in the model's type, the log-decay and the
@@ -24,12 +26,12 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
+from repro_torch.kernels.wkv6 import ref as wkv6_ref
 from repro_torch.models.common import Params, dense_init
 
 LORA_RANK = 64
 CHUNK = 128
 MIX_NAMES = ("w", "k", "v", "r", "g")
-MODES = ("kernel", "direct")
 
 
 def check_mode(mode: str) -> None:
@@ -106,42 +108,15 @@ def _groupnorm_heads(x: torch.Tensor, scale: torch.Tensor, H: int,
     return (y.reshape(b, s, d) * scale).to(x.dtype)
 
 
-def _wkv6_direct(r, k, v, lw, u, Q: int) -> torch.Tensor:
-    """The exact chunked scan of ``repro.models.rwkv.timemix_apply``
-    (mode="direct"): per chunk the (b, Q, Q, H, K) pairwise decay, then
-    the carried state. r, k, v, lw: (b, s, H, K) f32 -> y (b, s, H, K)."""
-    b, s, H, K = r.shape
-    nc = s // Q
-    rh, kh, vh, lwh = (t.reshape(b, nc, Q, H, K) for t in (r, k, v, lw))
-    cum = torch.cumsum(lwh, dim=2)
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=r.device),
-                     diagonal=-1)[None, :, :, None, None]
-    S = torch.zeros((b, H, K, K), dtype=torch.float32, device=r.device)
-    ys = []
-    for c in range(nc):
-        r_c, k_c, v_c, cum_c, lw_c = (t[:, c] for t in (rh, kh, vh, cum,
-                                                          lwh))
-        cum_tm1 = cum_c - lw_c
-        seg = cum_tm1[:, :, None] - cum_c[:, None, :]     # (b,Q,Q,H,K)
-        dec = torch.where(tri, torch.exp(seg), 0.0)
-        A = torch.einsum("bqhk,bqjhk,bjhk->bqjh", r_c, dec, k_c)
-        del seg, dec
-        diag = torch.einsum("bqhk,hk,bqhk->bqh", r_c, u, k_c)
-        y_c = torch.einsum("bqjh,bjhk->bqhk", A, v_c) + diag[..., None] * v_c
-        r_dec = r_c * torch.exp(cum_tm1)
-        y_c = y_c + torch.einsum("bqhk,bhkv->bqhv", r_dec, S)
-        dec_end = torch.exp(cum_c[:, -1:] - cum_c)
-        S_inj = torch.einsum("bqhk,bqhv->bhkv", k_c * dec_end, v_c)
-        a_end = torch.exp(cum_c[:, -1])
-        S = a_end[..., None] * S + S_inj
-        ys.append(y_c)
-    return torch.stack(ys, dim=1).reshape(b, s, H, K)
+# the recurrence of each mode: (r, k, v, lw, u, *, chunk) -> y, exact both
+WKV6 = {"kernel": wkv6_ops.wkv6, "direct": wkv6_ref.wkv6_by_chunks}
+MODES = tuple(WKV6)
 
 
-def timemix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                  mode: str = "kernel") -> torch.Tensor:
-    """Full-sequence WKV6 time-mix. x: (b, s, d) -> (b, s, d)."""
-    check_mode(mode)
+def timemix_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """The time-mix up to the recurrence. x: (b, s, d) -> r, k, v and the
+    log-decay lw per head, each (b, s, H, K) float32, and the gate g
+    (b, s, d) in x's type."""
     b, s, d = x.shape
     H, K = _heads(cfg), cfg.rwkv.head_dim
     m = _token_shift_mix(p, x, _shift(x))
@@ -151,14 +126,26 @@ def timemix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     v = m["v"] @ p["wv"]
     g = F.silu((m["g"] @ p["wg"]).float()).to(x.dtype)
     rh, kh, vh, lwh = (t.float().reshape(b, s, H, K) for t in (r, k, v, lw))
-    if mode == "kernel":
-        y = wkv6_ops.wkv6(rh, kh, vh, lwh, p["u"], chunk=CHUNK)
-    else:
-        y = _wkv6_direct(rh, kh, vh, lwh, p["u"],
-                         wkv6_ops.chunk_len(s, CHUNK))
-    y = _groupnorm_heads(y.reshape(b, s, d).to(x.dtype), p["ln_x"], H,
-                         cfg.norm_eps)
+    return rh, kh, vh, lwh, g
+
+
+def timemix_output(p: Params, y: torch.Tensor, g: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The time-mix after the recurrence. y: (b, s, H, K) float32, g: the
+    gate (b, s, d) -> (b, s, d) in g's type."""
+    b, s = g.shape[:2]
+    y = _groupnorm_heads(y.reshape(b, s, -1).to(g.dtype), p["ln_x"],
+                         _heads(cfg), cfg.norm_eps)
     return (y * g) @ p["wo"]
+
+
+def timemix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  mode: str = "kernel") -> torch.Tensor:
+    """Full-sequence WKV6 time-mix. x: (b, s, d) -> (b, s, d)."""
+    check_mode(mode)
+    r, k, v, lw, g = timemix_inputs(p, x, cfg)
+    return timemix_output(p, WKV6[mode](r, k, v, lw, p["u"], chunk=CHUNK),
+                          g, cfg)
 
 
 def channelmix_init(generator: torch.Generator, cfg: ModelConfig,

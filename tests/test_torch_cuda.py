@@ -17,6 +17,7 @@ from repro_torch.kernels.fused_scoring import ops as s_ops
 from repro_torch.kernels.fused_scoring import ref as s_ref
 from repro_torch.kernels.wkv6 import ops as w_ops
 from repro_torch.kernels.wkv6 import ref as w_ref
+from torch_wkv6_inputs import wkv6_inputs, wkv6_sequence
 
 F32 = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels.py's f32 tolerance
 # the contrastive losses are sums of up to n LSE terms of size 1/tau ~ 14;
@@ -267,30 +268,6 @@ def test_build_index_on_card_matches_cpu(cuda, tmp_path):
     np.testing.assert_allclose(stores[0], stores[1], **F32)
 
 
-def _wkv6_sequence(b, s, h, k, seed=0):
-    """tests/test_kernels.py's WKV6 inputs, drawn with numpy: r, k, v
-    (b, s, h, k) at scale 0.5, lw = -exp(2N - 1), u (h, k) at 0.3."""
-    rng = np.random.default_rng(seed)
-    r, kk, v = ((0.5 * rng.normal(size=(b, s, h, k))).astype(np.float32)
-                for _ in range(3))
-    lw = -np.exp(2.0 * rng.normal(size=(b, s, h, k)) - 1.0).astype(
-        np.float32)
-    u = (0.3 * rng.normal(size=(h, k))).astype(np.float32)
-    return r, kk, v, lw, u
-
-
-def _wkv6_inputs(b, nc, q, h, k, seed=0, extreme=False):
-    """Chunked kernel inputs (r, k, v, cum, lw, u): (b, nc, q, h, k) and
-    u (h, k), cum the within-chunk cumsum of lw; ``extreme`` sets lw to
-    -200 (tests/test_kernels.py:213)."""
-    r, kk, v, lw, u = _wkv6_sequence(b, nc * q, h, k, seed)
-    r, kk, v, lw = (x.reshape(b, nc, q, h, k) for x in (r, kk, v, lw))
-    if extreme:
-        lw = np.full_like(lw, -200.0)
-    cum = np.cumsum(lw, axis=2, dtype=np.float32)
-    return r, kk, v, cum, lw, u
-
-
 # (b, nc, Q, H, K, extreme decay): the rwkv6-7b embedding path's shape
 # (b=8, s=512), a ragged chunk (s=200 -> Q=100), K=16, Q=1, and lw = -200
 # at tests/test_kernels.py:213's shape and at a full chunk
@@ -310,7 +287,7 @@ def test_wkv6_kernel_matches_plain(cuda, case):
     """All four outputs to 1e-5 of max |plain| (tests/test_kernels.py's
     bar for the Pallas kernel)."""
     *shape, extreme = case
-    args = [_t(x, cuda) for x in _wkv6_inputs(*shape, extreme=extreme)]
+    args = [_t(x, cuda) for x in wkv6_inputs(*shape, extreme=extreme)]
     before = w_ops.KERNEL.launches
     got = w_ops.wkv6_intra_chunk(*args)
     torch.cuda.synchronize()
@@ -328,7 +305,7 @@ def test_wkv6_kernel_matches_plain(cuda, case):
                                            (2, 40, 2, 16, 16)])
 def test_wkv6_matches_sequential_on_card(cuda, b, s, h, k, chunk):
     """tests/test_kernels.py's shapes: the kernel, then the combine."""
-    r, kk, v, lw, u = (_t(x, cuda) for x in _wkv6_sequence(b, s, h, k))
+    r, kk, v, lw, u = (_t(x, cuda) for x in wkv6_sequence(b, s, h, k))
     before = w_ops.KERNEL.launches
     got = w_ops.wkv6(r, kk, v, lw, u, chunk=chunk)
     torch.cuda.synchronize()

@@ -18,7 +18,7 @@ from repro.kernels.wkv6 import ref as j_ref
 from repro.kernels.wkv6.ops import wkv6 as j_wkv6
 from repro.kernels.wkv6.wkv6 import wkv6_intra_chunk as j_intra
 from repro_torch.kernels.wkv6 import ops, ref
-from test_torch_cuda import _wkv6_inputs, _wkv6_sequence
+from torch_wkv6_inputs import wkv6_inputs, wkv6_sequence
 
 REL = 1e-5
 
@@ -42,8 +42,10 @@ def test_plain_intra_chunk_matches_pallas(shape, decay):
     """All four outputs; "extreme" is lw = -200 everywhere
     (tests/test_kernels.py:213), where only exponents of differences
     stay finite."""
-    args = _wkv6_inputs(*shape, seed=sum(shape), extreme=decay == "extreme")
-    want = j_intra(*map(jnp.asarray, args), interpret=True)
+    args = wkv6_inputs(*shape, seed=sum(shape), extreme=decay == "extreme")
+    # JAX on its own copies of the inputs, finished before the port runs
+    want = [np.asarray(w) for w in
+            j_intra(*map(jnp.array, args), interpret=True)]
     before = ops.KERNEL.launches
     got = ops.wkv6_intra_chunk(*map(torch.tensor, args))
     assert ops.KERNEL.launches == before          # the CPU never launches
@@ -60,13 +62,17 @@ def test_plain_intra_chunk_matches_pallas(shape, decay):
                                            (1, 37, 2, 16, 128)])
 def test_wkv6_matches_jax_sequential_and_pallas(b, s, H, K, chunk):
     """tests/test_kernels.py's shapes, plus a prime length that the
-    default chunk of 128 takes whole."""
-    r, k, v, lw, u = _wkv6_sequence(b, s, H, K, seed=s)
+    default chunk of 128 takes whole; and the plain scan (the time-mix's
+    direct mode) on the same inputs."""
+    r, k, v, lw, u = wkv6_sequence(b, s, H, K, seed=s)
     jargs = [jnp.asarray(a) for a in (r, k, v, lw, u)]
-    got = ops.wkv6(*map(torch.tensor, (r, k, v, lw, u)), chunk=chunk)
+    targs = [torch.tensor(a) for a in (r, k, v, lw, u)]
+    got = ops.wkv6(*targs, chunk=chunk)
     assert got.shape == (b, s, H, K)
     assert _rel_err(got, j_ref.ref_wkv6(*jargs)) < REL
     assert _rel_err(got, j_wkv6(*jargs, chunk=chunk, interpret=True)) < REL
+    plain = ref.wkv6_by_chunks(*targs, chunk=chunk)
+    assert _rel_err(plain, j_ref.ref_wkv6(*jargs)) < REL
 
 
 def test_wkv6_extreme_decay_matches_jax():
@@ -83,7 +89,7 @@ def test_wkv6_extreme_decay_matches_jax():
 
 
 def test_port_sequential_ref_matches_jax():
-    r, k, v, lw, u = _wkv6_sequence(2, 24, 3, 16, seed=5)
+    r, k, v, lw, u = wkv6_sequence(2, 24, 3, 16, seed=5)
     got = ref.ref_wkv6(*map(torch.tensor, (r, k, v, lw, u)))
     want = j_ref.ref_wkv6(*map(jnp.asarray, (r, k, v, lw, u)))
     assert _rel_err(got, want) < REL
@@ -94,7 +100,7 @@ def test_port_sequential_ref_matches_jax():
 def test_chunk_len_follows_jax(s, want):
     """min(chunk, s), decremented until it divides s (rwkv.py:124-126,
     ops.py:18-22)."""
-    assert ops.chunk_len(s) == want
+    assert ref.chunk_len(s) == want
 
 
 def test_wrapper_checks_refuse_what_the_kernel_does_not_take():
