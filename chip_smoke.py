@@ -16,7 +16,9 @@ Phases, each of which exits non-zero when it fails:
                flash attention against the masked-einsum oracle at the
                offline path's shape (b=8, s=512, 32 heads over 8 KV heads,
                head_dim 128, causal) and at small window / q_offset /
-               ragged / non-causal shapes, in f32 and bf16;
+               ragged / non-causal shapes, in f32 (the FP32 kernel) and
+               bf16 (the tensor-core kernel, also against its plain
+               version, which rounds where it rounds);
                the WKV6 intra-chunk kernel against its plain version, all
                four outputs, at the rwkv6-7b path's shape (b=8, nc=4,
                Q=128, H=64, K=64), a ragged chunk (Q=100), K=16, Q=1 and
@@ -39,10 +41,12 @@ Phases, each of which exits non-zero when it fails:
                pooled embeddings against the plain einsum path's (per-row
                cosine >= COS_MIN), a killed-and-resumed ingest bit-identical
                to an uninterrupted one, and one query() over the store;
-  7. flash   — the flash kernel, its plain version and PyTorch's
-               scaled_dot_product_attention (a yardstick the port never
-               calls) at the offline path's shape, and its share of one
-               embedding batch;
+  7. flash   — the bf16 flash kernel (and the same call non-causal), the
+               FP32 kernel on the same inputs in f32, the plain version
+               and PyTorch's scaled_dot_product_attention under each
+               backend that takes the call (a yardstick the port never
+               calls) at the offline path's shape, and the kernel's share
+               of one embedding batch;
   8. rwkv    — the llama3-8b weights freed, the same offline path over
                rwkv6-7b at full width (32 layers, bf16, weights drawn on
                the card) and the same corpus: 2048 finite rows of width
@@ -72,6 +76,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -101,6 +106,12 @@ F32_TOL = 1e-5                       # the reference kernels' f32 tolerance
 LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
 # tests/test_kernels.py's flash attention tolerances (rtol = atol)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# the bf16 kernel against its plain version (attention_blocked with P
+# rounded to bf16 for P V, on the kernel's 64-row, 64-key tiles): the same
+# rounding points, f32 sums in another order, so a rounding of P or of
+# the output may move by one bf16 ulp; rtol covers one ulp (2^-7
+# relative at most) at every |out|, atol the outputs near zero
+FLASH_BF16_PLAIN_TOL = 8e-3
 # the offline path: llama3-8b over make_corpus's tokens
 OFF_ARCH = "llama3-8b"
 OFF_DOCS, OFF_DOC_LEN, OFF_VOCAB, OFF_BATCH = 2048, 512, 32768, 8
@@ -159,7 +170,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def flash_checks(dev, rng) -> dict:
-    """The flash kernel against the masked-einsum oracle on the card."""
+    """The flash kernels against the masked-einsum oracle on the card,
+    and the bf16 kernel against its plain version."""
     import torch
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.flash_attention import ref as f_ref
@@ -186,14 +198,32 @@ def flash_checks(dev, rng) -> dict:
                                        f_ref.expand_kv(v, h // kv), **kw)
             torch.cuda.synchronize()
             tol = FLASH_TOL[str(dt).split(".")[1]]
-            err = (got.float() - want.float()).abs().max().item()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
             key = f"flash {name} {str(dt).split('.')[1]}"
-            log(f"[kernels] {key}: max abs err {err:.3e} (rtol = atol = "
+            log(f"[kernels] {key}: vs the einsum oracle max abs err "
+                f"{err:.3e}, mean {diff.mean().item():.3e} (rtol = atol = "
                 f"{tol:g})")
             if got.dtype != dt or not torch.allclose(
                     got.float(), want.float(), rtol=tol, atol=tol):
                 fail(f"{key} disagrees with the einsum oracle")
             errs[key] = err
+            if dt != torch.bfloat16:
+                continue
+            plain = f_ref.attention_blocked(
+                q, f_ref.expand_kv(k, h // kv), f_ref.expand_kv(v, h // kv),
+                kw["scale"], causal=causal, window=window, q_offset=q_off,
+                q_block=64, kv_block=64, round_p=True)
+            torch.cuda.synchronize()
+            tol = FLASH_BF16_PLAIN_TOL
+            diff = (got.float() - plain.float()).abs()
+            log(f"[kernels] {key}: vs its plain version max abs err "
+                f"{diff.max().item():.3e}, mean {diff.mean().item():.3e} "
+                f"(rtol = atol = {tol:g})")
+            if not torch.allclose(got.float(), plain.float(), rtol=tol,
+                                  atol=tol):
+                fail(f"{key} disagrees with its plain version")
+            errs[f"{key} vs plain"] = diff.max().item()
     return errs
 
 
@@ -515,8 +545,10 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
 
 
 def flash_times(dev) -> dict:
-    """The flash kernel, its plain version and SDPA at the path's shape."""
+    """The bf16 flash kernel, the FP32 kernel on the same inputs in f32,
+    the plain version and SDPA under each backend, at the path's shape."""
     import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.flash_attention import ref as f_ref
     b, s, h, kv, hd = FLASH_SHAPE
@@ -528,19 +560,48 @@ def flash_times(dev) -> dict:
     scale = hd ** -0.5
     g = h // kv
     ms = cuda_ms(lambda: f_ops.flash_attention_fwd(q, k, v, scale=scale),
-                 20)
+                 50)
+    # the same call without the causal mask: every Q tile runs all 8 K/V
+    # tiles (16,384 tile steps against the causal call's 9,216), which
+    # shows whether the causal loops' short length or the steady state
+    # sets the time
+    noncausal_ms = cuda_ms(lambda: f_ops.flash_attention_fwd(
+        q, k, v, scale=scale, causal=False), 50)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    fp32_ms = cuda_ms(lambda: f_ops.flash_attention_fwd(
+        q32, k32, v32, scale=scale), 10)
+    del q32, k32, v32
     plain_ms = cuda_ms(lambda: f_ref.attention_blocked(
         q, f_ref.expand_kv(k, g), f_ref.expand_kv(v, g), scale,
-        causal=True), 10)
+        causal=True, round_p=True), 10)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(
-                             qt, kt, vt, is_causal=True, scale=scale,
-                             enable_gqa=True), 20)
+    sdpa = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "CUDNN_ATTENTION"):
+        # a backend that refuses the call says why in a warning
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            try:
+                with sdpa_kernel(getattr(SDPBackend, name)):
+                    sdpa[name] = cuda_ms(
+                        lambda: torch.nn.functional.
+                        scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, scale=scale,
+                            enable_gqa=True), 50)
+            except (RuntimeError, AttributeError) as e:
+                why = [str(w.message).split(" (Triggered")[0] for w in said]
+                why = [w for w in why if not w.endswith("because:")]
+                sdpa[name] = "refused: " + (why[0] if why else str(e))
+    timed = {n: t for n, t in sdpa.items() if isinstance(t, float)}
+    library = min(timed, key=timed.get) if timed else None
     flops = 4 * b * h * hd * s * (s + 1) // 2
     nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": ms, "noncausal_ms": noncausal_ms,
+            "noncausal_tflops": 4 * b * h * hd * s * s / noncausal_ms / 1e9,
+            "fp32_kernel_ms": fp32_ms, "plain_ms": plain_ms,
+            "library_ms": timed[library] if library else None,
+            "library_backend": library, "sdpa": sdpa,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
@@ -874,12 +935,19 @@ def main() -> None:
          "library_ms": ft["library_ms"]})
     share = offline["launches"] // offline["batches"] * ft["ms"] \
         / offline["embed_batch_ms"]
-    log(f"[times] flash_attention: {ft['ms']:.4f} ms, plain "
-        f"{ft['plain_ms']:.4f} ms, SDPA {ft['library_ms']:.4f} ms, bound "
-        f"{ft['bound_ms']:.5f} ms ({ft['bound_by']}; {ft['fp32_fma_bound_ms']:.4f}"
-        f" ms at the FP32 peak), {offline['launches']} launches per "
-        f"from_corpus; one embedding batch {offline['embed_batch_ms']:.2f} ms"
-        f", of which flash {100 * share:.1f}%")
+    sdpa = ", ".join(f"{n} {t:.4f} ms" if isinstance(t, float) else
+                     f"{n} {t}" for n, t in ft["sdpa"].items())
+    log(f"[times] flash_attention: bf16 tensor-core kernel {ft['ms']:.4f} "
+        f"ms ({ft['ms'] / ft['bound_ms']:.2f}x its bound; "
+        f"{ft['flops'] / ft['ms'] / 1e9:.1f} TFLOP/s), the same call "
+        f"non-causal {ft['noncausal_ms']:.4f} ms "
+        f"({ft['noncausal_tflops']:.1f} TFLOP/s), FP32 kernel on "
+        f"the same inputs in f32 {ft['fp32_kernel_ms']:.4f} ms, plain "
+        f"{ft['plain_ms']:.4f} ms, bound {ft['bound_ms']:.5f} ms "
+        f"({ft['bound_by']}; {ft['fp32_fma_bound_ms']:.4f} ms at the FP32 "
+        f"peak), {offline['launches']} launches per from_corpus; SDPA: "
+        f"{sdpa}; one embedding batch {offline['embed_batch_ms']:.2f} ms, "
+        f"of which flash {100 * share:.1f}%")
     ft["share_of_embed_batch"] = share
     report["times"]["flash"] = ft
 

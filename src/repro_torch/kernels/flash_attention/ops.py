@@ -1,7 +1,8 @@
 """Wrapper of the flash attention forward kernel
 (``csrc/flash_attention.cu``).
 
-``flash_attention_fwd`` launches the CUDA kernel for CUDA tensors and
+``flash_attention_fwd`` launches the CUDA kernel for CUDA tensors (the
+tensor-core kernel for bfloat16, the FP32 kernel for float32) and
 computes the plain PyTorch version (``ref.attention_blocked`` over
 GQA-expanded K/V, the JAX package's own non-TPU path) for CPU tensors;
 it never falls back from one to the other. K and V may have fewer heads
@@ -49,6 +50,13 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
                          f"{k.shape[2]} KV heads")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel copies whole 16-byte rows of 8 values
+        if hd % 8:
+            raise ValueError(f"bfloat16 head_dim {hd} is not a multiple "
+                             f"of 8")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("bfloat16 q, k and v must be 16-byte aligned")
     if b * h > MAX_GRID_Y:
         raise ValueError(f"batch * heads = {b * h} > {MAX_GRID_Y}")
     if window < 0 or q_offset < 0:

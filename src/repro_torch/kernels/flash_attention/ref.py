@@ -4,8 +4,10 @@
 
 ``attention_einsum`` is the quadratic masked softmax, ``ref_attention``
 the oracle built on it, ``attention_blocked`` the online softmax over
-KV blocks that the CUDA kernel computes (f32 inside, output in
-``v.dtype``), and ``expand_kv`` the GQA repeat the JAX package applies
+KV blocks that the CUDA kernels compute (f32 inside, output in
+``v.dtype``; with ``round_p=True`` the probabilities are rounded to
+``v.dtype`` as the operand of P V, as the bfloat16 tensor-core kernel
+rounds them), and ``expand_kv`` the GQA repeat the JAX package applies
 before either. All take q (b, sq, h, hd) and k, v (b, skv, h, hd).
 """
 from __future__ import annotations
@@ -64,13 +66,17 @@ def ref_attention(q, k, v, *, scale, causal=True, window=0, q_offset=0):
 def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: float, *, causal: bool, window: int = 0,
                       q_offset: int = 0, q_block: int = 512,
-                      kv_block: int = 512) -> torch.Tensor:
+                      kv_block: int = 512,
+                      round_p: bool = False) -> torch.Tensor:
     """Online-softmax attention over KV blocks (flash-equivalent).
 
     Every (q block, kv block) pair is visited, masked keys score
     ``NEG_INF`` (finite, so a wholly masked block gives p = 1 that the
     next valid block's ``alpha = 0`` wipes out), and the sum is divided
     by ``max(l, 1e-30)``, as in the JAX package's ``attention_blocked``.
+    ``round_p``: the probabilities enter P V rounded to ``v.dtype`` while
+    ``l`` sums them in f32 (the bfloat16 kernel's arithmetic; at f32 the
+    rounding is the identity).
     """
     b, sq, h, hd = q.shape
     skv = k.shape[1]
@@ -106,6 +112,8 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + p.sum(dim=-1)
+            if round_p:
+                p = p.to(v.dtype).float()
             acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd",
                                                         p, vblk)
             m = m_new

@@ -26,6 +26,12 @@ LOSS = dict(rtol=1e-4, atol=1e-5)
 # tests/test_kernels.py's flash attention tolerances
 FLASH = {torch.float32: dict(rtol=2e-5, atol=2e-5),
          torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+# the bf16 tensor-core kernel against its plain version, which rounds at
+# the same points (P to bf16 for P V, the output to bf16): the two differ
+# in the order of f32 sums only, which can move a rounding by one bf16
+# ulp; rtol 8e-3 covers one ulp (2^-7 relative at most) at every |out|,
+# atol the outputs near zero
+FLASH_BF16_PLAIN = dict(rtol=8e-3, atol=8e-3)
 
 
 @pytest.fixture
@@ -203,6 +209,39 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
                                want.float().cpu().numpy(), **FLASH[dtype])
 
 
+# FLASH_CASES and two edges of the tensor-core kernel: one query row over
+# a long prefix (q_offset = skv - 1), and non-causal tiles that do not
+# fill the 2-stage K/V ring evenly (3 whole tiles, or 3 and a ragged one)
+FLASH_BF16_CASES = FLASH_CASES + [
+    (2, 1, 300, 8, 2, 128, True, 0, 299),
+    (1, 64, 3 * 64 + 5, 4, 2, 128, False, 0, 0),
+    (1, 64, 3 * 64, 4, 4, 64, False, 0, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BF16_CASES)
+def test_flash_bf16_kernel_matches_its_plain_version(cuda, case):
+    b, sq, skv, h, kv, hd, causal, window, q_offset = case
+    q, k, v = (_t(x, cuda).to(torch.bfloat16)
+               for x in _attention_inputs(b, sq, skv, h, kv, hd))
+    scale = hd ** -0.5
+    before = f_ops.KERNEL.launches
+    got = f_ops.flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                    window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert f_ops.KERNEL.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    g = h // kv
+    want = f_ref.attention_blocked(
+        q, f_ref.expand_kv(k, g), f_ref.expand_kv(v, g), scale,
+        causal=causal, window=window, q_offset=q_offset, q_block=64,
+        kv_block=64, round_p=True)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **FLASH_BF16_PLAIN)
+
+
 @pytest.mark.cuda
 def test_flash_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 16, 2, 256), device=cuda)
@@ -214,6 +253,14 @@ def test_flash_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 16, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="see none"):
         f_ops.flash_attention_fwd(q, q, q, scale=1.0, window=4, q_offset=40)
+    # the tensor-core kernel copies 16-byte rows: bf16 head_dim % 8 == 0
+    q = torch.zeros((1, 16, 2, 12), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        f_ops.flash_attention_fwd(q, q, q, scale=1.0)
+    q = torch.zeros(1 + 16 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    q = q[1:].view(1, 16, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        f_ops.flash_attention_fwd(q, q, q, scale=1.0)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,10 @@
 On the CPU the port's ``flash_attention_fwd`` computes its plain version
 (the online softmax over GQA-expanded K/V); it is held against the JAX
 package's Pallas kernel in interpret mode, as tests/test_kernels.py runs
-it, on the same numpy inputs. The CUDA kernel itself is held against the
-plain versions on the card by test_torch_cuda.py.
+it, on the same numpy inputs. So is the plain version of the bfloat16
+tensor-core kernel (``attention_blocked(..., round_p=True)``). The CUDA
+kernels themselves are held against the plain versions on the card by
+test_torch_cuda.py.
 """
 import jax
 import jax.numpy as jnp
@@ -113,6 +115,52 @@ def test_plain_versions_match_jax(causal, window, q_offset):
                                     kv_block=32, **kw)),
         _np(j_attn.attention_blocked(jq, jk, jv, 0.25, q_block=16,
                                      kv_block=32, **kw)), **F32)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [(True, 0, 0),
+                                                    (False, 0, 0),
+                                                    (True, 24, 0),
+                                                    (True, 0, 40)])
+def test_plain_with_rounded_p_is_blocked_at_f32(causal, window, q_offset):
+    """The bf16 kernel's plain version (P rounded to v.dtype for P V) is
+    attention_blocked bit for bit on f32 inputs, where that rounding is
+    the identity."""
+    tq, tk, tv = (torch.tensor(a) for a in _attention_inputs(2, 40, 80, 3,
+                                                              3, 16))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, q_block=16,
+              kv_block=32)
+    want = f_ref.attention_blocked(tq, tk, tv, 0.25, **kw)
+    got = f_ref.attention_blocked(tq, tk, tv, 0.25, round_p=True, **kw)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sq,skv,h,hd,causal,window,q_offset", [
+    (64, 64, 2, 16, True, 0, 0),
+    (48, 48, 2, 8, False, 0, 0),
+    (64, 64, 2, 32, True, 24, 0),
+    (32, 96, 2, 16, True, 0, 64),
+    (77, 200, 2, 16, True, 24, 123),
+])
+def test_plain_with_rounded_p_bf16_matches_jax(sq, skv, h, hd, causal,
+                                               window, q_offset):
+    """On bf16 inputs, on the kernel's 64-row, 64-key tiles, the bf16
+    kernel's plain version against the Pallas kernel (interpret mode)
+    and the JAX einsum path, at the bf16 tolerance."""
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        *_attention_inputs(1, sq, skv, h, h, hd), dtype="bfloat16")
+    scale = hd ** -0.5
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = f_ref.attention_blocked(tq, tk, tv, scale, q_block=64,
+                                  kv_block=64, round_p=True, **kw)
+    assert got.dtype == torch.bfloat16
+    want_flash = j_flash(jq, jk, jv, scale=scale, q_block=16, kv_block=16,
+                         interpret=True, **kw)
+    want_einsum = j_ref(jq, jk, jv, scale=scale, **kw)
+    np.testing.assert_allclose(_np(got), _np(want_flash),
+                               **FLASH[torch.bfloat16])
+    np.testing.assert_allclose(_np(got), _np(want_einsum),
+                               **FLASH[torch.bfloat16])
 
 
 @pytest.mark.parametrize("impl", ["flash", "blocked", "einsum"])
