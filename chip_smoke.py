@@ -18,11 +18,14 @@ Phases, each of which exits non-zero when it fails:
                head_dim 128, causal) and at small window / q_offset /
                ragged / non-causal shapes, in f32 (the FP32 kernel) and
                bf16 (the tensor-core kernel, also against its plain
-               version, which rounds where it rounds);
-               the WKV6 intra-chunk kernel against its plain version, all
-               four outputs, at the rwkv6-7b path's shape (b=8, nc=4,
-               Q=128, H=64, K=64), a ragged chunk (Q=100), K=16, Q=1 and
-               lw = -200, and ops.wkv6 against the sequential recurrence;
+               version, which rounds where it rounds, and, logged but not
+               a gate, against the rounding of flash.py, P in f32);
+               the WKV6 intra-chunk kernel against its plain version (the
+               sub-chunk form), all four outputs, at the rwkv6-7b path's
+               shape (b=8, nc=4, Q=128, H=64, K=64), a ragged chunk
+               (Q=100), K=16, Q=1 and lw = -200, at the path's shape also
+               against the pairwise form (one exp per term, as the Pallas
+               kernel), and ops.wkv6 against the sequential recurrence;
   4. main    — ScaleDocEngine.query() for three queries over a synthetic
                corpus of 131,072 documents at D=4096 (noise: see NOISE),
                with ProxyConfig() defaults and
@@ -62,10 +65,10 @@ Phases, each of which exits non-zero when it fails:
                output one f32 ulp up, the kernel at chunk 64) drift from
                the kernel path with depth (the direct scan's after
                RWKV_DEPTH layers >= RWKV_DEPTH_COS_MIN);
-  9. wkv6    — the WKV6 kernel and its plain version at the rwkv6-7b
-               path's shape, its bound (exponentials in the sub-chunk
-               form, FP32 operations and bytes), and its share of one
-               embedding batch.
+  9. wkv6    — the WKV6 kernel, its plain version and the plain
+               pairwise form at the rwkv6-7b path's shape, its bound
+               (exponentials in the sub-chunk form, FP32 operations and
+               bytes), and its share of one embedding batch.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -142,7 +145,6 @@ RWKV_COS_MIN = 0.95
 # before the amplification takes over (1 - cos measured at 2.2e-5)
 RWKV_DEPTH, RWKV_DEPTH_COS_MIN = 4, 0.9999
 SPREAD_CHUNK = 64          # the other chunk length of the drift check
-SUB = 16                   # rows of a sub-chunk in the WKV6 bound
 
 
 def fail(msg: str) -> None:
@@ -169,9 +171,10 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_checks(dev, rng) -> dict:
+def flash_checks(dev, rng) -> tuple:
     """The flash kernels against the masked-einsum oracle on the card,
-    and the bf16 kernel against its plain version."""
+    and the bf16 kernel against its plain version (gates); and the bf16
+    kernel against attention_blocked(..., round_p=False), stated."""
     import torch
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.flash_attention import ref as f_ref
@@ -183,7 +186,7 @@ def flash_checks(dev, rng) -> dict:
         ("ragged s=200 GQA 4:1", (2, 200, 200, 8, 2, 128), True, 0, 0),
         ("non-causal s=200", (1, 200, 200, 4, 1, 128), False, 0, 0),
     ]
-    errs = {}
+    errs, stated = {}, {}
     for name, (b, sq, skv, h, kv, hd), causal, window, q_off in cases:
         base = [torch.tensor(rng.normal(size=shape), dtype=torch.float32,
                              device=dev)
@@ -224,7 +227,19 @@ def flash_checks(dev, rng) -> dict:
                                   atol=tol):
                 fail(f"{key} disagrees with its plain version")
             errs[f"{key} vs plain"] = diff.max().item()
-    return errs
+            # stated, not a gate: the Pallas kernel's and the JAX blocked
+            # path's rounding, P kept in f32 for P V
+            exact_p = f_ref.attention_blocked(
+                q, f_ref.expand_kv(k, h // kv), f_ref.expand_kv(v, h // kv),
+                kw["scale"], causal=causal, window=window, q_offset=q_off,
+                q_block=64, kv_block=64, round_p=False)
+            torch.cuda.synchronize()
+            diff = (got.float() - exact_p.float()).abs()
+            log(f"[kernels] {key}: vs round_p=False (P in f32 for P V, as "
+                f"flash.py) max abs err {diff.max().item():.3e}, mean "
+                f"{diff.mean().item():.3e} (logged, not a gate)")
+            stated[key] = diff.max().item()
+    return errs, stated
 
 
 def wkv6_inputs(rng, b, nc, q, h, k, extreme=False):
@@ -242,8 +257,10 @@ def wkv6_inputs(rng, b, nc, q, h, k, extreme=False):
 
 
 def wkv6_checks(dev, rng) -> dict:
-    """The WKV6 kernel against its plain version on the card, all four
-    outputs, and ops.wkv6 against the sequential recurrence."""
+    """The WKV6 kernel against its plain version (the sub-chunk form) on
+    the card, all four outputs, also against the pairwise form (one exp
+    per term, the Pallas kernel's) at the path's shape, and ops.wkv6
+    against the sequential recurrence."""
     import torch
     from repro_torch.kernels.wkv6 import ops as w_ops
     from repro_torch.kernels.wkv6 import ref as w_ref
@@ -260,20 +277,26 @@ def wkv6_checks(dev, rng) -> dict:
         args = [torch.tensor(x, device=dev)
                 for x in wkv6_inputs(rng, *shape, extreme=extreme)]
         got = w_ops.wkv6_intra_chunk(*args)
-        want = w_ref.wkv6_intra_chunk(*args)
-        torch.cuda.synchronize()
-        for out, g, w in zip(("y_intra", "s_inj", "a_end", "r_dec"), got,
-                             want):
-            # a_end under lw = -200 underflows to 0 everywhere
-            scale = w.abs().max().item() or 1e-30
-            err = (g - w).abs().max().item()
-            key = f"wkv6 {name} {out}"
-            log(f"[kernels] {key}: max abs err {err:.3e}, {err / scale:.3e}"
-                f" of max |plain| {scale:.3e} (tol {WKV6_TOL:g})")
-            if g.shape != w.shape or not torch.isfinite(g).all() or \
-                    not err <= WKV6_TOL * scale:
-                fail(f"{key} disagrees with its plain version")
-            errs[key] = err
+        plains = [("", w_ref.SUB)]
+        if shape == WKV6_SHAPE:
+            plains.append((" vs the pairwise form", None))
+        for suffix, sub in plains:
+            want = w_ref.wkv6_intra_chunk(*args, sub=sub)
+            torch.cuda.synchronize()
+            for out, g, w in zip(("y_intra", "s_inj", "a_end", "r_dec"),
+                                 got, want):
+                # a_end under lw = -200 underflows to 0 everywhere
+                scale = w.abs().max().item() or 1e-30
+                err = (g - w).abs().max().item()
+                key = f"wkv6 {name} {out}{suffix}"
+                log(f"[kernels] {key}: max abs err {err:.3e}, "
+                    f"{err / scale:.3e} of max |plain| {scale:.3e} (tol "
+                    f"{WKV6_TOL:g})")
+                if g.shape != w.shape or not torch.isfinite(g).all() or \
+                        not err <= WKV6_TOL * scale:
+                    fail(f"{key} disagrees with its plain version")
+                errs[key] = err
+            del want
     # tests/test_kernels.py's shape: chunks short enough that one ulp of
     # |cum| stays well below the tolerance (the chunked form and the
     # sequential product round the decay differently)
@@ -622,7 +645,11 @@ def wkv6_times(dev) -> dict:
     args = [torch.tensor(x, device=dev) for x in
             wkv6_inputs(np.random.default_rng(1), b, nc, q, h, k)]
     ms = cuda_ms(lambda: w_ops.wkv6_intra_chunk(*args), 20)
-    plain_ms = cuda_ms(lambda: w_ref.wkv6_intra_chunk(*args), 5, warmup=1)
+    sub = w_ref.SUB
+    plain_ms = cuda_ms(lambda: w_ref.wkv6_intra_chunk(*args, sub=sub), 5,
+                       warmup=1)
+    pairwise_ms = cuda_ms(lambda: w_ref.wkv6_intra_chunk(*args), 5,
+                          warmup=1)
     seq = [x.reshape(b, nc * q, h, k) for x in (args[0], args[1], args[2],
                                                   args[4])]
     op_ms = cuda_ms(lambda: w_ops.wkv6(*seq, args[5]), 20)
@@ -630,17 +657,23 @@ def wkv6_times(dev) -> dict:
     pairs = q * (q - 1) // 2
     # The least exponentials that keep every exponent <= 0 (the sub-chunk
     # form of chunked GLA/RWKV6 kernels): the rows cut into sub-chunks of
-    # SUB; a pair inside one sub-chunk takes one exp per channel; a pair
+    # sub; a pair inside one sub-chunk takes one exp per channel; a pair
     # (t, j) across sub-chunks factors through the last row e of j's
     # sub-chunk, exp(cum_{t-1}[t] - cum[e]) * exp(cum[e] - cum[j]), one exp
     # per (t, earlier sub-chunk, channel) and one per (j, channel); then
     # r_dec and dec_end, one per element, and a_end, one per channel.
-    # This kernel takes one per (t, j, channel) instead: exps_kernel.
-    sizes = [min(SUB, q - i) for i in range(0, q, SUB)]
+    # The kernel takes that form, so exps_kernel counts the same; its warps
+    # also evaluate the terms of their own sub-chunk that lie on or above
+    # the diagonal (up to the warp's last row), which a select drops:
+    # exps_evaluated counts those too.
+    sizes = [min(sub, q - i) for i in range(0, q, sub)]
     inner = sum(m * (m - 1) // 2 for m in sizes)
     t_side = sum(i * m for i, m in enumerate(sizes))
     exps = blocks * k * (inner + t_side + q + 2 * q + 1)
-    exps_kernel = blocks * k * (pairs + 2 * q + 1)
+    exps_kernel = exps
+    walked = sum(min(8, q - w) * (min(w + 8, q) - 1 - w // sub * sub)
+                 for w in range(0, q, 8))
+    exps_evaluated = blocks * k * (walked + t_side + q + 2 * q + 1)
     # FLOP of that form: per channel, 4 per inner pair (the difference,
     # r * exp, * k, the sum), 2 per crossing pair (a dot product) and 2
     # per factor (its difference and scale); A v, 2 per pair and channel;
@@ -653,7 +686,8 @@ def wkv6_times(dev) -> dict:
     terms = {"operations": max(exps / PEAK_EXP, flops / PEAK_FP32_FLOPS),
              "bytes": nbytes / PEAK_BYTES}
     bound_by = max(terms, key=terms.get)
-    return {"ms": ms, "plain_ms": plain_ms, "op_ms": op_ms,
+    return {"ms": ms, "plain_ms": plain_ms, "pairwise_plain_ms": pairwise_ms,
+            "op_ms": op_ms, "exps_evaluated": exps_evaluated,
             "bound_ms": terms[bound_by] * 1e3, "bound_by": bound_by,
             "exps": exps, "flops": flops, "bytes": nbytes,
             "exps_kernel": exps_kernel,
@@ -773,10 +807,11 @@ def main() -> None:
         f"{not a[0].grad.any().item()}")
     if not (g_err <= F32_TOL and not a[0].grad.any().item()):
         fail("phase2 gradient disagrees with plain autograd")
-    f_errs = flash_checks(dev, rng)
+    f_errs, f_stated = flash_checks(dev, rng)
     w_errs = wkv6_checks(dev, rng)
     report["checks"] = {**checks, **c_errs, "phase2 grad": g_err, **f_errs,
                         **w_errs}
+    report["flash_bf16_vs_round_p_false"] = f_stated
 
     # -- 4. main path: ScaleDocEngine.query() ------------------------------
     t0 = time.perf_counter()
@@ -1011,8 +1046,10 @@ def main() -> None:
     log(f"[times] wkv6_intra_chunk: {wt['ms']:.4f} ms, plain "
         f"{wt['plain_ms']:.4f} ms, bound {wt['bound_ms']:.4f} ms "
         f"({wt['bound_by']}: exp {wt['exp_bound_ms']:.4f} ms for "
-        f"{wt['exps']:.4g} exps in the sub-chunk form, where this kernel "
-        f"takes {wt['exps_kernel']:.4g}; FP32 {wt['flop_bound_ms']:.4f} ms "
+        f"{wt['exps']:.4g} exps in the sub-chunk form, which this kernel "
+        f"takes, evaluating {wt['exps_evaluated']:.4g}; plain pairwise form "
+        f"{wt['pairwise_plain_ms']:.4f} ms; FP32 "
+        f"{wt['flop_bound_ms']:.4f} ms "
         f"for {wt['flops']:.4g} FLOP, bytes {wt['byte_bound_ms']:.4f} ms for "
         f"{wt['bytes']:.4g} B), {rwkv['launches']} launches per from_corpus;"
         f" ops.wkv6 (cumsum, kernel, combine) {wt['op_ms']:.4f} ms; one "

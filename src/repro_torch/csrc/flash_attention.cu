@@ -33,16 +33,21 @@
 // rows past skv or sq and columns past hd are zero-filled by the copy
 // itself (src-size 0). Both products are mma.sync.m16n8k16 bf16 x bf16
 // -> f32: S = Q K^T with K's B fragments from ldmatrix, O += P V with V's
-// from ldmatrix.trans. The rounding points follow flash.py: each bf16 x
-// bf16 product is exact in f32 and sums in f32; the scale is applied to
-// S in f32, never to Q before the product, and is folded with log2(e) so
-// that each exponential is one ex2.approx (MUFU) of s * scale * log2(e)
-// - m (m, the sentinel and alpha live in that base-2 domain; ex2.approx
-// errs by ~2 f32 ulps, far below P's bf16 rounding); m and l are f32 and
-// l sums the f32 probabilities; P is rounded to bf16 only as the A
+// from ldmatrix.trans. The rounding points follow flash.py in all but
+// one place: each bf16 x bf16 product is exact in f32 and sums in f32;
+// the scale is applied to S in f32, never to Q before the product, and is
+// folded with log2(e) so that each exponential is one ex2.approx (MUFU)
+// of s * scale * log2(e) - m (m, the sentinel and alpha live in that
+// base-2 domain; ex2.approx errs by ~2 f32 ulps, far below P's bf16
+// rounding); m and l are f32 and l sums the f32 probabilities; O
+// accumulates in f32. The one difference: P is rounded to bf16 as the A
 // operand of P V, repacked from S's accumulator in registers (it never
-// touches shared memory), and O accumulates in f32. Row max and row sum
-// reduce over the 4 lanes that share a row with two __shfl_xor_sync.
+// touches shared memory), where flash.py and the JAX package's blocked
+// path keep P in f32 for P V (flash.py:44 upcasts V, 59-61 multiply in
+// f32). Its plain version is ref.attention_blocked(..., round_p=True);
+// chip_smoke.py also logs the kernel against round_p=False. Row max and
+// row sum reduce over the 4 lanes that share a row with two
+// __shfl_xor_sync.
 // Tiles wholly outside every row's causal/window range are skipped
 // (exact, as below), and only tiles that cross the diagonal, the window
 // edge or the ragged end skv take the per-element select. The grid runs
@@ -641,9 +646,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int hd, int causal, int window, int q_offset,
                            int bf16, float scale, void* stream) {
   if (b <= 0 || sq <= 0 || skv <= 0 || h <= 0 || hkv <= 0 || h % hkv ||
-      hd <= 0 || hd > 128 || b * h > 65535 || window < 0 || q_offset < 0)
+      hd <= 0 || hd > 128 || window < 0 || q_offset < 0 ||
+      (long long)b * h > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // grid y: the Q tiles for bfloat16, batch x head for float32
+  if (!bf16 && b * h > 65535) return (int)cudaErrorInvalidValue;
   if (bf16) {
     if (hd % 8 || (sq + BQ - 1) / BQ > 65535 ||
         ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)

@@ -21,31 +21,43 @@
 // What bounds it: at the rwkv6-7b embedding path's shape (b=8, s=512 ->
 // nc=4 chunks of Q=128, H=64 heads of K=64; 2,048 blocks) one launch
 // reads and writes 0.50 GB, 0.15 ms at 3.35 TB/s, and that is its
-// bound. The function needs fewer exponentials than this design takes:
-// cut the rows into sub-chunks of 16; a pair (t, j) in different
-// sub-chunks factors through the last row e of j's sub-chunk as
-// exp(cum_{t-1}[t] - cum[e]) * exp(cum[e] - cum[j]), both exponents
-// <= 0, so only pairs inside one sub-chunk need an exp per term: 2.35e8
-// exponentials in all, 0.06 ms at the H100's 16 MUFU results per clock
-// per SM (132 SMs, 1.98 GHz), and ~7.0 GFLOP of FP32, 0.10 ms at 67
-// TFLOP/s. This design evaluates one exponential per (t, j, k) term,
-// b*nc*H*(Q(Q-1)/2*K + 2QK + K) = 1.10e9 of them (0.26 ms), which
-// keeps it simple and exact.
+// bound; its exponentials (below) take 0.06 ms at the H100's 16 MUFU
+// results per clock per SM (132 SMs, 1.98 GHz) and its ~7.0 GFLOP of
+// FP32 0.10 ms at 67 TFLOP/s (chip_smoke.py's wkv6_times counts all
+// three from the shapes).
+//
+// The sub-chunk form. The rows are cut into sub-chunks of SUB = 16; e_s
+// is the last row of sub-chunk s. A pair (t, j) inside one sub-chunk
+// takes one exponential per term, as above. A pair with j in an earlier
+// sub-chunk s factors through e_s:
+//     A[t,j] = sum_k rd[t,s,k] kd[j,k]
+//     rd[t,s,k] = r[t,k] exp(cum_{t-1}[t,k] - cum[e_s,k])
+//     kd[j,k]   = k[j,k] exp(cum[e_s(j),k] - cum[j,k])
+// Both exponents are <= 0 (cum falls with the row), so nothing
+// overflows under lw = -200, and where the product is a normal float
+// neither factor underflows. At the path's shape a launch takes 2.35e8
+// exponentials, against 1.10e9 for one per (t, j, k) term
+// (b*nc*H*K*(Q(Q-1)/2 + 2Q + 1)), the kernel's previous design.
 //
 // Design. The Pallas kernel builds the (Q, Q, 16) pairwise-decay slab in
 // VMEM (1 MiB at Q=128), which does not fit a block's shared memory, so
 // A is never stored here. One block per (b, c, h); four threads per row
-// t, thread `lane` owning the channels lane + 4i (i < K/4). cum, k and v
-// of the chunk sit in shared memory (3 x 32 KB at Q=128, K=64), zero-
-// padded to KP = 16, 32 or 64 columns. Each thread keeps its slice of
-// r[t] and cum_{t-1}[t] and of the output row in registers, walks j over
-// the rows of shared memory, forms its part of A[t, j] on the fly, sums
-// the four parts with two shuffles and accumulates A[t, j] v[j]. The
-// eight rows of a warp walk j up to the warp's last row together (so the
-// shuffles stay convergent); j >= t gives A = 0 by the select. The rows
-// do triangular work, so the warps of a block are unevenly loaded. Then
-// k is scaled in place by exp(cum[Q-1] - cum) and each thread computes
-// s_inj entries as dot products over the Q rows.
+// t, thread `lane` owning the channels lane + 4i (i < K/4). cum, k, v
+// and kd of the chunk sit in shared memory (4 x 32 KB at Q=128, K=64),
+// zero-padded to KP = 16, 32 or 64 columns; kd is computed as the chunk
+// is loaded, from cum in device memory. Each thread keeps its slice of
+// r[t] and cum_{t-1}[t] and of the output row in registers. A warp's
+// eight rows lie in one sub-chunk (16 is a multiple of 8), so its loop
+// bounds are uniform and its shuffles convergent. For each earlier
+// sub-chunk s a thread forms its slice of rd[t, s] (PER exponentials),
+// then for each j of s its part of A[t, j] = rd . kd[j] (PER FMAs), sums
+// the four parts with two shuffles and accumulates A[t, j] v[j]; every
+// such j is below t, so no select. Then the rows of its own sub-chunk,
+// up to the warp's last row, take one expf per term, j >= t giving A = 0
+// by the select. The rows do triangular work, so the warps of a block
+// are unevenly loaded. Then k is scaled in place by exp(cum[Q-1] - cum)
+// and each thread computes s_inj entries as dot products over the Q
+// rows.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -55,9 +67,11 @@ constexpr int LANES = 4;                  // threads per row
 constexpr int ROWS_PER_WARP = 32 / LANES;  // 8
 constexpr int MAX_Q = 128;
 constexpr int MAX_K = 64;
+constexpr int SUB = 16;                   // rows of a sub-chunk
+static_assert(SUB % ROWS_PER_WARP == 0, "a warp's rows in one sub-chunk");
 
 template <int KP>
-constexpr int smem_bytes(int q) { return 3 * q * KP * 4; }
+constexpr int smem_bytes(int q) { return 4 * q * KP * 4; }
 
 template <int KP>
 __global__ void __launch_bounds__(MAX_Q * LANES)
@@ -72,6 +86,7 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
   float* cum_s = smem;                    // (Q, KP)
   float* k_s = cum_s + Q * KP;            // (Q, KP)
   float* v_s = k_s + Q * KP;              // (Q, KP)
+  float* kd_s = v_s + Q * KP;             // (Q, KP): k exp(cum[e] - cum)
 
   const int g = blockIdx.x;               // (b * nc + c) * H + h
   const int h = g % H;
@@ -82,10 +97,15 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
   for (int idx = threadIdx.x; idx < Q * KP; idx += blockDim.x) {
     const int t = idx / KP, ch = idx % KP;
     const bool in = ch < K;
+    const int e = min(t / SUB * SUB + SUB - 1, Q - 1);  // its sub-chunk's
     const size_t off = base + (size_t)t * row_stride + ch;
-    cum_s[idx] = in ? cum[off] : 0.f;
-    k_s[idx] = in ? k[off] : 0.f;
+    const float cv = in ? cum[off] : 0.f;
+    const float kv = in ? k[off] : 0.f;
+    cum_s[idx] = cv;
+    k_s[idx] = kv;
     v_s[idx] = in ? v[off] : 0.f;
+    kd_s[idx] = in ? kv * expf(cum[base + (size_t)e * row_stride + ch] - cv)
+                   : 0.f;
   }
   __syncthreads();
 
@@ -113,11 +133,32 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
   diag += __shfl_xor_sync(0xffffffffu, diag, 1);
   diag += __shfl_xor_sync(0xffffffffu, diag, 2);
 
-  // the warp's rows are warp_first .. warp_first + 7: walk j below the
-  // last of them that exists
+  // the warp's rows are warp_first .. warp_first + 7, all in sub-chunk
+  // s_w: first the earlier sub-chunks, through rd . kd
   const int warp_first = (threadIdx.x / 32) * ROWS_PER_WARP;
+  const int s_w = warp_first / SUB;
+  for (int sc = 0; sc < s_w; ++sc) {
+    const float* ce = cum_s + (sc * SUB + SUB - 1) * KP;
+    float rd[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      rd[i] = rr[i] * expf(ct[i] - ce[lane + LANES * i]);
+    for (int j = sc * SUB; j < sc * SUB + SUB; ++j) {
+      const float* kj = kd_s + j * KP;
+      float a = 0.f;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) a += rd[i] * kj[lane + LANES * i];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      const float* vj = v_s + j * KP;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) acc[i] += a * vj[lane + LANES * i];
+    }
+  }
+  // then the own sub-chunk, one exponential per term, below the last of
+  // the warp's rows that exists
   const int j_end = min(warp_first + ROWS_PER_WARP, Q) - 1;
-  for (int j = 0; j < j_end; ++j) {
+  for (int j = s_w * SUB; j < j_end; ++j) {
     const float* cj = cum_s + j * KP;
     const float* kj = k_s + j * KP;
     float a = 0.f;

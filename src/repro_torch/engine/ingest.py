@@ -40,15 +40,21 @@ totals across preemptions. The manifest, not the checkpoint, is the
 source of truth for data.
 
 A ``fingerprint`` (config digest + params digest + batching geometry +
-corpus digest, with the JAX package's keys and digests, so a store of
-one package resumes in the other) is recorded in the manifest at
-creation and validated on every resume.
+corpus digest, with the JAX package's keys and digests) is recorded in
+the manifest at creation and validated on every resume. The manifest
+stays byte-compatible with the JAX package's, so the arithmetic the
+port's producer runs goes into a note of its own beside it
+(``PRODUCER_NOTE``, see ``producer_note``): a resume under another
+attention path, time-mix mode or kernel revision, or of rows with no
+note (a store the JAX package wrote), raises ``StoreFingerprintError``
+instead of mixing rows of different arithmetic.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+import os
 import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
@@ -58,7 +64,12 @@ import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.engine.executor import HostStager, PrefetchThread
-from repro_torch.engine.store import MemmapStore, StoreWriter
+from repro_torch.config import BLOCK_RWKV6
+from repro_torch.engine.store import (MANIFEST_NAME, MemmapStore,
+                                      StoreFingerprintError, StoreWriter,
+                                      load_manifest)
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.runtime.serve_loop import EmbeddingService
 
 DEFAULT_COMMIT_EVERY_BATCHES = 8
@@ -176,6 +187,51 @@ def ingest_fingerprint(service: EmbeddingService, *,
         "pad_width_to": pad_width_to,
         "data_shards": data_shards,
     }
+
+
+PRODUCER_NOTE = "producer.json"
+
+
+def producer_note(service: EmbeddingService) -> Dict:
+    """The arithmetic of the port's producer, which the manifest's
+    fingerprint does not see: the attention path, the time-mix mode, and
+    the ``REVISION`` of each kernel whose arithmetic the model runs."""
+    model = service.model
+    kinds = set(model.pattern)
+    revisions = {}
+    if kinds - {BLOCK_RWKV6} and model.attn_impl == "flash":
+        revisions["flash_attention"] = flash_ops.REVISION
+    if BLOCK_RWKV6 in kinds and model.rwkv_mode == "kernel":
+        revisions["wkv6"] = wkv6_ops.REVISION
+    return {"attn_impl": model.attn_impl, "rwkv_mode": model.rwkv_mode,
+            "revisions": revisions}
+
+
+def _check_producer_note(directory: Path, note: Dict) -> None:
+    """Raise ``StoreFingerprintError`` when an existing store's note is not
+    ``note``, or when it has rows and no note."""
+    if not (directory / MANIFEST_NAME).exists():
+        return
+    path = directory / PRODUCER_NOTE
+    if path.exists():
+        stored = json.loads(path.read_text())
+        if stored != note:
+            raise StoreFingerprintError(
+                f"store {directory} was written by a producer of other "
+                f"arithmetic:\n  stored:  {stored}\n  current: {note}")
+    elif load_manifest(directory).rows:
+        raise StoreFingerprintError(
+            f"store {directory} has rows and no {PRODUCER_NOTE}: the "
+            "arithmetic that wrote them is unknown")
+
+
+def _write_producer_note(directory: Path, note: Dict) -> None:
+    tmp = directory / (PRODUCER_NOTE + ".tmp")
+    with open(tmp, "w") as f:
+        f.write(json.dumps(note, sort_keys=True))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, directory / PRODUCER_NOTE)
 
 
 # ---------------------------------------------------------------------------
@@ -315,9 +371,13 @@ class Ingestor:
         bs = self.service.batch_size
         fp = dict(self.fingerprint(),
                   corpus_digest=corpus_digest(docs_tokens), n_docs=n)
+        note = producer_note(self.service)
+        _check_producer_note(Path(directory), note)
         writer = StoreWriter.open(directory, dim=self.service.cfg.d_model,
                                   fingerprint=fp,
                                   doc_id_start=doc_id_start)
+        if not (Path(directory) / PRODUCER_NOTE).exists():
+            _write_producer_note(Path(directory), note)
         ckpt_dir = str(Path(directory) / CKPT_DIRNAME)
         row_bytes = self.service.cfg.d_model * 4
         prior = self._restore_job_counters(ckpt_dir)

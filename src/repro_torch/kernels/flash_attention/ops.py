@@ -23,8 +23,12 @@ KERNEL = CudaKernel(
     "flash_attention", "flash_attention_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float])
 
+# the arithmetic's revision, recorded beside every store this kernel
+# writes: 2 is the bf16 kernel on the tensor cores
+REVISION = 2
 MAX_HEAD_DIM = 128          # the widest head the kernel is built for
-MAX_GRID_Y = 65535          # batch * heads blocks along the grid's y
+MAX_GRID_Y = 65535          # blocks along a grid's y
+BLOCK_Q = 64                # query rows of a block, both kernels
 
 
 def _check(q, k, v, window: int, q_offset: int) -> None:
@@ -57,8 +61,12 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
                              f"of 8")
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("bfloat16 q, k and v must be 16-byte aligned")
-    if b * h > MAX_GRID_Y:
+    # the FP32 kernel puts batch * heads on the grid's y, the bf16 kernel
+    # its Q tiles
+    if q.dtype == torch.float32 and b * h > MAX_GRID_Y:
         raise ValueError(f"batch * heads = {b * h} > {MAX_GRID_Y}")
+    if q.dtype == torch.bfloat16 and -(-sq // BLOCK_Q) > MAX_GRID_Y:
+        raise ValueError(f"{-(-sq // BLOCK_Q)} query tiles > {MAX_GRID_Y}")
     if window < 0 or q_offset < 0:
         raise ValueError("window and q_offset must be >= 0")
     skv = k.shape[1]

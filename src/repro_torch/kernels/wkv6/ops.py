@@ -2,8 +2,9 @@
 chunked recurrence built on it (``repro.kernels.wkv6.{wkv6,ops}``).
 
 ``wkv6_intra_chunk`` launches the CUDA kernel for CUDA tensors and
-computes the plain PyTorch version (``ref.wkv6_intra_chunk``) for CPU
-tensors; it never falls back from one to the other. ``wkv6_chunked`` is
+computes its plain PyTorch version (``ref.wkv6_intra_chunk`` in the
+sub-chunk form, ``sub=ref.SUB``) for CPU tensors; it never falls back
+from one to the other. ``wkv6_chunked`` is
 the kernel followed by the inter-chunk combine (plain PyTorch, as the
 JAX package leaves its ``lax.scan`` outside the Pallas kernel), and
 ``wkv6`` the entry the RWKV6 time-mix calls: ``ref.wkv6_by_chunks``
@@ -21,6 +22,9 @@ from repro_torch.kernels.wkv6 import ref
 KERNEL = CudaKernel("wkv6", "wkv6_intra_chunk_launch",
                     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5)
 
+# the arithmetic's revision, recorded beside every store this kernel
+# writes: 2 is the sub-chunk form
+REVISION = 2
 MAX_CHUNK = 128             # the longest chunk (rows of a block)
 MAX_HEAD_DIM = 64           # the widest head (channels of a row)
 
@@ -53,7 +57,7 @@ def wkv6_intra_chunk(r, k, v, cum, lw, u):
     Q, H, K), s_inj (b, nc, H, K, K), a_end (b, nc, H, K), r_dec (b, nc,
     Q, H, K)), all float32 (see ``ref.wkv6_intra_chunk``)."""
     if not r.is_cuda:
-        return ref.wkv6_intra_chunk(r, k, v, cum, lw, u)
+        return ref.wkv6_intra_chunk(r, k, v, cum, lw, u, sub=ref.SUB)
     _check(r, k, v, cum, lw, u)
     b, nc, Q, H, K = r.shape
     y = torch.empty_like(r)

@@ -17,21 +17,10 @@ from repro_torch.kernels.fused_scoring import ops as s_ops
 from repro_torch.kernels.fused_scoring import ref as s_ref
 from repro_torch.kernels.wkv6 import ops as w_ops
 from repro_torch.kernels.wkv6 import ref as w_ref
+from torch_kernel_inputs import (F32, FLASH, FLASH_BF16_PLAIN, LOSS,
+                                 _attention_inputs, _contrastive_inputs,
+                                 _degenerate, _scoring_inputs, _t)
 from torch_wkv6_inputs import wkv6_inputs, wkv6_sequence
-
-F32 = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels.py's f32 tolerance
-# the contrastive losses are sums of up to n LSE terms of size 1/tau ~ 14;
-# tests/test_kernels.py holds the Pallas kernel to its reference with this
-LOSS = dict(rtol=1e-4, atol=1e-5)
-# tests/test_kernels.py's flash attention tolerances
-FLASH = {torch.float32: dict(rtol=2e-5, atol=2e-5),
-         torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
-# the bf16 tensor-core kernel against its plain version, which rounds at
-# the same points (P to bf16 for P V, the output to bf16): the two differ
-# in the order of f32 sums only, which can move a rounding by one bf16
-# ulp; rtol 8e-3 covers one ulp (2^-7 relative at most) at every |out|,
-# atol the outputs near zero
-FLASH_BF16_PLAIN = dict(rtol=8e-3, atol=8e-3)
 
 
 @pytest.fixture
@@ -39,43 +28,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: a CUDA kernel has no CPU mode")
     return torch.device("cuda")
-
-
-def _t(x, device="cpu"):
-    return torch.tensor(np.asarray(x, np.float32), device=device)
-
-
-def _contrastive_inputs(n, p, pos_frac, seed=0, q=None):
-    rng = np.random.default_rng(seed)
-    lead = () if q is None else (q,)
-    zq = rng.normal(size=lead + (p,)).astype(np.float32)
-    zd = rng.normal(size=lead + (n, p)).astype(np.float32)
-    y = (rng.random(lead + (n,)) < pos_frac).astype(np.float32)
-    return zq, zd, y
-
-
-def _degenerate(case, zq, zd, y):
-    if case == "all_pos":
-        y[...] = 1.0
-    elif case == "all_neg":
-        y[...] = 0.0
-    elif case == "tie":
-        y[..., :4] = [1, 0, 1, 0]
-        zd[..., 2, :] = zd[..., 0, :]     # tied weakest-positive candidates
-        zd[..., 3, :] = zd[..., 1, :]     # tied hardest-negative candidates
-        zq[...] = -zd[..., 0, :]          # pushes row 0 (and 2) to the min
-    return zq, zd, y
-
-
-def _scoring_inputs(n, d, h, l, q, seed=0):
-    rng = np.random.default_rng(seed)
-    docs = rng.normal(size=(n, d)).astype(np.float32)
-    ws = [(rng.normal(size=s) / np.sqrt(s[0])).astype(np.float32)
-          for s in [(d, h), (h, h), (h, l)]]
-    bs = [(0.1 * rng.normal(size=s)).astype(np.float32) for s in (h, h, l)]
-    zq = rng.normal(size=(q, l)).astype(np.float32)
-    zq /= np.linalg.norm(zq, axis=1, keepdims=True)
-    return docs, [ws[0], bs[0], ws[1], bs[1], ws[2], bs[2]], zq
 
 
 @pytest.mark.cuda
@@ -163,12 +115,6 @@ def test_executor_on_card_matches_cpu(cuda, kind, tmp_path):
             assert s_ops.KERNEL.launches == before + 3
         outs.append(scores)
     np.testing.assert_allclose(outs[0], outs[1], **F32)
-
-
-def _attention_inputs(b, sq, skv, h, kv, hd, seed=0):
-    rng = np.random.default_rng(seed)
-    return [rng.normal(size=(b, s, n, hd)).astype(np.float32)
-            for s, n in ((sq, h), (skv, kv), (skv, kv))]
 
 
 # (b, sq, skv, h, kv_heads, hd, causal, window, q_offset): the embedding
@@ -331,15 +277,31 @@ WKV6_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", WKV6_CASES)
 def test_wkv6_kernel_matches_plain(cuda, case):
-    """All four outputs to 1e-5 of max |plain| (tests/test_kernels.py's
-    bar for the Pallas kernel)."""
+    """All four outputs against the plain version of the kernel's
+    sub-chunk form, to 1e-5 of max |plain| (tests/test_kernels.py's bar
+    for the Pallas kernel)."""
     *shape, extreme = case
     args = [_t(x, cuda) for x in wkv6_inputs(*shape, extreme=extreme)]
     before = w_ops.KERNEL.launches
     got = w_ops.wkv6_intra_chunk(*args)
     torch.cuda.synchronize()
     assert w_ops.KERNEL.launches == before + 1
-    want = w_ref.wkv6_intra_chunk(*args)
+    want = w_ref.wkv6_intra_chunk(*args, sub=w_ref.SUB)
+    for name, g, w in zip(("y_intra", "s_inj", "a_end", "r_dec"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        err = ((g - w).abs().max() / (w.abs().max() + 1e-9)).item()
+        assert err < 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_matches_the_pairwise_arithmetic(cuda):
+    """At the path's shape, all four outputs against ``sub=None``, one
+    exponential per term as the Pallas kernel takes them, to the same
+    1e-5 of max |plain|."""
+    args = [_t(x, cuda) for x in wkv6_inputs(*WKV6_CASES[0][:5])]
+    got = w_ops.wkv6_intra_chunk(*args)
+    want = w_ref.wkv6_intra_chunk(*args, sub=None)
+    torch.cuda.synchronize()
     for name, g, w in zip(("y_intra", "s_inj", "a_end", "r_dec"), got, want):
         assert g.shape == w.shape and torch.isfinite(g).all(), name
         err = ((g - w).abs().max() / (w.abs().max() + 1e-9)).item()

@@ -23,7 +23,7 @@ from repro_torch.kernels.flash_attention import ops as f_ops
 from repro_torch.kernels.flash_attention import ref as f_ref
 from repro_torch.models import attention as t_attn
 from repro_torch.models import params_from_jax
-from test_torch_cuda import FLASH, _attention_inputs
+from torch_kernel_inputs import FLASH, _attention_inputs
 
 F32 = FLASH[torch.float32]
 
@@ -205,3 +205,23 @@ def test_unported_model_paths_raise():
         with pytest.raises(NotImplementedError):
             build_model(ModelConfig(**{**dict(d_model=16, num_heads=2,
                                               num_kv_heads=2), **bad}))
+
+
+def test_grid_check_follows_each_kernel_y_axis():
+    """The FP32 kernel puts batch * heads on the grid's y (at most
+    65,535), the bf16 kernel its 64-row Q tiles; the check runs on CPU
+    tensors, with no launch."""
+    before = f_ops.KERNEL.launches
+    q = torch.zeros((1, 1, 65536, 8), dtype=torch.bfloat16)
+    f_ops._check(q, q, q, window=0, q_offset=0)
+    q = torch.zeros((1, 1, 65536, 8))
+    with pytest.raises(ValueError, match="batch \\* heads"):
+        f_ops._check(q, q, q, window=0, q_offset=0)
+    f_ops._check(q[:, :, :65535], q[:, :, :65535], q[:, :, :65535],
+                 window=0, q_offset=0)
+    q = torch.zeros((1, 64 * 65535 + 1, 1, 8), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="query tiles"):
+        f_ops._check(q, q, q, window=0, q_offset=0)
+    f_ops._check(q[:, :64 * 65535], q[:, :64 * 65535], q[:, :64 * 65535],
+                 window=0, q_offset=0)
+    assert f_ops.KERNEL.launches == before

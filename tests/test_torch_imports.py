@@ -78,3 +78,20 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert ScoringExecutor(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "tests").glob("test_torch_*.py")
+    if p.name != "test_torch_cuda.py"))
+def test_cpu_tests_import_nothing_from_the_card_tests(path):
+    """The CPU parity tests take their shared inputs and tolerances from
+    tests/torch_kernel_inputs.py, never from the card tests' module."""
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert "test_torch_cuda" not in names, path

@@ -21,8 +21,8 @@ from repro_torch.engine import executor as t_exec
 from repro_torch.kernels.contrastive import ops as c_ops
 from repro_torch.kernels.contrastive import ref as c_ref
 from repro_torch.kernels.fused_scoring import ops as s_ops
-from test_torch_cuda import (F32, LOSS, _contrastive_inputs, _degenerate,
-                             _scoring_inputs, _t)
+from torch_kernel_inputs import (F32, LOSS, _contrastive_inputs,
+                                 _degenerate, _scoring_inputs, _t)
 
 # ---------------------------------------------------------------------------
 # contrastive: plain version vs the Pallas kernel (interpret mode)

@@ -37,7 +37,9 @@ from repro_torch.engine import (Ingestor, MemmapStore, ScaleDocEngine,
                                 SimulatedOracle, StoreFingerprintError,
                                 StoreWriter, build_index, ingest_fingerprint,
                                 load_manifest)
+from repro_torch.engine.ingest import PRODUCER_NOTE, producer_note
 from repro_torch.engine.store import DATA_NAME
+from repro_torch.models import build_model
 from repro_torch.models import common as t_common
 from repro_torch.models import params_from_jax
 from repro_torch.runtime.serve_loop import EmbeddingService
@@ -269,6 +271,68 @@ def test_ingest_guards_producer_and_corpus(services, docs, tmp_path):
         ing.ingest(other, tmp_path)
     with pytest.raises(NotImplementedError):
         Ingestor(t_svc, mesh=object())
+
+
+def _smoke_service(arch, **modes):
+    cfg = t_smoke(arch)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    return EmbeddingService(cfg, params, batch_size=4, device="cpu", **modes)
+
+
+def _smoke_docs(vocab):
+    rng = np.random.default_rng(3)
+    return [rng.integers(1, vocab, size=10).astype(np.int32)
+            for _ in range(16)]
+
+
+@pytest.mark.parametrize("arch,modes,revisions", [
+    ("rwkv6-7b", dict(rwkv_mode="direct"), {"wkv6": 2}),
+    ("llama3-8b", dict(attn_impl="blocked"), {"flash_attention": 2})])
+def test_resume_under_other_arithmetic_raises(arch, modes, revisions,
+                                              tmp_path):
+    """The manifest's fingerprint does not see the attention path or the
+    time-mix mode; the producer note beside it does."""
+    svc = _smoke_service(arch)
+    docs = _smoke_docs(svc.cfg.vocab_size)
+    ing = Ingestor(svc, commit_every_batches=1)
+    assert ing.ingest(docs, tmp_path, max_docs=8).interrupted
+    note = json.loads((tmp_path / PRODUCER_NOTE).read_text())
+    assert note == producer_note(svc)
+    assert note["revisions"] == revisions
+    other = _smoke_service(arch, **modes)
+    other.params = svc.params
+    assert ingest_fingerprint(other, commit_every_batches=1,
+                              pad_width_to=16, data_shards=1) == \
+        ingest_fingerprint(svc, commit_every_batches=1, pad_width_to=16,
+                           data_shards=1)
+    with pytest.raises(StoreFingerprintError, match="other arithmetic"):
+        Ingestor(other, commit_every_batches=1).ingest(docs, tmp_path)
+    assert len(MemmapStore.open(tmp_path)) == 8
+
+
+def test_resume_of_rows_without_a_producer_note_raises(tmp_path):
+    svc = _smoke_service("rwkv6-7b")
+    docs = _smoke_docs(svc.cfg.vocab_size)
+    ing = Ingestor(svc, commit_every_batches=1)
+    ing.ingest(docs, tmp_path, max_docs=8)
+    (tmp_path / PRODUCER_NOTE).unlink()
+    with pytest.raises(StoreFingerprintError, match="no producer.json"):
+        ing.ingest(docs, tmp_path)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "llama3-8b"])
+def test_unchanged_resume_at_smoke_is_bit_identical(arch, tmp_path):
+    svc = _smoke_service(arch)
+    docs = _smoke_docs(svc.cfg.vocab_size)
+    ing = Ingestor(svc, commit_every_batches=1)
+    full = ing.ingest(docs, tmp_path / "full")
+    assert not full.interrupted
+    assert ing.ingest(docs, tmp_path / "killed", max_docs=6).interrupted
+    resumed = ing.ingest(docs, tmp_path / "killed")
+    assert not resumed.interrupted and resumed.stats.resumed_rows == 4
+    assert _bin_bytes(tmp_path / "killed") == _bin_bytes(tmp_path / "full")
+    assert (tmp_path / "killed" / PRODUCER_NOTE).read_bytes() == \
+        (tmp_path / "full" / PRODUCER_NOTE).read_bytes()
 
 
 def test_writer_truncates_torn_tail(tmp_path):

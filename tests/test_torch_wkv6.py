@@ -9,6 +9,8 @@ interpret mode. The CUDA kernel itself is held against the plain
 version on the card by test_torch_cuda.py. Tolerance: 1e-5 of max |ref|
 in float32, tests/test_kernels.py's bar for the Pallas kernel.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,6 +56,69 @@ def test_plain_intra_chunk_matches_pallas(shape, decay):
         assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
         assert torch.isfinite(g).all(), name
         assert _rel_err(g, w) < REL, (name, _rel_err(g, w))
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_intra(shape, decay):
+    """The Pallas kernel's four outputs (interpret mode) on the inputs of
+    ``shape`` and ``decay``, as numpy arrays."""
+    args = wkv6_inputs(*shape, seed=sum(shape), extreme=decay == "extreme")
+    return [np.asarray(w) for w in
+            j_intra(*map(jnp.array, args), interpret=True)]
+
+
+@pytest.mark.parametrize("shape", INTRA_SHAPES)
+@pytest.mark.parametrize("decay", ["random", "extreme"])
+def test_sub_chunk_form_matches_pallas(shape, decay):
+    """The CUDA kernel's plain version (``sub=ref.SUB``): all four
+    outputs, against the Pallas kernel in interpret mode."""
+    args = wkv6_inputs(*shape, seed=sum(shape), extreme=decay == "extreme")
+    got = ref.wkv6_intra_chunk(*map(torch.tensor, args), sub=ref.SUB)
+    names = ("y_intra", "s_inj", "a_end", "r_dec")
+    for name, g, w in zip(names, got, _pallas_intra(shape, decay)):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) < REL, (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("shape", INTRA_SHAPES + [(1, 2, 37, 2, 16)])
+@pytest.mark.parametrize("decay", ["random", "extreme"])
+def test_sub_chunk_form_matches_the_pairwise_form(shape, decay):
+    """``sub=16`` against ``sub=None`` (one exponential per term), all
+    four outputs, also at a chunk of three sub-chunks, the last ragged."""
+    args = [torch.tensor(a) for a in
+            wkv6_inputs(*shape, seed=sum(shape), extreme=decay == "extreme")]
+    got = ref.wkv6_intra_chunk(*args, sub=16)
+    want = ref.wkv6_intra_chunk(*args, sub=None)
+    for name, g, w in zip(("y_intra", "s_inj", "a_end", "r_dec"), got, want):
+        assert tuple(g.shape) == tuple(w.shape), name
+        assert _rel_err(g, w) < REL, (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("b,s,H,K,chunk", [(1, 64, 2, 16, 64),
+                                           (2, 48, 2, 16, 48),
+                                           (1, 37, 2, 16, 128)])
+def test_kernel_mode_on_cpu_matches_jax_sequential(b, s, H, K, chunk):
+    """``ops.wkv6`` on the CPU, the sub-chunk form, over chunks of two to
+    four sub-chunks (the last ragged at 48 and 37) against JAX's
+    sequential ``ref_wkv6``. Chunks this short keep the rounding of the
+    within-chunk cumsum, which the chunked forms share, below the bar."""
+    r, k, v, lw, u = wkv6_sequence(b, s, H, K, seed=s + K)
+    got = ops.wkv6(*map(torch.tensor, (r, k, v, lw, u)), chunk=chunk)
+    want = j_ref.ref_wkv6(*map(jnp.asarray, (r, k, v, lw, u)))
+    assert got.shape == (b, s, H, K) and torch.isfinite(got).all()
+    assert _rel_err(got, want) < REL
+
+
+@pytest.mark.parametrize("b,s,H,K", [(1, 256, 2, 16), (2, 200, 2, 32)])
+def test_kernel_mode_on_cpu_matches_direct_at_the_default_chunk(b, s, H, K):
+    """At the default chunk of 128 (s=200: two chunks of 100) the
+    cumsum's rounding moves every chunked form from the sequential
+    recurrence, and torch's cumsum from jnp's, by ~2e-5; on one cumsum
+    the two intra-chunk arithmetics, ``ops.wkv6`` (``sub=16``) and the
+    direct scan (``sub=None``), agree to the bar."""
+    args = [torch.tensor(a) for a in wkv6_sequence(b, s, H, K, seed=s + K)]
+    assert _rel_err(ops.wkv6(*args), ref.wkv6_by_chunks(*args)) < REL
 
 
 @pytest.mark.parametrize("b,s,H,K,chunk", [(2, 64, 2, 16, 16),
