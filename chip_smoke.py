@@ -11,7 +11,11 @@ Phases, each of which exits non-zero when it fails:
                fused scoring at D=4096, H=512, L=128 over an 8192-doc tile
                for Q in {1, 4, 5} (and its Q=1 single-query form);
                contrastive at (Q=4, n=128, p=64) and (Q=1, n=512, p=256),
-               all-positive, all-negative and tied batches; the phase-2
+               all-positive, all-negative and tied batches (bellwether
+               candidates tied within one 8-row anchor block and across
+               blocks), n and p that cut its row blocks and tiles
+               raggedly, a batch whose every U(i) is empty, and a second
+               call on the same inputs giving the same bits; the phase-2
                autograd.Function's gradient against plain autograd;
                flash attention against the masked-einsum oracle at the
                offline path's shape (b=8, s=512, 32 heads over 8 KV heads,
@@ -35,7 +39,12 @@ Phases, each of which exits non-zero when it fails:
   5. times   — each kernel and its plain version with CUDA events at the
                main path's shapes, their bounds, the per-stage split of
                one scoring pass, and the train / score / calibrate split of
-               one query;
+               one query; the contrastive kernel's device time per call
+               (a replayed CUDA graph; torch.profiler per kernel) at
+               (Q=4, n=128, p=64) and (Q=1, n=512, p=256) beside the time
+               of one ops.contrastive_losses call, host included; one
+               training run's mean phase-1 and phase-2 step,
+               synchronized;
   6. offline — the offline path: ScaleDocEngine.from_corpus with an
                EmbeddingService over llama3-8b at full width (32 layers,
                bf16, weights drawn on the card from a seed) into a store of
@@ -696,6 +705,122 @@ def wkv6_times(dev) -> dict:
             "byte_bound_ms": nbytes / PEAK_BYTES * 1e3}
 
 
+def graph_ms(fn, calls: int = 50, replays: int = 20) -> float:
+    """Device time per call of ``fn``: ``calls`` back-to-back calls
+    captured in one CUDA graph, replayed ``replays`` times between CUDA
+    events, so no host launch overhead sits between the kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def profiler_ms(fn, names, calls: int = 20) -> dict:
+    """Each named kernel's device time per call of ``fn`` from
+    torch.profiler's CUDA activity; "not measured" where the trace holds
+    no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        total = sum(getattr(e, "device_time_total", 0.0)
+                    for e in prof.key_averages() if name in e.key)
+        out[name] = total / calls / 1e3 if total > 0 else "not measured"
+    return out
+
+
+def contrastive_times(args) -> dict:
+    """The contrastive kernel on ``args`` (z_q, z_d, y): its device time
+    per call from a replayed graph and per kernel from the profiler, the
+    time of one ops.contrastive_losses call with the host's work in it,
+    its plain version's, and its bound."""
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.contrastive import ref as c_ref
+    q, n, p = args[1].shape
+    call = lambda: c_ops.contrastive_losses(*args, 0.07, 0.2)
+    prof = profiler_ms(call, ("contrastive_rows_kernel",
+                              "contrastive_finish_kernel"))
+    # pairwise and query dots, row norms and divides, and the online LSEs
+    flops = q * (2 * n * n * p + 2 * n * p + 3 * n * p + 4 * n * n)
+    nbytes = 4 * (q * n * p + q * p + q * n + q * 4)
+    terms = {"operations": flops / PEAK_FP32_FLOPS,
+             "bytes": nbytes / PEAK_BYTES}
+    bound_by = max(terms, key=terms.get)
+    calls = 50
+    return {"device_ms": graph_ms(call, calls), "graph_calls": calls,
+            "profiler_rows_ms": prof["contrastive_rows_kernel"],
+            "profiler_finish_ms": prof["contrastive_finish_kernel"],
+            "call_ms": cuda_ms(call, 200),
+            "plain_ms": cuda_ms(lambda: c_ref.ref_losses(*args, 0.07, 0.2),
+                                50),
+            "bound_ms": terms[bound_by] * 1e3, "bound_by": bound_by,
+            "flops": flops, "bytes": nbytes}
+
+
+def train_step_split(engine, args) -> dict:
+    """One engine._train_padded run on ``args``, with a synchronize at
+    the start of every step's loss: the mean and median ms of a phase-1
+    and of a phase-2 step (each step from its loss to the next one's, so
+    the last step, which ends in the run's own epilogue, is left out),
+    the run's set-up before the first step, and the whole run."""
+    import numpy as np
+    import torch
+    from repro_torch.core import trainer
+    marks = []
+
+    def timed(fn, phase):
+        def step(*a, **k):
+            torch.cuda.synchronize()
+            marks.append((phase, time.perf_counter()))
+            return fn(*a, **k)
+        return step
+
+    plain = trainer._loss_phase1, trainer._loss_phase2
+    trainer._loss_phase1 = timed(plain[0], 1)
+    trainer._loss_phase2 = timed(plain[1], 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        engine._train_padded(*args)
+        torch.cuda.synchronize()
+    finally:
+        trainer._loss_phase1, trainer._loss_phase2 = plain
+    out = {"run_ms": 1e3 * (time.perf_counter() - t0),
+           "setup_ms": 1e3 * (marks[0][1] - t0),
+           "steps_ms": 1e3 * (marks[-1][1] - marks[0][1])}
+    for phase in (1, 2):
+        ms = [1e3 * (b[1] - a[1]) for a, b in zip(marks, marks[1:])
+              if a[0] == phase]
+        out[f"phase{phase}_steps"] = len(ms)
+        out[f"phase{phase}_mean_ms"] = float(np.mean(ms))
+        out[f"phase{phase}_median_ms"] = float(np.median(ms))
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -778,24 +903,52 @@ def main() -> None:
             zd[:, 2] = zd[:, 0]
             zd[:, 3] = zd[:, 1]
             zq[:] = -zd[:, 0]
+        elif case == "tie_far":
+            # tied bellwether candidates in different 8-row anchor blocks
+            y[:, [0, 9]] = 1
+            y[:, [1, 17]] = 0
+            zd[:, 9] = zd[:, 0]
+            zd[:, 17] = zd[:, 1]
+            zq[:] = zd[:, 1] - zd[:, 0]
+        elif case == "empty_u":          # n = 2, one positive
+            y[:] = 0
+            y[:, 0] = 1
         return t(zq), t(zd), t(y)
 
+    # the path's shape and the kernel's limits with every degenerate case;
+    # n and p that cut the 8-row anchor blocks, the 256-row tiles and the
+    # 32-column tiles raggedly; the n = 2 batch whose every U(i) is empty
+    main_cases = ("mixed", "all_pos", "all_neg", "tie", "tie_far")
+    c_cases = [(q, n, p, c) for q, n, p in ((4, 128, 64), (1, 512, 256))
+               for c in main_cases]
+    c_cases += [(q, n, p, c) for q, n, p in ((2, 1, 5), (2, 7, 1),
+                                             (3, 100, 5), (2, 129, 256),
+                                             (1, 511, 1))
+                for c in ("mixed", "tie_far") if n >= 18 or c == "mixed"]
+    c_cases.append((3, 2, 5, "empty_u"))
     c_errs = {}
-    for q, n, p in ((4, 128, 64), (1, 512, 256)):
-        for case in ("mixed", "all_pos", "all_neg", "tie"):
-            args = contrastive_case(q, n, p, case)
-            got = c_ops.contrastive_losses(*args, 0.07, 0.2)
-            want = c_ref.ref_losses(*args, 0.07, 0.2)
-            if not torch.isfinite(got).all():
-                fail(f"contrastive {case} Q={q} n={n} p={p}: non-finite")
-            ok = torch.allclose(got, want, **LOSS_TOL)
-            err = (got - want).abs().max().item()
-            c_errs[f"contrastive Q={q} n={n} p={p} {case}"] = err
-            log(f"[kernels] contrastive Q={q} n={n} p={p} {case}: max abs "
-                f"err {err:.3e} (rtol {LOSS_TOL['rtol']:g}, "
-                f"atol {LOSS_TOL['atol']:g})")
-            if not ok:
-                fail(f"contrastive {case} Q={q} n={n} p={p} disagrees")
+    for q, n, p, case in c_cases:
+        args = contrastive_case(q, n, p, case)
+        got = c_ops.contrastive_losses(*args, 0.07, 0.2)
+        want = c_ref.ref_losses(*args, 0.07, 0.2)
+        if not torch.isfinite(got).all():
+            fail(f"contrastive {case} Q={q} n={n} p={p}: non-finite")
+        ok = torch.allclose(got, want, **LOSS_TOL)
+        err = (got - want).abs().max().item()
+        c_errs[f"contrastive Q={q} n={n} p={p} {case}"] = err
+        log(f"[kernels] contrastive Q={q} n={n} p={p} {case}: max abs "
+            f"err {err:.3e} (rtol {LOSS_TOL['rtol']:g}, "
+            f"atol {LOSS_TOL['atol']:g})")
+        if not ok:
+            fail(f"contrastive {case} Q={q} n={n} p={p} disagrees")
+        if case == "empty_u" and got[:, 1].any():
+            fail("contrastive: a batch with no valid anchor has supcon != 0")
+        if case == "mixed" and not torch.equal(
+                got, c_ops.contrastive_losses(*args, 0.07, 0.2)):
+            fail(f"contrastive Q={q} n={n} p={p}: two calls on the same "
+                 f"inputs differ")
+    log(f"[kernels] contrastive: {len(c_cases)} cases; a second call on "
+        f"each mixed case's inputs gave the same bits")
     args = contrastive_case(4, 128, 64, "mixed")
     a = [args[0].clone().requires_grad_(), args[1].clone().requires_grad_()]
     b = [args[0].clone().requires_grad_(), args[1].clone().requires_grad_()]
@@ -882,16 +1035,19 @@ def main() -> None:
                        + lat + TILE)
     fused_bound = max(fused_flops / PEAK_FP32_FLOPS,
                       fused_bytes / PEAK_BYTES) * 1e3
-    args = contrastive_case(4, 128, 64, "mixed")
-    con_ms = cuda_ms(lambda: c_ops.contrastive_losses(*args, 0.07, 0.2), 200)
-    con_plain_ms = cuda_ms(lambda: c_ref.ref_losses(*args, 0.07, 0.2), 50)
-    qn, nn_, pp = 4, 128, 64
-    # pairwise and query dots, row norms and divides, and the online LSEs
-    con_flops = qn * (2 * nn_ * nn_ * pp + 2 * nn_ * pp + 3 * nn_ * pp
-                      + 4 * nn_ * nn_)
-    con_bytes = 4 * (qn * nn_ * pp + qn * pp + qn * nn_ + qn * 4)
-    con_bound = max(con_flops / PEAK_FP32_FLOPS,
-                    con_bytes / PEAK_BYTES) * 1e3
+    ct = {f"Q={q} n={n} p={p}": contrastive_times(
+        contrastive_case(q, n, p, "mixed"))
+        for q, n, p in ((4, 128, 64), (1, 512, 256))}
+    for shape, c in ct.items():
+        log(f"[times] contrastive {shape}: device time per call "
+            f"{c['device_ms']:.5f} ms (a replayed CUDA graph of "
+            f"{c['graph_calls']} back-to-back calls); torch.profiler, per "
+            f"call: rows kernel {c['profiler_rows_ms']} ms, finish kernel "
+            f"{c['profiler_finish_ms']} ms; one ops.contrastive_losses call "
+            f"(host included, CUDA events over 200) {c['call_ms']:.5f} ms; "
+            f"plain {c['plain_ms']:.4f} ms; bound {c['bound_ms']:.6f} ms "
+            f"({c['bound_by']})")
+    con = ct["Q=4 n=128 p=64"]
     n_q = len(queries)
     kernels = [
         {"name": "fused_scoring", "route": "cuda",
@@ -908,9 +1064,8 @@ def main() -> None:
          "replaces": "src/repro/kernels/contrastive/contrastive.py:110",
          "launches": launches["contrastive"],
          "max_abs_err": max(c_errs.values()),
-         "ms": con_ms, "plain_ms": con_plain_ms, "bound_ms": con_bound,
-         "bound_by": ("operations" if con_flops / PEAK_FP32_FLOPS
-                      >= con_bytes / PEAK_BYTES else "bytes"),
+         "ms": con["device_ms"], "plain_ms": con["plain_ms"],
+         "bound_ms": con["bound_ms"], "bound_by": con["bound_by"],
          "library_ms": None},
     ]
     for k in kernels:
@@ -934,6 +1089,10 @@ def main() -> None:
     engine._train_padded([1], [q0.embed], [store.get(idx)], [q0.truth[idx]])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - tt
+    steps = train_step_split(engine, ([1], [q0.embed], [store.get(idx)],
+                                      [q0.truth[idx]]))
+    log(f"[times] one _train_padded run, synchronized at every step: "
+        f"{json.dumps(steps)}")
     tc = time.perf_counter()
     calibrate_thresholds(scores, CachedOracle(SimulatedOracle(q0.truth)),
                          engine.cascade_cfg, np.random.default_rng(1))
@@ -943,10 +1102,9 @@ def main() -> None:
               "query_wall_seconds": results[0]["wall_seconds"]}
     log(f"[times] one query's stages: {json.dumps(stages)}")
     report["times"] = {"kernels": kernels, "scoring_pass": split,
-                       "query_stages": stages,
+                       "query_stages": stages, "train_steps": steps,
                        "fused_flops": fused_flops, "fused_bytes": fused_bytes,
-                       "contrastive_flops": con_flops,
-                       "contrastive_bytes": con_bytes}
+                       "contrastive": ct}
 
     # -- 6. offline path: from_corpus over llama3-8b ----------------------
     del engine, store, corpus, docs

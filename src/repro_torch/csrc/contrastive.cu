@@ -10,21 +10,64 @@
 // the query, first index on a tie) -> out[q] = [qsim, supcon, polar,
 // lam * supcon + (1 - lam) * polar].
 //
-// What bounds it: ~2 MFLOP per lane at n=128, p=64, so a launch is bound
-// by launch latency and by the serial depth of its reductions, never by
-// bytes or arithmetic.
+// What bounds it: ~2 MFLOP per lane at n=128, p=64 (0.00013 ms at the
+// FP32 peak for Q=4), so a launch is bound by launch latency and by the
+// serial depth of its reductions, never by bytes or arithmetic. The
+// design therefore spreads each lane over many blocks and keeps every
+// chain of dependent steps short.
 //
-// Design. One block per lane (grid = Q). The Pallas kernel holds the
-// whole (n, n) similarity matrix in VMEM; at n=512 it does not fit a
-// block's shared memory, so no row of it is ever stored: each warp owns
-// anchor rows and folds every similarity into online log-sum-exp states
-// as it is computed (the bellwether rows ride along when the warp's
-// anchor is a bellwether). Normalized rows go to a scratch buffer in
-// global memory (L1/L2-resident at these sizes). Empty masks give an LSE
-// of -inf, as the Pallas kernel's _lse does, and every degenerate case
-// (no positives, no negatives, an anchor with empty U(i)) is masked with
-// a select, never a multiply by a 0/1 mask, so an inf never meets a 0.
-// Takes every shape the Pallas kernel takes: n <= 512, p <= 256.
+// Design. Two kernels behind one entry point, on one stream.
+//  rows:   grid (Q, ceil(n / R)), R = 8 anchor rows a block (64 blocks at
+//          the training path's Q=4, n=128; 64 at Q=1, n=512). Every block
+//          of a lane
+//          1. issues at once every load that waits on nothing: the first
+//             tile of rows, the labels, its R anchor rows (warp w: anchor
+//             w) and z_q; normalizes z_q (every warp alike) and the
+//             anchors into shared memory;
+//          2. streams all n rows of the lane through shared memory in
+//             tiles of 256 rows x 32 columns (row stride 33, so threads
+//             reading different rows hit different banks; the next tile
+//             is fetched into registers while this one is used), and
+//             each thread, one row j, accumulates in registers |z_j|^2,
+//             z_j . zqn and the R dot products z_j . zan_r against the
+//             normalized anchors: sims_q[j] = (z_j . zqn / |z_j|) / tau
+//             and sims[r][j] = (z_j . zan_r / |z_j|) / tau. No pair
+//             needs a warp reduction;
+//          3. picks the bellwethers i_pos / i_neg from sims_q (warp 0,
+//             first index on a tie). sims_q comes from the same code in
+//             every block, independent of blockIdx.y, with the same
+//             summation order, so every block holds the same bits and
+//             agrees on the bellwethers. Block 0 of the lane also folds
+//             qsim (warp 1);
+//          4. warp w folds anchor i0 + w's row of sims (from shared
+//             memory, lane-strided over j) into online log-sum-exp
+//             states: U (same label, j != i), A (j != i) and, where the
+//             anchor is a bellwether, the polar states with the diagonal
+//             included (as the Pallas kernel's `ones` mask does); then one
+//             warp merge per state, and lane 0 writes (per_anchor, valid)
+//             and, for a bellwether, its polar term.
+//  finish: grid Q. Sums where(valid, per_anchor, 0) over the anchors in
+//          index order (one thread, a fixed order, no atomics: two calls
+//          on the same inputs give the same bits) and writes out[q].
+// Partials, float32 (Q, 2n + 4) a call: [per_anchor (n) | valid as 0/1
+// (n) | qsim, n_pos, loss_p, loss_n]. Every slot is written by exactly one
+// block of the rows kernel.
+//
+// Shared memory of a rows block (static, the same at every shape):
+// tile 256 x 33 floats (33.8 KB; reused as the (R, 512) sims after the
+// row pass), normalized anchors 256 x 8 (8 KB), zqn 1 KB, sims_q 2 KB,
+// labels 0.5 KB: 45.6 KB at n=128, p=64 and at n=512, p=256 alike; a
+// lane of n=512, p=256 (512 KB) never has to fit, since it streams.
+//
+// The arithmetic is the Pallas kernel's; only the order of f32 sums and
+// where the norms divide differ (dot products of raw rows with normalized
+// anchors, divided by |z_j|), so the plain PyTorch version
+// (kernels/contrastive/ref.py, ref_losses) is the kernel's plain version.
+// Empty masks give an LSE of -inf, as the Pallas kernel's _lse does, and
+// every degenerate case (no positives, no negatives, an anchor with
+// empty U(i)) is masked with a select, never a multiply by a 0/1 mask, so
+// an inf never meets a 0. Takes every shape the Pallas kernel takes:
+// n <= 512, p <= 256, any Q.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -32,9 +75,17 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int R = WARPS;               // anchor rows a block: one warp each
+constexpr int TJ = THREADS;            // rows a tile: one thread each
+constexpr int PK = 32;                 // columns a tile
+constexpr int ITEMS = TJ * PK / THREADS;
 constexpr int MAX_N = 512;
 constexpr int MAX_P = 256;
+constexpr int FINISH_THREADS = 128;
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(MAX_N <= 2 * TJ, "a thread holds at most two rows");
+static_assert(R * MAX_N <= TJ * (PK + 1), "the sims reuse the tile");
+static_assert(MAX_P / 32 == WARPS, "warp w writes zqn's w-th 32 columns");
 
 struct Lse {
   float m, s;   // running max and sum of exp(v - m); empty = (-inf, 0)
@@ -93,72 +144,154 @@ __device__ __forceinline__ bool better_max(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+// Columns [k0, k0 + PK) of the tile's rows into registers: warp w takes
+// rows w, w + 8, ..., lane c column k0 + c (one coalesced row a load).
+__device__ __forceinline__ void fetch(float (&v)[ITEMS],
+                                      const float* __restrict__ zd, int j0,
+                                      int rows, int p, int k0) {
+  const int warp = threadIdx.x / 32, c = k0 + threadIdx.x % 32;
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    const int r = u * WARPS + warp;
+    v[u] = (r < rows && c < p) ? __ldg(zd + (size_t)(j0 + r) * p + c)
+                               : 0.0f;
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
-contrastive_kernel(const float* __restrict__ zq, const float* __restrict__ zd,
-                   const float* __restrict__ y, float* zdn,
-                   float* __restrict__ out, int n, int p, float tau,
-                   float lam) {
+contrastive_rows_kernel(const float* __restrict__ zq,
+                        const float* __restrict__ zd,
+                        const float* __restrict__ y, float* __restrict__ part,
+                        int n, int p, float tau) {
+  __shared__ __align__(16) float tile_s[TJ * (PK + 1)];
+  __shared__ __align__(16) float anc_s[MAX_P * R];   // [k][r]
   __shared__ float zqn_s[MAX_P];
   __shared__ float simq_s[MAX_N];
-  __shared__ float row_s[WARPS][MAX_P];
-  __shared__ float sup_sum_s[WARPS];
-  __shared__ int sup_valid_s[WARPS];
-  __shared__ float scal_s[4];   // |z_q|, qsim, loss_p, loss_n
-  __shared__ int int_s[4];      // i_pos, i_neg, n_pos
+  __shared__ bool pos_s[MAX_N];
+  __shared__ int bell_s[2];          // i_pos, i_neg
 
-  const int lane_id = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  zq += (size_t)lane_id * p;
-  zd += (size_t)lane_id * n * p;
-  y += (size_t)lane_id * n;
-  zdn += (size_t)lane_id * n * p;
-  out += (size_t)lane_id * 4;
+  const int i0 = blockIdx.y * R;
+  zq += (size_t)blockIdx.x * p;
+  zd += (size_t)blockIdx.x * n * p;
+  y += (size_t)blockIdx.x * n;
+  part += (size_t)blockIdx.x * (2 * n + 4);
 
-  // 1. zqn = zq / sqrt(max(|zq|^2, 1e-16))
-  if (warp == 0) {
-    float ss = 0.0f;
-    for (int k = lane; k < p; k += 32) ss = fmaf(zq[k], zq[k], ss);
-    ss = warp_sum(ss);
-    if (lane == 0) scal_s[0] = sqrtf(fmaxf(ss, 1e-16f));
+  // 1. every load that needs nothing before it is issued at once: the
+  //    first tile of rows, the labels, the block's anchor row (warp w:
+  //    anchor i0 + w) and z_q (every warp, which also computes |z_q|)
+  const int kch = (p + PK - 1) / PK, chunks = (n + TJ - 1) / TJ * kch;
+  float v[ITEMS];
+  fetch(v, zd, 0, min(n, TJ), p, 0);
+  const int i = i0 + warp;
+  float a[MAX_P / 32], zv[MAX_P / 32];
+#pragma unroll
+  for (int u = 0; u < MAX_P / 32; ++u) {
+    const int k = lane + 32 * u;
+    a[u] = (i < n && k < p) ? zd[(size_t)i * p + k] : 0.0f;
+    zv[u] = k < p ? zq[k] : 0.0f;
   }
-  __syncthreads();
-  for (int k = tid; k < p; k += THREADS) zqn_s[k] = zq[k] / scal_s[0];
-  __syncthreads();
-
-  // 2. normalized rows (one warp per row) and sims_q = (zdn . zqn) / tau
-  for (int j = warp; j < n; j += WARPS) {
-    const float* row = zd + (size_t)j * p;
-    float ss = 0.0f;
-    for (int k = lane; k < p; k += 32) ss = fmaf(row[k], row[k], ss);
-    const float nrm = sqrtf(fmaxf(warp_sum(ss), 1e-16f));
-    float dot = 0.0f;
-    for (int k = lane; k < p; k += 32) {
-      const float v = row[k] / nrm;
-      zdn[(size_t)j * p + k] = v;
-      dot = fmaf(v, zqn_s[k], dot);
+#pragma unroll
+  for (int u = 0; u < MAX_N / THREADS; ++u) {
+    const int j = tid + THREADS * u;
+    if (j < n) pos_s[j] = y[j] > 0.5f;
+  }
+  float sa = 0.0f, sq = 0.0f;
+#pragma unroll
+  for (int u = 0; u < MAX_P / 32; ++u) {
+    sa = fmaf(a[u], a[u], sa);
+    sq = fmaf(zv[u], zv[u], sq);
+  }
+  const float na = sqrtf(fmaxf(warp_sum(sa), 1e-16f));
+  const float nq = sqrtf(fmaxf(warp_sum(sq), 1e-16f));
+#pragma unroll
+  for (int u = 0; u < MAX_P / 32; ++u) {
+    const int k = lane + 32 * u;
+    if (k < p) {
+      anc_s[k * R + warp] = a[u] / na;
+      if (u == warp) zqn_s[k] = zv[u] / nq;
     }
-    dot = warp_sum(dot);
-    if (lane == 0) simq_s[j] = dot / tau;
   }
-  __syncthreads();   // also publishes the zdn rows to the whole block
 
-  // 3. qsim, positive count and the two bellwethers (warp 0)
+  // 2. the row pass over chunks of (TJ rows, PK columns), each fetched
+  //    into registers while the one before it is used; thread t holds row
+  //    t of the tile: sims_q for all n rows, the block's (R, n) sims
+  float s0[R] = {}, s1[R] = {};
+  float ss = 0.0f, dq = 0.0f, d[R] = {};
+  for (int ci = 0; ci < chunks; ++ci) {
+    const int j0 = ci / kch * TJ, k0 = ci % kch * PK;
+    const int rows = min(TJ, n - j0);
+    if (k0 == 0) {
+      ss = 0.0f;
+      dq = 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) d[r] = 0.0f;
+    }
+    __syncthreads();        // the chunk before has been read (and, at the
+                            // first, step 1's shared writes are published)
+#pragma unroll
+    for (int u = 0; u < ITEMS; ++u)
+      tile_s[(u * WARPS + warp) * (PK + 1) + lane] = v[u];
+    __syncthreads();
+    if (ci + 1 < chunks) {
+      const int jn = (ci + 1) / kch * TJ;
+      fetch(v, zd, jn, min(TJ, n - jn), p, (ci + 1) % kch * PK);
+    }
+    if (tid < rows) {
+      const float* row = tile_s + tid * (PK + 1);
+      const int kw = min(PK, p - k0);
+#pragma unroll 4
+      for (int c = 0; c < kw; ++c) {
+        const float x = row[c];
+        const int k = k0 + c;
+        ss = fmaf(x, x, ss);
+        dq = fmaf(x, zqn_s[k], dq);
+        const float4 a0 = *reinterpret_cast<const float4*>(anc_s + k * R);
+        const float4 a1 = *reinterpret_cast<const float4*>(anc_s + k * R + 4);
+        d[0] = fmaf(x, a0.x, d[0]);
+        d[1] = fmaf(x, a0.y, d[1]);
+        d[2] = fmaf(x, a0.z, d[2]);
+        d[3] = fmaf(x, a0.w, d[3]);
+        d[4] = fmaf(x, a1.x, d[4]);
+        d[5] = fmaf(x, a1.y, d[5]);
+        d[6] = fmaf(x, a1.z, d[6]);
+        d[7] = fmaf(x, a1.w, d[7]);
+      }
+      if (k0 + PK >= p) {           // the row is complete
+        const float nrm = sqrtf(fmaxf(ss, 1e-16f));
+        simq_s[j0 + tid] = (dq / nrm) / tau;
+        if (j0 == 0) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) s0[r] = (d[r] / nrm) / tau;
+        } else {
+#pragma unroll
+          for (int r = 0; r < R; ++r) s1[r] = (d[r] / nrm) / tau;
+        }
+      }
+    }
+  }
+  __syncthreads();                   // sims_q complete; the tile is free
+  float* sims_s = tile_s;            // [r][j], row stride MAX_N
+  if (tid < n) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) sims_s[r * MAX_N + tid] = s0[r];
+  }
+  if (TJ + tid < n) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) sims_s[r * MAX_N + TJ + tid] = s1[r];
+  }
+
+  // 3. bellwethers (warp 0, every block); qsim and n_pos (warp 1, block 0)
   if (warp == 0) {
-    Lse all = lse_empty();
-    int npos = 0, ipos = MAX_N, ineg = MAX_N;
+    int ipos = MAX_N, ineg = MAX_N;
     float vpos = INFINITY, vneg = -INFINITY;
     for (int j = lane; j < n; j += 32) {
       const float s = simq_s[j];
-      const bool pos = y[j] > 0.5f;
-      lse_add(all, s);
-      npos += pos;
-      const float ps = pos ? s : INFINITY;
-      const float ns = pos ? -INFINITY : s;
+      const float ps = pos_s[j] ? s : INFINITY;
+      const float ns = pos_s[j] ? -INFINITY : s;
       if (better_min(ps, j, vpos, ipos)) { vpos = ps; ipos = j; }
       if (better_max(ns, j, vneg, ineg)) { vneg = ns; ineg = j; }
     }
-    all = warp_lse(all);
-    npos = warp_sum_int(npos);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       const float v1 = __shfl_xor_sync(FULL, vpos, o);
@@ -168,89 +301,102 @@ contrastive_kernel(const float* __restrict__ zq, const float* __restrict__ zd,
       const int i2 = __shfl_xor_sync(FULL, ineg, o);
       if (better_max(v2, i2, vneg, ineg)) { vneg = v2; ineg = i2; }
     }
+    if (lane == 0) {
+      bell_s[0] = ipos;
+      bell_s[1] = ineg;
+    }
+  } else if (warp == 1 && blockIdx.y == 0) {
+    Lse all = lse_empty();
+    int npos = 0;
+    for (int j = lane; j < n; j += 32) {
+      lse_add(all, simq_s[j]);
+      npos += pos_s[j];
+    }
+    all = warp_lse(all);
+    npos = warp_sum_int(npos);
     const float lse_all = lse_value(all);
     float qsum = 0.0f;
     for (int j = lane; j < n; j += 32)
-      if (y[j] > 0.5f) qsum += -(simq_s[j] - lse_all);
+      if (pos_s[j]) qsum += -(simq_s[j] - lse_all);
     qsum = warp_sum(qsum);
     if (lane == 0) {
-      scal_s[1] = npos > 0 ? qsum / (float)max(npos, 1) : 0.0f;
-      int_s[0] = ipos;
-      int_s[1] = ineg;
-      int_s[2] = npos;
+      part[2 * n] = npos > 0 ? qsum / (float)max(npos, 1) : 0.0f;
+      part[2 * n + 1] = (float)npos;
     }
   }
   __syncthreads();
-  const int ipos = int_s[0], ineg = int_s[1];
 
-  // 4. supcon over anchor rows (one warp per anchor); the bellwether
-  //    rows also fold their polar LSEs (diagonal included, as in Pallas)
-  float sup_sum = 0.0f;
-  int sup_valid = 0;
-  for (int i = warp; i < n; i += WARPS) {
-    for (int k = lane; k < p; k += 32) row_s[warp][k] = zdn[(size_t)i * p + k];
-    __syncwarp();
-    const bool pi = y[i] > 0.5f;
-    Lse lu = lse_empty(), la = lse_empty();
-    Lse lpp = lse_empty(), lpa = lse_empty(), lnn = lse_empty(),
-        lna = lse_empty();
-    int ucount = 0;
-    for (int j = 0; j < n; ++j) {
-      const float* rj = zdn + (size_t)j * p;
-      float dot = 0.0f;
-      for (int k = lane; k < p; k += 32) dot = fmaf(row_s[warp][k], rj[k], dot);
-      const float s = warp_sum(dot) / tau;
-      const bool pj = y[j] > 0.5f;
-      if (j != i) {
-        lse_add(la, s);
-        if (pj == pi) {
-          lse_add(lu, s);
-          ++ucount;
-        }
-      }
-      if (i == ipos) {
-        lse_add(lpa, s);
-        if (pj) lse_add(lpp, s);
-      }
-      if (i == ineg) {
-        lse_add(lna, s);
-        if (!pj) lse_add(lnn, s);
+  // 4. anchor i0 + w folded by warp w: supcon's U and A, and the polar
+  //    states where the anchor is a bellwether (diagonal included)
+  if (i >= n) return;
+  const bool pi = pos_s[i], bp = i == bell_s[0], bn = i == bell_s[1];
+  const float* srow = sims_s + warp * MAX_N;
+  Lse lu = lse_empty(), la = lse_empty();
+  Lse lpp = lse_empty(), lpa = lse_empty(), lnn = lse_empty(),
+      lna = lse_empty();
+  int ucount = 0;
+  for (int j = lane; j < n; j += 32) {
+    const float s = srow[j];
+    const bool pj = pos_s[j];
+    if (j != i) {
+      lse_add(la, s);
+      if (pj == pi) {
+        lse_add(lu, s);
+        ++ucount;
       }
     }
-    if (lane == 0) {
-      const float per_anchor =
-          -(lse_value(lu) - lse_value(la)) / (float)max(ucount, 1);
-      if (ucount > 0) {
-        sup_sum += per_anchor;
-        ++sup_valid;
-      }
-      if (i == ipos) scal_s[2] = -(lse_value(lpp) - lse_value(lpa));
-      if (i == ineg) scal_s[3] = -(lse_value(lnn) - lse_value(lna));
+    if (bp) {
+      lse_add(lpa, s);
+      if (pj) lse_add(lpp, s);
     }
-    __syncwarp();
+    if (bn) {
+      lse_add(lna, s);
+      if (!pj) lse_add(lnn, s);
+    }
   }
+  lu = warp_lse(lu);
+  la = warp_lse(la);
+  ucount = warp_sum_int(ucount);
+  float loss_p = 0.0f, loss_n = 0.0f;
+  if (bp) loss_p = -(lse_value(warp_lse(lpp)) - lse_value(warp_lse(lpa)));
+  if (bn) loss_n = -(lse_value(warp_lse(lnn)) - lse_value(warp_lse(lna)));
   if (lane == 0) {
-    sup_sum_s[warp] = sup_sum;
-    sup_valid_s[warp] = sup_valid;
+    part[i] = -(lse_value(lu) - lse_value(la)) / (float)max(ucount, 1);
+    part[n + i] = ucount > 0 ? 1.0f : 0.0f;
+    if (bp) part[2 * n + 2] = loss_p;
+    if (bn) part[2 * n + 3] = loss_n;
+  }
+}
+
+__global__ void __launch_bounds__(FINISH_THREADS)
+contrastive_finish_kernel(const float* __restrict__ part,
+                          float* __restrict__ out, int n, float lam) {
+  __shared__ float per_s[MAX_N];
+  __shared__ float valid_s[MAX_N];
+  part += (size_t)blockIdx.x * (2 * n + 4);
+  out += (size_t)blockIdx.x * 4;
+  for (int j = threadIdx.x; j < n; j += FINISH_THREADS) {
+    per_s[j] = part[j];
+    valid_s[j] = part[n + j];
   }
   __syncthreads();
-
-  if (tid == 0) {
-    float total = 0.0f;
-    int valid = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      total += sup_sum_s[w];
-      valid += sup_valid_s[w];
-    }
-    const int npos = int_s[2];
-    const float supcon = total / (float)max(valid, 1);
-    const float polar = (npos > 0 ? scal_s[2] : 0.0f) +
-                        (npos < n ? scal_s[3] : 0.0f);
-    out[0] = scal_s[1];
-    out[1] = supcon;
-    out[2] = polar;
-    out[3] = lam * supcon + (1.0f - lam) * polar;
+  if (threadIdx.x != 0) return;
+  float total = 0.0f;
+  int valid = 0;
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) {
+    const bool ok = valid_s[i] != 0.0f;
+    total += ok ? per_s[i] : 0.0f;
+    valid += ok;
   }
+  const int npos = (int)part[2 * n + 1];
+  const float supcon = total / (float)max(valid, 1);
+  const float polar = (npos > 0 ? part[2 * n + 2] : 0.0f) +
+                      (npos < n ? part[2 * n + 3] : 0.0f);
+  out[0] = part[2 * n];
+  out[1] = supcon;
+  out[2] = polar;
+  out[3] = lam * supcon + (1.0f - lam) * polar;
 }
 
 }  // namespace
@@ -260,16 +406,20 @@ extern "C" {
 int contrastive_max_n() { return MAX_N; }
 int contrastive_max_p() { return MAX_P; }
 
-// zq (Q, p), zd (Q, n, p), y (Q, n) -> out (Q, 4); zdn_scratch (Q, n, p)
-// holds the normalized rows. All float32, contiguous. Returns the CUDA
-// error code of the launch.
+// zq (Q, p), zd (Q, n, p), y (Q, n) -> out (Q, 4); part (Q, 2n + 4) is
+// the partials buffer the two kernels pass through (see the header). All
+// float32, contiguous. Returns the CUDA error code of the launches.
 int contrastive_launch(const float* zq, const float* zd, const float* y,
-                       float* zdn_scratch, float* out, int q, int n, int p,
+                       float* part, float* out, int q, int n, int p,
                        float tau, float lam, void* stream) {
   if (q <= 0 || n <= 0 || n > MAX_N || p <= 0 || p > MAX_P)
     return (int)cudaErrorInvalidValue;
-  contrastive_kernel<<<q, THREADS, 0, (cudaStream_t)stream>>>(
-      zq, zd, y, zdn_scratch, out, n, p, tau, lam);
+  const cudaStream_t s = (cudaStream_t)stream;
+  contrastive_rows_kernel<<<dim3(q, (n + R - 1) / R), THREADS, 0, s>>>(
+      zq, zd, y, part, n, p, tau);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  contrastive_finish_kernel<<<q, FINISH_THREADS, 0, s>>>(part, out, n, lam);
   return (int)cudaGetLastError();
 }
 

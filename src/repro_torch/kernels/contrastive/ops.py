@@ -62,8 +62,11 @@ def contrastive_losses(z_q: torch.Tensor, z_d: torch.Tensor,
     _check(z_q, z_d, y)
     q, n, p = z_d.shape
     out = torch.empty((q, 4), dtype=torch.float32, device=z_d.device)
-    scratch = torch.empty_like(z_d)
-    KERNEL.launch(z_d.device, z_q, z_d, y, scratch, out, q, n, p,
+    # the partials the rows kernel hands the finish kernel, laid out in
+    # csrc/contrastive.cu
+    part = torch.empty((q, 2 * n + 4), dtype=torch.float32,
+                       device=z_d.device)
+    KERNEL.launch(z_d.device, z_q, z_d, y, part, out, q, n, p,
                   float(tau), float(lam))
     return out
 

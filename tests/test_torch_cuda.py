@@ -49,9 +49,23 @@ def test_fused_kernel_matches_plain(cuda, q, n, d, h, l):
                                .cpu().numpy(), **F32)
 
 
+# (q, n, p): the training path's shape, the kernel's limits, a small one,
+# and n cutting the kernel's 8-row anchor blocks and 256-row tiles raggedly
+# (1, 7, 100, 129, 511) at p cutting its 32-column tiles (1, 5, 256)
+CONTRASTIVE_SHAPES = [(4, 128, 64), (1, 512, 256), (3, 7, 5)] + [
+    (1 if n * p > 65536 else 2, n, p)
+    for n in (1, 7, 100, 129, 511) for p in (1, 5, 256)]
+# tie needs rows 0-3, tie_far rows 0-17; empty_u is the n=2 batch
+CONTRASTIVE_CASES = [
+    pytest.param(q, n, p, case, id=f"{case}-{q}-{n}-{p}")
+    for q, n, p in CONTRASTIVE_SHAPES
+    for case, n_min in (("0.3", 1), ("all_pos", 1), ("all_neg", 1),
+                        ("tie", 4), ("tie_far", 18))
+    if n >= n_min] + [pytest.param(3, 2, 5, "empty_u", id="empty_u-3-2-5")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,n,p", [(4, 128, 64), (1, 512, 256), (3, 7, 5)])
-@pytest.mark.parametrize("case", ["0.3", "all_pos", "all_neg", "tie"])
+@pytest.mark.parametrize("q,n,p,case", CONTRASTIVE_CASES)
 def test_contrastive_kernel_matches_plain(cuda, q, n, p, case):
     frac = float(case) if case[0].isdigit() else 0.5
     zq, zd, y = _degenerate(case, *_contrastive_inputs(n, p, frac, q=q))
@@ -63,6 +77,21 @@ def test_contrastive_kernel_matches_plain(cuda, q, n, p, case):
     assert torch.isfinite(got).all()
     want = c_ref.ref_losses(*args, 0.07, 0.2)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **LOSS)
+    if case == "empty_u":
+        assert not got[:, 1].any()        # no valid anchor: supcon is 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,p", [(4, 128, 64), (1, 512, 256),
+                                   (2, 129, 5)])
+def test_contrastive_kernel_repeats_bitwise(cuda, q, n, p):
+    """Fixed summation orders and no atomics: two calls on the same
+    inputs give the same bits."""
+    args = [_t(x, cuda) for x in _contrastive_inputs(n, p, 0.3, q=q)]
+    first = c_ops.contrastive_losses(*args, 0.07, 0.2)
+    second = c_ops.contrastive_losses(*args, 0.07, 0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

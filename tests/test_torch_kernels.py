@@ -30,7 +30,7 @@ from torch_kernel_inputs import (F32, LOSS, _contrastive_inputs,
 
 @pytest.mark.parametrize("n,p", [(32, 16), (128, 64)])
 @pytest.mark.parametrize("case", ["0.1", "0.5", "0.9", "all_pos", "all_neg",
-                                  "tie"])
+                                  "tie", "tie_far"])
 def test_contrastive_plain_matches_pallas(n, p, case):
     frac = float(case) if case[0].isdigit() else 0.5
     zq, zd, y = _degenerate(case, *_contrastive_inputs(n, p, frac))

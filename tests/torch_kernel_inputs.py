@@ -42,6 +42,19 @@ def _degenerate(case, zq, zd, y):
         zd[..., 2, :] = zd[..., 0, :]     # tied weakest-positive candidates
         zd[..., 3, :] = zd[..., 1, :]     # tied hardest-negative candidates
         zq[...] = -zd[..., 0, :]          # pushes row 0 (and 2) to the min
+    elif case == "tie_far":
+        # tied bellwether candidates in different row blocks of the CUDA
+        # kernel (8 anchor rows a block): rows 0 and 9, rows 1 and 17
+        y[..., [0, 9]] = 1.0
+        y[..., [1, 17]] = 0.0
+        zd[..., 9, :] = zd[..., 0, :]
+        zd[..., 17, :] = zd[..., 1, :]
+        # pushes rows 0 and 9 toward the min, rows 1 and 17 to the max
+        zq[...] = zd[..., 1, :] - zd[..., 0, :]
+    elif case == "empty_u":
+        # n = 2 with one positive: every anchor's U(i) is empty
+        y[...] = 0.0
+        y[..., 0] = 1.0
     return zq, zd, y
 
 
