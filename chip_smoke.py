@@ -6,10 +6,16 @@
 Phases, each of which exits non-zero when it fails:
   1. device  — the card's name and power limit (no card: exit 1);
   2. build   — the four CUDA kernels from src/repro_torch/csrc, one nvcc
-               each, all started together;
+               each, all started together; ptxas's registers and spills
+               (fused scoring: per instantiation, none may spill) and
+               the fused kernel's shared memory a block;
   3. kernels — each kernel against its plain PyTorch version on the card:
                fused scoring at D=4096, H=512, L=128 over an 8192-doc tile
-               for Q in {1, 4, 5} (and its Q=1 single-query form);
+               for Q in {1, 4, 5} (and its Q=1 single-query form), at
+               n that cuts its 64-row tile (1, 63, 64, 65, 8191), at
+               D=99 and on a docs view 4 bytes off 16-byte alignment
+               (its 4-byte-copy instantiation), and a second call on
+               the path's inputs giving the same bits;
                contrastive at (Q=4, n=128, p=64) and (Q=1, n=512, p=256),
                all-positive, all-negative and tied batches (bellwether
                candidates tied within one 8-row anchor block and across
@@ -37,9 +43,11 @@ Phases, each of which exits non-zero when it fails:
                oracle calls < N, both kernels launched, and the engine's
                scores equal to the plain scoring path's;
   5. times   — each kernel and its plain version with CUDA events at the
-               main path's shapes, their bounds, the per-stage split of
-               one scoring pass, and the train / score / calibrate split of
-               one query; the contrastive kernel's device time per call
+               main path's shapes (fused scoring also from a replayed
+               CUDA graph), their bounds, the per-stage split of one
+               scoring pass (its compute_seconds beside
+               host_io_seconds), and the train / score / calibrate split
+               of one query; the contrastive kernel's device time per call
                (a replayed CUDA graph; torch.profiler per kernel) at
                (Q=4, n=128, p=64) and (Q=1, n=512, p=256) beside the time
                of one ops.contrastive_losses call, host included; one
@@ -84,6 +92,7 @@ It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -323,6 +332,56 @@ def wkv6_checks(dev, rng) -> dict:
     if not err <= WKV6_TOL * scale:
         fail("ops.wkv6 disagrees with the sequential recurrence")
     errs["ops.wkv6 vs sequential"] = err
+    return errs
+
+
+def ptxas_entries(log: str) -> dict:
+    """ptxas -v's report of each entry function in a build log: its
+    registers, spill stores and loads, and static shared memory."""
+    import re
+    out = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        name = re.match(r"\s*'([^']+)'", chunk)
+        nums = {key: re.search(pat, chunk) for key, pat in (
+            ("registers", r"Used (\d+) registers"),
+            ("spill_stores", r"(\d+) bytes spill stores"),
+            ("spill_loads", r"(\d+) bytes spill loads"),
+            ("static_smem", r"(\d+) bytes smem"))}
+        if name:
+            out[name.group(1)] = {k: int(m.group(1)) if m else 0
+                                  for k, m in nums.items()}
+    return out
+
+
+def fused_checks(dev, t, w, docs, rng) -> dict:
+    """The fused kernel against its plain version at the path's widths:
+    n cutting its 64-row tile, D=99 and a misaligned docs view (its
+    4-byte-copy instantiation), and a bitwise repeat on the path's
+    inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    from repro_torch.kernels.fused_scoring import ref as s_ref
+    zq = torch.nn.functional.normalize(t(rng.normal(size=(2, 128))), dim=1)
+    cases = {f"n={n}": docs[:n] for n in (1, 63, 64, 65, TILE - 1)}
+    w1_99 = t(rng.normal(size=(99, 512)) / np.sqrt(99))
+    cases["D=99"] = (t(rng.normal(size=(TILE, 99)) / np.sqrt(99)), w1_99)
+    flat = torch.empty(TILE * DIM + 1, device=dev)
+    off = flat[1:].view(TILE, DIM)
+    off.copy_(docs)
+    cases["docs 4 bytes off alignment"] = off
+    errs = {}
+    for name, x in cases.items():
+        x, w1 = x if isinstance(x, tuple) else (x, w[0])
+        args = (x, w1, *w[1:], zq)
+        err = (s_ops.fused_scores_multi(*args)
+               - s_ref.ref_scores_multi(*args)).abs().max().item()
+        errs[f"fused_scoring {name} Q=2"] = err
+    first = s_ops.fused_scores_multi(docs, *w, zq[:1])
+    second = s_ops.fused_scores_multi(docs, *w, zq[:1])
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        fail("fused_scoring: two calls on the same inputs differ")
     return errs
 
 
@@ -863,11 +922,38 @@ def main() -> None:
     names = ("fused_scoring", "contrastive", "flash_attention", "wkv6")
     build_s = _build.build_all(names)
     log(f"[build] {', '.join(n + '.cu' for n in names)} in {build_s:.1f} s")
+    ptx = {name: ptxas_entries(_build.build_log(name)) for name in names}
     for name in names:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "warning" in line.lower():
+                log(f"[build] {name}: {line.strip()[:200]}")
+    for name in names:
+        if name == "fused_scoring":
+            continue
+        for entry, r in ptx[name].items():
+            short = entry.split("_cu_", 1)[-1][8:]   # past the file's hash
+            log(f"[build] {name}: {short[:72]}: {json.dumps(r)}")
+    fused_ptx = ptx["fused_scoring"]
+    path_entry = [e for e in fused_ptx if "ILi512ELi128ELb1E" in e]
+    smem_fn = _build.load("fused_scoring").fused_scores_smem_bytes
+    smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_int
+    fused_smem = smem_fn(512)
+    log(f"[build] fused_scoring: {len(fused_ptx)} instantiations; the "
+        f"path's (H=512, L=128, 16-byte copies): "
+        f"{json.dumps(fused_ptx[path_entry[0]] if path_entry else None)}, "
+        f"{fused_smem} B of dynamic shared memory a block; registers "
+        f"{min(r['registers'] for r in fused_ptx.values())}-"
+        f"{max(r['registers'] for r in fused_ptx.values())}, spill stores "
+        f"{sum(r['spill_stores'] for r in fused_ptx.values())} B, spill "
+        f"loads {sum(r['spill_loads'] for r in fused_ptx.values())} B over "
+        f"all")
+    if not path_entry or any(r["spill_stores"] or r["spill_loads"]
+                             for r in fused_ptx.values()):
+        fail("fused_scoring: ptxas reports spills (or no path "
+             "instantiation)")
     report["build_seconds"] = build_s
+    report["ptxas"] = ptx
+    report["fused_smem_bytes"] = fused_smem
 
     # -- 3. kernels against plain versions --------------------------------
     rng = np.random.default_rng(0)
@@ -885,6 +971,9 @@ def main() -> None:
         err1 = (s_ops.fused_scores(docs, *w, zq[0])
                 - s_ref.ref_scores(docs, *w, zq[0])).abs().max().item()
         checks[f"fused_scores (Q=1 form) with zq[0] of Q={q}"] = err1
+    checks.update(fused_checks(dev, t, w, docs, rng))
+    log("[kernels] fused_scoring: a second call on the path's inputs gave "
+        "the same bits")
     for key, err in checks.items():
         log(f"[kernels] {key}: max abs err {err:.3e} (tol {F32_TOL:g})")
         if not err <= F32_TOL:
@@ -1026,9 +1115,11 @@ def main() -> None:
 
     # -- 5. times ----------------------------------------------------------
     zq1 = torch.nn.functional.normalize(t(rng.normal(size=(1, 128))), dim=1)
-    fused_ms = cuda_ms(lambda: s_ops.fused_scores_multi(docs, *w, zq1), 20)
+    fused_call = lambda: s_ops.fused_scores_multi(docs, *w, zq1)
+    fused_ms = cuda_ms(fused_call, 20)
     fused_plain_ms = cuda_ms(lambda: s_ref.ref_scores_multi(docs, *w, zq1),
                              20)
+    fused_graph_ms = graph_ms(fused_call, 10, 5)
     h, lat = 512, 128
     fused_flops = 2 * TILE * (DIM * h + h * h + h * lat + lat)
     fused_bytes = 4 * (TILE * DIM + DIM * h + h * h + h * lat + 2 * h + lat
@@ -1072,6 +1163,11 @@ def main() -> None:
         log(f"[times] {k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f}"
             f" ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), "
             f"{k['launches'] / n_q:.1f} launches per query()")
+    log(f"[times] fused_scoring at (n={TILE}, D={DIM}, H={h}, L={lat}, Q=1):"
+        f" {fused_ms:.4f} ms by CUDA events around 20 calls, "
+        f"{fused_graph_ms:.4f} ms a call from a replayed CUDA graph of 10 "
+        f"calls; {fused_flops / fused_ms / 1e9:.1f} TFLOP/s, "
+        f"{fused_ms / fused_bound:.2f}x its bound")
     torch.cuda.synchronize()
     scores, stats = engine.executor.score(leaf_params, queries[0].embed,
                                           store)
@@ -1080,6 +1176,12 @@ def main() -> None:
         "compute_seconds", "stall_seconds", "wall_seconds")}
     split["overlap_fraction"] = stats.overlap_fraction
     log(f"[times] one scoring pass: {json.dumps(split)}")
+    log(f"[times] one scoring pass over {n} documents: compute_seconds "
+        f"{stats.compute_seconds:.4f} ({stats.tiles_scored} tiles; "
+        f"{stats.tiles_scored} x the kernel's {fused_ms:.4f} ms = "
+        f"{stats.tiles_scored * fused_ms / 1e3:.4f} s) beside "
+        f"host_io_seconds {stats.host_io_seconds:.4f}, wall "
+        f"{stats.wall_seconds:.4f}")
     # the other stages of one query(): a training run (4 padded lanes, as
     # the engine dispatches it) and the calibration, on query 0's inputs
     q0 = queries[0]
@@ -1102,6 +1204,7 @@ def main() -> None:
               "query_wall_seconds": results[0]["wall_seconds"]}
     log(f"[times] one query's stages: {json.dumps(stages)}")
     report["times"] = {"kernels": kernels, "scoring_pass": split,
+                       "fused_graph_ms": fused_graph_ms,
                        "query_stages": stages, "train_steps": steps,
                        "fused_flops": fused_flops, "fused_bytes": fused_bytes,
                        "contrastive": ct}

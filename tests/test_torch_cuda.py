@@ -17,9 +17,11 @@ from repro_torch.kernels.fused_scoring import ops as s_ops
 from repro_torch.kernels.fused_scoring import ref as s_ref
 from repro_torch.kernels.wkv6 import ops as w_ops
 from repro_torch.kernels.wkv6 import ref as w_ref
-from torch_kernel_inputs import (F32, FLASH, FLASH_BF16_PLAIN, LOSS,
+from torch_kernel_inputs import (F32, FLASH, FLASH_BF16_PLAIN,
+                                 FUSED_RAGGED_N, FUSED_WIDTHS, LOSS,
                                  _attention_inputs, _contrastive_inputs,
-                                 _degenerate, _scoring_inputs, _t)
+                                 _degenerate, _scoring_inputs, _t,
+                                 _t_misaligned)
 from torch_wkv6_inputs import wkv6_inputs, wkv6_sequence
 
 
@@ -30,13 +32,31 @@ def cuda():
     return torch.device("cuda")
 
 
+# (n, d, h, l, q, docs 4 bytes off 16-byte alignment): the path's shape
+# and two small ones at Q in {1, 4, 5}; n cutting the kernel's 64-row
+# tile (1, 63, 64, 65, 8191) at the path's widths; every (H, L) pair;
+# D = 99 and a misaligned docs view (the 4-byte-copy instantiation); Q=33
+FUSED_CASES = [(n, d, h, l, q, False)
+               for q in (1, 4, 5)
+               for n, d, h, l in ((8192, 4096, 512, 128), (300, 96, 128, 64),
+                                  (33, 64, 64, 64))]
+FUSED_CASES += [(n, 4096 if n > 1000 else 256, 512, 128, 1, False)
+                for n in (1, 63, 64, 65, 8191)]
+FUSED_CASES += [(130, 96, h, l, 3, False) for h, l in FUSED_WIDTHS]
+FUSED_CASES += [(n, 99, h, l, 2, False) for n in FUSED_RAGGED_N
+                for h, l in ((512, 128), (128, 64))]
+FUSED_CASES += [(129, 96, 512, 128, 1, True), (65, 99, 128, 64, 3, True),
+                (8192, 4096, 512, 128, 1, True), (200, 256, 512, 128, 33,
+                                                  False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [1, 4, 5])
-@pytest.mark.parametrize("n,d,h,l", [(8192, 4096, 512, 128),
-                                     (300, 96, 128, 64), (33, 64, 64, 64)])
-def test_fused_kernel_matches_plain(cuda, q, n, d, h, l):
+@pytest.mark.parametrize("n,d,h,l,q,misaligned", FUSED_CASES)
+def test_fused_kernel_matches_plain(cuda, n, d, h, l, q, misaligned):
     docs, w, zq = _scoring_inputs(n, d, h, l, q)
-    args = [_t(x, cuda) for x in [docs] + w + [zq]]
+    args = [(_t_misaligned if misaligned else _t)(docs, cuda)] + \
+        [_t(x, cuda) for x in w + [zq]]
+    assert (args[0].data_ptr() % 16 != 0) == misaligned
     before = s_ops.KERNEL.launches
     got = s_ops.fused_scores_multi(*args)
     torch.cuda.synchronize()
@@ -47,6 +67,22 @@ def test_fused_kernel_matches_plain(cuda, q, n, d, h, l):
     np.testing.assert_allclose(one.cpu().numpy(),
                                s_ref.ref_scores(*args[:7], args[7][0])
                                .cpu().numpy(), **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,h,l,q,misaligned",
+                         [(8192, 4096, 512, 128, 1, False),
+                          (65, 99, 128, 64, 3, True)])
+def test_fused_kernel_repeats_bitwise(cuda, n, d, h, l, q, misaligned):
+    """Fixed summation orders and no atomics: two calls on the same
+    inputs give the same bits, on both copy paths."""
+    docs, w, zq = _scoring_inputs(n, d, h, l, q)
+    args = [(_t_misaligned if misaligned else _t)(docs, cuda)] + \
+        [_t(x, cuda) for x in w + [zq]]
+    first = s_ops.fused_scores_multi(*args)
+    second = s_ops.fused_scores_multi(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # (q, n, p): the training path's shape, the kernel's limits, a small one,

@@ -1,7 +1,7 @@
 """The port stands alone: ``import repro_torch`` loads neither JAX nor
 any module of the ``repro`` package, no source file of the port (or
-chip_smoke.py) imports them, and every entry point refuses to fall back
-to the CPU without being asked."""
+chip_smoke.py, or a script under tools/) imports them, and every entry
+point refuses to fall back to the CPU without being asked."""
 import ast
 import subprocess
 import sys
@@ -38,6 +38,7 @@ def test_import_loads_no_jax_and_no_repro():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + [str(p.relative_to(ROOT)) for p in (ROOT / "tools").glob("*.py")]
     + ["chip_smoke.py"]))
 def test_sources_import_neither_jax_nor_repro(path):
     tree = ast.parse((ROOT / path).read_text())

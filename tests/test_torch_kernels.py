@@ -21,8 +21,9 @@ from repro_torch.engine import executor as t_exec
 from repro_torch.kernels.contrastive import ops as c_ops
 from repro_torch.kernels.contrastive import ref as c_ref
 from repro_torch.kernels.fused_scoring import ops as s_ops
-from torch_kernel_inputs import (F32, LOSS, _contrastive_inputs,
-                                 _degenerate, _scoring_inputs, _t)
+from torch_kernel_inputs import (F32, FUSED_RAGGED_N, FUSED_WIDTHS, LOSS,
+                                 _contrastive_inputs, _degenerate,
+                                 _scoring_inputs, _t)
 
 # ---------------------------------------------------------------------------
 # contrastive: plain version vs the Pallas kernel (interpret mode)
@@ -79,6 +80,27 @@ def test_fused_scores_multi_plain_matches_pallas(q):
     out_t = s_ops.fused_scores_multi(_t(docs), *map(_t, w), _t(zq))
     assert out_t.shape == (300, q)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **F32)
+
+
+def _fused_parity(n, d, h, l, q):
+    docs, w, zq = _scoring_inputs(n, d, h, l, q)
+    out_j = j_fused_multi(jnp.asarray(docs), *map(jnp.asarray, w),
+                          jnp.asarray(zq), interpret=True)
+    out_t = s_ops.fused_scores_multi(_t(docs), *map(_t, w), _t(zq))
+    assert out_t.shape == (n, q)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **F32)
+
+
+@pytest.mark.parametrize("n", FUSED_RAGGED_N)
+def test_fused_plain_matches_pallas_at_ragged_n(n):
+    """n cutting the CUDA kernel's 64-row tile (and the Pallas kernel's
+    128-row one) at a D that no 4- or 16-wide slice divides, Q=33."""
+    _fused_parity(n, 99, 128, 64, 33)
+
+
+@pytest.mark.parametrize("h,l", FUSED_WIDTHS)
+def test_fused_plain_matches_pallas_at_every_width(h, l):
+    _fused_parity(65, 99, h, l, 2)
 
 
 def test_fused_scores_single_query_plain_matches_pallas():

@@ -19,8 +19,25 @@ FLASH = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 FLASH_BF16_PLAIN = dict(rtol=8e-3, atol=8e-3)
 
 
+# fused scoring: every (H, L) pair the CUDA kernel takes, and document
+# counts that cut its 64-row tile raggedly (the Pallas kernel's is 128)
+FUSED_WIDTHS = [(h, l) for h in (64, 128, 256, 512)
+                for l in (64, 128, 256, 512) if l <= h]
+FUSED_RAGGED_N = (63, 65, 129)
+
+
 def _t(x, device="cpu"):
     return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def _t_misaligned(x, device="cpu"):
+    """``_t(x)`` as a contiguous view whose data starts 4 bytes past the
+    start of its (aligned) storage: the fused kernel's 4-byte-copy path."""
+    x = np.asarray(x, np.float32)
+    flat = torch.empty(x.size + 1, dtype=torch.float32, device=device)
+    view = flat[1:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    return view
 
 
 def _contrastive_inputs(n, p, pos_frac, seed=0, q=None):
