@@ -53,7 +53,28 @@ Phases, each of which exits non-zero when it fails:
                of one ops.contrastive_losses call, host included; one
                training run's mean phase-1 and phase-2 step,
                synchronized;
-  6. offline — the offline path: ScaleDocEngine.from_corpus with an
+  6. compound — on the main path's corpus and queries (leaves p1, p2, p3
+               at selectivity 0.1, 0.2, 0.3), each filter() on a fresh
+               engine: p1 & ~p2 and p2 | p3 with root F1 >= 0.85, each
+               leaf's oracle calls < N, the AND-NOT form's calls < N and
+               the OR form's fewer than its two leaves' alone (one
+               ScaleDocPipeline each), a complete provenance map, the
+               contrastive kernel launched phase2_steps times for the
+               plan (both leaves in one padded training run) and the
+               fused kernel 16 times per leaf artifact; p1 and p2
+               filtered alone on a third engine (each trained beside
+               three dummy lanes): the Kleene p1 & ~p2 of their masks
+               and their trained params bitwise equal to the compound's,
+               and the compound's calls at most theirs; then
+               cross-session CSE on the first CSE_DOCS documents: two
+               session views of one engine run p1 & ~p2 and p2 | p3
+               through QueryOptimizer() and through
+               QueryOptimizer(cse=False), with bitwise equal masks, three
+               proxies trained and something shared in the CSE arm, and
+               no more oracle calls there; the plan, per-leaf pending
+               sizes and calls, provenance counts and the stage split
+               (plan, train, each leaf) of each filter() are logged;
+  7. offline — the offline path: ScaleDocEngine.from_corpus with an
                EmbeddingService over llama3-8b at full width (32 layers,
                bf16, weights drawn on the card from a seed) into a store of
                2,048 documents of 512 tokens: 2048 finite rows of width
@@ -61,13 +82,13 @@ Phases, each of which exits non-zero when it fails:
                pooled embeddings against the plain einsum path's (per-row
                cosine >= COS_MIN), a killed-and-resumed ingest bit-identical
                to an uninterrupted one, and one query() over the store;
-  7. flash   — the bf16 flash kernel (and the same call non-causal), the
+  8. flash   — the bf16 flash kernel (and the same call non-causal), the
                FP32 kernel on the same inputs in f32, the plain version
                and PyTorch's scaled_dot_product_attention under each
                backend that takes the call (a yardstick the port never
                calls) at the offline path's shape, and the kernel's share
                of one embedding batch;
-  8. rwkv    — the llama3-8b weights freed, the same offline path over
+  9. rwkv    — the llama3-8b weights freed, the same offline path over
                rwkv6-7b at full width (32 layers, bf16, weights drawn on
                the card) and the same corpus: 2048 finite rows of width
                4096, the WKV6 kernel launched 32 times per batch, the
@@ -82,7 +103,7 @@ Phases, each of which exits non-zero when it fails:
                output one f32 ulp up, the kernel at chunk 64) drift from
                the kernel path with depth (the direct scan's after
                RWKV_DEPTH layers >= RWKV_DEPTH_COS_MIN);
-  9. wkv6    — the WKV6 kernel, its plain version and the plain
+ 10. wkv6    — the WKV6 kernel, its plain version and the plain
                pairwise form at the rwkv6-7b path's shape, its bound
                (exponentials in the sub-chunk form, FP32 operations and
                bytes), and its share of one embedding batch.
@@ -163,6 +184,9 @@ RWKV_COS_MIN = 0.95
 # before the amplification takes over (1 - cos measured at 2.2e-5)
 RWKV_DEPTH, RWKV_DEPTH_COS_MIN = 4, 0.9999
 SPREAD_CHUNK = 64          # the other chunk length of the drift check
+# the compound phase's cross-session CSE arms run on this many of the
+# main path's documents, to bound the phase's time
+CSE_DOCS = 32_768
 
 
 def fail(msg: str) -> None:
@@ -880,6 +904,235 @@ def train_step_split(engine, args) -> dict:
     return out
 
 
+class StageClock:
+    """A filter() observer that reads the host clock, after a
+    synchronize, at each phase the engine announces (planning, training,
+    scoring, done) and after each leaf of the plan (on_partial)."""
+
+    def __init__(self):
+        self.marks = []
+
+    def _mark(self, name):
+        import torch
+        torch.cuda.synchronize()
+        self.marks.append((name, time.perf_counter()))
+
+    def on_phase(self, name):
+        self._mark(name)
+
+    def on_partial(self, accepted, rejected):
+        self._mark("leaf")
+
+    def split(self) -> dict:
+        """Seconds of the plan, the training and each leaf's stage."""
+        t = dict((n, s) for n, s in self.marks if n != "leaf")
+        leaves = [s for n, s in self.marks if n == "leaf"]
+        ends = [t["scoring"]] + leaves
+        return {"plan_seconds": t["training"] - t["planning"],
+                "train_seconds": t["scoring"] - t["training"],
+                "leaf_seconds": [b - a for a, b in zip(ends, ends[1:])]}
+
+
+def leaf_rows(res) -> list:
+    return [{"leaf": r.name, "pending": r.n_pending,
+             "train_calls": r.oracle_calls_train,
+             "calib_calls": r.oracle_calls_calib,
+             "online_calls": r.oracle_calls_online} for r in res.leaf_reports]
+
+
+def compound_phase(dev, embeds, queries, n_tiles) -> dict:
+    """Phase 6: compound predicates, the cost-ordered planner and
+    cross-session CSE over the main path's corpus (see the docstring).
+    Every gate is checked and logged; the phase fails after the last."""
+    import numpy as np
+    import torch
+    from repro_torch.config import CascadeConfig, ProxyConfig
+    from repro_torch.core.oracle import SimulatedOracle
+    from repro_torch.core.pipeline import ScaleDocPipeline
+    from repro_torch.engine import (InMemoryStore, QueryOptimizer,
+                                    ScaleDocEngine, SemanticPredicate)
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    pcfg, ccfg = ProxyConfig(), CascadeConfig(accuracy_target=0.9)
+    store = InMemoryStore(embeds)
+    n = len(store)
+    bad = []
+    out = {}
+    t_phase = time.perf_counter()
+
+    def leaves(truths):
+        return [SemanticPredicate(q.embed, SimulatedOracle(t),
+                                  name=f"p{i + 1}")
+                for i, (q, t) in enumerate(zip(queries, truths))]
+
+    def engine(st):
+        return ScaleDocEngine(st, pcfg, ccfg, device=dev)
+
+    def same_params(a, b) -> bool:
+        return a.keys() == b.keys() and all(
+            same_params(a[k], b[k]) if isinstance(a[k], dict)
+            else torch.equal(a[k], b[k]) for k in a)
+
+    # 1. the AND-NOT and OR forms, each on a fresh engine. Each leaf's
+    # oracle is held under N; the AND-NOT form's calls too. The OR form's
+    # sum is held under its leaves filtered independently (one
+    # ScaleDocPipeline per leaf, the same seed) instead: with
+    # ProxyConfig() at D=4096 one leaf alone sends 59-99% of the
+    # collection to its oracle, in the JAX package as in the port, and
+    # the OR form's second leaf resolves most of what the first rejects,
+    # so two oracles together cannot stay under N (PERF.md, section 6)
+    truth = [q.truth for q in queries]
+    forms = {"and_not": (lambda p: p[0] & ~p[1], truth[0] & ~truth[1], 0),
+             "or": (lambda p: p[1] | p[2], truth[1] | truth[2], 1)}
+    runs = {}
+    for form, (build, root_truth, seed) in forms.items():
+        p = leaves(truth)
+        clock = StageClock()
+        view = engine(store).session_view(observer=clock)
+        s_ops.KERNEL.launches = 0
+        c_ops.KERNEL.launches = 0
+        tw = time.perf_counter()
+        res = view.filter(build(p), ground_truth=root_truth, seed=seed)
+        wall = time.perf_counter() - tw
+        launches = {"fused_scoring": s_ops.KERNEL.launches,
+                    "contrastive": c_ops.KERNEL.launches}
+        built = len(res.leaf_reports)
+        row = {"plan": res.plan, "f1": res.achieved_f1,
+               "oracle_calls": res.oracle_calls_total,
+               "train_calls": res.oracle_calls_train,
+               "leaves": leaf_rows(res),
+               "provenance": res.provenance.counts(),
+               "provenance_complete": res.provenance.complete(),
+               "launches": launches, "artifacts_built": built,
+               "wall_seconds": wall, **clock.split()}
+        runs[form] = (p, view, res)
+        out[form] = row
+        log(f"[compound] {form} (seed {seed}): plan {res.plan}; F1 "
+            f"{res.achieved_f1:.4f}; oracle calls {res.oracle_calls_total} "
+            f"of {n} ({res.oracle_calls_train} train); per leaf "
+            f"{json.dumps(row['leaves'])}; provenance "
+            f"{json.dumps(row['provenance'])}; launches {launches} "
+            f"({built} leaf artifacts built); wall {wall:.3f} s: plan "
+            f"{row['plan_seconds']:.3f} s, train {row['train_seconds']:.3f}"
+            f" s, leaves " + ", ".join(f"{s:.3f}" for s in
+                                       row["leaf_seconds"]) + " s")
+        if not res.achieved_f1 >= F1_MIN:
+            bad.append(f"{form}: root F1 {res.achieved_f1:.4f} < {F1_MIN}")
+        over = [r.name for r in res.leaf_reports if not r.oracle_calls < n]
+        if over:
+            bad.append(f"{form}: leaves {over} asked their oracle about "
+                       f"every document")
+        if form == "and_not" and not res.oracle_calls_total < n:
+            bad.append(f"{form}: {res.oracle_calls_total} oracle calls >= N")
+        if form == "or":
+            # the independent baseline: each leaf alone, one pipeline each
+            indep = []
+            for lf, t in ((p[1], truth[1]), (p[2], truth[2])):
+                o = SimulatedOracle(t)
+                ScaleDocPipeline(embeds, pcfg, ccfg, device=dev).query(
+                    lf.e_q, o, seed=seed)
+                indep.append(o.calls)
+            row["independent_calls"] = indep
+            log(f"[compound] or: the leaves alone (one ScaleDocPipeline "
+                f"each, seed {seed}): {indep[0]} + {indep[1]} = "
+                f"{sum(indep)} calls; the compound saves "
+                f"{sum(indep) - res.oracle_calls_total} "
+                f"({100 * (1 - res.oracle_calls_total / sum(indep)):.1f}%)"
+                f"; its {res.oracle_calls_total} calls are "
+                f"{res.oracle_calls_total / n:.3f} N")
+            if not res.oracle_calls_total < sum(indep):
+                bad.append(f"or: {res.oracle_calls_total} calls, no fewer "
+                           f"than the leaves alone ({sum(indep)})")
+        if not res.provenance.complete():
+            bad.append(f"{form}: the provenance map is incomplete")
+        if launches["contrastive"] != pcfg.phase2_steps:
+            bad.append(f"{form}: {launches['contrastive']} contrastive "
+                       f"launches for one plan, not {pcfg.phase2_steps}")
+        if launches["fused_scoring"] != n_tiles * built:
+            bad.append(f"{form}: {launches['fused_scoring']} fused launches"
+                       f" for {built} leaf artifacts, not {n_tiles} each")
+
+    # 2. canonical evaluation: the AND-NOT form's leaves alone on a third
+    # fresh engine, each trained beside three dummy lanes
+    p, view, res = runs["and_not"]
+    solo = leaves(truth)[:2]
+    eng = engine(store)
+    singles = [eng.filter(lf, seed=0) for lf in solo]
+    kleene = singles[0].mask & ~singles[1].mask
+    same_mask = bool(np.array_equal(kleene, res.mask))
+    same = {lf.name: same_params(view._proxies[lf.key], eng._proxies[s.key])
+            for lf, s in zip(p, solo)}
+    single_calls = sum(r.oracle_calls_total for r in singles)
+    out["canonical"] = {
+        "mask_equal": same_mask, "params_equal": same,
+        "single_calls": [r.oracle_calls_total for r in singles],
+        "compound_calls": res.oracle_calls_total,
+        "saving": single_calls - res.oracle_calls_total}
+    log(f"[compound] canonical evaluation: p1 alone "
+        f"{singles[0].oracle_calls_total} calls, p2 alone "
+        f"{singles[1].oracle_calls_total}; Kleene p1 & ~p2 of the two masks "
+        f"bitwise equal to the compound's: {same_mask}; co-trained params "
+        f"bitwise equal to those trained alone: {json.dumps(same)}; the "
+        f"compound saves {single_calls - res.oracle_calls_total} of "
+        f"{single_calls} calls "
+        f"({100 * (1 - res.oracle_calls_total / single_calls):.1f}%)")
+    if not same_mask:
+        bad.append("the compound mask differs from the Kleene combination "
+                   "of the single-leaf masks")
+    if not all(same.values()):
+        bad.append(f"co-trained params differ from those trained alone: "
+                   f"{same}")
+    if not res.oracle_calls_total <= single_calls:
+        bad.append(f"the compound's {res.oracle_calls_total} calls exceed "
+                   f"the single runs' {single_calls}")
+
+    # 3. cross-session CSE on the first CSE_DOCS documents (bounds the
+    # phase's time): two sessions of one engine in each arm
+    sub = InMemoryStore(store.get(np.arange(CSE_DOCS)))
+    sub_truth = [t[:CSE_DOCS] for t in truth]
+    arms = {}
+    for cse in (True, False):
+        p = leaves(sub_truth)
+        eng = engine(sub)
+        opt = QueryOptimizer(cse=cse)
+        tw = time.perf_counter()
+        masks = [eng.session_view(optimizer=opt).filter(pred, seed=0).mask
+                 for pred in (p[0] & ~p[1], p[1] | p[2])]
+        snap = opt.snapshot()
+        arms[cse] = {"masks": masks,
+                     "calls": sum(lf.oracle.calls for lf in p),
+                     "wall_seconds": time.perf_counter() - tw,
+                     **{k: snap[k] for k in (
+                         "proxies_trained", "proxy_hits", "artifacts_built",
+                         "artifact_hits")}}
+    on, off = arms[True], arms[False]
+    cse_equal = all(np.array_equal(a, b)
+                    for a, b in zip(on["masks"], off["masks"]))
+    summary = {arm: {k: v for k, v in a.items() if k != "masks"}
+               for arm, a in (("cse", on), ("no_cse", off))}
+    out["cse"] = {"docs": CSE_DOCS, "masks_equal": cse_equal, **summary}
+    log(f"[compound] cross-session CSE on the first {CSE_DOCS} documents "
+        f"(cut to bound the phase's time), sessions p1 & ~p2 then p2 | p3, "
+        f"seed 0: masks bitwise equal across the arms: {cse_equal}; "
+        f"QueryOptimizer(): {json.dumps(summary['cse'])}; "
+        f"QueryOptimizer(cse=False): {json.dumps(summary['no_cse'])}")
+    if not cse_equal:
+        bad.append("the CSE arm's masks differ from the cse=False arm's")
+    if on["proxies_trained"] != 3:
+        bad.append(f"the CSE arm trained {on['proxies_trained']} proxies, "
+                   f"not 3")
+    if not on["proxy_hits"] + on["artifact_hits"] > 0:
+        bad.append("the CSE arm shared nothing")
+    if not on["calls"] <= off["calls"]:
+        bad.append(f"the CSE arm bought {on['calls']} labels, more than "
+                   f"the cse=False arm's {off['calls']}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[compound] phase time {out['phase_seconds']:.1f} s")
+    if bad:
+        fail("compound: " + "; ".join(bad))
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -1209,7 +1462,11 @@ def main() -> None:
                        "fused_flops": fused_flops, "fused_bytes": fused_bytes,
                        "contrastive": ct}
 
-    # -- 6. offline path: from_corpus over llama3-8b ----------------------
+    # -- 6. compound predicates, the planner and cross-session CSE -------
+    report["compound"] = compound_phase(dev, corpus.embeds, queries,
+                                        -(-n // engine.executor.chunk))
+
+    # -- 7. offline path: from_corpus over llama3-8b ----------------------
     del engine, store, corpus, docs
     torch.cuda.empty_cache()
     offline, service, _ = offline_phase(dev, OFF_ARCH, "flash_attention",
@@ -1218,7 +1475,7 @@ def main() -> None:
     del service
     report["offline"] = offline
 
-    # -- 7. flash times ------------------------------------------------------
+    # -- 8. flash times ------------------------------------------------------
     ft = flash_times(dev)
     kernels.append(
         {"name": "flash_attention", "route": "cuda",
@@ -1247,7 +1504,7 @@ def main() -> None:
     ft["share_of_embed_batch"] = share
     report["times"]["flash"] = ft
 
-    # -- 8. the rwkv6-7b offline path ----------------------------------------
+    # -- 9. the rwkv6-7b offline path ----------------------------------------
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -1289,7 +1546,7 @@ def main() -> None:
     rwkv["checks"] = rc
     report["rwkv"] = rwkv
 
-    # -- 9. wkv6 times -------------------------------------------------------
+    # -- 10. wkv6 times ------------------------------------------------------
     wt = wkv6_times(dev)
     kernels.append(
         {"name": "wkv6_intra_chunk", "route": "cuda",

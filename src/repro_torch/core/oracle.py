@@ -4,13 +4,15 @@
   a FLOPs cost model (the paper's own Table 2 reports cost in FLOPs,
   which we mirror). Counts invocations.
 * CachedOracle — memoizes purchased labels across a query's training,
-  calibration and ambiguous-band asks.
+  calibration and ambiguous-band asks (and across the leaves and
+  sessions of the engine that shares it), with ``peek`` for decision
+  provenance and hit / purchase counters.
 The LM-as-judge oracle of the JAX package is not ported yet.
 """
 from __future__ import annotations
 
 import threading
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -66,6 +68,19 @@ class CachedOracle:
         with self._lock:
             return set(self.inner.queried)
 
+    @property
+    def cached_count(self):
+        with self._lock:
+            return len(self._cache)
+
+    def cached_positive_rate(self) -> Optional[float]:
+        """Mean of the labels already purchased (None while the cache is
+        empty): a free positive-rate estimate."""
+        with self._lock:
+            if not self._cache:
+                return None
+            return float(np.mean([bool(v) for v in self._cache.values()]))
+
     def stats(self) -> dict:
         """One atomic snapshot of calls / queried / cache size / hit
         accounting (reading the properties separately can interleave
@@ -81,6 +96,19 @@ class CachedOracle:
     @property
     def flops_per_doc(self):
         return getattr(self.inner, "flops_per_doc", ORACLE_FLOPS_PER_DOC)
+
+    def peek(self, indices) -> Sequence[int]:
+        """Indices (deduped, first-appearance order) not yet cached.
+        Advisory only — another thread may purchase them between peek
+        and label; ``label`` re-checks under the lock."""
+        with self._lock:
+            out, seen = [], set()
+            for i in np.asarray(indices, dtype=np.int64):
+                i = int(i)
+                if i not in self._cache and i not in seen:
+                    seen.add(i)
+                    out.append(i)
+            return out
 
     def label(self, indices):
         indices = np.asarray(indices, dtype=np.int64)

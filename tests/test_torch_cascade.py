@@ -98,7 +98,8 @@ def test_predicate_key_matches():
     oracle = object()
     t, j = SemanticPredicate(e, oracle), JPred(e, oracle)
     assert t.key == j.key and t.name == j.name
-    with pytest.raises(NotImplementedError):
-        t & SemanticPredicate(-e, oracle)
-    with pytest.raises(NotImplementedError):
-        ~t
+    # composition builds the reference's tree over the same keys
+    expr, jexpr = t & ~SemanticPredicate(-e, oracle), j & ~JPred(-e, oracle)
+    assert [lf.key for lf in expr.leaves()] == \
+        [lf.key for lf in jexpr.leaves()]
+    assert repr(expr) == repr(jexpr) and repr(~t) == repr(~j)

@@ -430,3 +430,39 @@ def test_rwkv_embedding_service_runs_the_kernel(cuda):
                             rwkv_mode="direct").embed_batch(tokens)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **F32)
+
+
+@pytest.mark.cuda
+def test_compound_filter_on_card_is_the_kleene_of_single_leaves(cuda):
+    """p1 & ~p2 on the card: both leaves train in one padded run (the
+    contrastive kernel launched phase2_steps times for the plan), and the
+    mask is bitwise the Kleene combination of each leaf filtered alone
+    (each trained beside three dummy lanes) on another engine."""
+    from repro_torch.config import CascadeConfig, ProxyConfig
+    from repro_torch.data import make_corpus, make_query
+    from repro_torch.engine import (InMemoryStore, ScaleDocEngine,
+                                    SemanticPredicate, SimulatedOracle)
+    corpus = make_corpus(0, n_docs=4096, dim=256)
+    qs = [make_query(corpus, 100 + j, selectivity=s)
+          for j, s in enumerate((0.1, 0.2))]
+    pcfg = ProxyConfig(phase1_steps=20, phase2_steps=20)
+
+    def engine():
+        return ScaleDocEngine(InMemoryStore(corpus.embeds), pcfg,
+                              CascadeConfig(accuracy_target=0.9),
+                              device=cuda)
+
+    def leaves():
+        return [SemanticPredicate(q.embed, SimulatedOracle(q.truth),
+                                  name=f"p{j + 1}")
+                for j, q in enumerate(qs)]
+
+    p = leaves()
+    before = c_ops.KERNEL.launches
+    res = engine().filter(p[0] & ~p[1], seed=0)
+    torch.cuda.synchronize()
+    assert c_ops.KERNEL.launches == before + pcfg.phase2_steps
+    assert len(res.leaf_reports) == 2 and res.provenance.complete()
+    alone = engine()
+    m1, m2 = (alone.filter(lf, seed=0).mask for lf in leaves())
+    np.testing.assert_array_equal(res.mask, m1 & ~m2)

@@ -26,7 +26,8 @@ from repro_torch.config import CascadeConfig, ProxyConfig
 from repro_torch.core.encoder import params_from_jax
 from repro_torch.data import make_corpus, make_query
 from repro_torch.engine import (InMemoryStore, ScaleDocEngine,
-                                SemanticPredicate, SimulatedOracle)
+                                SemanticPredicate, SemanticTopK,
+                                SimulatedOracle)
 
 TARGET = 0.9
 SCORE_TOL = 1e-6
@@ -112,8 +113,11 @@ def test_unported_paths_raise():
     te = ScaleDocEngine(corpus.embeds, device="cpu")
     with pytest.raises(NotImplementedError):
         ScaleDocEngine(corpus.embeds, degrade="defer", device="cpu")
+    pred = SemanticPredicate(q.embed, SimulatedOracle(q.truth))
     with pytest.raises(NotImplementedError):
-        te.session_view()
+        te.filter(SemanticTopK(pred, k=5))
+    with pytest.raises(NotImplementedError):
+        te.session_view().filter(SemanticTopK(pred & pred, k=5))
     with pytest.raises(NotImplementedError):
         te.filter(SemanticPredicate(q.embed, SimulatedOracle(q.truth)),
                   degrade="proxy_fallback")

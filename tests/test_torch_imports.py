@@ -58,7 +58,9 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from repro_torch.config import ProxyConfig
+    from repro_torch.config import CascadeConfig
     from repro_torch.core import scoring
+    from repro_torch.core.pipeline import ScaleDocPipeline
     from repro_torch.core.trainer import train_proxy, train_proxy_multi
     from repro_torch.engine import ScaleDocEngine, ScoringExecutor
     from repro_torch.kernels.fused_scoring import ops
@@ -67,6 +69,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     cfg = ProxyConfig(embed_dim=8, hidden_dim=8, latent_dim=8, proj_dim=4)
     calls = [
         lambda: ScaleDocEngine(docs),
+        lambda: ScaleDocPipeline(docs, cfg, CascadeConfig()),
         lambda: ScoringExecutor(),
         lambda: train_proxy(0, docs[0], docs, np.ones(80), cfg),
         lambda: train_proxy_multi([0], docs[:1], [docs], [np.ones(80)], cfg),
