@@ -74,7 +74,26 @@ Phases, each of which exits non-zero when it fails:
                no more oracle calls there; the plan, per-leaf pending
                sizes and calls, provenance counts and the stage split
                (plan, train, each leaf) of each filter() are logged;
-  7. offline — the offline path: ScaleDocEngine.from_corpus with an
+  7. topk    — SemanticTopK(p1, k=100) and SemanticTopK(p1 & ~p2, k=100)
+               (the latter through a QueryOptimizer), each on a fresh
+               engine at seed 0: k members, every one in the mask of the
+               same predicate's full filter() at seed 0 (phase 4's p1,
+               phase 6's p1 & ~p2), fewer oracle calls than that filter(),
+               topk_queries == 1, a complete provenance map, both kernels
+               launched; the documents walked, the calls (train, calib,
+               walk), the launches and the wall time are logged;
+  8. degrade — p1 at seed 0 over ResilientOracle(CachedOracle(
+               ChaosOracle(counting(SimulatedOracle)))), blacked out from
+               invocation 2 on (after the training and calibration
+               samples): degrade="defer" parks one ticket and its partial
+               mask accepts no unresolved document; after heal(),
+               repair_pending() gives a mask bitwise equal to phase 4's
+               fault-free p1 run, with no document bought twice; on a
+               fresh stack degrade="proxy_fallback" leaves nothing
+               unresolved, 0 < est_accuracy_debit <= 1 and agrees with the
+               truth on more than 60% of the documents; both kernels
+               launched in each run;
+  9. offline — the offline path: ScaleDocEngine.from_corpus with an
                EmbeddingService over llama3-8b at full width (32 layers,
                bf16, weights drawn on the card from a seed) into a store of
                2,048 documents of 512 tokens: 2048 finite rows of width
@@ -82,13 +101,13 @@ Phases, each of which exits non-zero when it fails:
                pooled embeddings against the plain einsum path's (per-row
                cosine >= COS_MIN), a killed-and-resumed ingest bit-identical
                to an uninterrupted one, and one query() over the store;
-  8. flash   — the bf16 flash kernel (and the same call non-causal), the
+ 10. flash   — the bf16 flash kernel (and the same call non-causal), the
                FP32 kernel on the same inputs in f32, the plain version
                and PyTorch's scaled_dot_product_attention under each
                backend that takes the call (a yardstick the port never
                calls) at the offline path's shape, and the kernel's share
                of one embedding batch;
-  9. rwkv    — the llama3-8b weights freed, the same offline path over
+ 11. rwkv    — the llama3-8b weights freed, the same offline path over
                rwkv6-7b at full width (32 layers, bf16, weights drawn on
                the card) and the same corpus: 2048 finite rows of width
                4096, the WKV6 kernel launched 32 times per batch, the
@@ -103,7 +122,7 @@ Phases, each of which exits non-zero when it fails:
                output one f32 ulp up, the kernel at chunk 64) drift from
                the kernel path with depth (the direct scan's after
                RWKV_DEPTH layers >= RWKV_DEPTH_COS_MIN);
- 10. wkv6    — the WKV6 kernel, its plain version and the plain
+ 12. wkv6    — the WKV6 kernel, its plain version and the plain
                pairwise form at the rwkv6-7b path's shape, its bound
                (exponentials in the sub-chunk form, FP32 operations and
                bytes), and its share of one embedding batch.
@@ -187,6 +206,11 @@ SPREAD_CHUNK = 64          # the other chunk length of the drift check
 # the compound phase's cross-session CSE arms run on this many of the
 # main path's documents, to bound the phase's time
 CSE_DOCS = 32_768
+TOPK_K = 100
+# the degrade phase's outage: the oracle answers the training sample
+# (invocation 0) and the calibration sample (1), then fails until healed
+DEGRADE_BLACKOUT = 2
+DEGRADE_AGREE_MIN = 0.6     # proxy-only decisions against the truth
 
 
 def fail(msg: str) -> None:
@@ -1130,6 +1154,246 @@ def compound_phase(dev, embeds, queries, n_tiles) -> dict:
     log(f"[compound] phase time {out['phase_seconds']:.1f} s")
     if bad:
         fail("compound: " + "; ".join(bad))
+    return out, runs["and_not"][2]
+
+
+def topk_phase(dev, embeds, queries, full) -> dict:
+    """Phase 7: SemanticTopK over one leaf and over a compound child, each
+    on a fresh engine at seed 0, against the same predicate's full
+    filter() at seed 0 from the earlier phases (``full``: predicate ->
+    (mask, oracle calls)). Every gate is checked and logged; the phase
+    fails after the last."""
+    import numpy as np
+    from repro_torch.config import CascadeConfig, ProxyConfig
+    from repro_torch.core.oracle import SimulatedOracle
+    from repro_torch.engine import (InMemoryStore, QueryOptimizer,
+                                    ScaleDocEngine, SemanticPredicate,
+                                    SemanticTopK)
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    store = InMemoryStore(embeds)
+    n = len(store)
+    bad = []
+    out = {}
+    t_phase = time.perf_counter()
+    for form in ("p1", "p1 & ~p2"):
+        p = [SemanticPredicate(q.embed, SimulatedOracle(q.truth),
+                               name=f"p{i + 1}")
+             for i, q in enumerate(queries[:2])]
+        child = p[0] if form == "p1" else p[0] & ~p[1]
+        engine = ScaleDocEngine(store, ProxyConfig(),
+                                CascadeConfig(accuracy_target=0.9),
+                                device=dev)
+        opt = None
+        if form != "p1":
+            opt = QueryOptimizer()
+            engine = engine.session_view(optimizer=opt)
+        s_ops.KERNEL.launches = 0
+        c_ops.KERNEL.launches = 0
+        tw = time.perf_counter()
+        res = engine.filter(SemanticTopK(child, k=TOPK_K), seed=0)
+        wall = time.perf_counter() - tw
+        launches = {"fused_scoring": s_ops.KERNEL.launches,
+                    "contrastive": c_ops.KERNEL.launches}
+        members = np.flatnonzero(res.mask)
+        full_mask, full_calls = full[form]
+        walked = res.leaf_reports[0].n_pending
+        row = {"plan": res.plan, "k": TOPK_K, "members": len(members),
+               "docs_walked": walked,
+               "oracle_calls": res.oracle_calls_total,
+               "train_calls": res.oracle_calls_train,
+               "calib_calls": sum(r.oracle_calls_calib
+                                  for r in res.leaf_reports),
+               "walk_calls": sum(r.oracle_calls_online
+                                 for r in res.leaf_reports),
+               "full_filter_calls": full_calls,
+               "leaves": leaf_rows(res),
+               "provenance": res.provenance.counts(),
+               "provenance_complete": res.provenance.complete(),
+               "launches": launches, "wall_seconds": wall}
+        if opt is not None:
+            row["topk_queries"] = opt.snapshot()["topk_queries"]
+        out[form] = row
+        log(f"[topk] SemanticTopK({form}, k={TOPK_K}) (seed 0"
+            f"{', through a QueryOptimizer' if opt else ''}): plan "
+            f"{res.plan}; {len(members)} members, {walked} of {n} documents "
+            f"walked; oracle calls {res.oracle_calls_total} (train "
+            f"{row['train_calls']}, calib {row['calib_calls']}, walk "
+            f"{row['walk_calls']}) against {full_calls} for the full "
+            f"filter(); per leaf {json.dumps(row['leaves'])}; provenance "
+            f"{json.dumps(row['provenance'])}; launches {launches}; wall "
+            f"{wall:.3f} s")
+        if len(members) != TOPK_K:
+            bad.append(f"{form}: {len(members)} members, not {TOPK_K}")
+        if not full_mask[members].all():
+            bad.append(f"{form}: {int((~full_mask[members]).sum())} members "
+                       f"outside the full filter()'s mask at seed 0")
+        if not res.oracle_calls_total < full_calls:
+            bad.append(f"{form}: {res.oracle_calls_total} calls, no fewer "
+                       f"than the full filter()'s {full_calls}")
+        if opt is not None and row["topk_queries"] != 1:
+            bad.append(f"{form}: topk_queries {row['topk_queries']}, not 1")
+        if not res.provenance.complete():
+            bad.append(f"{form}: the provenance map is incomplete")
+        for name, count in launches.items():
+            if count <= 0:
+                bad.append(f"{form}: {name} was never launched")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[topk] phase time {out['phase_seconds']:.1f} s")
+    if bad:
+        fail("topk: " + "; ".join(bad))
+    return out
+
+
+class CountingOracle:
+    """Per-doc purchase ledger around a raw oracle: the witness that no
+    document is bought twice."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.per_doc = {}
+
+    @property
+    def calls(self):
+        return self.inner.calls
+
+    def label(self, indices):
+        import numpy as np
+        indices = np.asarray(indices, np.int64)
+        for i in indices:
+            self.per_doc[int(i)] = self.per_doc.get(int(i), 0) + 1
+        return self.inner.label(indices)
+
+
+def degrade_phase(dev, embeds, query, fault_free_mask) -> dict:
+    """Phase 8: p1 at seed 0 on fresh engines over the oracle stack
+    ResilientOracle(CachedOracle(ChaosOracle(counting(SimulatedOracle)))),
+    blacked out from invocation DEGRADE_BLACKOUT on: degrade="defer",
+    heal, repair_pending() (against the fault-free p1 run's mask), then
+    degrade="proxy_fallback". Every gate is checked and logged; the phase
+    fails after the last."""
+    import numpy as np
+    from repro_torch.config import CascadeConfig, ProxyConfig
+    from repro_torch.core.oracle import CachedOracle, SimulatedOracle
+    from repro_torch.engine import (InMemoryStore, ScaleDocEngine,
+                                    SemanticPredicate)
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    from repro_torch.serve import ChaosConfig, ChaosOracle, ResilientOracle
+    store = InMemoryStore(embeds)
+    n = len(store)
+    bad = []
+    out = {}
+    t_phase = time.perf_counter()
+
+    def stack():
+        counting = CountingOracle(SimulatedOracle(query.truth))
+        chaos = ChaosOracle(counting, ChaosConfig(
+            blackouts=((DEGRADE_BLACKOUT, 1 << 30),)))
+        return ResilientOracle(CachedOracle(chaos)), chaos, counting
+
+    def run(label, fn):
+        s_ops.KERNEL.launches = 0
+        c_ops.KERNEL.launches = 0
+        tw = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - tw
+        launches = {"fused_scoring": s_ops.KERNEL.launches,
+                    "contrastive": c_ops.KERNEL.launches}
+        for name, count in launches.items():
+            if count <= 0:
+                bad.append(f"{label}: {name} was never launched")
+        return res, launches, wall
+
+    def engine(mode):
+        return ScaleDocEngine(store, ProxyConfig(),
+                              CascadeConfig(accuracy_target=0.9),
+                              degrade=mode, device=dev)
+
+    # defer, then heal and repair
+    res_o, chaos, counting = stack()
+    eng = engine("defer")
+    pred = SemanticPredicate(query.embed, res_o, name="p1")
+    res, launches, wall = run("defer", lambda: eng.filter(pred, seed=0))
+    unresolved = res.unresolved
+    tickets = eng.repair_count
+    out["defer"] = {"degraded": res.degraded, "unresolved": len(unresolved),
+                    "partial_accepted": int(res.mask.sum()),
+                    "oracle_calls": res.oracle_calls_total,
+                    "tickets": tickets, "error": res.error,
+                    "resilience": res_o.resilience_stats(),
+                    "chaos_invocations": chaos.invocations,
+                    "provenance": res.provenance.counts(),
+                    "launches": launches, "wall_seconds": wall}
+    log(f"[degrade] defer (blackout from invocation {DEGRADE_BLACKOUT}): "
+        f"degraded {res.degraded}, {len(unresolved)} of {n} documents "
+        f"unresolved, {int(res.mask.sum())} accepted in the partial mask, "
+        f"{tickets} ticket(s) parked; oracle calls {res.oracle_calls_total};"
+        f" error {res.error!r}; resilience "
+        f"{json.dumps(res_o.resilience_stats())}; provenance "
+        f"{json.dumps(res.provenance.counts())}; launches {launches}; wall "
+        f"{wall:.3f} s")
+    if not (res.degraded and res.degrade_mode == "defer" and tickets == 1):
+        bad.append(f"defer: degraded {res.degraded}, {tickets} tickets "
+                   f"parked, not 1")
+    if res.mask[unresolved].any():
+        bad.append("defer: the partial mask accepts unresolved documents")
+    chaos.heal()
+    (healed,), launches, wall = run("repair", eng.repair_pending)
+    same = bool(np.array_equal(healed.mask, fault_free_mask))
+    twice = sum(1 for v in counting.per_doc.values() if v > 1)
+    out["repair"] = {"degraded": healed.degraded,
+                     "mask_equal_fault_free": same,
+                     "oracle_calls": healed.oracle_calls_total,
+                     "docs_bought": len(counting.per_doc),
+                     "docs_bought_twice": twice,
+                     "tickets_left": eng.repair_count,
+                     "launches": launches, "wall_seconds": wall}
+    log(f"[degrade] repair after heal: degraded {healed.degraded}, mask "
+        f"bitwise equal to the fault-free p1 run at seed 0: {same}; oracle "
+        f"calls {healed.oracle_calls_total}; {len(counting.per_doc)} "
+        f"documents bought, {twice} of them twice; {eng.repair_count} "
+        f"ticket(s) left; launches {launches}; wall {wall:.3f} s")
+    if healed.degraded or not same:
+        bad.append("repair: the replay is not the fault-free run")
+    if twice:
+        bad.append(f"repair: {twice} documents bought twice")
+
+    # proxy fallback on a fresh stack
+    res_o, chaos, counting = stack()
+    eng = engine("fail")
+    pred = SemanticPredicate(query.embed, res_o, name="p1")
+    res, launches, wall = run("proxy_fallback", lambda: eng.filter(
+        pred, seed=0, degrade="proxy_fallback", ground_truth=query.truth))
+    agree = float(np.mean(res.mask == query.truth))
+    out["proxy_fallback"] = {
+        "degraded": res.degraded, "unresolved": len(res.unresolved),
+        "fallback_docs": res.fallback_docs,
+        "est_accuracy_debit": res.est_accuracy_debit,
+        "oracle_calls": res.oracle_calls_total, "f1": res.achieved_f1,
+        "agreement": agree, "provenance": res.provenance.counts(),
+        "launches": launches, "wall_seconds": wall}
+    log(f"[degrade] proxy_fallback: degraded {res.degraded}, "
+        f"{len(res.unresolved)} unresolved, {res.fallback_docs} documents "
+        f"decided by the proxy alone, est_accuracy_debit "
+        f"{res.est_accuracy_debit:.6f}; oracle calls "
+        f"{res.oracle_calls_total}; agreement with the truth {agree:.4f} "
+        f"(F1 {res.achieved_f1:.4f}); provenance "
+        f"{json.dumps(res.provenance.counts())}; launches {launches}; wall "
+        f"{wall:.3f} s")
+    if not (res.degraded and res.degrade_mode == "proxy_fallback"):
+        bad.append("proxy_fallback: the filter did not degrade")
+    if len(res.unresolved):
+        bad.append(f"proxy_fallback: {len(res.unresolved)} unresolved")
+    if not 0.0 < res.est_accuracy_debit <= 1.0:
+        bad.append(f"proxy_fallback: debit {res.est_accuracy_debit}")
+    if not agree > DEGRADE_AGREE_MIN:
+        bad.append(f"proxy_fallback: agreement {agree:.4f} <= "
+                   f"{DEGRADE_AGREE_MIN}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[degrade] phase time {out['phase_seconds']:.1f} s")
+    if bad:
+        fail("degrade: " + "; ".join(bad))
     return out
 
 
@@ -1328,6 +1592,8 @@ def main() -> None:
         tq = time.perf_counter()
         st = engine.query(q.embed, oracle, ground_truth=q.truth, seed=0)
         wall = time.perf_counter() - tq
+        if i == 0:              # p1's fault-free decisions at seed 0
+            p1_full = (st.cascade.labels.copy(), st.oracle_calls_total)
         f1 = st.cascade.achieved_f1
         results.append({"selectivity": q.selectivity, "f1": f1,
                         "oracle_calls": st.oracle_calls_total,
@@ -1463,10 +1729,19 @@ def main() -> None:
                        "contrastive": ct}
 
     # -- 6. compound predicates, the planner and cross-session CSE -------
-    report["compound"] = compound_phase(dev, corpus.embeds, queries,
-                                        -(-n // engine.executor.chunk))
+    report["compound"], and_not = compound_phase(
+        dev, corpus.embeds, queries, -(-n // engine.executor.chunk))
 
-    # -- 7. offline path: from_corpus over llama3-8b ----------------------
+    # -- 7. SemanticTopK --------------------------------------------------
+    report["topk"] = topk_phase(dev, corpus.embeds, queries, {
+        "p1": p1_full,
+        "p1 & ~p2": (and_not.mask, and_not.oracle_calls_total)})
+
+    # -- 8. the degraded modes over an oracle outage ---------------------
+    report["degrade"] = degrade_phase(dev, corpus.embeds, queries[0],
+                                      p1_full[0])
+
+    # -- 9. offline path: from_corpus over llama3-8b ----------------------
     del engine, store, corpus, docs
     torch.cuda.empty_cache()
     offline, service, _ = offline_phase(dev, OFF_ARCH, "flash_attention",
@@ -1475,7 +1750,7 @@ def main() -> None:
     del service
     report["offline"] = offline
 
-    # -- 8. flash times ------------------------------------------------------
+    # -- 10. flash times ------------------------------------------------------
     ft = flash_times(dev)
     kernels.append(
         {"name": "flash_attention", "route": "cuda",
@@ -1504,7 +1779,7 @@ def main() -> None:
     ft["share_of_embed_batch"] = share
     report["times"]["flash"] = ft
 
-    # -- 9. the rwkv6-7b offline path ----------------------------------------
+    # -- 11. the rwkv6-7b offline path ----------------------------------------
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -1546,7 +1821,7 @@ def main() -> None:
     rwkv["checks"] = rc
     report["rwkv"] = rwkv
 
-    # -- 10. wkv6 times ------------------------------------------------------
+    # -- 12. wkv6 times ------------------------------------------------------
     wt = wkv6_times(dev)
     kernels.append(
         {"name": "wkv6_intra_chunk", "route": "cuda",

@@ -7,6 +7,9 @@
   calibration and ambiguous-band asks (and across the leaves and
   sessions of the engine that shares it), with ``peek`` for decision
   provenance and hit / purchase counters.
+* The oracle-plane errors: ``OracleError`` and its ``OracleFault``,
+  ``OracleTimeout`` and ``OracleUnavailable``, which the engine's
+  degraded modes catch and ``repro_torch.serve.resilience`` raises.
 The LM-as-judge oracle of the JAX package is not ported yet.
 """
 from __future__ import annotations
@@ -34,8 +37,32 @@ OUR_PROXY_FLOPS_PER_DOC = 2e12 / 10_000
 
 
 class OracleError(RuntimeError):
-    """Base for oracle failures. Subclasses RuntimeError, as in the JAX
-    package; the port's engine re-raises it (``degrade="fail"``)."""
+    """Base for oracle-plane failures. Subclasses RuntimeError, as in the
+    JAX package. Lives here (not in serve/) so the engine can catch it
+    without importing the serving package."""
+
+
+class OracleFault(OracleError):
+    """A single invocation failed (drop, rate-limit, poison input).
+    Retryable."""
+
+
+class OracleTimeout(OracleFault):
+    """An invocation exceeded its deadline. Retryable."""
+
+
+class OracleUnavailable(OracleError):
+    """The oracle plane gave up: retries/bisection exhausted or the
+    circuit breaker is open. Carries the doc ids that were NOT labeled
+    and an advisory retry-after horizon."""
+
+    def __init__(self, message: str = "oracle unavailable", *,
+                 docs: Sequence[int] = (), retry_after: float = 0.0,
+                 breaker_open: bool = False):
+        super().__init__(message)
+        self.docs = tuple(int(d) for d in docs)
+        self.retry_after = float(retry_after)
+        self.breaker_open = bool(breaker_open)
 
 
 class CachedOracle:

@@ -38,8 +38,9 @@ class QueryStats:
     total_flops: float
     wall_seconds: float
     scores: np.ndarray
-    # degraded-mode accounting; the port runs degrade="fail" only, so
-    # these keep their defaults
+    # degraded-mode accounting (engine degrade= policy under an oracle
+    # outage): flagged so a consumer can tell contract-backed decisions
+    # from best-effort ones
     degraded: bool = False
     degrade_mode: Optional[str] = None
     unresolved_docs: int = 0

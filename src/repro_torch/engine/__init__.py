@@ -1,11 +1,12 @@
 """The persistent predicate engine and the offline indexer
 (``repro.engine``): the predicate algebra (``SemanticPredicate`` composed
 with ``&``, ``|``, ``~``, and the wire codec), ``ScaleDocEngine`` with
-cross-query caches and cost-ordered compound plans, the cross-session
+cross-query caches, cost-ordered compound plans, ``SemanticTopK``
+execution and the degraded modes (``RepairTicket``), the cross-session
 ``QueryOptimizer``, the scoring executor, stores and ingest."""
 from repro_torch.core.oracle import CachedOracle, SimulatedOracle
 from repro_torch.engine.engine import (FilterResult, LeafReport,
-                                       ScaleDocEngine)
+                                       RepairTicket, ScaleDocEngine)
 from repro_torch.engine.executor import ScoringExecutor, ScoringStats
 from repro_torch.engine.ingest import (IngestResult, Ingestor, IngestStats,
                                        build_index, corpus_digest,
@@ -24,7 +25,7 @@ from repro_torch.engine.store import (DocumentStore, InMemoryStore,
 __all__ = ["And", "CachedOracle", "DocumentStore", "FALSE", "FilterResult",
            "InMemoryStore", "IngestResult", "IngestStats", "Ingestor",
            "LeafArtifact", "LeafReport", "MemmapStore", "Not", "Or",
-           "Predicate", "QueryOptimizer", "ScaleDocEngine",
+           "Predicate", "QueryOptimizer", "RepairTicket", "ScaleDocEngine",
            "ScoringExecutor", "ScoringStats", "SelectivityStats",
            "SemanticPredicate", "SemanticTopK", "SimulatedOracle",
            "StoreFingerprintError", "StoreManifest", "StoreWriter", "TRUE",

@@ -33,7 +33,15 @@ queries:
     sessions (cross-session CSE); every shared value is a pure function
     of its key, so sharing changes cost, never decisions;
   * every ``filter()`` returns per-document decision provenance
-    (``FilterResult.provenance``).
+    (``FilterResult.provenance``);
+  * ``SemanticTopK(child, k)`` walks documents in descending fuzzy rank
+    of the child's leaf scores and decides each batch through the
+    canonical leaf artifacts, stopping once ``k`` members are confirmed;
+  * when the oracle plane fails mid-filter (an ``OracleError``), the
+    ``degrade`` policy decides: ``"fail"`` re-raises, ``"defer"`` parks
+    the undecided documents and a ``RepairTicket`` whose replay
+    (``repair_pending``) is bitwise the fault-free run, and
+    ``"proxy_fallback"`` decides the rest by proxy score alone.
 
 The sample streams are numpy generators seeded by ``(seed, leaf
 fingerprint)``, exactly as in the JAX package, so both packages draw the
@@ -45,9 +53,8 @@ threefry key, which torch cannot reproduce).
 .ingest``: the LM embeds every document into a persistent store) and
 builds the engine over that store.
 
-Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md):
-``SemanticTopK`` execution, ``degrade`` other than ``"fail"``, the
-tracer and the cost ledger.
+Not ported yet (see ROADMAP.md): ``session_view(tracer=)`` and the
+cost ledger, which come with the tracer.
 """
 from __future__ import annotations
 
@@ -62,18 +69,18 @@ import numpy as np
 from repro_torch.config import CascadeConfig, ProxyConfig, replace
 from repro_torch.core import oracle as oracle_mod
 from repro_torch.core.cascade import CascadeResult, f1_score
-from repro_torch.core.oracle import CachedOracle
+from repro_torch.core.oracle import CachedOracle, OracleError
 from repro_torch.core.pipeline import QueryStats
 from repro_torch.core.trainer import train_proxy_multi, unstack_params
 from repro_torch.device import resolve_device
 from repro_torch.engine.executor import ScoringExecutor, ScoringStats
 from repro_torch.engine.optimizer import (LeafArtifact, QueryOptimizer,
                                           SelectivityStats)
-from repro_torch.engine.predicate import (FALSE, TRUE, UNKNOWN, Not,
-                                          Predicate, SemanticPredicate,
+from repro_torch.engine.predicate import (FALSE, TRUE, UNKNOWN, And, Not,
+                                          Or, Predicate, SemanticPredicate,
                                           SemanticTopK)
 from repro_torch.engine.registry import get_calibrator, get_strategy
-from repro_torch.engine.store import DocumentStore, as_store
+from repro_torch.engine.store import DocumentStore, InMemoryStore, as_store
 from repro_torch.runtime import trace as trace_mod
 
 # below this many documents in the COLLECTION the cascade machinery
@@ -88,7 +95,31 @@ DIRECT_LABEL_CUTOFF = 64
 # alone, never on how many leaves happened to co-train
 TRAIN_BATCH_PAD = 4
 
-_NOT_PORTED = "is not ported yet; see ROADMAP.md"
+DEGRADE_MODES = ("fail", "defer", "proxy_fallback")
+
+
+class _PendingView:
+    """Streaming view of a pending subset of a store: scoring iterates it
+    chunk by chunk, so only one chunk of embeddings is resident at a time
+    even when the pending set spans an out-of-core collection."""
+
+    def __init__(self, store: "DocumentStore", pending: np.ndarray,
+                 chunk: int):
+        self._store = store
+        self._pending = pending
+        self._chunk = chunk
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    @property
+    def dim(self) -> int:
+        return self._store.dim
+
+    def iter_chunks(self, chunk: int = 0):
+        chunk = chunk or self._chunk
+        for start in range(0, len(self._pending), chunk):
+            yield start, self._store.get(self._pending[start:start + chunk])
 
 
 @dataclasses.dataclass
@@ -138,6 +169,21 @@ class FilterResult:
     # ran (planning + per-leaf); zeroed fields when no pass was needed
     scoring_stats: ScoringStats = dataclasses.field(
         default_factory=ScoringStats)
+    # degraded-mode accounting (oracle outage mid-filter):
+    #   degraded        — the oracle plane failed and a degrade policy ran
+    #   degrade_mode    — "defer" | "proxy_fallback" when degraded
+    #   unresolved      — doc ids parked UNRESOLVED (defer: not in mask,
+    #                     a RepairTicket re-decides them after heal)
+    #   fallback_docs   — docs decided by raw proxy score (proxy_fallback)
+    #   est_accuracy_debit — heuristic accuracy give-up from fallback
+    #   error           — stringified oracle failure
+    degraded: bool = False
+    degrade_mode: Optional[str] = None
+    unresolved: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    fallback_docs: int = 0
+    est_accuracy_debit: float = 0.0
+    error: Optional[str] = None
     # decision provenance: for every doc, which mechanism decided it at
     # the root and at which leaf
     provenance: Optional[trace_mod.ProvenanceMap] = None
@@ -145,6 +191,23 @@ class FilterResult:
     @property
     def data_reduction(self) -> float:
         return 1.0 - self.oracle_calls_total / max(self.n_docs, 1)
+
+
+@dataclasses.dataclass
+class RepairTicket:
+    """A deferred query parked by ``degrade="defer"``: everything needed
+    to replay ``filter()`` bit-identically once the oracle heals. The
+    replay runs on a *fresh* session view (fresh proxy/decision caches,
+    shared label caches), so its sample streams and proxy seeds match a
+    fault-free run; that, plus ``CachedOracle``'s at-most-once purchase,
+    is the parity argument."""
+    predicate: Predicate
+    accuracy_target: Optional[float]
+    ground_truth: Optional[np.ndarray]
+    seed: int
+    unresolved: np.ndarray
+    error: str
+    name: Optional[str] = None
 
 
 class ScaleDocEngine:
@@ -159,8 +222,14 @@ class ScaleDocEngine:
                  degrade: str = "fail",
                  optimizer: Optional[QueryOptimizer] = None,
                  device="cuda"):
-        if degrade != "fail":
-            raise NotImplementedError(f"degrade={degrade!r} {_NOT_PORTED}")
+        # what happens when the oracle plane fails mid-filter:
+        #   "fail"           — raise
+        #   "defer"          — park undecided docs + a RepairTicket
+        #   "proxy_fallback" — decide the rest by proxy score, flagged
+        if degrade not in DEGRADE_MODES:
+            raise ValueError(f"unknown degrade policy {degrade!r}")
+        self.degrade = degrade
+        self._repairs: List[RepairTicket] = []
         self.device = resolve_device(device)
         self.store: DocumentStore = as_store(store)
         proxy_cfg = proxy_cfg or ProxyConfig()
@@ -288,7 +357,11 @@ class ScaleDocEngine:
         # every oracle stays pinned in _oracles: leaf keys embed
         # id(oracle), so a collected oracle's id must never be reused
         with self._lock:
-            if isinstance(oracle, CachedOracle):
+            # a ResilientOracle (repro_torch.serve.resilience) presents
+            # the full CachedOracle surface plus its retry/breaker
+            # policy; adopting it here routes every purchase through it
+            if (isinstance(oracle, CachedOracle)
+                    or getattr(oracle, "acts_as_cached", False)):
                 self._oracles.setdefault(id(oracle), oracle)
                 return oracle
             got = self._oracles.get(id(oracle))
@@ -305,6 +378,41 @@ class ScaleDocEngine:
         if self._oracle_wrap is None:
             return cached
         return self._oracle_wrap(cached)
+
+    # -- repair queue (degrade="defer") ----------------------------------
+
+    @property
+    def repair_count(self) -> int:
+        with self._lock:
+            return len(self._repairs)
+
+    def take_repairs(self) -> List[RepairTicket]:
+        """Pop every parked ticket (shared across session views)."""
+        with self._lock:
+            out, self._repairs = self._repairs, []
+            return out
+
+    def repark(self, ticket: RepairTicket) -> None:
+        with self._lock:
+            self._repairs.append(ticket)
+
+    def repair_pending(self) -> List[FilterResult]:
+        """Replay every parked ticket on a fresh session view.
+
+        Each replay is a full ``filter()`` from the ticket's seed: fresh
+        proxy/decision caches so the sample streams and proxy seeds match
+        a fault-free run, shared label caches so nothing already
+        purchased is paid again. A replay that degrades again re-parks
+        itself (views share the repair list). Call after the oracle
+        heals."""
+        out: List[FilterResult] = []
+        for ticket in self.take_repairs():
+            view = self.session_view()
+            out.append(view.filter(
+                ticket.predicate, accuracy_target=ticket.accuracy_target,
+                ground_truth=ticket.ground_truth, seed=ticket.seed,
+                degrade="defer", name=ticket.name))
+        return out
 
     def clear_caches(self) -> None:
         """Drop all cross-query state (labels, proxies, decisions).
@@ -746,6 +854,98 @@ class ScaleDocEngine:
                 labels[i] = known[g]
         return labels, ambiguous, int(len(need)), mech
 
+    # -- degraded-mode resolution ----------------------------------------
+
+    def _proxy_fallback(self, predicate: Predicate,
+                        order: List[SemanticPredicate],
+                        leaves: List[SemanticPredicate],
+                        leaf_values: Dict[str, np.ndarray],
+                        local_params: Dict[str, Dict],
+                        root: np.ndarray, stats: ScoringStats,
+                        last_mech: Optional[np.ndarray] = None,
+                        last_writer: Optional[np.ndarray] = None):
+        """Decide every still-UNKNOWN document by proxy score alone.
+
+        The cut placement uses the best oracle-free selectivity signal
+        available: a measured selectivity from a past completed cascade,
+        else the positive rate of the labels this query *already
+        purchased* (training/calibration samples in the shared cache),
+        accepting the matching top score-quantile. With neither, trained
+        proxies cut at 0.5 and untrained leaves at 0.5 of
+        min-max-normalized raw cosine (the planner's heuristic). The
+        stranded documents are scored through the fused kernel (the raw
+        cosine product for an untrained leaf). No oracle is touched, so
+        this always completes during an outage; the caller flags the
+        result, since these decisions carry no accuracy contract."""
+        n = len(self.store)
+        before = int(np.sum(root == UNKNOWN))
+        for oi, leaf in enumerate(order):
+            pending = np.nonzero(root == UNKNOWN)[0]
+            if not len(pending):
+                break
+            vals = leaf_values.get(leaf.key)
+            if vals is None:
+                vals = np.full(n, UNKNOWN, np.int8)
+            need = pending[vals[pending] == UNKNOWN]
+            if len(need):
+                if isinstance(self.store, InMemoryStore):
+                    view = self.store.get(need)
+                else:
+                    view = _PendingView(self.store, need,
+                                        self.executor.chunk)
+                params = local_params.get(leaf.key)
+                s, pass_stats = self.executor.score(params, leaf.e_q,
+                                                    view)
+                stats.merge(pass_stats)
+                if params is None:
+                    span = float(s.max() - s.min())
+                    s = ((s - s.min()) / span if span > 0
+                         else np.full(len(s), 0.5, np.float32))
+                alpha = self._selstats.get(leaf.key, measured_only=True)
+                if alpha is None:
+                    cached = self._cached_oracle(leaf.oracle)
+                    alpha = getattr(cached, "cached_positive_rate",
+                                    lambda: None)()
+                if alpha is not None and 0.0 < alpha < 1.0 and \
+                        len(need) > 1:
+                    cut = float(np.quantile(s, 1.0 - alpha))
+                else:
+                    cut = 0.5
+                vals = vals.copy()
+                vals[need] = (s > cut).astype(np.int8)
+                leaf_values[leaf.key] = vals
+                if last_mech is not None:
+                    # every doc the outage stranded receives at least
+                    # one fallback write before its root decides, so
+                    # last-writer-wins marks exactly the fallback set
+                    last_mech[need] = trace_mod.PROXY_FALLBACK
+                    last_writer[need] = oi
+            full = {lf.key: leaf_values.get(
+                lf.key, np.full(n, UNKNOWN, np.int8)) for lf in leaves}
+            prev_root = root
+            root = predicate.evaluate(full)
+            newly = prev_root == UNKNOWN
+            self._partial(np.nonzero(newly & (root == TRUE))[0],
+                          np.nonzero(newly & (root == FALSE))[0])
+        assert not (root == UNKNOWN).any(), \
+            "proxy fallback visited every leaf yet left docs undecided"
+        return root, before
+
+    @staticmethod
+    def _fallback_debit(reports: List[LeafReport], fallback_docs: int,
+                        n: int) -> float:
+        """Heuristic accuracy give-up: the fraction of docs decided by
+        raw proxy, weighted by how far the completed leaves' estimated
+        accuracy sat from a coin flip (no completed cascade -> assume
+        the full 0.5 gap)."""
+        if not fallback_docs:
+            return 0.0
+        accs = [r.cascade.est_accuracy for r in reports
+                if r.cascade is not None
+                and r.cascade.est_accuracy is not None]
+        gap = 1.0 - (float(np.mean(accs)) if accs else 0.5)
+        return float(fallback_docs) / max(n, 1) * gap
+
     # -- public API -------------------------------------------------------
 
     def filter(self, predicate: Predicate, *,
@@ -753,30 +953,46 @@ class ScaleDocEngine:
                ground_truth: Optional[np.ndarray] = None,
                seed: int = 0, degrade: Optional[str] = None,
                name: Optional[str] = None) -> FilterResult:
-        """Evaluate a (possibly composed) predicate over the collection.
+        """Evaluate a (possibly composed) predicate, or a
+        ``SemanticTopK`` over one, over the collection.
 
         Returns a boolean mask over all documents plus full per-leaf
         cost accounting and decision provenance. ``ground_truth``, if
         given, is the root-level truth used only for reporting achieved
-        F1 / exact accuracy. ``name`` is accepted for the JAX package's
-        signature; it names nothing in the port yet."""
+        F1 / exact accuracy.
+
+        ``degrade`` overrides the engine-level policy for this call:
+        when an ``OracleError`` escapes the oracle plane mid-filter,
+        ``"fail"`` re-raises it, ``"defer"`` returns a partial degraded
+        result (undecided docs in ``result.unresolved``, a
+        ``RepairTicket`` parked for post-heal replay), and
+        ``"proxy_fallback"`` decides the remaining docs by proxy score
+        alone (flagged via ``fallback_docs``/``est_accuracy_debit``).
+        ``name`` carries the caller's query identity onto any parked
+        ``RepairTicket``."""
         if not isinstance(predicate, Predicate):
             raise TypeError("predicate must be a repro_torch Predicate; "
                             "wrap raw (e_q, oracle) in SemanticPredicate")
-        if isinstance(predicate, SemanticTopK):
-            raise NotImplementedError(f"SemanticTopK execution {_NOT_PORTED}")
-        if degrade not in (None, "fail"):
-            raise NotImplementedError(f"degrade={degrade!r} {_NOT_PORTED}")
+        mode = self.degrade if degrade is None else degrade
+        if mode not in DEGRADE_MODES:
+            raise ValueError(f"unknown degrade policy {mode!r}")
         t0 = time.time()
         ccfg = self.cascade_cfg
         if accuracy_target is not None:
             ccfg = replace(ccfg, accuracy_target=accuracy_target)
-        return self._filter_compound(predicate, ccfg=ccfg,
+        if isinstance(predicate, SemanticTopK):
+            return self._filter_topk(predicate, ccfg=ccfg,
                                      ground_truth=ground_truth, seed=seed,
-                                     t0=t0)
+                                     mode=mode, name=name, t0=t0)
+        return self._filter_compound(predicate, ccfg=ccfg,
+                                     accuracy_target=accuracy_target,
+                                     ground_truth=ground_truth, seed=seed,
+                                     mode=mode, name=name, t0=t0)
 
     def _filter_compound(self, predicate: Predicate, *, ccfg: CascadeConfig,
+                         accuracy_target: Optional[float],
                          ground_truth: Optional[np.ndarray], seed: int,
+                         mode: str, name: Optional[str],
                          t0: float) -> FilterResult:
         n = len(self.store)
         leaves = predicate.leaves()
@@ -795,56 +1011,80 @@ class ScaleDocEngine:
             calls_before.setdefault(id(self._cached_oracle(leaf.oracle)),
                                     (o, o.calls))
 
+        train_info: Dict[str, tuple] = {}
+        local_params: Dict[str, Dict] = {}
         leaf_values: Dict[str, np.ndarray] = {}
         root = predicate.evaluate({lf.key: np.full(n, UNKNOWN, np.int8)
                                    for lf in leaves})
         reports: List[LeafReport] = []
+        degrade_error: Optional[OracleError] = None
+        fallback_docs = 0
+        unresolved = np.zeros(0, np.int64)
         # decision provenance, last-writer-wins: once the root decides a
         # doc it leaves every later leaf's pending set, so the last leaf
         # to write a doc's mechanism/index is its deciding leaf
         last_mech = np.full(n, -1, np.int8)
         last_writer = np.full(n, -1, np.int16)
         order_pos = {lf.key: i for i, lf in enumerate(order)}
-
-        # collect-then-batch: train every leaf proxy this plan still
-        # needs before any cascade runs
-        self._notify("training")
-        train_info, local_params = self._train_pending_leaves(order, ccfg,
-                                                              seed)
-        self._notify("scoring")
-        for leaf in order:
-            pending = np.nonzero(root == UNKNOWN)[0]
-            if not len(pending):
-                break
-            truth_local = leaf_truth.get(leaf.key)
-            if truth_local is not None:
-                truth_local = truth_local[pending]
-            report = self._execute_leaf(leaf, pending, ccfg, train_info,
-                                        local_params, truth_local, seed,
-                                        scoring_stats)
-            reports.append(report)
-            if report.mech is not None:
-                last_mech[pending] = report.mech
-                last_writer[pending] = order_pos[leaf.key]
-            vals = np.full(n, UNKNOWN, np.int8)
-            vals[pending] = report.labels.astype(np.int8)
-            leaf_values[leaf.key] = vals
-            full = {lf.key: leaf_values.get(
-                lf.key, np.full(n, UNKNOWN, np.int8)) for lf in leaves}
-            prev_root = root
-            root = predicate.evaluate(full)
-            # stream newly decided doc ids to any session observer
-            newly = prev_root == UNKNOWN
-            self._partial(np.nonzero(newly & (root == TRUE))[0],
-                          np.nonzero(newly & (root == FALSE))[0])
-        assert not (root == UNKNOWN).any(), \
-            "plan executed every leaf yet left documents undecided"
+        try:
+            # collect-then-batch: train every leaf proxy this plan still
+            # needs before any cascade runs
+            self._notify("training")
+            train_info, local_params = self._train_pending_leaves(
+                order, ccfg, seed)
+            self._notify("scoring")
+            for leaf in order:
+                pending = np.nonzero(root == UNKNOWN)[0]
+                if not len(pending):
+                    break
+                truth_local = leaf_truth.get(leaf.key)
+                if truth_local is not None:
+                    truth_local = truth_local[pending]
+                report = self._execute_leaf(leaf, pending, ccfg, train_info,
+                                            local_params, truth_local, seed,
+                                            scoring_stats)
+                reports.append(report)
+                if report.mech is not None:
+                    last_mech[pending] = report.mech
+                    last_writer[pending] = order_pos[leaf.key]
+                vals = np.full(n, UNKNOWN, np.int8)
+                vals[pending] = report.labels.astype(np.int8)
+                leaf_values[leaf.key] = vals
+                full = {lf.key: leaf_values.get(
+                    lf.key, np.full(n, UNKNOWN, np.int8)) for lf in leaves}
+                prev_root = root
+                root = predicate.evaluate(full)
+                # stream newly decided doc ids to any session observer
+                newly = prev_root == UNKNOWN
+                self._partial(np.nonzero(newly & (root == TRUE))[0],
+                              np.nonzero(newly & (root == FALSE))[0])
+            assert not (root == UNKNOWN).any(), \
+                "plan executed every leaf yet left documents undecided"
+        except OracleError as exc:
+            # the oracle plane gave up below us. Everything decided so
+            # far is committed (caches only store completed artifacts and
+            # labels), so the degrade policies work on a clean prefix of
+            # the plan.
+            if mode == "fail":
+                raise
+            degrade_error = exc
+            self._notify("degraded")
+            if mode == "defer":
+                unresolved = np.nonzero(root == UNKNOWN)[0]
+                self.repark(RepairTicket(
+                    predicate=predicate, accuracy_target=accuracy_target,
+                    ground_truth=ground_truth, seed=seed,
+                    unresolved=unresolved, error=str(exc), name=name))
+            else:  # proxy_fallback
+                root, fallback_docs = self._proxy_fallback(
+                    predicate, order, leaves, leaf_values, local_params,
+                    root, scoring_stats, last_mech, last_writer)
 
         total = sum(o.calls - before for o, before in calls_before.values())
         mask = root == TRUE
         provenance = self._assemble_provenance(
             mask, last_mech, last_writer, [lf.name for lf in order],
-            leaves=leaves, leaf_values=leaf_values)
+            leaves=leaves, leaf_values=leaf_values, unresolved=unresolved)
         result = FilterResult(
             mask=mask,
             oracle_calls_total=total,
@@ -854,7 +1094,25 @@ class ScaleDocEngine:
             wall_seconds=time.time() - t0,
             n_docs=n,
             scoring_stats=scoring_stats,
+            **self._degrade_fields(mode, degrade_error, unresolved,
+                                   fallback_docs, reports, n),
             provenance=provenance)
+        return self._finish(result, ground_truth)
+
+    def _degrade_fields(self, mode: str, error: Optional[OracleError],
+                        unresolved: np.ndarray, fallback_docs: int,
+                        reports: List[LeafReport], n: int) -> Dict:
+        """FilterResult's degraded-mode fields."""
+        return dict(
+            degraded=error is not None,
+            degrade_mode=mode if error is not None else None,
+            unresolved=unresolved, fallback_docs=fallback_docs,
+            est_accuracy_debit=self._fallback_debit(reports, fallback_docs,
+                                                    n),
+            error=str(error) if error is not None else None)
+
+    def _finish(self, result: FilterResult,
+                ground_truth: Optional[np.ndarray]) -> FilterResult:
         if ground_truth is not None:
             truth = np.asarray(ground_truth).astype(bool)
             result.achieved_f1 = f1_score(result.mask, truth)
@@ -869,7 +1127,10 @@ class ScaleDocEngine:
                              leaves: Optional[List[SemanticPredicate]]
                              = None,
                              leaf_values: Optional[Dict[str, np.ndarray]]
-                             = None) -> trace_mod.ProvenanceMap:
+                             = None,
+                             unresolved: Optional[np.ndarray] = None,
+                             topk_skip: Optional[np.ndarray] = None
+                             ) -> trace_mod.ProvenanceMap:
         """Finalize the last-writer mechanism track into root-relative
         provenance classes.
 
@@ -880,6 +1141,7 @@ class ScaleDocEngine:
         UNKNOWN for that doc) becomes ``short_circuit``. Oracle /
         cached-label decisions keep their mechanism even when they
         short-circuit: the purchased label is what decided the doc.
+        ``unresolved`` (defer) and ``topk_skip`` overrides come last.
         """
         class_of = last_mech.copy()
         leaf_of = last_writer.copy()
@@ -898,9 +1160,254 @@ class ScaleDocEngine:
             thresh &= ~skipped
         class_of[thresh & mask] = trace_mod.PROXY_ACCEPT
         class_of[thresh & ~mask] = trace_mod.PROXY_REJECT
+        if topk_skip is not None and len(topk_skip):
+            class_of[topk_skip] = trace_mod.TOPK_SKIP
+            leaf_of[topk_skip] = -1
+        if unresolved is not None and len(unresolved):
+            class_of[unresolved] = trace_mod.UNRESOLVED
+            leaf_of[unresolved] = -1
         return trace_mod.ProvenanceMap(class_of=class_of,
                                        leaf_of=leaf_of,
                                        leaf_names=list(leaf_names))
+
+    # -- semantic top-k ----------------------------------------------------
+
+    def _fuzzy_rank(self, pred: Predicate,
+                    scores_by_key: Dict[str, np.ndarray]) -> np.ndarray:
+        """Top-k ranking signal: fuzzy-logic combination of the per-leaf
+        proxy scores (AND -> min, OR -> max, NOT -> 1 - s). Pure ordering
+        heuristic: membership is still decided by the cascade, so ranking
+        quality affects oracle cost, never correctness. The scores stay
+        float32, so ``1 - s`` rounds as in the JAX package."""
+        if isinstance(pred, SemanticPredicate):
+            return scores_by_key[pred.key]
+        if isinstance(pred, Not):
+            return 1.0 - self._fuzzy_rank(pred.child, scores_by_key)
+        if isinstance(pred, (And, Or)):
+            vals = [self._fuzzy_rank(c, scores_by_key)
+                    for c in pred.children]
+            combine = np.minimum if isinstance(pred, And) else np.maximum
+            out = vals[0]
+            for v in vals[1:]:
+                out = combine(out, v)
+            return out
+        raise TypeError(f"cannot rank over {type(pred).__name__}")
+
+    def _filter_topk(self, predicate: SemanticTopK, *, ccfg: CascadeConfig,
+                     ground_truth: Optional[np.ndarray], seed: int,
+                     mode: str, name: Optional[str],
+                     t0: float) -> FilterResult:
+        """Execute ``SemanticTopK(child, k)`` as a cascade over ranks:
+        walk candidates in stable descending fuzzy-rank order, decide
+        each batch's child membership through the canonical leaf
+        artifacts (thresholds free, oracle only in the ambiguous band),
+        and stop once ``k`` members are confirmed. Documents never walked
+        are excluded without any oracle spend: that is the saving over
+        filter-then-sort, which resolves the whole collection first."""
+        n = len(self.store)
+        child = predicate.child
+        k = min(predicate.k, n)
+        opt = self._optimizer
+        if opt is not None:
+            with opt._lock:
+                opt.topk_queries += 1
+        leaves = child.leaves()
+        scoring_stats = ScoringStats()
+        self._notify("planning")
+        sel = (self._estimate_selectivities(leaves, scoring_stats)
+               if len(leaves) > 1 else {})
+        order, _ = child.plan(sel)
+
+        calls_before = {}
+        for leaf in leaves:
+            o = self._session_oracle(leaf.oracle)
+            calls_before.setdefault(id(self._cached_oracle(leaf.oracle)),
+                                    (o, o.calls))
+
+        leaf_vals = {leaf.key: np.full(n, UNKNOWN, np.int8)
+                     for leaf in leaves}
+        online_by_key = {leaf.key: 0 for leaf in leaves}
+        build_calib = {leaf.key: 0 for leaf in leaves}
+        charged_by_key = {leaf.key: 0 for leaf in leaves}
+        arts: Dict[str, LeafArtifact] = {}
+        train_info: Dict[str, tuple] = {}
+        accepted: List[int] = []
+        walked = 0
+        order_idx: Optional[np.ndarray] = None
+        degrade_error: Optional[OracleError] = None
+        fallback_docs = 0
+        unresolved = np.zeros(0, np.int64)
+        # provenance (last-writer-wins, the same argument as filter())
+        last_mech = np.full(n, -1, np.int8)
+        last_writer = np.full(n, -1, np.int16)
+        try:
+            self._notify("training")
+            train_info, local_params = self._train_pending_leaves(
+                order, ccfg, seed)
+            self._notify("scoring")
+            if n <= DIRECT_LABEL_CUTOFF:
+                # tiny collection: label everything, keep the k lowest
+                # doc ids among members (stable, canonical)
+                for oi, leaf in enumerate(order):
+                    oracle = self._session_oracle(leaf.oracle)
+                    mech = self._peek_mech(oracle, np.arange(n))
+                    calls0 = oracle.calls
+                    leaf_vals[leaf.key][:] = np.asarray(
+                        oracle.label(np.arange(n)), bool).astype(np.int8)
+                    online_by_key[leaf.key] += oracle.calls - calls0
+                    charged_by_key[leaf.key] += oracle.calls - calls0
+                    last_mech[:] = mech
+                    last_writer[:] = oi
+                order_idx = np.arange(n)
+                walked = n
+                member = child.evaluate(leaf_vals) == TRUE
+                accepted = [int(d) for d in np.nonzero(member)[0][:k]]
+            else:
+                for leaf in order:
+                    dkey = (leaf.key, self.strategy, ccfg, seed)
+                    o = self._session_oracle(leaf.oracle)
+                    c0 = o.calls
+                    art, calib, online = self._leaf_artifact(
+                        leaf, dkey, ccfg, seed, local_params, scoring_stats)
+                    arts[leaf.key] = art
+                    build_calib[leaf.key] = calib
+                    online_by_key[leaf.key] += online
+                    charged_by_key[leaf.key] += o.calls - c0
+                rank = self._fuzzy_rank(
+                    child, {key: a.scores for key, a in arts.items()})
+                # stable argsort on -rank: ties break by ascending doc
+                # id, so the walk order is bitwise reproducible
+                order_idx = np.argsort(-rank, kind="stable")
+                batch = max(2 * k, 128)
+                while len(accepted) < k and walked < n:
+                    cand = order_idx[walked:walked + batch]
+                    walked += len(cand)
+                    for oi, leaf in enumerate(order):
+                        root_vals = child.evaluate(leaf_vals)
+                        pend = cand[root_vals[cand] == UNKNOWN]
+                        if not len(pend):
+                            break
+                        vals = leaf_vals[leaf.key]
+                        need = pend[vals[pend] == UNKNOWN]
+                        if not len(need):
+                            continue
+                        oracle = self._session_oracle(leaf.oracle)
+                        c0 = oracle.calls
+                        dec, _, online, dmech = self._decide_pending(
+                            arts[leaf.key], oracle, need)
+                        vals[need] = np.asarray(dec, bool).astype(np.int8)
+                        last_mech[need] = dmech
+                        last_writer[need] = oi
+                        online_by_key[leaf.key] += online
+                        charged_by_key[leaf.key] += oracle.calls - c0
+                    member = child.evaluate(leaf_vals)[cand] == TRUE
+                    newly = []
+                    for doc in cand[member]:
+                        if len(accepted) < k:
+                            accepted.append(int(doc))
+                            newly.append(int(doc))
+                    rejected_now = np.setdiff1d(cand, np.asarray(
+                        newly, np.int64), assume_unique=True)
+                    self._partial(np.asarray(newly, np.int64), rejected_now)
+        except OracleError as exc:
+            if mode == "fail":
+                raise
+            degrade_error = exc
+            self._notify("degraded")
+            if mode == "defer":
+                if order_idx is None:
+                    unresolved = np.arange(n, dtype=np.int64)
+                else:
+                    rest = order_idx[walked:]
+                    done_vals = child.evaluate(leaf_vals)
+                    undecided = np.nonzero(done_vals == UNKNOWN)[0]
+                    unresolved = np.union1d(rest, undecided).astype(
+                        np.int64)
+                self.repark(RepairTicket(
+                    predicate=predicate,
+                    accuracy_target=ccfg.accuracy_target,
+                    ground_truth=ground_truth, seed=seed,
+                    unresolved=unresolved, error=str(exc), name=name))
+            else:  # proxy_fallback: 0.5-cut membership, rank cut on top
+                filled_any = np.zeros(n, bool)
+                for oi, leaf in enumerate(order):
+                    art = arts.get(leaf.key)
+                    if art is None:
+                        continue
+                    vals = leaf_vals[leaf.key]
+                    unk = np.nonzero(vals == UNKNOWN)[0]
+                    vals[unk] = (art.scores[unk] > 0.5).astype(np.int8)
+                    filled_any[unk] = True
+                    last_mech[unk] = trace_mod.PROXY_FALLBACK
+                    last_writer[unk] = oi
+                if order_idx is not None and len(arts) == len(leaves):
+                    member_vals = child.evaluate(leaf_vals)
+                    in_order = order_idx[member_vals[order_idx] == TRUE]
+                    accepted = [int(d) for d in in_order[:k]]
+                    fallback_docs = int(filled_any.sum())
+
+        mask = np.zeros(n, bool)
+        if accepted:
+            mask[np.asarray(accepted, np.int64)] = True
+
+        walked_docs = (order_idx[:walked] if order_idx is not None
+                       else np.zeros(0, np.int64))
+        # provenance: docs never walked, and walked members beyond k,
+        # were excluded by the rank cut itself -> topk_skip. Short-
+        # circuit remapping is skipped (the rank walk short-circuits by
+        # design; topk_skip is the informative class).
+        walked_mask = np.zeros(n, bool)
+        if len(walked_docs):
+            walked_mask[walked_docs] = True
+        member_vals = child.evaluate(leaf_vals)
+        skip_idx = np.nonzero(~mask & (~walked_mask
+                                       | (member_vals == TRUE)))[0]
+        provenance = self._assemble_provenance(
+            mask, last_mech, last_writer, [lf.name for lf in order],
+            unresolved=unresolved, topk_skip=skip_idx)
+        reports: List[LeafReport] = []
+        for leaf in order:
+            art = arts.get(leaf.key)
+            vals = leaf_vals[leaf.key]
+            decided = (walked_docs[vals[walked_docs] != UNKNOWN]
+                       if len(walked_docs) else walked_docs)
+            tc, reused = train_info.get(leaf.key, (0, False))
+            cres = None
+            if art is not None:
+                cres = CascadeResult(
+                    labels=vals[decided] == TRUE, l=art.l, r=art.r,
+                    unfiltered_rate=(online_by_key[leaf.key]
+                                     / max(len(decided), 1)),
+                    oracle_calls_online=online_by_key[leaf.key],
+                    oracle_calls_calib=build_calib[leaf.key],
+                    est_accuracy=art.est_accuracy,
+                    certified=art.certified)
+            reports.append(LeafReport(
+                name=leaf.name, key=leaf.key, n_pending=int(len(decided)),
+                oracle_calls_train=tc,
+                oracle_calls_calib=build_calib[leaf.key],
+                oracle_calls_online=online_by_key[leaf.key],
+                proxy_reused=reused, cascade=cres,
+                pending=np.asarray(decided, np.int64),
+                scores=(art.scores[decided] if art is not None else None),
+                labels=(vals[decided] == TRUE),
+                oracle_docs_charged=charged_by_key[leaf.key]))
+
+        total = sum(o.calls - before for o, before in calls_before.values())
+        result = FilterResult(
+            mask=mask,
+            oracle_calls_total=total,
+            oracle_calls_train=sum(c for c, _ in train_info.values()),
+            leaf_reports=reports,
+            plan=(f"topk[k={k}]: "
+                  + (" -> ".join(r.name for r in reports) or "(decided)")),
+            wall_seconds=time.time() - t0,
+            n_docs=n,
+            scoring_stats=scoring_stats,
+            **self._degrade_fields(mode, degrade_error, unresolved,
+                                   fallback_docs, reports, n),
+            provenance=provenance)
+        return self._finish(result, ground_truth)
 
     def query(self, e_q: np.ndarray, oracle, *,
               accuracy_target: Optional[float] = None,
@@ -914,7 +1421,16 @@ class ScaleDocEngine:
         res = self.filter(pred, accuracy_target=accuracy_target,
                           ground_truth=ground_truth, seed=seed,
                           degrade=degrade)
-        leaf = res.leaf_reports[0]
+        if not res.leaf_reports:
+            # outage before the leaf completed (degrade swallowed it)
+            leaf = LeafReport(
+                name=pred.name, key=pred.key, n_pending=res.n_docs,
+                oracle_calls_train=res.oracle_calls_train,
+                oracle_calls_calib=0, oracle_calls_online=0,
+                proxy_reused=False, cascade=None,
+                pending=np.arange(res.n_docs), scores=None, labels=None)
+        else:
+            leaf = res.leaf_reports[0]
         proxy_flops = res.n_docs * oracle_mod.OUR_PROXY_FLOPS_PER_DOC
         oracle_flops = res.oracle_calls_total * getattr(
             oracle, "flops_per_doc", oracle_mod.ORACLE_FLOPS_PER_DOC)
@@ -934,7 +1450,12 @@ class ScaleDocEngine:
             oracle_flops=oracle_flops,
             total_flops=proxy_flops + oracle_flops,
             wall_seconds=time.time() - t0,
-            scores=leaf.scores)
+            scores=leaf.scores,
+            degraded=res.degraded,
+            degrade_mode=res.degrade_mode,
+            unresolved_docs=len(res.unresolved),
+            fallback_docs=res.fallback_docs,
+            est_accuracy_debit=res.est_accuracy_debit)
 
 
 def _derivable_leaf_truth(predicate: Predicate,

@@ -407,15 +407,18 @@ def test_pipeline_shim_is_the_engine_per_query(opt_corpus):
 
 
 def test_what_stays_refused(opt_corpus):
+    """A session view takes no tracer yet (it comes with the tracer);
+    top-k and the degrade policies, once refused here, run on a compound
+    child and a compound predicate."""
     q = make_query(opt_corpus, 65)
     leaf = SemanticPredicate(q.embed, SimulatedOracle(q.truth))
     engine = _opt_engine(opt_corpus)
-    for call in (lambda: engine.filter(SemanticTopK(leaf, k=3)),
-                 lambda: engine.filter(leaf & ~leaf, degrade="defer"),
-                 lambda: engine.session_view().filter(
-                     SemanticTopK(leaf | leaf, k=1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    with pytest.raises(NotImplementedError):
-        ScaleDocEngine(opt_corpus.embeds, degrade="proxy_fallback",
-                       device="cpu")
+    with pytest.raises(TypeError):
+        engine.session_view(tracer=object())
+    res = engine.session_view().filter(SemanticTopK(leaf | leaf, k=1),
+                                       seed=0)
+    assert res.plan.startswith("topk[k=1]: ") and res.mask.sum() <= 1
+    deferred = engine.filter(leaf & ~leaf, degrade="defer", seed=0)
+    assert not deferred.degraded and not deferred.mask.any()
+    assert ScaleDocEngine(opt_corpus.embeds, degrade="proxy_fallback",
+                          device="cpu").degrade == "proxy_fallback"

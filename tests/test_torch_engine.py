@@ -108,21 +108,25 @@ def test_port_trained_engine_tracks_the_reference():
 
 
 def test_unported_paths_raise():
+    """What the port still refuses: a tracer on a session view (it comes
+    with the tracer), an unknown degrade policy and a raw (e_q, oracle)
+    pair. Top-k and the degrade policies run (test_torch_topk.py,
+    test_torch_degrade.py)."""
     corpus = make_corpus(0, n_docs=200, dim=16)
     q = make_query(corpus, 1)
     te = ScaleDocEngine(corpus.embeds, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ScaleDocEngine(corpus.embeds, degrade="defer", device="cpu")
+    with pytest.raises(TypeError):
+        te.session_view(tracer=object())
+    with pytest.raises(ValueError, match="degrade"):
+        ScaleDocEngine(corpus.embeds, degrade="retry", device="cpu")
     pred = SemanticPredicate(q.embed, SimulatedOracle(q.truth))
-    with pytest.raises(NotImplementedError):
-        te.filter(SemanticTopK(pred, k=5))
-    with pytest.raises(NotImplementedError):
-        te.session_view().filter(SemanticTopK(pred & pred, k=5))
-    with pytest.raises(NotImplementedError):
-        te.filter(SemanticPredicate(q.embed, SimulatedOracle(q.truth)),
-                  degrade="proxy_fallback")
+    with pytest.raises(ValueError, match="degrade"):
+        te.filter(pred, degrade="ignore")
     with pytest.raises(TypeError):
         te.filter((q.embed, SimulatedOracle(q.truth)))
+    assert ScaleDocEngine(corpus.embeds, degrade="defer",
+                          device="cpu").degrade == "defer"
+    assert isinstance(SemanticTopK(pred, k=5).child, SemanticPredicate)
 
 
 def test_tiny_collection_labels_directly():

@@ -36,6 +36,22 @@ def test_import_loads_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("package", ["repro_torch", "repro_torch.serve"])
+def test_package_alone_loads_no_jax_and_no_repro(package):
+    """``import repro_torch`` and ``import repro_torch.serve`` (the
+    resilience layer, a numpy copy of ``repro.serve.resilience``), each
+    in a fresh interpreter."""
+    code = (f"import {package}, sys\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + [str(p.relative_to(ROOT)) for p in (ROOT / "tools").glob("*.py")]
