@@ -93,7 +93,33 @@ Phases, each of which exits non-zero when it fails:
                unresolved, 0 < est_accuracy_debit <= 1 and agrees with the
                truth on more than 60% of the documents; both kernels
                launched in each run;
-  9. offline — the offline path: ScaleDocEngine.from_corpus with an
+  9. serve   — the serving plane: one resident ScaleDocEngine behind
+               PredicateServer(workers=4) answers four sessions submitted
+               at once (p1 and p3 at seed 0, p1 & ~p2 at seed 0, p2 | p3
+               at seed 1) over fresh CachedOracles: every session DONE,
+               each mask bitwise its serial run's (phases 4 and 6), no
+               more documents bought than those runs and none twice, the
+               cost ledger's oracle documents equal to the oracles', the
+               broker's and the caches' purchases, each session's trace
+               one "session" root over one engine.filter, complete
+               provenance, the fused kernel launched 16 times per leaf
+               artifact (96) and the contrastive kernel 60 times per
+               training run (240); then the same sessions on a fresh
+               engine behind PredicateServer(optimize=True): masks
+               bitwise the first arm's and one proxy trained per distinct
+               (leaf, seed); makespans, session latency p50/p95, oracle
+               invocations and documents per invocation, the per-tenant
+               ledger, one session's span tree and the metrics snapshot
+               are logged;
+ 10. ablation — the five train_proxy_variant variants on p1 (10% sample
+               drawn as benchmarks/bench_ablation.py draws it, seed 0,
+               ProxyConfig()), the contrastive ones scored through the
+               fused kernel, the classifier by mlp_classifier_scores:
+               finite scores, the contrastive kernel launched 0 times for
+               qsim and mlp and 60 times for the others; each variant's
+               unfiltered fraction under the brute-force optimal cascade
+               on the true labels at F1 0.9 (the paper's Fig. 9) logged;
+ 11. offline — the offline path: ScaleDocEngine.from_corpus with an
                EmbeddingService over llama3-8b at full width (32 layers,
                bf16, weights drawn on the card from a seed) into a store of
                2,048 documents of 512 tokens: 2048 finite rows of width
@@ -101,13 +127,13 @@ Phases, each of which exits non-zero when it fails:
                pooled embeddings against the plain einsum path's (per-row
                cosine >= COS_MIN), a killed-and-resumed ingest bit-identical
                to an uninterrupted one, and one query() over the store;
- 10. flash   — the bf16 flash kernel (and the same call non-causal), the
+ 12. flash   — the bf16 flash kernel (and the same call non-causal), the
                FP32 kernel on the same inputs in f32, the plain version
                and PyTorch's scaled_dot_product_attention under each
                backend that takes the call (a yardstick the port never
                calls) at the offline path's shape, and the kernel's share
                of one embedding batch;
- 11. rwkv    — the llama3-8b weights freed, the same offline path over
+ 13. rwkv    — the llama3-8b weights freed, the same offline path over
                rwkv6-7b at full width (32 layers, bf16, weights drawn on
                the card) and the same corpus: 2048 finite rows of width
                4096, the WKV6 kernel launched 32 times per batch, the
@@ -122,7 +148,7 @@ Phases, each of which exits non-zero when it fails:
                output one f32 ulp up, the kernel at chunk 64) drift from
                the kernel path with depth (the direct scan's after
                RWKV_DEPTH layers >= RWKV_DEPTH_COS_MIN);
- 12. wkv6    — the WKV6 kernel, its plain version and the plain
+ 14. wkv6    — the WKV6 kernel, its plain version and the plain
                pairwise form at the rwkv6-7b path's shape, its bound
                (exponentials in the sub-chunk form, FP32 operations and
                bytes), and its share of one embedding batch.
@@ -906,16 +932,16 @@ def train_step_split(engine, args) -> dict:
             return fn(*a, **k)
         return step
 
-    plain = trainer._loss_phase1, trainer._loss_phase2
-    trainer._loss_phase1 = timed(plain[0], 1)
-    trainer._loss_phase2 = timed(plain[1], 2)
+    plain = trainer._KINDS["two_phase"]
+    trainer._KINDS["two_phase"] = (timed(plain[0], 1), timed(plain[1], 2),
+                                   plain[2])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         engine._train_padded(*args)
         torch.cuda.synchronize()
     finally:
-        trainer._loss_phase1, trainer._loss_phase2 = plain
+        trainer._KINDS["two_phase"] = plain
     out = {"run_ms": 1e3 * (time.perf_counter() - t0),
            "setup_ms": 1e3 * (marks[0][1] - t0),
            "steps_ms": 1e3 * (marks[-1][1] - marks[0][1])}
@@ -1154,7 +1180,7 @@ def compound_phase(dev, embeds, queries, n_tiles) -> dict:
     log(f"[compound] phase time {out['phase_seconds']:.1f} s")
     if bad:
         fail("compound: " + "; ".join(bad))
-    return out, runs["and_not"][2]
+    return out, {form: run[2] for form, run in runs.items()}
 
 
 def topk_phase(dev, embeds, queries, full) -> dict:
@@ -1397,6 +1423,274 @@ def degrade_phase(dev, embeds, query, fault_free_mask) -> dict:
     return out
 
 
+def trace_faults(spans) -> list:
+    """What is wrong with one session's trace: it must hold one root, a
+    ``session`` span, with one ``engine.filter`` under it, every span
+    closed and parented inside the trace."""
+    ids = {s["span_id"] for s in spans}
+    roots = [s for s in spans if s["parent_id"] is None]
+    bad = []
+    if [s["name"] for s in roots] != ["session"]:
+        bad.append(f"roots {[s['name'] for s in roots]}")
+    under = [s for s in spans if s["name"] == "engine.filter"
+             and roots and s["parent_id"] == roots[0]["span_id"]]
+    if len(under) != 1:
+        bad.append(f"{len(under)} engine.filter spans under the root")
+    for s in spans:
+        if s["end"] < s["start"]:
+            bad.append(f"{s['name']} ends before it starts")
+        if s["parent_id"] is not None and s["parent_id"] not in ids:
+            bad.append(f"{s['name']} has a parent outside the trace")
+    return bad
+
+
+def serve_phase(dev, embeds, queries, refs, n_tiles) -> dict:
+    """Phase 9: the serving plane. One resident engine behind a
+    PredicateServer of four workers answers four sessions submitted at
+    once (the mixed leaf/compound shape of tests/test_serve.py), then a
+    fresh engine behind PredicateServer(optimize=True) answers them again
+    (``refs``: form -> (mask, oracle calls, wall seconds) of the serial
+    runs in phases 4 and 6). Every gate is checked and logged; the phase
+    fails after the last."""
+    import numpy as np
+    from repro_torch.config import CascadeConfig, ProxyConfig
+    from repro_torch.core.oracle import CachedOracle, SimulatedOracle
+    from repro_torch.engine import (InMemoryStore, ScaleDocEngine,
+                                    SemanticPredicate)
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    from repro_torch.runtime.trace import format_span_tree
+    from repro_torch.serve import PredicateServer, SessionState
+    store = InMemoryStore(embeds)
+    pcfg = ProxyConfig()
+    bad = []
+    out = {}
+    t_phase = time.perf_counter()
+    serial_wall = sum(r[2] for r in refs.values())
+    serial_calls = sum(r[1] for r in refs.values())
+
+    def workload():
+        sims = [CountingOracle(SimulatedOracle(q.truth)) for q in queries]
+        p = [SemanticPredicate(q.embed, CachedOracle(o), name=f"p{i + 1}")
+             for i, (q, o) in enumerate(zip(queries, sims))]
+        return sims, [("p1", p[0], 0), ("p1 & ~p2", p[0] & ~p[1], 0),
+                      ("p2 | p3", p[1] | p[2], 1), ("p3", p[2], 0)]
+
+    masks = {}
+    for arm, optimize in (("concurrent", False), ("optimize", True)):
+        sims, forms = workload()
+        engine = ScaleDocEngine(store, pcfg,
+                                CascadeConfig(accuracy_target=0.9),
+                                device=dev)
+        with PredicateServer(engine, workers=4,
+                             optimize=optimize) as server:
+            s_ops.KERNEL.launches = 0
+            c_ops.KERNEL.launches = 0
+            tw = time.perf_counter()
+            sessions = [server.submit(pred, seed=seed, name=name)
+                        for name, pred, seed in forms]
+            results = [s.result(timeout=900) for s in sessions]
+            makespan = time.perf_counter() - tw
+            launches = {"fused_scoring": s_ops.KERNEL.launches,
+                        "contrastive": c_ops.KERNEL.launches}
+            snap = json.loads(server.metrics_json())
+            traces = {s.name: server.tracer.spans(s.trace_id)
+                      for s in sessions}
+        bought = sum(o.calls for o in sims)
+        twice = sum(1 for o in sims for v in o.per_doc.values() if v > 1)
+        built = sum(len(r.leaf_reports) for r in results)
+        counters = snap["counters"]
+        latency = snap["observations"]["session_latency_seconds"]
+        flushes = counters.get("oracle_flushes", 0)
+        flushed = counters.get("oracle_docs_flushed", 0)
+        ledger_docs = sum(t["oracle_docs"]
+                          for t in snap["cost_ledger"]["tenants"].values())
+        masks[arm] = {s.name: r.mask for s, r in zip(sessions, results)}
+        row = {
+            "makespan_seconds": makespan,
+            "serial_wall_seconds": serial_wall,
+            "sessions": {s.name: {
+                "state": s.state.value, "plan": r.plan,
+                "oracle_calls": r.oracle_calls_total,
+                "mask_equal_serial": bool(np.array_equal(
+                    r.mask, refs[s.name][0])),
+                "provenance_complete": r.provenance.complete(),
+                "trace_faults": trace_faults(traces[s.name]),
+                **{k: v for k, v in s.stats().items() if k in (
+                    "oracle_wait_seconds", "queue_wait_seconds",
+                    "run_seconds", "wall_seconds")}}
+                for s, r in zip(sessions, results)},
+            "latency_p50_seconds": latency["p50"],
+            "latency_p95_seconds": latency["p95"],
+            "docs_bought": bought, "docs_bought_twice": twice,
+            "serial_calls": serial_calls,
+            "oracle_invocations": flushes,
+            "docs_per_invocation": flushed / max(flushes, 1),
+            "ledger_oracle_docs": ledger_docs,
+            "broker_docs_flushed": flushed,
+            "cache_docs_purchased": snap["oracle_cache"]["docs_purchased"],
+            "ledger_tenants": snap["cost_ledger"]["tenants"],
+            "launches": launches, "artifacts_built": built,
+            "optimizer": snap["optimizer"], "metrics_snapshot": snap}
+        if arm == "concurrent":
+            row["span_tree_p1_and_not_p2"] = format_span_tree(
+                traces["p1 & ~p2"])
+        out[arm] = row
+        log(f"[serve] {arm} (PredicateServer(workers=4"
+            f"{', optimize=True' if optimize else ''}), sessions "
+            f"{', '.join(f'{n} (seed {sd})' for n, _, sd in forms)}): "
+            f"makespan {makespan:.3f} s against {serial_wall:.3f} s for "
+            f"the serial runs; session latency p50 {latency['p50']:.3f} s, "
+            f"p95 {latency['p95']:.3f} s; {bought} documents bought "
+            f"(serial {serial_calls}; {twice} twice) in {int(flushes)} "
+            f"oracle invocations ({flushed / max(flushes, 1):.1f} documents"
+            f" each); ledger {ledger_docs}, broker {int(flushed)}, cache "
+            f"{snap['oracle_cache']['docs_purchased']}; launches "
+            f"{launches} for {built} leaf artifacts; per session "
+            + json.dumps({n: {k: v for k, v in r.items()
+                              if k != "trace_faults"}
+                          for n, r in row["sessions"].items()}))
+        if optimize:
+            opt = snap["optimizer"]
+            # a proxy is shared per (leaf, seed): p2 | p3 runs at seed 1
+            pairs = {(lf.key, sd) for _, pred, sd in forms
+                     for lf in pred.leaves()}
+            log(f"[serve] optimize: proxies_trained "
+                f"{opt['proxies_trained']}, proxy_hits {opt['proxy_hits']},"
+                f" artifacts_built {opt['artifacts_built']}, artifact_hits "
+                f"{opt['artifact_hits']}, flights_joined "
+                f"{opt['flights_joined']} ({len(pairs)} distinct (leaf, "
+                f"seed) pairs)")
+            if opt["proxies_trained"] != len(pairs):
+                bad.append(f"optimize: {opt['proxies_trained']} proxies "
+                           f"trained, not {len(pairs)} (one a distinct "
+                           f"leaf and seed)")
+            diff = [n for n in masks[arm] if not np.array_equal(
+                masks[arm][n], masks["concurrent"][n])]
+            if diff:
+                bad.append(f"optimize: masks of {diff} differ from the "
+                           f"concurrent arm's")
+        else:
+            log("[serve] the p1 & ~p2 session's span tree:\n"
+                + row["span_tree_p1_and_not_p2"])
+            for name, r in row["sessions"].items():
+                if r["state"] != SessionState.DONE.value:
+                    bad.append(f"{name}: state {r['state']}")
+                if not r["mask_equal_serial"]:
+                    bad.append(f"{name}: mask differs from its serial run")
+                if not r["provenance_complete"]:
+                    bad.append(f"{name}: the provenance map is incomplete")
+                if r["trace_faults"]:
+                    bad.append(f"{name}: trace {r['trace_faults']}")
+            if not bought <= serial_calls:
+                bad.append(f"{bought} documents bought, more than the "
+                           f"serial runs' {serial_calls}")
+            if not (ledger_docs == bought == flushed
+                    == snap["oracle_cache"]["docs_purchased"]):
+                bad.append(f"the ledger's {ledger_docs} oracle documents, "
+                           f"the oracles' {bought}, the broker's "
+                           f"{flushed} and the caches' "
+                           f"{snap['oracle_cache']['docs_purchased']} "
+                           f"disagree")
+            if twice:
+                bad.append(f"{twice} documents bought twice")
+            if built != 6 or launches["fused_scoring"] != n_tiles * built:
+                bad.append(f"{launches['fused_scoring']} fused launches for "
+                           f"{built} leaf artifacts, not {n_tiles} each "
+                           f"of 6")
+            if launches["contrastive"] != 4 * pcfg.phase2_steps:
+                bad.append(f"{launches['contrastive']} contrastive "
+                           f"launches, not {pcfg.phase2_steps} for each of "
+                           f"4 training runs")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[serve] phase time {out['phase_seconds']:.1f} s")
+    if bad:
+        fail("serve: " + "; ".join(bad))
+    return out
+
+
+def ablation_phase(dev, embeds, query, n_tiles) -> dict:
+    """Phase 10: the five training variants of the paper's Fig. 9 on p1
+    (train_proxy_variant at seed 0 on a 10% sample drawn as
+    benchmarks/bench_ablation.py draws it), each scored over the corpus
+    (the contrastive variants through the executor's fused kernel, the
+    classifier by mlp_classifier_scores on the card), and the unfiltered
+    fraction of the brute-force optimal cascade on the true labels at
+    F1 0.9. Every gate is checked and logged; the phase fails after the
+    last."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ProxyConfig, replace
+    from repro_torch.core.calibration import discretize
+    from repro_torch.core.thresholds import oracle_optimal_thresholds
+    from repro_torch.core.trainer import (mlp_classifier_scores,
+                                          train_proxy_variant)
+    from repro_torch.engine import InMemoryStore, ScoringExecutor
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    store = InMemoryStore(embeds)
+    n = len(store)
+    cfg = replace(ProxyConfig(), embed_dim=embeds.shape[1])
+    idx = np.random.default_rng(0).choice(n, size=int(0.1 * n),
+                                          replace=False)
+    sample, labels = store.get(idx), query.truth[idx]
+    executor = ScoringExecutor(device=dev)
+    edges = discretize(64)
+    bad = []
+    out = {}
+    t_phase = time.perf_counter()
+    for variant in ("mlp", "qsim", "qsim+supcon", "qsim+polar", "full"):
+        s_ops.KERNEL.launches = 0
+        c_ops.KERNEL.launches = 0
+        torch.cuda.synchronize()
+        tt = time.perf_counter()
+        params = train_proxy_variant(0, query.embed, sample, labels, cfg,
+                                     variant, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - tt
+        if variant == "mlp":
+            scores = torch.cat([
+                mlp_classifier_scores(params, torch.as_tensor(
+                    embeds[i:i + TILE], device=dev))
+                for i in range(0, n, TILE)]).cpu().numpy()
+        else:
+            scores = executor.score(params, query.embed, store)[0]
+        score_s = time.perf_counter() - tt - train_s
+        launches = {"fused_scoring": s_ops.KERNEL.launches,
+                    "contrastive": c_ops.KERNEL.launches}
+        sel = oracle_optimal_thresholds(scores, query.truth, edges, 0.9)
+        finite = bool(np.isfinite(scores).all()) and scores.shape == (n,)
+        pos, neg = scores[query.truth], scores[~query.truth]
+        row = {"train_seconds": train_s, "score_seconds": score_s,
+               "feasible": sel.feasible, "l": sel.l, "r": sel.r,
+               "unfiltered": sel.unfiltered, "f1": sel.est_accuracy,
+               "pos5_minus_neg95": float(np.percentile(pos, 5)
+                                         - np.percentile(neg, 95)),
+               "finite": finite, "launches": launches}
+        out[variant] = row
+        log(f"[ablation] {variant}: trained in {train_s:.3f} s on "
+            f"{len(idx)} documents, scored in {score_s:.3f} s; optimal "
+            f"cascade at F1 0.9: unfiltered {sel.unfiltered:.4f} (l "
+            f"{sel.l:.4f}, r {sel.r:.4f}, F1 {sel.est_accuracy:.4f}); "
+            f"pos p5 - neg p95 {row['pos5_minus_neg95']:.4f}; launches "
+            f"{launches}")
+        if not finite:
+            bad.append(f"{variant}: scores not finite or not ({n},)")
+        want_c = 0 if variant in ("mlp", "qsim") else cfg.phase2_steps
+        if launches["contrastive"] != want_c:
+            bad.append(f"{variant}: {launches['contrastive']} contrastive "
+                       f"launches, not {want_c}")
+        want_f = 0 if variant == "mlp" else n_tiles
+        if launches["fused_scoring"] != want_f:
+            bad.append(f"{variant}: {launches['fused_scoring']} fused "
+                       f"launches, not {want_f}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[ablation] phase time {out['phase_seconds']:.1f} s")
+    if bad:
+        fail("ablation: " + "; ".join(bad))
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -1586,14 +1880,15 @@ def main() -> None:
                for i, s in enumerate(SELECTIVITIES)]
     s_ops.KERNEL.launches = 0
     c_ops.KERNEL.launches = 0
-    results = []
+    results, full = [], []
     for i, q in enumerate(queries):
         oracle = SimulatedOracle(q.truth)
         tq = time.perf_counter()
         st = engine.query(q.embed, oracle, ground_truth=q.truth, seed=0)
         wall = time.perf_counter() - tq
-        if i == 0:              # p1's fault-free decisions at seed 0
-            p1_full = (st.cascade.labels.copy(), st.oracle_calls_total)
+        # each query's fault-free decisions at seed 0
+        full.append((st.cascade.labels.copy(), st.oracle_calls_total,
+                     wall))
         f1 = st.cascade.achieved_f1
         results.append({"selectivity": q.selectivity, "f1": f1,
                         "oracle_calls": st.oracle_calls_total,
@@ -1729,19 +2024,33 @@ def main() -> None:
                        "contrastive": ct}
 
     # -- 6. compound predicates, the planner and cross-session CSE -------
-    report["compound"], and_not = compound_phase(
-        dev, corpus.embeds, queries, -(-n // engine.executor.chunk))
+    n_tiles = -(-n // engine.executor.chunk)
+    report["compound"], forms = compound_phase(dev, corpus.embeds, queries,
+                                               n_tiles)
 
     # -- 7. SemanticTopK --------------------------------------------------
     report["topk"] = topk_phase(dev, corpus.embeds, queries, {
-        "p1": p1_full,
-        "p1 & ~p2": (and_not.mask, and_not.oracle_calls_total)})
+        "p1": full[0][:2],
+        "p1 & ~p2": (forms["and_not"].mask,
+                     forms["and_not"].oracle_calls_total)})
 
     # -- 8. the degraded modes over an oracle outage ---------------------
     report["degrade"] = degrade_phase(dev, corpus.embeds, queries[0],
-                                      p1_full[0])
+                                      full[0][0])
 
-    # -- 9. offline path: from_corpus over llama3-8b ----------------------
+    # -- 9. the serving plane: concurrent sessions -------------------------
+    refs = {"p1": full[0], "p3": full[2]}
+    for name, form in (("p1 & ~p2", "and_not"), ("p2 | p3", "or")):
+        refs[name] = (forms[form].mask, forms[form].oracle_calls_total,
+                      report["compound"][form]["wall_seconds"])
+    report["serve"] = serve_phase(dev, corpus.embeds, queries, refs,
+                                  n_tiles)
+
+    # -- 10. the ablation surface ------------------------------------------
+    report["ablation"] = ablation_phase(dev, corpus.embeds, queries[0],
+                                        n_tiles)
+
+    # -- 11. offline path: from_corpus over llama3-8b ---------------------
     del engine, store, corpus, docs
     torch.cuda.empty_cache()
     offline, service, _ = offline_phase(dev, OFF_ARCH, "flash_attention",
@@ -1750,7 +2059,7 @@ def main() -> None:
     del service
     report["offline"] = offline
 
-    # -- 10. flash times ------------------------------------------------------
+    # -- 12. flash times ------------------------------------------------------
     ft = flash_times(dev)
     kernels.append(
         {"name": "flash_attention", "route": "cuda",
@@ -1779,7 +2088,7 @@ def main() -> None:
     ft["share_of_embed_batch"] = share
     report["times"]["flash"] = ft
 
-    # -- 11. the rwkv6-7b offline path ----------------------------------------
+    # -- 13. the rwkv6-7b offline path ----------------------------------------
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -1821,7 +2130,7 @@ def main() -> None:
     rwkv["checks"] = rc
     report["rwkv"] = rwkv
 
-    # -- 12. wkv6 times ------------------------------------------------------
+    # -- 14. wkv6 times ------------------------------------------------------
     wt = wkv6_times(dev)
     kernels.append(
         {"name": "wkv6_intra_chunk", "route": "cuda",

@@ -149,12 +149,30 @@ def calibrate(scores: np.ndarray, oracle_label_fn: Callable,
                        sample_scores=s)
 
 
-# -- density estimators of the baseline cascade strategies ------------------
+# -- alternative density estimators (baselines, the Table 4 ablation) ------
 
 def naive_density(sample_scores: np.ndarray, edges: np.ndarray
                   ) -> ClassDensity:
     """No jitter, no smoothing (the 'Naive'/'w/o Jitter' baselines)."""
     return _density_from_mass(_hist_density(sample_scores, edges), edges)
+
+
+def beta_fit_density(sample_scores: np.ndarray, edges: np.ndarray
+                     ) -> ClassDensity:
+    """Method-of-moments Beta fit (Table 4 'B')."""
+    s = np.clip(sample_scores, 1e-4, 1 - 1e-4)
+    if len(s) < 2:
+        return naive_density(sample_scores, edges)
+    m, v = float(s.mean()), float(max(s.var(), 1e-6))
+    common = m * (1 - m) / v - 1
+    a, b = max(m * common, 0.05), max((1 - m) * common, 0.05)
+    centers = 0.5 * (edges[:-1] + edges[1:])
+    # unnormalized Beta pdf evaluated at centers
+    logpdf = (a - 1) * np.log(centers + 1e-12) \
+        + (b - 1) * np.log(1 - centers + 1e-12)
+    logpdf -= logpdf.max()
+    mass = np.exp(logpdf)
+    return _density_from_mass(mass, edges)
 
 
 def importance_density(sample_scores: np.ndarray, weights: np.ndarray,

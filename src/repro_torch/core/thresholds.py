@@ -22,7 +22,7 @@ an O(B^2) brute force). This is our reading of Algorithm 2's pseudocode, whose p
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -152,3 +152,56 @@ def select_thresholds_certified(calib: Calibration, alpha: float,
             return sel
         margin += 0.01
     return sel
+
+
+def brute_force_thresholds(calib: Calibration, alpha: float,
+                           metric: str = "f1",
+                           margin: float = 0.0) -> ThresholdResult:
+    """O(B^2) exhaustive reference (correctness oracle for Algorithm 2)."""
+    steps = calib.edges
+    target = alpha + margin
+    best: Optional[Tuple[float, int, int]] = None
+    for i in range(len(steps)):
+        for j in range(i, len(steps)):
+            if accuracy_est(calib, steps[i], steps[j], metric) >= target:
+                u = unfiltered_est(calib, steps[i], steps[j])
+                if best is None or u < best[0]:
+                    best = (u, i, j)
+    if best is None:
+        return ThresholdResult(steps[0], steps[-1], 1.0,
+                               accuracy_est(calib, steps[0], steps[-1],
+                                            metric), False)
+    u, i, j = best
+    return ThresholdResult(float(steps[i]), float(steps[j]), u,
+                           accuracy_est(calib, steps[i], steps[j], metric),
+                           True)
+
+
+def oracle_optimal_thresholds(scores: np.ndarray, labels: np.ndarray,
+                              edges: np.ndarray, alpha: float,
+                              metric: str = "f1") -> ThresholdResult:
+    """Brute-force optimum computed on *ground-truth* labels: the
+    'brute-force optimal cascade' of the paper's Fig. 9 ablation."""
+    labels = labels.astype(bool)
+    n = len(scores)
+    best = None
+    for i in range(len(edges)):
+        for j in range(i, len(edges)):
+            l, r = edges[i], edges[j]
+            auto_pos = scores > r
+            auto_neg = scores < l
+            fp = int(np.sum(auto_pos & ~labels))
+            fn = int(np.sum(auto_neg & labels))
+            tp = int(labels.sum()) - fn
+            if metric == "exact":
+                acc = 1.0 - (fp + fn) / max(n, 1)
+            else:
+                acc = 2 * tp / max(2 * tp + fp + fn, 1)
+            if acc >= alpha:
+                u = float(np.mean(~auto_pos & ~auto_neg))
+                if best is None or u < best[0]:
+                    best = (u, l, r, acc)
+    if best is None:
+        return ThresholdResult(0.0, 1.0, 1.0, 0.0, False)
+    u, l, r, acc = best
+    return ThresholdResult(float(l), float(r), u, float(acc), True)

@@ -23,6 +23,11 @@ is explicit: a ``DrawPlan`` holds the initial params, the ``rebalance``
 seeds, and per-step batch indices and standard-normal noise. Without a
 plan, each lane draws its own from ``torch.Generator``s seeded by its
 seed alone, so a lane's result never depends on its siblings.
+
+The paper's ablation variants (``train_proxy_variant``: phase 1 only,
+either phase-2 objective alone, the full objective, or a plain MLP
+binary classifier) are config rewrites of the same step loop, or its
+BCE kind.
 """
 from __future__ import annotations
 
@@ -35,10 +40,11 @@ import torch
 from repro_torch.config import OptimizerConfig, ProxyConfig
 from repro_torch.core import losses
 from repro_torch.core.encoder import (Params, encoder_apply, encoder_init,
-                                      projector_apply, tree_leaves,
+                                      gelu, projector_apply, tree_leaves,
                                       tree_map)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.contrastive import ops as contrastive_ops
+from repro_torch.models.common import dense_init
 from repro_torch.optimizer import adamw
 
 
@@ -117,10 +123,12 @@ def _pad_sample(embeds: np.ndarray, labels: np.ndarray,
     return (np.asarray(embeds, np.float32), labels.astype(np.float32), n)
 
 
-def _proxy_opt_cfg(cfg: ProxyConfig) -> OptimizerConfig:
+def _proxy_opt_cfg(cfg: ProxyConfig, weight_decay: Optional[float] = None
+                   ) -> OptimizerConfig:
+    wd = cfg.weight_decay if weight_decay is None else weight_decay
     return OptimizerConfig(lr=cfg.lr, warmup_steps=5,
                            total_steps=cfg.phase1_steps + cfg.phase2_steps,
-                           schedule="cosine", weight_decay=cfg.weight_decay,
+                           schedule="cosine", weight_decay=wd,
                            grad_clip=1.0)
 
 
@@ -138,6 +146,31 @@ def _loss_phase2(params, e_qs, xb, yb, cfg: ProxyConfig) -> torch.Tensor:
     zq = _project(params, e_qs.unsqueeze(1)).squeeze(1)
     return contrastive_ops.phase2_loss(zq, _project(params, xb), yb,
                                        cfg.temperature, cfg.lambda_supcon)
+
+
+def _mlp_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The classifier baseline's logits; a stacked tree (lane axis first)
+    applies lane by lane to a (Q, n, D) input."""
+    lanes = params["w1"].dim() == 3
+    bias = (lambda b: b.unsqueeze(-2)) if lanes else (lambda b: b)
+    h = gelu(x @ params["w1"] + bias(params["b1"]))
+    h = gelu(h @ params["w2"] + bias(params["b2"]))
+    return (h @ params["w3"] + bias(params["b3"]))[..., 0]
+
+
+def _loss_mlp(params, e_qs, xb, yb, cfg: ProxyConfig) -> torch.Tensor:
+    """Binary cross-entropy on logits, one value per lane."""
+    del e_qs
+    logit = _mlp_logits(params, xb)
+    return torch.mean(torch.clamp(logit, min=0) - logit * yb
+                      + torch.log1p(torch.exp(-logit.abs())), dim=-1)
+
+
+# kind -> (phase-1 loss, phase-2 loss, Gaussian batch augmentation)
+_KINDS = {
+    "two_phase": (_loss_phase1, _loss_phase2, True),
+    "mlp": (_loss_mlp, _loss_mlp, False),
+}
 
 
 def stack_params(trees: Sequence[Params]) -> Params:
@@ -202,40 +235,56 @@ def train_proxy_multi(seeds: Sequence[int], e_qs, samples: Sequence,
                            for nv, g in zip(n_valid, gens)]).to(dev)
         noise_gens = [torch.Generator(dev).manual_seed(s)
                       for s in noise_seeds]
+        noise_at = lambda t, shape: torch.stack([
+            torch.randn(shape, generator=g, device=dev)
+            for g in noise_gens])
     else:
         idx = torch.as_tensor(np.asarray(plan.idx), dtype=torch.long,
                               device=dev)
         noise_all = torch.as_tensor(np.asarray(plan.noise, np.float32),
                                     device=dev)
+        noise_at = lambda t, shape: noise_all[:, t]
+    _check_idx(idx, n_valid, q, total, bs)
+    return _fit(params0, e_qs, embeds_d, labels_d, idx, noise_at, cfg,
+                _proxy_opt_cfg(cfg), "two_phase")
+
+
+def _check_idx(idx: torch.Tensor, n_valid: Sequence[int], q: int,
+               total: int, bs: int) -> None:
     if idx.shape != (q, total, bs):
         raise ValueError(f"batch indices have shape {tuple(idx.shape)}, "
                          f"expected {(q, total, bs)}")
-    bound = torch.tensor(n_valid, device=dev).reshape(q, 1, 1)
+    bound = torch.tensor(n_valid, device=idx.device).reshape(q, 1, 1)
     if bool(((idx < 0) | (idx >= bound)).any()):
         raise ValueError("batch indices must lie in [0, n_valid) of their "
                          f"lane; n_valid = {n_valid}")
 
+
+def _fit(params0: Params, e_qs: torch.Tensor, embeds_d: torch.Tensor,
+         labels_d: torch.Tensor, idx: torch.Tensor, noise_at,
+         cfg: ProxyConfig, opt_cfg: OptimizerConfig,
+         kind: str) -> ProxyTrainResultMulti:
+    """The step loop over Q lanes: ``phase1_steps`` steps of the kind's
+    phase-1 loss, then ``phase2_steps`` of its phase-2 loss, each on the
+    batch ``idx[:, t]`` (plus ``aug_noise * noise_at(t, shape)`` where the
+    kind augments)."""
+    loss1, loss2, use_aug = _KINDS[kind]
+    dev = embeds_d.device
+    q = embeds_d.shape[0]
     params = tree_map(lambda p: torch.tensor(
         np.asarray(p, np.float32) if not isinstance(p, torch.Tensor)
         else p.detach().cpu().numpy(), device=dev).requires_grad_(True),
         params0)
-    opt_cfg = _proxy_opt_cfg(cfg)
     opt_state = adamw.init(params)
     lanes = torch.arange(q, device=dev).unsqueeze(1)
     trace = []
-    for t in range(total):
-        loss_fn = _loss_phase1 if t < cfg.phase1_steps else _loss_phase2
+    for t in range(cfg.phase1_steps + cfg.phase2_steps):
+        loss_fn = loss1 if t < cfg.phase1_steps else loss2
         it = idx[:, t]
         xb = embeds_d[lanes, it]                         # (Q, bs, D)
         yb = labels_d[lanes, it]                         # (Q, bs)
-        if cfg.aug_noise > 0:
-            if plan is None:
-                noise = torch.stack([
-                    torch.randn(xb.shape[1:], generator=g, device=dev)
-                    for g in noise_gens])
-            else:
-                noise = noise_all[:, t]
-            xb = xb + cfg.aug_noise * noise
+        if use_aug and cfg.aug_noise > 0:
+            xb = xb + cfg.aug_noise * noise_at(t, xb.shape[1:])
         loss = loss_fn(params, e_qs, xb, yb, cfg)        # (Q,)
         leaves = tree_leaves(params)
         grads_flat = torch.autograd.grad(loss.sum(), leaves)
@@ -275,3 +324,83 @@ def train_proxy(seed: int, e_q, embeds, labels, cfg: ProxyConfig, *,
                             device=device)
     return ProxyTrainResult(unstack_params(res.params)[0],
                             res.phase1_losses[0], res.phase2_losses[0])
+
+
+def train_proxy_variant(seed: int, e_q, embeds, labels, cfg: ProxyConfig,
+                        variant: str, *, plan: Optional[DrawPlan] = None,
+                        device="cuda") -> Dict:
+    """Ablation variants for the paper's Fig. 9/11: ``"qsim"`` (phase 1
+    only), ``"qsim+supcon"``, ``"qsim+polar"``, ``"full"``, or ``"mlp"``
+    (a binary classifier; score it with :func:`mlp_classifier_scores`).
+
+    The partial objectives are config rewrites of the same trainer with
+    rebalancing off, as in the original ablation setup: ``"qsim"`` runs
+    every step on the phase-1 loss (no contrastive launch), and the two
+    phase-2 objectives alone are ``lambda_supcon`` 1.0 and 0.0. ``plan``
+    (Q=1) gives the run's draws, as for :func:`train_proxy`.
+    """
+    if variant == "full":
+        return train_proxy(seed, e_q, embeds, labels, cfg, plan=plan,
+                           device=device).params
+    if variant == "mlp":
+        return _train_mlp_classifier(seed, embeds, labels, cfg, plan=plan,
+                                     device=device)
+    rewrites = {
+        "qsim": dict(phase1_steps=cfg.phase1_steps + cfg.phase2_steps,
+                     phase2_steps=0),
+        "qsim+supcon": dict(lambda_supcon=1.0),
+        "qsim+polar": dict(lambda_supcon=0.0),
+    }
+    if variant not in rewrites:
+        raise ValueError(f"unknown variant {variant!r}")
+    cfg_v = dataclasses.replace(cfg, rebalance=False, **rewrites[variant])
+    return train_proxy(seed, e_q, embeds, labels, cfg_v, plan=plan,
+                       device=device).params
+
+
+def _train_mlp_classifier(seed: int, embeds, labels, cfg: ProxyConfig, *,
+                          plan: Optional[DrawPlan] = None,
+                          device="cuda") -> Dict:
+    """Baseline: a plain MLP binary classifier on embeddings (paper Fig.
+    9 'MLP'), trained by the same step loop with the BCE loss, no
+    augmentation, no rebalancing and no weight decay, for ``phase1_steps
+    + phase2_steps`` steps. Returns single (unstacked) params for
+    :func:`mlp_classifier_scores`.
+
+    ``plan`` (Q=1) gives the initial params ``{w1, b1, w2, b2, w3, b3}``
+    (each with a leading lane axis of 1) and the batch indices; its
+    rebalance seeds and noise are unused. Without it, params and indices
+    come from a ``torch.Generator`` seeded by ``seed``.
+    """
+    dev = resolve_device(device)
+    total, bs = cfg.phase1_steps + cfg.phase2_steps, cfg.batch_size
+    e_np = np.asarray(embeds, np.float32)
+    e_pad, y_pad, n_valid = _pad_sample(e_np, np.asarray(labels),
+                                        _bucket(e_np.shape[0]))
+    if plan is None:
+        gen = torch.Generator().manual_seed(int(seed))
+        d, h = cfg.embed_dim, cfg.hidden_dim
+        params0 = {"w1": dense_init(gen, d, (h,)), "b1": torch.zeros(h),
+                   "w2": dense_init(gen, h, (h,)), "b2": torch.zeros(h),
+                   "w3": dense_init(gen, h, (1,)), "b3": torch.zeros(1)}
+        params0 = tree_map(lambda p: p.unsqueeze(0), params0)
+        idx = torch.randint(0, n_valid, (1, total, bs), generator=gen)
+    else:
+        params0 = plan.params
+        idx = torch.as_tensor(np.asarray(plan.idx), dtype=torch.long)
+    idx = idx.to(dev)
+    _check_idx(idx, [n_valid], 1, total, bs)
+    res = _fit(params0, torch.zeros((1, e_np.shape[1]), device=dev),
+               torch.as_tensor(e_pad[None], device=dev),
+               torch.as_tensor(y_pad[None], device=dev), idx, None, cfg,
+               _proxy_opt_cfg(cfg, weight_decay=0.0), "mlp")
+    return unstack_params(res.params)[0]
+
+
+def mlp_classifier_scores(params: Dict, embeds) -> torch.Tensor:
+    """Sigmoid of the classifier's logits: (N,) on ``params``' device."""
+    w1 = params["w1"]
+    x = torch.as_tensor(np.asarray(embeds, np.float32)
+                        if not isinstance(embeds, torch.Tensor) else embeds,
+                        device=w1.device)
+    return torch.sigmoid(_mlp_logits(params, x))

@@ -1,8 +1,8 @@
 """Synthetic document corpora with planted semantics.
 
-A numpy copy of ``repro.data.synthetic``'s ``make_corpus`` and
-``make_query``: the same seed gives the same arrays in both packages,
-the token sequences of ``with_tokens=True`` included.
+A numpy copy of ``repro.data.synthetic`` (``make_corpus``,
+``make_query``, ``make_workload``): the same seed gives the same arrays
+in both packages, the token sequences of ``with_tokens=True`` included.
 
 Topic-mixture embeddings ``e_d = normalize(W_d @ T + noise)``; queries
 plant a concept over three topics (two drivers the query embedding
@@ -13,7 +13,7 @@ from topic-dependent unigram tables (the offline LM's input).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -103,3 +103,17 @@ def make_query(corpus: Corpus, seed: int, selectivity: float = 0.3,
     return Query(embed=q, truth=truth,
                  selectivity=float(truth.mean()), topic_a=int(ta),
                  topic_b=int(tb))
+
+
+def make_workload(seed: int, n_docs: int = 10_000, dim: int = 256,
+                  n_queries: int = 5, selectivities=None
+                  ) -> Tuple[Corpus, list]:
+    """A corpus + a batch of queries with varied selectivity (paper uses
+    20 queries x 3 datasets; benchmarks scale this down for CPU)."""
+    corpus = make_corpus(seed, n_docs=n_docs, dim=dim)
+    if selectivities is None:
+        rng = np.random.default_rng(seed + 1)
+        selectivities = rng.uniform(0.1, 0.5, size=n_queries)
+    queries = [make_query(corpus, seed + 100 + i, selectivity=float(s))
+               for i, s in enumerate(selectivities)]
+    return corpus, queries

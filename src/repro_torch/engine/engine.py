@@ -33,7 +33,10 @@ queries:
     sessions (cross-session CSE); every shared value is a pure function
     of its key, so sharing changes cost, never decisions;
   * every ``filter()`` returns per-document decision provenance
-    (``FilterResult.provenance``);
+    (``FilterResult.provenance``), and a session view given a ``Tracer``
+    records its spans (``engine.filter``, ``plan``, ``train``,
+    ``leaf:<name>``, ``score``, ``calibrate``, ``decide``) and the
+    optimizer's ``cse.*`` events;
   * ``SemanticTopK(child, k)`` walks documents in descending fuzzy rank
     of the child's leaf scores and decides each batch through the
     canonical leaf artifacts, stopping once ``k`` members are confirmed;
@@ -52,9 +55,6 @@ threefry key, which torch cannot reproduce).
 ``from_corpus`` runs the offline phase first (``repro_torch.engine
 .ingest``: the LM embeds every document into a persistent store) and
 builds the engine over that store.
-
-Not ported yet (see ROADMAP.md): ``session_view(tracer=)`` and the
-cost ledger, which come with the tracer.
 """
 from __future__ import annotations
 
@@ -262,6 +262,9 @@ class ScaleDocEngine:
         # receives phase / partial-result callbacks
         self._oracle_wrap: Optional[Callable] = None
         self._observer = None
+        # tracing: NULL_TRACER (disabled, allocation-free no-op spans)
+        # unless the serving layer attaches a live one via session_view
+        self._tracer: trace_mod.Tracer = trace_mod.NULL_TRACER
         # populated by from_corpus(): the offline phase's accounting
         self.ingest_result = None
 
@@ -300,7 +303,8 @@ class ScaleDocEngine:
 
     def session_view(self, *, oracle_wrap: Optional[Callable] = None,
                      observer=None, share_caches: bool = False,
-                     optimizer: Optional[QueryOptimizer] = None
+                     optimizer: Optional[QueryOptimizer] = None,
+                     tracer: Optional[trace_mod.Tracer] = None
                      ) -> "ScaleDocEngine":
         """A lightweight per-session view over this engine.
 
@@ -323,10 +327,16 @@ class ScaleDocEngine:
         ``SelectivityStats``. Every shared value is a pure function of
         its key, so attaching an optimizer changes cost, never
         decisions.
+
+        ``tracer`` records the view's spans; tracing is observability
+        only (spans never touch an RNG stream or an oracle), so traced
+        and untraced sessions make bitwise identical decisions.
         """
         view = copy.copy(self)
         view._oracle_wrap = oracle_wrap
         view._observer = observer
+        if tracer is not None:
+            view._tracer = tracer
         if optimizer is not None:
             view._optimizer = optimizer
         if not share_caches:
@@ -408,10 +418,14 @@ class ScaleDocEngine:
         out: List[FilterResult] = []
         for ticket in self.take_repairs():
             view = self.session_view()
-            out.append(view.filter(
-                ticket.predicate, accuracy_target=ticket.accuracy_target,
-                ground_truth=ticket.ground_truth, seed=ticket.seed,
-                degrade="defer", name=ticket.name))
+            with self._tracer.span("repair.replay", kind="repair",
+                                   query=ticket.name or "",
+                                   unresolved=len(ticket.unresolved)):
+                out.append(view.filter(
+                    ticket.predicate,
+                    accuracy_target=ticket.accuracy_target,
+                    ground_truth=ticket.ground_truth, seed=ticket.seed,
+                    degrade="defer", name=ticket.name))
         return out
 
     def clear_caches(self) -> None:
@@ -536,9 +550,15 @@ class ScaleDocEngine:
             if opt is not None:
                 if opt.has_artifact(dkey):
                     # the full leaf evaluation exists: no params needed
+                    trace_mod.add_event("cse.artifact_hit",
+                                        leaf=leaf.name)
                     info[leaf.key] = (0, True)
                     continue
                 kind, val = opt.claim_proxy(leaf.key, seed)
+                # single-flight visibility: "owner" paid for the train
+                # pass, "hit"/"wait" reused it (CSE credit in the ledger)
+                trace_mod.add_event("cse.proxy_claim", leaf=leaf.name,
+                                    outcome=kind)
                 if kind == "hit":
                     local_params[leaf.key] = val
                     info[leaf.key] = (0, True)
@@ -594,6 +614,16 @@ class ScaleDocEngine:
                 with self._lock:
                     local_params[leaf.key] = params
                     self._proxies[leaf.key] = params
+        return info, local_params
+
+    def _train_traced(self, order: List[SemanticPredicate],
+                      ccfg: CascadeConfig, seed: int):
+        """``_train_pending_leaves`` inside the ``train`` span."""
+        with self._tracer.span("train", kind="engine",
+                               leaves=len(order)) as tspan:
+            info, local_params = self._train_pending_leaves(order, ccfg,
+                                                            seed)
+            tspan.set(oracle_calls=sum(c for c, _ in info.values()))
         return info, local_params
 
     def _train_idx(self, seed: int, leaf: SemanticPredicate,
@@ -666,8 +696,12 @@ class ScaleDocEngine:
         charged0 = oracle.calls
         art, calib_calls, online_build = self._leaf_artifact(
             leaf, dkey, ccfg, seed, local_params, stats)
-        labels, ambiguous, online_calls, mech = self._decide_pending(
-            art, oracle, pending)
+        with self._tracer.span("decide", kind="cascade", leaf=leaf.name,
+                               pending=len(pending)) as dspan:
+            labels, ambiguous, online_calls, mech = self._decide_pending(
+                art, oracle, pending)
+            dspan.set(oracle_calls=online_calls,
+                      band=int(ambiguous.sum()))
         online_calls += online_build
         cres = CascadeResult(
             labels=labels, l=art.l, r=art.r,
@@ -706,6 +740,10 @@ class ScaleDocEngine:
         opt = self._optimizer
         if opt is not None:
             kind, val = opt.claim_artifact(dkey)
+            # who paid vs who reused: "owner" builds (train/score/
+            # calibrate on its dime), "hit"/"wait" ride for free
+            trace_mod.add_event("cse.artifact_claim", leaf=leaf.name,
+                                outcome=kind)
             if kind == "owner":
                 try:
                     art, calib, online = self._build_artifact(
@@ -745,14 +783,21 @@ class ScaleDocEngine:
                 f"no trained proxy for leaf {leaf.name!r}; "
                 "_train_pending_leaves must run before leaf execution")
         oracle = self._session_oracle(leaf.oracle)
-        scores, pass_stats = self.executor.score(params, leaf.e_q,
-                                                 self.store)
+        with self._tracer.span("score", kind="executor",
+                               leaf=leaf.name) as sspan:
+            scores, pass_stats = self.executor.score(params, leaf.e_q,
+                                                     self.store)
+            sspan.set(docs=int(pass_stats.docs_scored))
         stats.merge(pass_stats)
         rng = self._calib_rng(seed, leaf)
         calls0 = oracle.calls
         calibrator = get_calibrator(self.strategy)
         if calibrator is not None:
-            spec = calibrator(scores, oracle, ccfg, rng)
+            with self._tracer.span("calibrate", kind="cascade",
+                                   leaf=leaf.name) as cspan:
+                spec = calibrator(scores, oracle, ccfg, rng)
+                cspan.set(oracle_calls=oracle.calls - calls0,
+                          l=float(spec.l), r=float(spec.r))
             art = LeafArtifact(
                 key=leaf.key, name=leaf.name, scores=scores, params=params,
                 l=spec.l, r=spec.r,
@@ -980,14 +1025,22 @@ class ScaleDocEngine:
         ccfg = self.cascade_cfg
         if accuracy_target is not None:
             ccfg = replace(ccfg, accuracy_target=accuracy_target)
-        if isinstance(predicate, SemanticTopK):
-            return self._filter_topk(predicate, ccfg=ccfg,
-                                     ground_truth=ground_truth, seed=seed,
-                                     mode=mode, name=name, t0=t0)
-        return self._filter_compound(predicate, ccfg=ccfg,
-                                     accuracy_target=accuracy_target,
-                                     ground_truth=ground_truth, seed=seed,
-                                     mode=mode, name=name, t0=t0)
+        op = "topk" if isinstance(predicate, SemanticTopK) else "filter"
+        with self._tracer.span("engine.filter", kind="engine", op=op,
+                               seed=seed, degrade=mode,
+                               query=name or "") as fspan:
+            if isinstance(predicate, SemanticTopK):
+                res = self._filter_topk(
+                    predicate, ccfg=ccfg, ground_truth=ground_truth,
+                    seed=seed, mode=mode, name=name, t0=t0)
+            else:
+                res = self._filter_compound(
+                    predicate, ccfg=ccfg, accuracy_target=accuracy_target,
+                    ground_truth=ground_truth, seed=seed, mode=mode,
+                    name=name, t0=t0)
+            fspan.set(oracle_calls=res.oracle_calls_total,
+                      degraded=res.degraded, plan=res.plan)
+            return res
 
     def _filter_compound(self, predicate: Predicate, *, ccfg: CascadeConfig,
                          accuracy_target: Optional[float],
@@ -1000,9 +1053,12 @@ class ScaleDocEngine:
         # single-leaf predicates have nothing to reorder: skip the
         # estimation pass over the collection
         self._notify("planning")
-        sel = (self._estimate_selectivities(leaves, scoring_stats)
-               if len(leaves) > 1 else {})
-        order, _ = predicate.plan(sel)
+        with self._tracer.span("plan", kind="engine",
+                               leaves=len(leaves)) as pspan:
+            sel = (self._estimate_selectivities(leaves, scoring_stats)
+                   if len(leaves) > 1 else {})
+            order, _ = predicate.plan(sel)
+            pspan.set(order=" -> ".join(lf.name for lf in order))
         leaf_truth = _derivable_leaf_truth(predicate, ground_truth)
 
         calls_before = {}
@@ -1030,8 +1086,8 @@ class ScaleDocEngine:
             # collect-then-batch: train every leaf proxy this plan still
             # needs before any cascade runs
             self._notify("training")
-            train_info, local_params = self._train_pending_leaves(
-                order, ccfg, seed)
+            train_info, local_params = self._train_traced(order, ccfg,
+                                                          seed)
             self._notify("scoring")
             for leaf in order:
                 pending = np.nonzero(root == UNKNOWN)[0]
@@ -1040,9 +1096,14 @@ class ScaleDocEngine:
                 truth_local = leaf_truth.get(leaf.key)
                 if truth_local is not None:
                     truth_local = truth_local[pending]
-                report = self._execute_leaf(leaf, pending, ccfg, train_info,
-                                            local_params, truth_local, seed,
-                                            scoring_stats)
+                with self._tracer.span(f"leaf:{leaf.name}", kind="leaf",
+                                       pending=len(pending)) as lspan:
+                    report = self._execute_leaf(leaf, pending, ccfg,
+                                                train_info, local_params,
+                                                truth_local, seed,
+                                                scoring_stats)
+                    lspan.set(oracle_calls=report.oracle_calls,
+                              reused=report.proxy_reused)
                 reports.append(report)
                 if report.mech is not None:
                     last_mech[pending] = report.mech
@@ -1214,9 +1275,12 @@ class ScaleDocEngine:
         leaves = child.leaves()
         scoring_stats = ScoringStats()
         self._notify("planning")
-        sel = (self._estimate_selectivities(leaves, scoring_stats)
-               if len(leaves) > 1 else {})
-        order, _ = child.plan(sel)
+        with self._tracer.span("plan", kind="engine",
+                               leaves=len(leaves), k=k) as pspan:
+            sel = (self._estimate_selectivities(leaves, scoring_stats)
+                   if len(leaves) > 1 else {})
+            order, _ = child.plan(sel)
+            pspan.set(order=" -> ".join(lf.name for lf in order))
 
         calls_before = {}
         for leaf in leaves:
@@ -1242,8 +1306,8 @@ class ScaleDocEngine:
         last_writer = np.full(n, -1, np.int16)
         try:
             self._notify("training")
-            train_info, local_params = self._train_pending_leaves(
-                order, ccfg, seed)
+            train_info, local_params = self._train_traced(order, ccfg,
+                                                          seed)
             self._notify("scoring")
             if n <= DIRECT_LABEL_CUTOFF:
                 # tiny collection: label everything, keep the k lowest
@@ -1267,8 +1331,12 @@ class ScaleDocEngine:
                     dkey = (leaf.key, self.strategy, ccfg, seed)
                     o = self._session_oracle(leaf.oracle)
                     c0 = o.calls
-                    art, calib, online = self._leaf_artifact(
-                        leaf, dkey, ccfg, seed, local_params, scoring_stats)
+                    with self._tracer.span(f"leaf:{leaf.name}",
+                                           kind="leaf") as lspan:
+                        art, calib, online = self._leaf_artifact(
+                            leaf, dkey, ccfg, seed, local_params,
+                            scoring_stats)
+                        lspan.set(oracle_calls=calib + online)
                     arts[leaf.key] = art
                     build_calib[leaf.key] = calib
                     online_by_key[leaf.key] += online

@@ -13,7 +13,11 @@ pinned host buffers, issues a ``non_blocking`` host-to-device copy on a
 side stream and records an event after it; the compute stream waits on
 that event before it reads the chunk (``HostStager``, which the offline
 ingest's batch feeder shares). A pinned buffer is refilled only after
-the event of the copy that last read it has completed.
+the event of the copy that last read it has completed. A scoring pass
+checks a stager out of the executor's pool and returns it when the pass
+ends: session views share one executor, and two passes scoring at once
+from two threads must never take the same buffer or event, while one
+session's passes keep reusing the same pinned buffers.
 
 Proxy groups always go through the fused multi-query kernel
 (``repro_torch.kernels.fused_scoring``), one MLP pass per tile for all
@@ -39,6 +43,7 @@ import torch
 from repro_torch.core.scoring import _iter_chunks, _num_docs, group_jobs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_scoring.ops import score_tile_multi
+from repro_torch.runtime import trace as trace_mod
 
 PREFETCH_DEPTH = 2      # chunks the prefetch thread may run ahead
 STAGING_SLOTS = 2
@@ -240,11 +245,19 @@ class ScoringExecutor:
     def __init__(self, *, chunk: int = 8192, device="cuda"):
         self.device = resolve_device(device)
         self.chunk = chunk
-        self._stager = HostStager(self.device)
+        # idle stagers; a pass owns the one it checked out
+        self._stagers: List[HostStager] = []
+        self._stager_lock = threading.Lock()
 
     def score(self, params, e_q, store) -> Tuple[np.ndarray, ScoringStats]:
         """One predicate over the collection -> ((N,) scores, stats)."""
         scores, stats = self.score_multi([(params, e_q)], store)
+        # ambient annotation: lands on the enclosing "score" span (the
+        # engine opens one per scoring pass); no-op outside a trace
+        trace_mod.annotate(tiles=stats.tiles_scored,
+                           bytes_streamed=stats.bytes_streamed,
+                           io_seconds=round(stats.host_io_seconds, 6),
+                           stall_seconds=round(stats.stall_seconds, 6))
         return scores[:, 0], stats
 
     def score_multi(self, jobs: Sequence[Tuple[Optional[Dict], np.ndarray]],
@@ -261,21 +274,32 @@ class ScoringExecutor:
                     ScoringStats(docs_scored=n))
         t0 = time.perf_counter()
         groups, zq_stacks = group_jobs(jobs, self.device)
-        pre = _Prefetcher(store, self.chunk, self._stager)
+        with self._stager_lock:
+            stager = (self._stagers.pop() if self._stagers
+                      else HostStager(self.device))
+        pre = _Prefetcher(store, self.chunk, stager)
         out = np.empty((n, len(jobs)), np.float32)
         tiles = nbytes = 0
         compute_s = 0.0
         paths = set()
-        for start, rows, tile_bytes, tile, event in pre:
-            tc = time.perf_counter()
-            self._stager.wait(tile, event)
-            for (params, cols), zq in zip(groups, zq_stacks):
-                s = score_tile_multi(params, zq, tile)
-                paths.add("matmul" if params is None else "fused")
-                out[start:start + rows, np.asarray(cols)] = s.cpu().numpy()
-            compute_s += time.perf_counter() - tc
-            tiles += 1
-            nbytes += tile_bytes
+        try:
+            for start, rows, tile_bytes, tile, event in pre:
+                tc = time.perf_counter()
+                stager.wait(tile, event)
+                for (params, cols), zq in zip(groups, zq_stacks):
+                    s = score_tile_multi(params, zq, tile)
+                    paths.add("matmul" if params is None else "fused")
+                    out[start:start + rows, np.asarray(cols)] = \
+                        s.cpu().numpy()
+                compute_s += time.perf_counter() - tc
+                tiles += 1
+                nbytes += tile_bytes
+        finally:
+            # a producer still running (a consumer that died mid-pass)
+            # may yet write into the stager: it is dropped, not returned
+            if not pre._thread.is_alive():
+                with self._stager_lock:
+                    self._stagers.append(stager)
         stats = ScoringStats(
             docs_scored=n, queries_scored=len(jobs), tiles_scored=tiles,
             bytes_streamed=nbytes, host_io_seconds=pre.io_seconds,

@@ -1,7 +1,5 @@
 """Cross-query optimizer: shared-leaf CSE + cross-session selectivity
-(a copy of ``repro.engine.optimizer``; the tracer's ``cse.*`` events
-come with the serving planes, and the counters below stand without
-them).
+(a copy of ``repro.engine.optimizer``).
 
 The serving layer runs many compound predicates concurrently, and real
 workloads share structure — two tenants asking ``"about GPUs" & ~spam``
@@ -46,10 +44,13 @@ to the server:
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.runtime import trace as trace_mod
 
 # a waiter gives up on a wedged flight owner and computes locally after
 # this many seconds — liveness guard, not a tuning knob
@@ -220,8 +221,17 @@ class QueryOptimizer:
     def wait(flight: _Flight):
         """Block on a foreign flight; returns the published value or
         None when the owner aborted / the wait timed out (caller then
-        computes locally)."""
+        computes locally). The blocked time lands on the waiting
+        session's current span: it is exactly the latency CSE trades
+        for the owner's saved compute."""
+        t0 = time.perf_counter()
         ok = flight.done.wait(timeout=FLIGHT_TIMEOUT)
+        trace_mod.add_event(
+            "cse.flight_wait",
+            seconds=round(time.perf_counter() - t0, 6),
+            outcome=("timeout" if not ok
+                     else "aborted" if flight.error is not None
+                     else "joined"))
         if not ok:
             return None
         if flight.error is not None:

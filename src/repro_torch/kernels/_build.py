@@ -113,7 +113,8 @@ class CudaKernel:
 
     ``launch`` passes tensors as device pointers, appends the current
     stream of ``device``, raises on a non-zero CUDA error code, and only
-    then adds one to ``launches``.
+    then adds one to ``launches``, under a lock, so that a count taken
+    while several threads launch is exact.
     """
 
     def __init__(self, library: str, symbol: str,
@@ -122,6 +123,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._fn = None
 
     def _entry(self):
@@ -142,4 +144,5 @@ class CudaKernel:
             msg = load(self.library).kernel_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {err} "
                                f"({msg})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

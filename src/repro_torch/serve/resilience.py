@@ -28,8 +28,10 @@ the judge, whole-provider blackouts.
 
 The schedules, jitter draws and counters are the JAX package's, so the
 same ``ChaosConfig`` and seed give the same invocations, retries and
-delays in both packages. The JAX module's three trace events (retry,
-bisect, breaker reject) come with the port's tracer.
+delays in both packages. Retries, bisections and breaker rejections
+land on the calling session's current span as ``oracle.retry``,
+``oracle.bisect`` and ``oracle.breaker_reject`` events (no-ops outside a
+trace).
 
 Exception taxonomy lives in ``repro_torch.core.oracle`` (``OracleError``
 / ``OracleFault`` / ``OracleTimeout`` / ``OracleUnavailable``) so the
@@ -47,6 +49,7 @@ import numpy as np
 from repro_torch.core.oracle import (CachedOracle, OracleError,
                                      OracleFault, OracleTimeout,
                                      OracleUnavailable)
+from repro_torch.runtime import trace as trace_mod
 
 __all__ = [
     "ChaosConfig", "ChaosOracle", "RetryPolicy", "BreakerConfig",
@@ -392,6 +395,8 @@ class ResilientOracle:
         allowed, retry_after = self.breaker.allow()
         if not allowed:
             self._count("breaker_rejects")
+            trace_mod.add_event("oracle.breaker_reject", docs=len(docs),
+                                retry_after=round(retry_after, 6))
             raise OracleUnavailable(
                 f"oracle circuit open ({len(docs)} docs refused)",
                 docs=docs, retry_after=retry_after, breaker_open=True)
@@ -423,6 +428,7 @@ class ResilientOracle:
         if not self.retry.bisect or len(docs) == 1:
             return list(docs), failed_exc
         self._count("bisects")
+        trace_mod.add_event("oracle.bisect", docs=len(docs), depth=depth)
         mid = len(docs) // 2
         left, right = docs[:mid], docs[mid:]
         f1, l1 = self._acquire(left, deadline, depth + 1)
@@ -450,6 +456,9 @@ class ResilientOracle:
                         self._rng, prev, self.retry.base_delay_s,
                         self.retry.max_delay_s)
                 self._count("retries")
+                trace_mod.add_event("oracle.retry", attempt=attempt,
+                                    docs=len(docs),
+                                    delay=round(min(prev, remaining), 6))
                 self._sleep(min(prev, remaining))
             try:
                 t0 = self._clock()

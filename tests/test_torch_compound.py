@@ -407,14 +407,20 @@ def test_pipeline_shim_is_the_engine_per_query(opt_corpus):
 
 
 def test_what_stays_refused(opt_corpus):
-    """A session view takes no tracer yet (it comes with the tracer);
-    top-k and the degrade policies, once refused here, run on a compound
-    child and a compound predicate."""
+    """Nothing of this path is refused any more: a session view takes a
+    tracer (test_torch_trace.py), and top-k and the degrade policies,
+    once refused here, run on a compound child and a compound
+    predicate."""
+    from repro_torch.runtime.trace import Tracer
     q = make_query(opt_corpus, 65)
     leaf = SemanticPredicate(q.embed, SimulatedOracle(q.truth))
     engine = _opt_engine(opt_corpus)
-    with pytest.raises(TypeError):
-        engine.session_view(tracer=object())
+    tracer = Tracer()
+    traced = engine.session_view(tracer=tracer).filter(leaf & ~leaf,
+                                                       seed=0)
+    assert not traced.mask.any()
+    assert [s["name"] for s in tracer.spans()
+            if s["parent_id"] is None] == ["engine.filter"]
     res = engine.session_view().filter(SemanticTopK(leaf | leaf, k=1),
                                        seed=0)
     assert res.plan.startswith("topk[k=1]: ") and res.mask.sum() <= 1

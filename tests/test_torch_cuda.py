@@ -5,6 +5,9 @@ a machine with the card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -180,6 +183,77 @@ def test_executor_on_card_matches_cpu(cuda, kind, tmp_path):
             assert s_ops.KERNEL.launches == before + 3
         outs.append(scores)
     np.testing.assert_allclose(outs[0], outs[1], **F32)
+
+
+def _in_threads(n, fn, timeout=300):
+    """Run ``fn(i)`` on ``n`` threads released together, under a short
+    interpreter switch interval; every thread must finish."""
+    start = threading.Barrier(n)
+    errors = []
+
+    def run(i):
+        try:
+            start.wait()
+            fn(i)
+        except BaseException as exc:  # surfaced below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors, errors
+
+
+@pytest.mark.cuda
+def test_one_executor_scores_from_threads_as_it_does_serially(cuda):
+    """Session views share one ScoringExecutor: two threads scoring
+    distinct stores through it at once get each store's serial bits
+    (each pass owns its pinned staging buffers and copy events)."""
+    from repro_torch.config import ProxyConfig
+    from repro_torch.core.encoder import encoder_init, tree_map
+    from repro_torch.engine import InMemoryStore, ScoringExecutor
+    rng = np.random.default_rng(0)
+    stores = [InMemoryStore(rng.normal(size=(40_000, 512))
+                            .astype(np.float32)) for _ in range(2)]
+    params = tree_map(lambda t: t.to(cuda), encoder_init(
+        torch.Generator().manual_seed(0), ProxyConfig(embed_dim=512)))
+    e = rng.normal(size=512).astype(np.float32)
+    ex = ScoringExecutor(chunk=4096, device=cuda)
+    serial = [ex.score(params, e, st)[0] for st in stores]
+    for _ in range(3):
+        out = [None, None]
+
+        def work(i):
+            out[i] = ex.score(params, e, stores[i])[0]
+        _in_threads(2, work)
+        for got, want in zip(out, serial):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_launch_count_is_exact_across_threads(cuda):
+    """Every launch gate of chip_smoke.py reads KERNEL.launches after
+    the server's worker threads launched: the count must be exact."""
+    docs, w, zq = _scoring_inputs(64, 96, 128, 64, 1)
+    args = [_t(x, cuda) for x in [docs] + w + [zq]]
+    s_ops.fused_scores_multi(*args)
+    before = s_ops.KERNEL.launches
+
+    def work(i):
+        for _ in range(100):
+            s_ops.fused_scores_multi(*args)
+    _in_threads(4, work)
+    torch.cuda.synchronize()
+    assert s_ops.KERNEL.launches == before + 400
 
 
 # (b, sq, skv, h, kv_heads, hd, causal, window, q_offset): the embedding

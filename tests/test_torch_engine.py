@@ -108,15 +108,17 @@ def test_port_trained_engine_tracks_the_reference():
 
 
 def test_unported_paths_raise():
-    """What the port still refuses: a tracer on a session view (it comes
-    with the tracer), an unknown degrade policy and a raw (e_q, oracle)
-    pair. Top-k and the degrade policies run (test_torch_topk.py,
-    test_torch_degrade.py)."""
+    """What the port refuses: an unknown degrade policy and a raw
+    (e_q, oracle) pair. A tracer on a session view, once refused here,
+    is taken by the view alone (test_torch_trace.py); top-k and the
+    degrade policies run (test_torch_topk.py, test_torch_degrade.py)."""
+    from repro_torch.runtime import trace as trace_mod
     corpus = make_corpus(0, n_docs=200, dim=16)
     q = make_query(corpus, 1)
     te = ScaleDocEngine(corpus.embeds, device="cpu")
-    with pytest.raises(TypeError):
-        te.session_view(tracer=object())
+    tracer = trace_mod.Tracer()
+    assert te.session_view(tracer=tracer)._tracer is tracer
+    assert te._tracer is trace_mod.NULL_TRACER
     with pytest.raises(ValueError, match="degrade"):
         ScaleDocEngine(corpus.embeds, degrade="retry", device="cpu")
     pred = SemanticPredicate(q.embed, SimulatedOracle(q.truth))

@@ -36,11 +36,13 @@ def test_import_loads_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("package", ["repro_torch", "repro_torch.serve"])
+@pytest.mark.parametrize("package", ["repro_torch", "repro_torch.serve",
+                                     "repro_torch.runtime.trace",
+                                     "repro_torch.runtime.metrics"])
 def test_package_alone_loads_no_jax_and_no_repro(package):
-    """``import repro_torch`` and ``import repro_torch.serve`` (the
-    resilience layer, a numpy copy of ``repro.serve.resilience``), each
-    in a fresh interpreter."""
+    """``import repro_torch``, ``import repro_torch.serve`` (the server,
+    the broker and the resilience layer, copies of ``repro.serve``) and
+    the observability modules, each in a fresh interpreter."""
     code = (f"import {package}, sys\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -77,7 +79,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.config import CascadeConfig
     from repro_torch.core import scoring
     from repro_torch.core.pipeline import ScaleDocPipeline
-    from repro_torch.core.trainer import train_proxy, train_proxy_multi
+    from repro_torch.core.trainer import (train_proxy, train_proxy_multi,
+                                          train_proxy_variant)
     from repro_torch.engine import ScaleDocEngine, ScoringExecutor
     from repro_torch.kernels.fused_scoring import ops
     from repro_torch.runtime.serve_loop import EmbeddingService
@@ -89,6 +92,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         lambda: ScoringExecutor(),
         lambda: train_proxy(0, docs[0], docs, np.ones(80), cfg),
         lambda: train_proxy_multi([0], docs[:1], [docs], [np.ones(80)], cfg),
+        lambda: train_proxy_variant(0, docs[0], docs, np.ones(80), cfg,
+                                    "qsim"),
+        lambda: train_proxy_variant(0, docs[0], docs, np.ones(80), cfg,
+                                    "mlp"),
         lambda: scoring.score_collection({}, docs[0], docs),
         lambda: scoring.direct_embedding_scores(docs[0], docs),
         lambda: ops.score_collection({}, docs[0], docs),
