@@ -111,7 +111,38 @@ Phases, each of which exits non-zero when it fails:
                invocations and documents per invocation, the per-tenant
                ledger, one session's span tree and the metrics snapshot
                are logged;
- 10. ablation — the five train_proxy_variant variants on p1 (10% sample
+ 10. live    — standing predicates over a growing store: the corpus
+               through the port's StoreWriter into a MemmapStore
+               directory, the first 65,536 rows committed, p1 & ~p2
+               registered there (seed 0, DriftConfig(auto=False)); a
+               probe scores every delta range through _score_rows
+               without the pad and with it against one pass over all N
+               rows (bitwise, the card's rule a gate) and logs the
+               fused kernel's instantiation (16-byte or 4-byte copies,
+               and whether both give the same bits on the same rows);
+               then commit groups of 1, 3, 37, 8,191 and 8,193 rows, one
+               pump each (the fused launches equal to the tiles scored);
+               after [gateway] has landed the rest: the subscriber's
+               stream contiguous from 65,536 to N, rows_scored (hi - lo)
+               x the scorable leaves per batch, decisions bitwise
+               standing_filter(calib_rows=65536) over the final store,
+               and after revalidate() bitwise phase 6's p1 & ~p2;
+               registration and pump times, rows per second, delta
+               oracle calls and the live.* spans logged;
+ 11. gateway — [serve]'s four sessions over HTTP: a PredicateGateway on
+               127.0.0.1 (two tenants) over PredicateServer(workers=4)
+               with [live]'s LiveEngine as its live plane, four
+               GatewayClients in four threads, while a standing p1
+               subscribed over HTTP follows the store through the last
+               three commit groups, pumped from another thread: each
+               mask over the wire bitwise its serial run's, each
+               session's trace one tree rooted at the gateway's request
+               span over server, engine and broker spans, /explain
+               classifying every document, the per-tenant ledger equal
+               to the oracles' purchases, the SSE stream's replay
+               bitwise the standing decisions and its done event on
+               cancel; makespan and p50/p95 beside [serve]'s;
+ 12. ablation — the five train_proxy_variant variants on p1 (10% sample
                drawn as benchmarks/bench_ablation.py draws it, seed 0,
                ProxyConfig()), the contrastive ones scored through the
                fused kernel, the classifier by mlp_classifier_scores:
@@ -119,7 +150,7 @@ Phases, each of which exits non-zero when it fails:
                qsim and mlp and 60 times for the others; each variant's
                unfiltered fraction under the brute-force optimal cascade
                on the true labels at F1 0.9 (the paper's Fig. 9) logged;
- 11. offline — the offline path: ScaleDocEngine.from_corpus with an
+ 13. offline — the offline path: ScaleDocEngine.from_corpus with an
                EmbeddingService over llama3-8b at full width (32 layers,
                bf16, weights drawn on the card from a seed) into a store of
                2,048 documents of 512 tokens: 2048 finite rows of width
@@ -127,13 +158,13 @@ Phases, each of which exits non-zero when it fails:
                pooled embeddings against the plain einsum path's (per-row
                cosine >= COS_MIN), a killed-and-resumed ingest bit-identical
                to an uninterrupted one, and one query() over the store;
- 12. flash   — the bf16 flash kernel (and the same call non-causal), the
+ 14. flash   — the bf16 flash kernel (and the same call non-causal), the
                FP32 kernel on the same inputs in f32, the plain version
                and PyTorch's scaled_dot_product_attention under each
                backend that takes the call (a yardstick the port never
                calls) at the offline path's shape, and the kernel's share
                of one embedding batch;
- 13. rwkv    — the llama3-8b weights freed, the same offline path over
+ 15. rwkv    — the llama3-8b weights freed, the same offline path over
                rwkv6-7b at full width (32 layers, bf16, weights drawn on
                the card) and the same corpus: 2048 finite rows of width
                4096, the WKV6 kernel launched 32 times per batch, the
@@ -148,7 +179,7 @@ Phases, each of which exits non-zero when it fails:
                output one f32 ulp up, the kernel at chunk 64) drift from
                the kernel path with depth (the direct scan's after
                RWKV_DEPTH layers >= RWKV_DEPTH_COS_MIN);
- 14. wkv6    — the WKV6 kernel, its plain version and the plain
+ 16. wkv6    — the WKV6 kernel, its plain version and the plain
                pairwise form at the rwkv6-7b path's shape, its bound
                (exponentials in the sub-chunk form, FP32 operations and
                bytes), and its share of one embedding batch.
@@ -237,6 +268,15 @@ TOPK_K = 100
 # (invocation 0) and the calibration sample (1), then fails until healed
 DEGRADE_BLACKOUT = 2
 DEGRADE_AGREE_MIN = 0.6     # proxy-only decisions against the truth
+# [live]: the calibration prefix, the ragged commit groups pumped one by
+# one, then [gateway]'s groups of LIVE_TAIL_GROUP rows to the end. The
+# store (2.15 GB) goes under build/ beside the offline phase's stores,
+# out of git and of chiprun_out/ (whose contents are kept after a run),
+# and is deleted at the end of [live]
+LIVE_CALIB = 65_536
+LIVE_GROUPS = (1, 3, 37, 8191, 8193)
+LIVE_TAIL_GROUP = 16_384
+LIVE_DIR = ROOT / "build" / "chip_smoke_stores" / "live"
 
 
 def fail(msg: str) -> None:
@@ -1609,8 +1649,562 @@ def serve_phase(dev, embeds, queries, refs, n_tiles) -> dict:
     return out
 
 
+def fused_instantiation(docs, w1, w2, w3) -> str:
+    """The instantiation fused_scores_launch picks for these tensors
+    (csrc/fused_scoring.cu: 16-byte copies when D % 4 == 0 and docs, w1,
+    w2 and w3 are 16-byte aligned, 4-byte copies otherwise)."""
+    vec = docs.shape[1] % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (docs, w1, w2, w3))
+    return "16-byte" if vec else "4-byte"
+
+
+def live_phase(dev, embeds, queries) -> tuple:
+    """Phase 10, first part: a standing ``p1 & ~p2`` over a store an
+    ingest job keeps appending to. The corpus goes through the port's
+    StoreWriter into a MemmapStore directory; the first LIVE_CALIB rows
+    are committed, the predicate registered there, and the delta ranges'
+    row locality probed on the card; then the LIVE_GROUPS commit groups
+    land, one pump each. The rest of the phase's gates run after
+    [gateway], which lands the last groups (``live_finish``). Every gate
+    is checked and logged; the phase fails after the last."""
+    import shutil
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from repro_torch.config import CascadeConfig, ProxyConfig
+    from repro_torch.core.oracle import SimulatedOracle
+    from repro_torch.engine import (DriftConfig, InMemoryStore, LiveEngine,
+                                    MemmapStore, ScaleDocEngine,
+                                    SemanticPredicate, StoreWriter)
+    from repro_torch.engine.live import PAD_DEVICE_TYPES, _score_rows
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    from repro_torch.runtime.trace import Tracer
+    n, d = embeds.shape
+    bad = []
+    out = {}
+    t_phase = time.perf_counter()
+    shutil.rmtree(LIVE_DIR, ignore_errors=True)
+    tw = time.perf_counter()
+    writer = StoreWriter.open(LIVE_DIR, dim=d,
+                              fingerprint={"model": "chip_smoke live"})
+    writer.append(embeds[:LIVE_CALIB])
+    writer.commit()
+    out["first_commit_seconds"] = time.perf_counter() - tw
+
+    pcfg, ccfg = ProxyConfig(), CascadeConfig(accuracy_target=0.9)
+    live = LiveEngine(ScaleDocEngine(MemmapStore.open(LIVE_DIR), pcfg,
+                                     ccfg, device=dev),
+                      drift=DriftConfig(auto=False))
+    live.tracer = Tracer()
+    executor = live.engine.executor
+    p = [SemanticPredicate(q.embed, SimulatedOracle(q.truth),
+                           name=f"p{i + 1}")
+         for i, q in enumerate(queries[:2])]
+    pred = p[0] & ~p[1]
+    s_ops.KERNEL.launches = 0
+    c_ops.KERNEL.launches = 0
+    tr = time.perf_counter()
+    sp = live.register(pred, seed=0, name="p1 & ~p2")
+    out["register_seconds"] = time.perf_counter() - tr
+    out["register_launches"] = {"fused_scoring": s_ops.KERNEL.launches,
+                                "contrastive": c_ops.KERNEL.launches}
+    out["register_oracle_calls"] = sp.calibration_oracle_calls
+    sub = sp.subscribe()
+    scorable = [ls for ls in sp._leaves if ls.scorable]
+    out["leaves"] = [{"leaf": ls.name, "scorable": ls.scorable,
+                      "l": ls.l, "r": ls.r} for ls in sp._leaves]
+    log(f"[live] store: {LIVE_CALIB} of {n} rows committed through "
+        f"StoreWriter in {out['first_commit_seconds']:.2f} s "
+        f"({LIVE_CALIB * d * 4 / 1e9:.2f} GB); p1 & ~p2 registered at "
+        f"watermark {sp.calib_rows} in {out['register_seconds']:.3f} s "
+        f"({sp.calibration_oracle_calls} oracle calls; launches "
+        f"{out['register_launches']}); leaves {json.dumps(out['leaves'])}")
+    if not scorable:
+        fail("live: no leaf of p1 & ~p2 is scorable after registration")
+    if min(out["register_launches"].values()) <= 0:
+        bad.append(f"registration launches {out['register_launches']}")
+
+    # 1. the row-locality probe: every delta range of this run (the
+    # ragged groups and the tail groups [gateway] lands), scored through
+    # _score_rows without the pad and with it, against one pass over all
+    # N rows (16 full tiles), on an in-memory view of the same corpus
+    mem = InMemoryStore(embeds)
+    ranges, lo = [], LIVE_CALIB
+    for size in LIVE_GROUPS + live_tail_groups(n):
+        ranges.append((lo, lo + size))
+        lo += size
+    seen = {}
+    plain_call = s_ops.fused_scores_multi
+
+    def spy(docs, w1, b1, w2, b2, w3, b3, zq):
+        kind = fused_instantiation(docs, w1, w2, w3)
+        seen[kind] = seen.get(kind, 0) + 1
+        return plain_call(docs, w1, b1, w2, b2, w3, b3, zq)
+
+    equal = {False: True, True: True}
+    tp = time.perf_counter()
+    s_ops.fused_scores_multi = spy
+    try:
+        for ls in scorable:
+            full, _ = _score_rows(executor, ls.params, ls.e_q, mem, 0, n,
+                                  pad=False)
+            for lo, hi in ranges:
+                for pad in (False, True):
+                    got, _ = _score_rows(executor, ls.params, ls.e_q, mem,
+                                         lo, hi, pad=pad)
+                    equal[pad] &= bool(np.array_equal(got, full[lo:hi]))
+    finally:
+        s_ops.fused_scores_multi = plain_call
+    # the two instantiations on the same rows: the last ragged group's
+    # 8193 rows, aligned and 4 bytes off 16-byte alignment
+    ls = scorable[0]
+    w = s_ops._unpack(ls.params)
+    zq = s_ops.normalized_query_latents(ls.params, torch.as_tensor(
+        np.asarray(ls.e_q, np.float32), device=dev))
+    lo, hi = ranges[len(LIVE_GROUPS) - 1]
+    rows = torch.as_tensor(embeds[lo:hi], device=dev)
+    buf = torch.empty(rows.numel() + 1, device=dev)
+    off = buf[1:].view(rows.shape)
+    off.copy_(rows)
+    kinds = (fused_instantiation(rows, w[0], w[2], w[4]),
+             fused_instantiation(off, w[0], w[2], w[4]))
+    split_equal = bool(torch.equal(s_ops.fused_scores_multi(rows, *w, zq),
+                                   s_ops.fused_scores_multi(off, *w, zq)))
+    probe_s = time.perf_counter() - tp
+    card_pad = dev.type in PAD_DEVICE_TYPES
+    out["probe"] = {"ranges": ranges, "unpadded_equal": equal[False],
+                    "padded_equal": equal[True], "instantiations": seen,
+                    "split": {"kinds": kinds, "equal": split_equal},
+                    "card_rule_pads": card_pad, "seconds": probe_s}
+    log(f"[live] row-locality probe ({len(scorable)} scorable leaves, "
+        f"{len(ranges)} delta ranges {ranges}, each against one pass over "
+        f"all {n} rows): unpadded bitwise equal {equal[False]}, padded to "
+        f"the chunk ({executor.chunk}) bitwise equal {equal[True]}; "
+        f"instantiations launched by the executor {json.dumps(seen)}; "
+        f"rows {lo}..{hi} through the {kinds[0]} and the {kinds[1]} "
+        f"instantiation: bitwise equal {split_equal}; the port pads on "
+        f"{PAD_DEVICE_TYPES}, so on the card it scores delta tiles "
+        f"{'padded' if card_pad else 'unpadded'}; {probe_s:.2f} s")
+    if not equal[card_pad]:
+        bad.append(f"delta scores through the card's rule (pad={card_pad})"
+                   f" differ from one full pass")
+    if set(seen) != {"16-byte"}:
+        bad.append(f"the executor launched instantiations {seen}")
+
+    # 2. the ragged commit groups, one pump each
+    tracer = live.tracer
+    pumps = []
+    hi = LIVE_CALIB
+    for size in LIVE_GROUPS:
+        writer.append(embeds[hi:hi + size])
+        writer.commit()
+        hi += size
+        l0 = s_ops.KERNEL.launches
+        t0 = sp.scoring_stats.tiles_scored
+        calls0 = sp.oracle_calls_delta
+        tq = time.perf_counter()
+        watermark = live.pump()
+        secs = time.perf_counter() - tq
+        row = {"rows": size, "watermark": watermark, "seconds": secs,
+               "rows_per_second": size / secs,
+               "launches": s_ops.KERNEL.launches - l0,
+               "tiles_scored": sp.scoring_stats.tiles_scored - t0,
+               "expected_tiles": len(scorable) * -(-size
+                                                   // executor.chunk),
+               "oracle_calls": sp.oracle_calls_delta - calls0}
+        pumps.append(row)
+        if watermark != hi:
+            bad.append(f"pump after {size} rows: watermark {watermark}, "
+                       f"not {hi}")
+        if not row["launches"] == row["tiles_scored"] \
+                == row["expected_tiles"]:
+            bad.append(f"pump of {size} rows: {row['launches']} fused "
+                       f"launches, {row['tiles_scored']} tiles scored, "
+                       f"{row['expected_tiles']} expected")
+    log("[live] pumps: " + "; ".join(
+        f"{r['rows']} rows in {r['seconds']:.4f} s ({r['rows_per_second']:.0f}"
+        f" rows/s, {r['launches']} fused launches for {r['tiles_scored']} "
+        f"tiles, {r['oracle_calls']} oracle calls)" for r in pumps))
+    if sp.scoring_stats.paths != ("fused",):
+        bad.append(f"delta scoring ran paths {sp.scoring_stats.paths}")
+    out["pumps"] = pumps
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[live] first part {out['phase_seconds']:.1f} s")
+    if bad:
+        fail("live: " + "; ".join(bad))
+    # what [gateway] and the phase's last gates take over
+    return out, SimpleNamespace(writer=writer, live=live, sp=sp, sub=sub,
+                                tracer=tracer, pcfg=pcfg, ccfg=ccfg,
+                                n_scorable=len(scorable))
+
+
+def live_tail_groups(n: int) -> tuple:
+    """[gateway]'s commit groups: LIVE_TAIL_GROUP rows each, the last
+    one ragged, from the end of the ragged groups to n."""
+    lo = LIVE_CALIB + sum(LIVE_GROUPS)
+    return tuple(min(LIVE_TAIL_GROUP, n - s)
+                 for s in range(lo, n, LIVE_TAIL_GROUP))
+
+
+def gateway_trace_faults(spans) -> list:
+    """What is wrong with one session's trace over the gateway: one root
+    (the gateway's request span) over gateway, server, engine and broker
+    spans, every span closed and parented inside the trace."""
+    ids = {s["span_id"] for s in spans}
+    roots = [s for s in spans if s["parent_id"] not in ids]
+    kinds = {s["attrs"].get("kind") for s in spans}
+    bad = []
+    if [s["name"] for s in roots] != ["gateway.request"]:
+        bad.append(f"roots {[s['name'] for s in roots]}")
+    if not {"gateway", "server", "engine"} <= kinds:
+        bad.append(f"span kinds {sorted(k for k in kinds if k)}")
+    if not any(s["name"] == "broker.request" for s in spans):
+        bad.append("no broker.request span")
+    for s in spans:
+        if s["end"] < s["start"]:
+            bad.append(f"{s['name']} ends before it starts")
+    return bad
+
+
+def gateway_phase(dev, embeds, queries, refs, run, serve_arm) -> dict:
+    """Phase 11: the [serve] workload over HTTP. A PredicateGateway on
+    127.0.0.1 (port 0, two tenants) over PredicateServer(workers=4) with
+    [live]'s LiveEngine as its live plane; four GatewayClients in four
+    threads submit the [serve] sessions as wire predicates over fresh
+    CachedOracles, while a standing p1 subscribed over HTTP follows the
+    store through the last commit groups, pumped from another thread
+    (``refs``: session name -> (mask, calls, wall) of the serial runs of
+    phases 4 and 6; ``serve_arm``: [serve]'s in-process arm). Every gate
+    is checked and logged; the phase fails after the last."""
+    import threading
+
+    import numpy as np
+    from repro_torch.core.oracle import CachedOracle, SimulatedOracle
+    from repro_torch.engine import (InMemoryStore, ScaleDocEngine,
+                                    SemanticPredicate)
+    from repro_torch.gateway import GatewayClient, PredicateGateway, Tenant
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    from repro_torch.serve import PredicateServer
+    n = embeds.shape[0]
+    bad = []
+    out = {}
+    t_phase = time.perf_counter()
+    live = run.live
+    sims = [CountingOracle(SimulatedOracle(q.truth)) for q in queries]
+    cached = [CachedOracle(o) for o in sims]
+    p = [SemanticPredicate(q.embed, c, name=f"p{i + 1}")
+         for i, (q, c) in enumerate(zip(queries, cached))]
+    oracles = {f"o{i + 1}": c for i, c in enumerate(cached)}
+    standing_oracle = CachedOracle(SimulatedOracle(queries[0].truth))
+    oracles["s1"] = standing_oracle
+    standing_pred = SemanticPredicate(queries[0].embed, standing_oracle,
+                                      name="p1")
+    forms = [("p1", p[0], 0), ("p1 & ~p2", p[0] & ~p[1], 0),
+             ("p2 | p3", p[1] | p[2], 1), ("p3", p[2], 0)]
+    wires = [(name, pred.to_wire(oracles), seed)
+             for name, pred, seed in forms]
+    # the sessions' engine holds the N rows of phases 4 and 6; the live
+    # plane's store grows under it. One executor: every thread launches
+    # through the same staging pool onto the same stream
+    engine = ScaleDocEngine(InMemoryStore(embeds), run.pcfg, run.ccfg,
+                            executor=live.engine.executor, device=dev)
+    tenants = [Tenant("t0", "k-0"), Tenant("t1", "k-1")]
+    tail = live_tail_groups(n)
+    results, errors, events, pumps = {}, [], [], []
+    subscribed = threading.Event()
+    standing = {}
+    s_ops.KERNEL.launches = 0
+    c_ops.KERNEL.launches = 0
+    with PredicateServer(engine, workers=4, live=live,
+                         trace_capacity=1 << 16) as server:
+        with PredicateGateway(server, oracles, tenants=tenants) as gw:
+            clients = [GatewayClient(gw.url, api_key=f"k-{i % 2}",
+                                     timeout=120) for i in range(4)]
+
+            def session(i):
+                name, wire, seed = wires[i]
+                try:
+                    sub = clients[i].submit(wire, seed=seed, name=name)
+                    res = clients[i].wait(sub["id"], timeout=900,
+                                          interval=1.0)
+                    results[name] = (sub, res, time.perf_counter())
+                except Exception as exc:    # surfaced after the joins
+                    errors.append((name, exc))
+
+            def follow():
+                try:
+                    tr = time.perf_counter()
+                    sub = clients[0].subscribe_standing(
+                        standing_pred, oracles=oracles, seed=0,
+                        name="standing p1")
+                    standing["register_seconds"] = time.perf_counter() - tr
+                    standing["sub"] = sub
+                    standing["sp"] = live.get(sub["id"])
+                    subscribed.set()
+                    events.extend(clients[0].iter_standing(sub["id"],
+                                                           timeout=900))
+                except Exception as exc:
+                    errors.append(("standing", exc))
+                    subscribed.set()
+
+            def pump():
+                subscribed.wait(timeout=900)
+                hi = LIVE_CALIB + sum(LIVE_GROUPS)
+                try:
+                    for size in tail:
+                        run.writer.append(embeds[hi:hi + size])
+                        run.writer.commit()
+                        hi += size
+                        tq = time.perf_counter()
+                        live.pump()
+                        pumps.append({"rows": size, "watermark": hi,
+                                      "seconds": time.perf_counter() - tq})
+                except Exception as exc:
+                    errors.append(("pump", exc))
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=session, args=(i,))
+                       for i in range(4)]
+            threads += [threading.Thread(target=pump)]
+            follower = threading.Thread(target=follow)
+            for t in threads + [follower]:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            makespan = max((r[2] for r in results.values()),
+                           default=time.perf_counter()) - t0
+            sid = standing.get("sub", {}).get("id")
+            decisions = (standing["sp"].decisions
+                         if standing.get("sp") is not None else None)
+            if sid is not None:
+                clients[0].cancel_standing(sid)
+            follower.join(timeout=120)
+            launches = {"fused_scoring": s_ops.KERNEL.launches,
+                        "contrastive": c_ops.KERNEL.launches}
+            explains = {name: clients[i].explain(results[name][0]["id"],
+                                                 include_docs=False)
+                        for i, (name, _, _) in enumerate(wires)
+                        if name in results}
+            traces = {name: server.tracer.spans(results[name][0]["trace_id"])
+                      for name, _, _ in wires if name in results}
+            metrics = clients[0].metrics()
+    if errors:
+        fail("gateway: " + "; ".join(f"{k}: {type(e).__name__}: {e}"
+                                     for k, e in errors))
+    latency = metrics["observations"]["session_latency_seconds"]
+    bought = sum(o.calls for o in sims)
+    twice = sum(1 for o in sims for v in o.per_doc.values() if v > 1)
+    ledger = metrics["cost_ledger"]["tenants"]
+    ledger_docs = sum(t["oracle_docs"] for t in ledger.values())
+    rows = {}
+    for name, _, _ in wires:
+        sub, res, _ = results[name]
+        mask = np.zeros(n, bool)
+        mask[np.asarray(res["accepted"], np.int64)] = True
+        ex = explains[name]
+        rows[name] = {
+            "tenant": sub["tenant"], "state": res["state"],
+            "plan": res["plan"], "oracle_calls": res["oracle_calls_total"],
+            "mask_equal_serial": bool(np.array_equal(mask, refs[name][0])),
+            "explain_complete": ex["complete"],
+            "explain_docs": sum(ex["counts"].values()),
+            "trace_faults": gateway_trace_faults(traces[name])}
+    # the standing stream, replayed as a subscriber must
+    sub = standing["sub"]
+    calib = sub["calib_rows"]
+    deltas = [e for e in events if not e["final"]]
+    replay = np.zeros(n, bool)
+    for e in deltas:
+        replay[np.asarray(e["accepted"], np.int64)] = True
+    spans = [s for s in server.tracer.spans() if s["name"] in (
+        "live.pump", "live.delta")]
+    out.update({
+        "makespan_seconds": makespan,
+        "serve_makespan_seconds": serve_arm["makespan_seconds"],
+        "latency_p50_seconds": latency["p50"],
+        "latency_p95_seconds": latency["p95"],
+        "serve_latency_p50_seconds": serve_arm["latency_p50_seconds"],
+        "serve_latency_p95_seconds": serve_arm["latency_p95_seconds"],
+        "sessions": rows, "docs_bought": bought, "docs_bought_twice": twice,
+        "ledger_tenants": ledger, "ledger_oracle_docs": ledger_docs,
+        "cache_docs_purchased": metrics["oracle_cache"]["docs_purchased"],
+        "launches": launches, "pumps": pumps,
+        "standing": {"calib_rows": calib,
+                     "register_seconds": standing["register_seconds"],
+                     "batches": [(e["lo"], e["hi"]) for e in deltas],
+                     "done_event": bool(events and events[-1]["final"])},
+        "live_spans": [{k: s[k] for k in ("name", "start", "end")}
+                       | {"attrs": s["attrs"]} for s in spans],
+        "gateway_counters": {k: v for k, v in metrics["counters"].items()
+                             if k.startswith(("gateway", "tenant"))}})
+    log(f"[gateway] four GatewayClients (tenants t0, t1) through "
+        f"PredicateGateway on {gw.url} over PredicateServer(workers=4, "
+        f"live=[live]'s LiveEngine): makespan {makespan:.3f} s against "
+        f"[serve]'s in-process {serve_arm['makespan_seconds']:.3f} s; "
+        f"session latency p50 {latency['p50']:.3f} s, p95 "
+        f"{latency['p95']:.3f} s (in-process "
+        f"{serve_arm['latency_p50_seconds']:.3f}, "
+        f"{serve_arm['latency_p95_seconds']:.3f}); {bought} documents "
+        f"bought ({twice} twice); ledger {json.dumps(ledger)}; cache "
+        f"{metrics['oracle_cache']['docs_purchased']}; launches "
+        f"{launches}; per session " + json.dumps(
+            {k: {kk: vv for kk, vv in v.items() if kk != "trace_faults"}
+             for k, v in rows.items()}))
+    log(f"[gateway] standing p1 subscribed over HTTP at watermark {calib} "
+        f"in {standing['register_seconds']:.3f} s; the pumping thread "
+        f"landed " + ", ".join(f"{r['rows']} rows ({r['seconds']:.4f} s)"
+                               for r in pumps)
+        + f"; SSE batches {out['standing']['batches']}, done event "
+        f"{out['standing']['done_event']}")
+    for name, r in rows.items():
+        if r["state"] != "done":
+            bad.append(f"{name}: state {r['state']}")
+        if not r["mask_equal_serial"]:
+            bad.append(f"{name}: the mask over the wire differs from its "
+                       f"serial run's")
+        if not (r["explain_complete"] and r["explain_docs"] == n):
+            bad.append(f"{name}: /explain classified {r['explain_docs']} "
+                       f"of {n} documents (complete "
+                       f"{r['explain_complete']})")
+        if r["trace_faults"]:
+            bad.append(f"{name}: trace {r['trace_faults']}")
+    if set(ledger) != {"t0", "t1"} or ledger_docs != bought \
+            or metrics["oracle_cache"]["docs_purchased"] != bought:
+        bad.append(f"the ledger's tenants {sorted(ledger)} and "
+                   f"{ledger_docs} documents, the caches' "
+                   f"{metrics['oracle_cache']['docs_purchased']} and the "
+                   f"oracles' {bought} disagree")
+    if twice:
+        bad.append(f"{twice} documents bought twice")
+    want = [(lo, lo + size) for lo, size in zip(
+        np.cumsum((calib,) + tail[:-1]), tail)]
+    if out["standing"]["batches"] != [(int(a), int(b)) for a, b in want]:
+        bad.append(f"standing batches {out['standing']['batches']}, not "
+                   f"{want}")
+    if decisions is None or not np.array_equal(replay[calib:],
+                                               decisions[calib:]):
+        bad.append("the SSE stream's replayed decisions differ from the "
+                   "standing predicate's")
+    if not out["standing"]["done_event"]:
+        bad.append("the standing stream did not end with a done event")
+    if calib != LIVE_CALIB + sum(LIVE_GROUPS):
+        bad.append(f"standing p1 calibrated at {calib}")
+    if min(launches.values()) <= 0:
+        bad.append(f"launches {launches}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[gateway] phase time {out['phase_seconds']:.1f} s")
+    if bad:
+        fail("gateway: " + "; ".join(bad))
+    return out
+
+
+def live_finish(dev, embeds, queries, run, and_not_mask, and_not_calls,
+                out) -> dict:
+    """Phase 10, last part, after [gateway] landed the tail groups: the
+    subscriber's stream, the scored-row counters, the decisions against
+    standing_filter(calib_rows=LIVE_CALIB) over the final store, and
+    after revalidate() against phase 6's fresh filter() of p1 & ~p2
+    (``and_not_mask``, ``and_not_calls``). The store is deleted."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core.oracle import SimulatedOracle
+    from repro_torch.engine import (MemmapStore, SemanticPredicate,
+                                    standing_filter)
+    from repro_torch.kernels.contrastive import ops as c_ops
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    n = embeds.shape[0]
+    bad = []
+    t_phase = time.perf_counter()
+    run.writer.close()
+    live, sp = run.live, run.sp
+    batches = []
+    while True:
+        try:
+            batches.append(run.sub.get(timeout=0))
+        except TimeoutError:
+            break
+    spans = {}
+    for s in run.tracer.spans():
+        spans.setdefault(s["name"], []).append(s["end"] - s["start"])
+    lo, gaps = LIVE_CALIB, []
+    for b in batches:
+        if b.lo != lo:
+            gaps.append((lo, b.lo))
+        lo = b.hi
+        if b.rows_scored != (b.hi - b.lo) * run.n_scorable:
+            bad.append(f"batch [{b.lo}, {b.hi}): rows_scored "
+                       f"{b.rows_scored}, not {(b.hi - b.lo)} x "
+                       f"{run.n_scorable}")
+    if gaps or lo != n:
+        bad.append(f"the subscriber's stream has gaps {gaps} and ends at "
+                   f"{lo}, not {n}")
+    out["batches"] = [(b.lo, b.hi, b.rows_scored, b.oracle_calls)
+                      for b in batches]
+    out["delta_oracle_calls"] = sp.oracle_calls_delta
+    out["span_seconds"] = spans
+
+    s_ops.KERNEL.launches = 0
+    c_ops.KERNEL.launches = 0
+    tr = time.perf_counter()
+    fresh = [SemanticPredicate(q.embed, SimulatedOracle(q.truth),
+                               name=f"p{i + 1}")
+             for i, q in enumerate(queries[:2])]
+    ref = standing_filter(MemmapStore.open(LIVE_DIR), fresh[0] & ~fresh[1],
+                          seed=0, calib_rows=LIVE_CALIB,
+                          proxy_cfg=run.pcfg, cascade_cfg=run.ccfg,
+                          executor=live.engine.executor, device=dev)
+    ref_s = time.perf_counter() - tr
+    one_shot = bool(np.array_equal(sp.decisions, ref.decisions))
+    tv = time.perf_counter()
+    calls0 = sp.calibration_oracle_calls
+    batch = sp.revalidate()
+    reval_s = time.perf_counter() - tv
+    reval_calls = sp.calibration_oracle_calls - calls0
+    fresh_equal = bool(np.array_equal(sp.decisions, and_not_mask))
+    launches = {"fused_scoring": s_ops.KERNEL.launches,
+                "contrastive": c_ops.KERNEL.launches}
+    out.update({"standing_filter_seconds": ref_s,
+                "standing_filter_equal": one_shot,
+                "revalidate_seconds": reval_s,
+                "revalidate_oracle_calls": reval_calls,
+                "revalidated_equal_fresh_filter": fresh_equal,
+                "finish_launches": launches})
+    log(f"[live] the subscriber's {len(batches)} batches "
+        f"{[(b.lo, b.hi) for b in batches]}: contiguous from {LIVE_CALIB} "
+        f"to {lo}; rows_scored per batch (hi - lo) x {run.n_scorable}; "
+        f"delta oracle calls {sp.oracle_calls_delta} over "
+        f"{n - LIVE_CALIB} rows (registration {out['register_oracle_calls']}"
+        f"; a full filter() of the final store, phase 6: {and_not_calls}); "
+        f"live.* spans (s): " + json.dumps(
+            {k: [round(v, 6) for v in vs] for k, vs in spans.items()}))
+    log(f"[live] decisions bitwise standing_filter(calib_rows={LIVE_CALIB})"
+        f" over the final store: {one_shot} ({ref_s:.3f} s); after "
+        f"revalidate() ({reval_s:.3f} s, {reval_calls} oracle calls, "
+        f"{batch.rows_scored} rows scored) bitwise phase 6's p1 & ~p2: "
+        f"{fresh_equal}; launches {launches}")
+    if not one_shot:
+        bad.append("decisions differ from standing_filter over the final "
+                   "store")
+    if not fresh_equal:
+        bad.append("revalidated decisions differ from phase 6's filter()")
+    if min(launches.values()) <= 0:
+        bad.append(f"launches {launches}")
+    shutil.rmtree(LIVE_DIR, ignore_errors=True)
+    out["finish_seconds"] = time.perf_counter() - t_phase
+    out["phase_seconds"] += out["finish_seconds"]
+    log(f"[live] last part {out['finish_seconds']:.1f} s; phase time "
+        f"{out['phase_seconds']:.1f} s")
+    if bad:
+        fail("live: " + "; ".join(bad))
+    return out
+
+
 def ablation_phase(dev, embeds, query, n_tiles) -> dict:
-    """Phase 10: the five training variants of the paper's Fig. 9 on p1
+    """Phase 12: the five training variants of the paper's Fig. 9 on p1
     (train_proxy_variant at seed 0 on a 10% sample drawn as
     benchmarks/bench_ablation.py draws it), each scored over the corpus
     (the contrastive variants through the executor's fused kernel, the
@@ -2046,11 +2640,26 @@ def main() -> None:
     report["serve"] = serve_phase(dev, corpus.embeds, queries, refs,
                                   n_tiles)
 
-    # -- 10. the ablation surface ------------------------------------------
+    # -- 10. standing predicates over a growing store (first part) -------
+    report["live"], live_run = live_phase(dev, corpus.embeds, queries)
+
+    # -- 11. the gateway: [serve]'s sessions over HTTP, a standing stream -
+    report["gateway"] = gateway_phase(dev, corpus.embeds, queries, refs,
+                                      live_run,
+                                      report["serve"]["concurrent"])
+
+    # -- 10 (last part). the live plane's gates over the final store ------
+    report["live"] = live_finish(dev, corpus.embeds, queries, live_run,
+                                 forms["and_not"].mask,
+                                 forms["and_not"].oracle_calls_total,
+                                 report["live"])
+    del live_run
+
+    # -- 12. the ablation surface ------------------------------------------
     report["ablation"] = ablation_phase(dev, corpus.embeds, queries[0],
                                         n_tiles)
 
-    # -- 11. offline path: from_corpus over llama3-8b ---------------------
+    # -- 13. offline path: from_corpus over llama3-8b ---------------------
     del engine, store, corpus, docs
     torch.cuda.empty_cache()
     offline, service, _ = offline_phase(dev, OFF_ARCH, "flash_attention",
@@ -2059,7 +2668,7 @@ def main() -> None:
     del service
     report["offline"] = offline
 
-    # -- 12. flash times ------------------------------------------------------
+    # -- 14. flash times ------------------------------------------------------
     ft = flash_times(dev)
     kernels.append(
         {"name": "flash_attention", "route": "cuda",
@@ -2088,7 +2697,7 @@ def main() -> None:
     ft["share_of_embed_batch"] = share
     report["times"]["flash"] = ft
 
-    # -- 13. the rwkv6-7b offline path ----------------------------------------
+    # -- 15. the rwkv6-7b offline path ----------------------------------------
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -2130,7 +2739,7 @@ def main() -> None:
     rwkv["checks"] = rc
     report["rwkv"] = rwkv
 
-    # -- 14. wkv6 times ------------------------------------------------------
+    # -- 16. wkv6 times ------------------------------------------------------
     wt = wkv6_times(dev)
     kernels.append(
         {"name": "wkv6_intra_chunk", "route": "cuda",

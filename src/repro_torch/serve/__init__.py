@@ -8,9 +8,10 @@
   engine's shared ``CachedOracle`` label caches;
 * resilience: ``ChaosOracle`` fault injection and the
   ``ResilientOracle`` policy (retry with decorrelated-jitter backoff,
-  circuit breaker, bisect-on-failure).
-
-Standing sessions over live collections are not ported yet (ROADMAP.md).
+  circuit breaker, bisect-on-failure);
+* ``StandingSession``: a session-shaped handle over one standing
+  predicate (``PredicateServer.subscribe``), streaming a ``DeltaBatch``
+  per processed commit group of a live collection until cancelled.
 """
 from repro_torch.serve.broker import OracleBroker, SessionOracleHandle
 from repro_torch.serve.resilience import (BreakerConfig, ChaosConfig,
@@ -23,11 +24,13 @@ from repro_torch.serve.resilience import (BreakerConfig, ChaosConfig,
 from repro_torch.serve.server import (Delta, PredicateServer, QueryRequest,
                                       QuerySession, ServerClosed,
                                       ServerSaturated, SessionCancelled,
-                                      SessionState)
+                                      SessionState, StandingSession,
+                                      StandingState)
 
 __all__ = ["BreakerConfig", "ChaosConfig", "ChaosOracle", "CircuitBreaker",
            "Delta", "OracleBroker", "OracleError", "OracleFault",
            "OracleTimeout", "OracleUnavailable", "PredicateServer",
            "QueryRequest", "QuerySession", "ResilientOracle", "RetryPolicy",
            "ServerClosed", "ServerSaturated", "SessionCancelled",
-           "SessionOracleHandle", "SessionState", "decorrelated_jitter"]
+           "SessionOracleHandle", "SessionState", "StandingSession",
+           "StandingState", "decorrelated_jitter"]

@@ -1,5 +1,5 @@
 """PredicateServer: concurrent query sessions over one resident engine
-(a copy of ``repro.serve.server``, without the live plane).
+(a copy of ``repro.serve.server``).
 
 The engine's ``filter()`` is a blocking single-caller API; production
 traffic is many ad-hoc predicates arriving at once. The server owns one
@@ -24,10 +24,11 @@ session computes exactly what a serial ``filter()`` on a fresh engine
 (sharing the label caches) would — concurrency changes throughput and
 oracle invocation shape, never decisions.
 
-The server runs on the device of the engine it is given. Standing
-predicates over live collections (``live=``, ``enable_live``,
-``subscribe``, ``standing_sessions``) need ``engine/live.py``, which is
-not ported yet: they raise ``NotImplementedError`` (ROADMAP.md).
+Standing predicates over live collections (``live=``, ``enable_live``,
+``subscribe``) run on a ``repro_torch.engine.live.LiveEngine`` over the
+resident engine: each subscription is a ``StandingSession`` sharing the
+query sessions' id namespace. The server runs on the device of the
+engine it is given.
 """
 from __future__ import annotations
 
@@ -44,15 +45,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch.engine.engine import FilterResult, ScaleDocEngine
+from repro_torch.engine.live import (DeltaBatch, DriftConfig, LiveEngine,
+                                     StandingPredicate, Subscription)
 from repro_torch.engine.optimizer import QueryOptimizer
 from repro_torch.engine.predicate import Predicate
 from repro_torch.runtime import trace as trace_mod
 from repro_torch.runtime.metrics import CounterSet
 from repro_torch.serve.broker import OracleBroker
-
-LIVE_NOT_PORTED = ("standing predicates over live collections need "
-                   "engine/live.py, which repro_torch does not port yet "
-                   "(ROADMAP.md, the live plane)")
 
 
 class ServerSaturated(RuntimeError):
@@ -305,6 +304,69 @@ class QuerySession:
         }
 
 
+class StandingState(enum.Enum):
+    LIVE = "live"
+    CANCELLED = "cancelled"
+
+
+class StandingSession:
+    """Session-shaped handle over one standing-predicate subscription.
+
+    Mirrors enough of ``QuerySession``'s consumer surface — ``id``,
+    ``name``, ``tenant``, ``state``, ``done()``, ``cancel()``,
+    ``iter_deltas()``, ``stats()`` — that the gateway's session
+    plumbing (lookup, SSE streaming, DELETE cancel, per-tenant
+    in-flight accounting) works on it unchanged. Unlike a query
+    session it never finishes on its own: batches flow per processed
+    commit group until ``cancel()`` (or server shutdown) pushes the
+    final sentinel."""
+
+    def __init__(self, standing: StandingPredicate,
+                 subscription: Subscription,
+                 tenant: Optional[str] = None):
+        self.id = standing.id
+        self.standing = standing
+        self.subscription = subscription
+        self.name = standing.name
+        self.tenant = tenant
+        self._submitted_at = time.perf_counter()
+
+    @property
+    def state(self) -> StandingState:
+        return (StandingState.CANCELLED if self.standing.done()
+                else StandingState.LIVE)
+
+    def done(self) -> bool:
+        """True once cancelled — the signal TenantState.in_flight uses
+        to lazily free this session's concurrency slot."""
+        return self.standing.done()
+
+    def cancel(self) -> bool:
+        return self.standing.cancel()
+
+    def result(self, timeout: Optional[float] = None):
+        raise TypeError(
+            f"standing session {self.name!r} has no final result; "
+            "consume iter_deltas() or read standing.decisions")
+
+    def iter_deltas(self, timeout: Optional[float] = None):
+        """Yield ``DeltaBatch``es as commit groups are processed, until
+        the final sentinel after cancel/shutdown. ``timeout`` bounds
+        the wait for each next batch (TimeoutError past it)."""
+        while True:
+            batch: DeltaBatch = self.subscription.get(timeout=timeout)
+            yield batch
+            if batch.final:
+                return
+
+    def stats(self) -> Dict:
+        snap = self.standing.stats()
+        snap["tenant"] = self.tenant
+        snap["standing"] = True
+        snap["wall_seconds"] = time.perf_counter() - self._submitted_at
+        return snap
+
+
 _STOP = object()
 
 
@@ -317,7 +379,7 @@ class PredicateServer:
                  max_batch: int = 16, max_delay: float = 0.002,
                  counters: Optional[CounterSet] = None,
                  keep_sessions: int = 1024,
-                 live=None,
+                 live: Optional[LiveEngine] = None,
                  degrade: Optional[str] = None,
                  optimize: bool = False,
                  optimizer: Optional[QueryOptimizer] = None,
@@ -327,8 +389,6 @@ class PredicateServer:
                  ledger: Optional[trace_mod.CostLedger] = None):
         if workers < 1:
             raise ValueError("workers must be >= 1")
-        if live is not None:
-            raise NotImplementedError(LIVE_NOT_PORTED)
         if degrade is not None and degrade not in ("fail", "defer",
                                                    "proxy_fallback"):
             raise ValueError(f"unknown degrade policy {degrade!r}")
@@ -339,6 +399,10 @@ class PredicateServer:
         # "proxy_fallback" decides by proxy score, flagged. None
         # inherits whatever policy the engine was built with.
         self.degrade = engine.degrade if degrade is None else degrade
+        # standing-predicate support: a LiveEngine over the same resident
+        # engine (pass one in, or call enable_live()); None = subscribe()
+        # is refused
+        self.live = live
         # cross-query optimizer: shared-leaf CSE + cross-session
         # selectivity stats (repro.engine.optimizer). Off by default —
         # sessions then evaluate every leaf themselves, the pre-PR-9
@@ -362,12 +426,16 @@ class PredicateServer:
         self.broker.tracer = self.tracer
         # repair replays run on the engine itself (not a session view)
         self.engine._tracer = self.tracer
+        if live is not None:
+            live.tracer = self.tracer
         self._queue: "queue.Queue" = queue.Queue(maxsize=queue_depth)
         self._closed = False
         self._lock = threading.Lock()
         # bounded history for sessions(): a long-lived server would
         # otherwise pin every finished session's result arrays forever
         self._sessions: "deque[QuerySession]" = deque(maxlen=keep_sessions)
+        self._standing: "deque[StandingSession]" = deque(
+            maxlen=keep_sessions)
         self._workers = [threading.Thread(target=self._worker_loop,
                                           name=f"scaledoc-serve-{i}",
                                           daemon=True)
@@ -429,14 +497,50 @@ class PredicateServer:
 
     # -- standing predicates (live collections) ---------------------------
 
-    def enable_live(self, **kwargs):
-        raise NotImplementedError(LIVE_NOT_PORTED)
+    def enable_live(self, *, drift: Optional[DriftConfig] = None
+                    ) -> LiveEngine:
+        """Build (or return) the server's ``LiveEngine`` over the
+        resident engine. Callers pump it after ingest commit groups;
+        ``subscribe()`` registers standing predicates against it."""
+        with self._lock:
+            if self.live is None:
+                self.live = LiveEngine(self.engine, drift=drift)
+                self.live.tracer = self.tracer
+            return self.live
 
-    def subscribe(self, predicate: Predicate, **kwargs):
-        raise NotImplementedError(LIVE_NOT_PORTED)
+    def subscribe(self, predicate: Predicate, *,
+                  seed: int = 0, name: Optional[str] = None,
+                  accuracy_target: Optional[float] = None,
+                  tenant: Optional[str] = None,
+                  drift: Optional[DriftConfig] = None) -> StandingSession:
+        """Register a standing predicate and subscribe to its per-commit-
+        group accept/reject deltas. Registration (the calibration
+        ``filter()`` over the committed prefix) runs synchronously on
+        the calling thread — it is ordinary query work; the *deltas*
+        are what stream. Returns a session whose ``iter_deltas()``
+        yields ``repro_torch.engine.live.DeltaBatch``es until
+        cancelled."""
+        with self._lock:
+            if self._closed:
+                raise ServerClosed("server is shut down")
+            live = self.live
+        if live is None:
+            raise RuntimeError(
+                "standing predicates are disabled: construct the server "
+                "with live=LiveEngine(...) or call enable_live() first")
+        standing = live.register(predicate, seed=seed, name=name,
+                                 accuracy_target=accuracy_target,
+                                 drift=drift)
+        session = StandingSession(standing, standing.subscribe(),
+                                  tenant=tenant)
+        with self._lock:
+            self._standing.append(session)
+        self.counters.inc("standing_subscribed")
+        return session
 
-    def standing_sessions(self):
-        raise NotImplementedError(LIVE_NOT_PORTED)
+    def standing_sessions(self) -> List[StandingSession]:
+        with self._lock:
+            return list(self._standing)
 
     def run(self, predicates: Sequence, *, seeds: Optional[Sequence[int]]
             = None, accuracy_target: Optional[float] = None,
@@ -608,12 +712,16 @@ class PredicateServer:
             return list(self._sessions)
 
     def get_session(self, session_id: str) -> Optional[QuerySession]:
-        """Look up a (running or recently finished) session by id: the
-        handle a network front end round-trips to its clients."""
+        """Look up a (live or recently finished) session by id — the
+        handle a network front end round-trips to its clients. Query
+        and standing sessions share one id namespace."""
         with self._lock:
             for session in self._sessions:
                 if session.id == session_id:
                     return session
+            for standing in self._standing:
+                if standing.id == session_id:
+                    return standing
         return None
 
     @property
@@ -631,6 +739,10 @@ class PredicateServer:
         session = self.get_session(session_id)
         if session is None:
             raise KeyError(f"unknown session {session_id!r}")
+        if isinstance(session, StandingSession):
+            raise TypeError(
+                f"standing session {session_id!r} has no provenance map "
+                "(decisions stream incrementally; read standing stats)")
         if not session.done():
             raise RuntimeError(f"session {session_id} still "
                                f"{session.state.value}; provenance is "
@@ -700,6 +812,14 @@ class PredicateServer:
         snap["trace"] = {k: v
                          for k, v in self.tracer.snapshot(limit=1).items()
                          if k != "spans"}
+        with self._lock:
+            standing = list(self._standing)
+        snap["standing"] = {
+            "subscribed": len(standing),
+            "live": sum(1 for s in standing if not s.done()),
+            "watermark": (len(self.live.store)
+                          if self.live is not None else 0),
+        }
         return snap
 
     def metrics_json(self, indent: int = 2) -> str:
@@ -716,6 +836,10 @@ class PredicateServer:
             self._closed = True
         for _ in self._workers:
             self._queue.put(_STOP)
+        # cancel standing subscriptions so their delta streams terminate
+        # (the final sentinel flows to every subscriber)
+        for standing in self.standing_sessions():
+            standing.cancel()
         if wait:
             for t in self._workers:
                 t.join()

@@ -540,3 +540,79 @@ def test_compound_filter_on_card_is_the_kleene_of_single_leaves(cuda):
     alone = engine()
     m1, m2 = (alone.filter(lf, seed=0).mask for lf in leaves())
     np.testing.assert_array_equal(res.mask, m1 & ~m2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [False, True])
+def test_live_delta_scores_are_row_local_on_card(cuda, pad):
+    """``_score_rows`` over ragged ranges at odd offsets, through the
+    fused kernel with and without the pad to the executor's chunk, gives
+    bitwise the scores of one pass over all the rows (the live plane's
+    row-local contract; the card's rule keeps no pad)."""
+    from repro_torch.config import ProxyConfig
+    from repro_torch.core.encoder import encoder_init, tree_map
+    from repro_torch.engine import InMemoryStore, ScoringExecutor
+    from repro_torch.engine.live import _score_rows
+    rng = np.random.default_rng(0)
+    docs = (rng.normal(size=(4096, 256)) / 16).astype(np.float32)
+    params = tree_map(lambda p: p.to(cuda), encoder_init(
+        torch.Generator().manual_seed(0), ProxyConfig(embed_dim=256)))
+    e_q = docs[7]
+    store = InMemoryStore(docs)
+    executor = ScoringExecutor(chunk=1024, device=cuda)
+    full, _ = _score_rows(executor, params, e_q, store, 0, 4096, pad=False)
+    before = s_ops.KERNEL.launches
+    for lo, m in ((129, 1), (131, 2), (133, 3), (171, 7), (195, 37),
+                  (271, 150), (1023, 1025), (2047, 2049)):
+        got, stats = _score_rows(executor, params, e_q, store, lo, lo + m,
+                                 pad=pad)
+        np.testing.assert_array_equal(got, full[lo:lo + m])
+        assert stats.paths == ("fused",)
+    assert s_ops.KERNEL.launches > before
+
+
+@pytest.mark.cuda
+def test_live_pumps_on_card_equal_standing_filter(cuda, tmp_path):
+    """Ragged commit groups pumped on the card: decisions bitwise a
+    one-shot standing_filter at the same calibration watermark, the fused
+    kernel launched once a tile a scorable leaf."""
+    from repro_torch.config import CascadeConfig, ProxyConfig
+    from repro_torch.data import make_corpus, make_query
+    from repro_torch.engine import (DriftConfig, LiveEngine, MemmapStore,
+                                    SemanticPredicate, SimulatedOracle,
+                                    StoreWriter, standing_filter)
+    corpus = make_corpus(0, n_docs=4096, dim=256)
+    q1, q2 = (make_query(corpus, 100 + j, selectivity=s)
+              for j, s in enumerate((0.1, 0.2)))
+    pcfg = ProxyConfig(phase1_steps=20, phase2_steps=20)
+    ccfg = CascadeConfig(accuracy_target=0.9)
+
+    def pred():
+        return (SemanticPredicate(q1.embed, SimulatedOracle(q1.truth),
+                                  name="p1")
+                & ~SemanticPredicate(q2.embed, SimulatedOracle(q2.truth),
+                                     name="p2"))
+
+    w = StoreWriter.open(tmp_path, dim=256, fingerprint={"model": "card"})
+    w.append(corpus.embeds[:2048])
+    w.commit()
+    live = LiveEngine(MemmapStore.open(tmp_path), pcfg, ccfg,
+                      drift=DriftConfig(auto=False), chunk=1024,
+                      device=cuda)
+    sp = live.register(pred(), seed=0)
+    n_scorable = sum(ls.scorable for ls in sp._leaves)
+    hi = 2048
+    for size in (1, 3, 37, 1023, 984):        # to the end of the corpus
+        w.append(corpus.embeds[hi:hi + size])
+        w.commit()
+        hi += size
+        before = s_ops.KERNEL.launches
+        live.pump()
+        assert s_ops.KERNEL.launches - before == \
+            n_scorable * -(-size // 1024)
+    w.close()
+    ref = standing_filter(MemmapStore.open(tmp_path), pred(), seed=0,
+                          calib_rows=2048, proxy_cfg=pcfg, cascade_cfg=ccfg,
+                          chunk=1024, device=cuda)
+    np.testing.assert_array_equal(sp.decisions, ref.decisions)
+    live.close()

@@ -38,11 +38,15 @@ def test_import_loads_no_jax_and_no_repro():
 
 @pytest.mark.parametrize("package", ["repro_torch", "repro_torch.serve",
                                      "repro_torch.runtime.trace",
-                                     "repro_torch.runtime.metrics"])
+                                     "repro_torch.runtime.metrics",
+                                     "repro_torch.engine.live",
+                                     "repro_torch.gateway"])
 def test_package_alone_loads_no_jax_and_no_repro(package):
     """``import repro_torch``, ``import repro_torch.serve`` (the server,
-    the broker and the resilience layer, copies of ``repro.serve``) and
-    the observability modules, each in a fresh interpreter."""
+    the broker and the resilience layer, copies of ``repro.serve``), the
+    observability modules, the live plane and the gateway (copies of
+    ``repro.engine.live`` and ``repro.gateway``), each in a fresh
+    interpreter."""
     code = (f"import {package}, sys\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -81,13 +85,16 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.core.pipeline import ScaleDocPipeline
     from repro_torch.core.trainer import (train_proxy, train_proxy_multi,
                                           train_proxy_variant)
-    from repro_torch.engine import ScaleDocEngine, ScoringExecutor
+    from repro_torch.engine import (LiveEngine, ScaleDocEngine,
+                                    ScoringExecutor, standing_filter)
     from repro_torch.kernels.fused_scoring import ops
     from repro_torch.runtime.serve_loop import EmbeddingService
     docs = np.zeros((80, 8), np.float32)
     cfg = ProxyConfig(embed_dim=8, hidden_dim=8, latent_dim=8, proj_dim=4)
     calls = [
         lambda: ScaleDocEngine(docs),
+        lambda: LiveEngine(docs),
+        lambda: standing_filter(docs, None),
         lambda: ScaleDocPipeline(docs, cfg, CascadeConfig()),
         lambda: ScoringExecutor(),
         lambda: train_proxy(0, docs[0], docs, np.ones(80), cfg),

@@ -3,8 +3,8 @@ PredicateServer sessions, the OracleBroker micro-batcher, the metrics
 sinks, and the concurrent-vs-serial bit-parity gate.
 
 (a) The JAX package's broker and server tests (tests/test_serve.py) run
-    on the port, on the CPU. Its two standing-session tests wait for the
-    port's live plane; here the server refuses that surface.
+    on the port, on the CPU, its two standing-session tests among them
+    (the server's live plane over ``repro_torch.engine.live``).
 (b) Parity: the mixed leaf/compound workload on the JAX server and on
     the port's, each session's proxies trained by the JAX engine and
     injected into both (through the engine's session views): equal
@@ -35,13 +35,16 @@ from repro_torch.config import CascadeConfig, ProxyConfig
 from repro_torch.core.encoder import params_from_jax
 from repro_torch.core.oracle import CachedOracle, SimulatedOracle
 from repro_torch.data import make_corpus, make_query
-from repro_torch.engine import InMemoryStore, ScaleDocEngine, SemanticPredicate
+from repro_torch.engine import (DriftConfig, InMemoryStore, MemmapStore,
+                                ScaleDocEngine, SemanticPredicate,
+                                StoreWriter)
 from repro_torch.runtime.metrics import (PROMETHEUS_CONTENT_TYPE,
                                          CounterSet, Metrics,
                                          render_prometheus)
 from repro_torch.serve import (OracleBroker, OracleUnavailable,
                                PredicateServer, ServerClosed,
-                               ServerSaturated, SessionState)
+                               ServerSaturated, SessionState,
+                               StandingSession, StandingState)
 from torch_threads import one_torch_thread  # noqa: F401
 
 N_DOCS, DIM = 800, 32
@@ -352,18 +355,74 @@ def test_metrics_snapshot_is_json_serializable(corpus, cfgs):
     assert parsed["queue"]["capacity"] == 32
 
 
-def test_live_plane_is_refused_until_ported(corpus, cfgs):
-    """Standing sessions need engine/live.py (tests/test_serve.py's two
-    standing tests wait for it): the surface raises, naming ROADMAP."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PredicateServer(_engine(corpus, cfgs), workers=1, live=object())
+def test_standing_subscription_over_server(corpus, cfgs, tmp_path):
+    """Full standing lifecycle through PredicateServer: refusal before
+    enable_live(), session-shaped handle (shared id namespace, LIVE
+    state, no result()), per-commit-group delta streaming off a pump,
+    the metrics standing block, and cancel terminating the stream."""
+    pcfg, ccfg = cfgs
+    writer = StoreWriter.open(str(tmp_path), dim=DIM,
+                              fingerprint={"model": "serve-live"})
+    writer.append(corpus.embeds[:400])
+    writer.commit()
+    q = make_query(corpus, 41, selectivity=0.3)
+    pred = SemanticPredicate(q.embed, SimulatedOracle(q.truth),
+                             name="standing")
+    engine = ScaleDocEngine(MemmapStore.open(str(tmp_path)), pcfg, ccfg,
+                            chunk=128, device="cpu")
+    with PredicateServer(engine, workers=2) as server:
+        with pytest.raises(RuntimeError, match="disabled"):
+            server.subscribe(pred, seed=3)
+        server.enable_live(drift=DriftConfig(auto=False))
+        session = server.subscribe(pred, seed=3, tenant="t")
+        assert isinstance(session, StandingSession)
+        assert session.state == StandingState.LIVE and not session.done()
+        assert server.get_session(session.id) is session
+        with pytest.raises(TypeError, match="no final result"):
+            session.result()
+        with pytest.raises(TypeError, match="no provenance"):
+            server.explain(session.id)
+
+        batches = []
+        consumer = threading.Thread(
+            target=lambda: batches.extend(session.iter_deltas(timeout=120)),
+            daemon=True)
+        consumer.start()
+
+        writer.append(corpus.embeds[400:N_DOCS])
+        writer.commit()
+        writer.close()
+        server.live.pump()
+        snap = server.metrics_snapshot()
+        assert snap["standing"] == {"subscribed": 1, "live": 1,
+                                    "watermark": N_DOCS}
+        assert snap["counters"]["standing_subscribed"] == 1
+        stats = session.stats()
+        assert stats["standing"] is True and stats["tenant"] == "t"
+        assert stats["watermark"] == N_DOCS
+        assert session.cancel()
+        consumer.join(timeout=30)
+        assert not consumer.is_alive()
+    assert (batches[0].lo, batches[0].hi) == (400, N_DOCS)
+    assert not batches[0].final and batches[-1].final
+    assert session.state == StandingState.CANCELLED and session.done()
+
+
+def test_shutdown_cancels_standing_sessions(corpus, cfgs):
+    """Server shutdown pushes the final sentinel to every standing
+    subscriber — streams terminate, nothing hangs."""
     q = make_query(corpus, 43, selectivity=0.3)
-    pred = SemanticPredicate(q.embed, SimulatedOracle(q.truth))
-    with PredicateServer(_engine(corpus, cfgs), workers=1) as server:
-        for call in (server.enable_live, lambda: server.subscribe(pred),
-                     server.standing_sessions):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                call()
+    server = PredicateServer(_engine(corpus, cfgs), workers=1)
+    server.enable_live(drift=DriftConfig(auto=False))
+    session = server.subscribe(
+        SemanticPredicate(q.embed, SimulatedOracle(q.truth)), seed=1)
+    server.shutdown()
+    batches = list(session.iter_deltas(timeout=10))
+    assert len(batches) == 1 and batches[0].final
+    assert session.done()
+    snap = server.metrics_snapshot()
+    assert snap["standing"]["subscribed"] == 1
+    assert snap["standing"]["live"] == 0
 
 
 # -- (a) engine session views ------------------------------------------------

@@ -5,7 +5,10 @@
     annotation, explicit parents and links, the disabled no-op tracer,
     the flight-recorder ring, the Chrome-trace export, the ledger's
     attribution, one compound filter()'s rooted span tree with complete
-    provenance, the tracing-off bitwise parity through a server, and
+    provenance, the HTTP propagation of four remote clients through the
+    port's gateway (one rooted tree a session, gateway -> server ->
+    engine -> broker; /explain complete; the ledger equal to the
+    purchases), the tracing-off bitwise parity through a server, and
     explain()'s errors.
 (b) Parity: one compound filter() on each package's engine, with the
     JAX-trained params injected into both, records a span tree with the
@@ -13,8 +16,6 @@
     plan order, and both trace ids and span ids are W3C-shaped. The
     preconditions of tests/test_torch_compound.py hold for this corpus:
     the injected params give the planning pass equal estimates.
-The HTTP propagation test (tests/test_trace.py::
-test_http_propagation_e2e_four_clients) waits for the port's gateway.
 """
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from repro_torch.core.encoder import params_from_jax
 from repro_torch.core.oracle import CachedOracle, SimulatedOracle
 from repro_torch.data import make_corpus, make_query
 from repro_torch.engine import InMemoryStore, ScaleDocEngine, SemanticPredicate
+from repro_torch.gateway import GatewayClient, PredicateGateway, Tenant
 from repro_torch.runtime import trace as trace_mod
 from repro_torch.runtime.trace import (CostLedger, SpanContext, Tracer,
                                        make_traceparent, parse_traceparent,
@@ -298,6 +300,99 @@ def test_tracing_disabled_bitwise_parity(corpus, cfgs):
             assert s.trace_id is None
     for ref, got in zip(serial, masks):
         np.testing.assert_array_equal(ref, got)
+
+
+# -- (a) server + gateway e2e ------------------------------------------------
+
+
+def test_http_propagation_e2e_four_clients(corpus, cfgs):
+    """Acceptance gate: 4 remote clients, compound workload — one rooted
+    span tree per session spanning gateway -> server -> engine -> broker,
+    /explain classifies 100% of docs bitwise-consistently, and the
+    ledger's per-tenant oracle-doc totals equal the broker's purchase
+    counters."""
+    oracles, preds = _workload(corpus)
+    wires = [p.to_wire(oracles) for p in preds]
+    tenants = [Tenant("t0", "k-0"), Tenant("t1", "k-1")]
+    caller = SpanContext("ab" * 16, "cd" * 8)
+
+    with PredicateServer(_engine(corpus, cfgs), workers=2) as server:
+        with PredicateGateway(server, oracles, tenants=tenants) as gw:
+            clients = [GatewayClient(gw.url, api_key="k-0"),
+                       GatewayClient(gw.url, api_key="k-1")]
+            sids = []
+            for i, wire in enumerate(wires):
+                kw = {"trace_ctx": caller} if i == 0 else {}
+                sub = clients[i % 2].submit(wire, seed=i, **kw)
+                assert sub["trace_id"], sub
+                if i == 0:       # caller's context wins end to end
+                    assert sub["trace_id"] == caller.trace_id
+                sids.append(sub["id"])
+            for i, sid in enumerate(sids):
+                clients[i % 2].wait(sid, timeout=300, interval=0.1)
+
+            # status round-trips the trace id
+            assert (clients[0].status(sids[0])["trace_id"]
+                    == caller.trace_id)
+
+            # /explain: complete, classes sum to n_docs, bitwise-agree
+            for i, sid in enumerate(sids):
+                ex = clients[i % 2].explain(sid)
+                assert ex["complete"] is True
+                assert sum(ex["counts"].values()) == ex["n_docs"] == N_DOCS
+                res = server.get_session(sid).result()
+                mask = np.asarray(res.mask, bool)
+                class_of = np.asarray(ex["class_of"], np.int8)
+                assert np.all(mask[class_of == trace_mod.PROXY_ACCEPT])
+                assert not np.any(mask[class_of == trace_mod.PROXY_REJECT])
+                assert ex["accepted_count"] == int(mask.sum())
+
+            # one rooted tree per session, gateway->server->engine kinds
+            for i, sid in enumerate(sids):
+                tid = clients[i % 2].status(sid)["trace_id"]
+                spans = server.tracer.spans(tid)
+                kinds = {s["attrs"].get("kind") for s in spans}
+                assert {"gateway", "server", "engine"} <= kinds
+                ids = {s["span_id"] for s in spans}
+                n_roots = 0
+                for s in spans:
+                    assert s["end"] >= s["start"]
+                    if s["parent_id"] is None or s["parent_id"] not in ids:
+                        # the only out-of-tree parent allowed is the
+                        # remote caller's span id (session 0)
+                        if s["parent_id"] not in (None, caller.span_id):
+                            pytest.fail(f"orphan span {s['name']}")
+                        n_roots += 1
+                assert n_roots == 1, f"session {i}: {n_roots} roots"
+                assert any(s["name"] == "broker.request" for s in spans)
+
+            # oracle flush spans are their own roots, linked back to
+            # the contributing sessions
+            flushes = [s for s in server.tracer.spans()
+                       if s["name"] == "oracle.flush"]
+            assert flushes
+            assert any(f["links"] for f in flushes)
+
+            # /v1/traces over HTTP mirrors the in-process tracer
+            tr = clients[0].traces(trace_id=caller.trace_id)
+            assert {s["name"] for s in tr["spans"]} == {
+                s["name"] for s in server.tracer.spans(caller.trace_id)}
+            chrome = clients[0].traces(trace_id=caller.trace_id,
+                                       chrome=True)
+            assert chrome["traceEvents"]
+
+            # prometheus exposition of the same counters
+            text = clients[0].metrics_prometheus()
+            assert "# TYPE scaledoc_sessions_done counter" in text
+            assert "scaledoc_session_latency_seconds_count" in text
+
+            # ledger == broker purchase counters, per tenant and total
+            m = clients[0].metrics()
+            ledger = m["cost_ledger"]
+            assert set(ledger["tenants"]) == {"t0", "t1"}
+            total = sum(t["oracle_docs"]
+                        for t in ledger["tenants"].values())
+            assert total == int(m["oracle_cache"]["docs_purchased"])
 
 
 def test_explain_errors(corpus, cfgs):
