@@ -158,6 +158,27 @@ Phases, each of which exits non-zero when it fails:
                pooled embeddings against the plain einsum path's (per-row
                cosine >= COS_MIN), a killed-and-resumed ingest bit-identical
                to an uninterrupted one, and one query() over the store;
+               then, on the same weights, engine and corpus:
+               [judge] llama3-8b as the cascade's oracle (LMOracle, a
+               16-token query from a seeded generator, the seed stepped
+               through JUDGE_SEEDS until the judge's selectivity is not
+               degenerate): the judge over every document (the paper's
+               baseline: wall time, prompts and tokens a second), then
+               query() with the judge as its oracle (calls split into
+               train, calibration and online, data reduction, wall time
+               and the judge's share, F1 against the baseline's labels,
+               not gated: random weights); gates: calls <= N, every label
+               the cascade bought and the mask over the band bitwise the
+               baseline's, flash, fused and contrastive launched, and the
+               kernel path's last-position logits against the einsum
+               path's on 256 prompts (per-row cosine >= COS_MIN,
+               decisions agreeing >= JUDGE_AGREE_MIN);
+               [decode] generate() of 32 tokens for 8 of the corpus's
+               prompts, greedy, bitwise a hand-rolled prefill +
+               decode_step loop (prefill ms, decode ms a step, tokens a
+               second, peak memory, flash launched once a layer in the
+               prefill), and at 2 layers in f32, full width, decode
+               against the teacher-forced forward within DECODE_REL;
  14. flash   — the bf16 flash kernel (and the same call non-causal), the
                FP32 kernel on the same inputs in f32, the plain version
                and PyTorch's scaled_dot_product_attention under each
@@ -170,7 +191,9 @@ Phases, each of which exits non-zero when it fails:
                4096, the WKV6 kernel launched 32 times per batch, the
                kernel path's pooled embeddings against the plain direct
                scan's (per-row cosine >= RWKV_COS_MIN), the kill/resume
-               drill and one query() over the store; then the 32 blocks
+               drill, one query() over the store and [decode] as for
+               llama3-8b (the WKV6 kernel in the prefill, the recurrent
+               state in the steps); then the 32 blocks
                run by hand on one batch: each layer's recurrence through
                the kernel and the direct scan on the kernel path's inputs
                (relative error and f32 ulp distance; time-mix outputs at
@@ -260,6 +283,23 @@ RWKV_COS_MIN = 0.95
 # before the amplification takes over (1 - cos measured at 2.2e-5)
 RWKV_DEPTH, RWKV_DEPTH_COS_MIN = 4, 0.9999
 SPREAD_CHUNK = 64          # the other chunk length of the drift check
+# [judge]: llama3-8b as the cascade's oracle over the offline corpus and
+# store. A query of JUDGE_QUERY_LEN tokens drawn from a seeded generator
+# (ids from 3, clear of the pad 0 and the yes/no ids 1 and 2); the seeds
+# are tried in turn until the judge's selectivity over all documents is
+# not degenerate (at least JUDGE_MIN_CLASS in each class)
+JUDGE_QUERY_LEN = 16
+JUDGE_SEEDS = (0, 1, 2, 3)
+JUDGE_MIN_CLASS = 0.01
+JUDGE_PLAIN_DOCS = 256     # prompts of the kernel-vs-plain comparison
+JUDGE_AGREE_MIN = 0.98     # decisions of the kernel path = the plain path's
+# [decode]: generate on DECODE_BATCH offline documents of OFF_DOC_LEN
+# tokens for DECODE_STEPS tokens, greedy; then decode against forward at
+# 2 layers in f32 (4 steps after a 12-token prefill) to the JAX
+# package's own bar (tests/test_models_consistency.py), of max |logit|
+DECODE_BATCH, DECODE_STEPS = 8, 32
+DECODE_PRE, DECODE_TOTAL = 12, 16
+DECODE_REL = 5e-4
 # the compound phase's cross-session CSE arms run on this many of the
 # main path's documents, to bound the phase's time
 CSE_DOCS = 32_768
@@ -592,12 +632,15 @@ def rwkv_checks(cfg, params, tokens, pooled) -> dict:
 
 
 def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
-                  tag: str, cos_min: float) -> tuple:
+                  tag: str, cos_min: float, after=()) -> tuple:
     """ScaleDocEngine.from_corpus over ``arch``, then its checks:
     ``kernel`` is the kernel each of its layers launches once per batch,
     ``plain_opts`` the service options of its plain path, whose pooled
-    embeddings must reach a per-row cosine of ``cos_min``. Returns the
-    report, the service and its first batch of tokens."""
+    embeddings must reach a per-row cosine of ``cos_min``. Each phase
+    ``fn(dev, service, engine, docs)`` of ``after`` runs in turn over the
+    same weights, engine and corpus before the store is deleted; its
+    report goes under the key ``fn.__name__``. Returns the report, the
+    service and its first batch of tokens."""
     import shutil
 
     import numpy as np
@@ -612,7 +655,6 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
     from repro_torch.runtime.serve_loop import EmbeddingService
 
     cfg = get_arch(arch)
-    kernels = all_kernels()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
@@ -643,8 +685,7 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
     work.mkdir(parents=True)
     try:
         # -- the path: every count 0 just before, read just after ---------
-        for kern in kernels.values():
-            kern.launches = 0
+        kernels = zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine = ScaleDocEngine.from_corpus(
@@ -652,7 +693,7 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
             cascade_cfg=CascadeConfig(accuracy_target=0.9), device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {name: kern.launches for name, kern in kernels.items()}
+        counts = read_counts(kernels)
         launches = counts[kernel]
         st = engine.ingest_result.stats
         store = engine.store
@@ -731,9 +772,11 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
         batch_dev = torch.as_tensor(batch, device=dev)
         batch_ms = cuda_ms(lambda: service.embed_batch(batch_dev), 5,
                            warmup=1)
+        after_report = {fn.__name__: fn(dev, service, engine, docs)
+                        for fn in after}
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"arch": cfg.name, "kernel": kernel, "params": n_params,
+    return {**after_report, "arch": cfg.name, "kernel": kernel, "params": n_params,
             "init_seconds": init_s,
             "digest_seconds": digest_s, "n_docs": OFF_DOCS,
             "tokens": n_tokens, "wall_seconds": wall,
@@ -747,6 +790,265 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
                       "oracle_calls": qs.oracle_calls_total,
                       "wall_seconds": q_wall},
             "embed_batch_ms": batch_ms}, service, batch
+
+
+def zero_counts() -> dict:
+    """Every kernel's launch count set to 0; returns the kernels."""
+    kernels = all_kernels()
+    for kern in kernels.values():
+        kern.launches = 0
+    return kernels
+
+
+def read_counts(kernels) -> dict:
+    return {name: kern.launches for name, kern in kernels.items()}
+
+
+class RecordingJudge:
+    """The judge behind the cascade, recording each document it is asked
+    about with the label it gave, and the host time spent judging."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.given = {}
+        self.seconds = 0.0
+
+    @property
+    def calls(self):
+        return self.inner.calls
+
+    def label(self, indices):
+        import numpy as np
+        t0 = time.perf_counter()
+        out = self.inner.label(indices)      # a numpy copy: synchronized
+        self.seconds += time.perf_counter() - t0
+        for i, lab in zip(np.asarray(indices, np.int64), out):
+            if int(i) in self.given:
+                fail(f"[judge] document {int(i)} was judged twice")
+            self.given[int(i)] = bool(lab)
+        return out
+
+
+def judge(dev, service, engine, docs) -> dict:
+    """[judge]: the service's llama3-8b as the cascade's oracle over the
+    offline corpus and store. The baseline judges every document (the
+    paper's "LLM on every document"); its labels are the reference for
+    F1 and for every label the cascade buys. Then query() with the judge
+    as its oracle, and the kernel path's last-position logits against the
+    plain einsum path's on JUDGE_PLAIN_DOCS prompts."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import LMOracle, LMOracleConfig
+    from repro_torch.core.oracle import JUDGE_BATCH
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg, model, params = service.cfg, service.model, service.params
+    tokens = np.stack(docs).astype(np.int32)
+    n = len(tokens)
+    ocfg = LMOracleConfig()
+    prompt_len = JUDGE_QUERY_LEN + ocfg.max_doc_tokens
+    seeds = {}
+    for seed in JUDGE_SEEDS:
+        query = np.random.default_rng(seed).integers(
+            3, OFF_VOCAB, size=JUDGE_QUERY_LEN).astype(np.int32)
+        baseline = LMOracle(model, params, query, tokens, ocfg)
+        kernels = zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        truth = baseline.label(np.arange(n))
+        base_s = time.perf_counter() - t0
+        counts = read_counts(kernels)
+        sel = float(truth.mean())
+        seeds[seed] = {"selectivity": sel, "wall_seconds": base_s,
+                       "launches": counts}
+        log(f"[judge] query seed {seed}: the judge over all {n} documents "
+            f"(prompts of {prompt_len} tokens, micro-batches of "
+            f"{JUDGE_BATCH}) in {base_s:.3f} s: {n / base_s:.1f} prompts/s, "
+            f"{n * prompt_len / base_s:.0f} tokens/s; selectivity "
+            f"{sel:.4f}; launches {json.dumps(counts)}")
+        if counts["flash_attention"] != cfg.num_layers * -(-n // JUDGE_BATCH):
+            fail(f"[judge] flash launched {counts['flash_attention']} times "
+                 f"for {n} prompts")
+        if min(sel, 1 - sel) >= JUDGE_MIN_CLASS:
+            break
+    else:
+        log(f"[judge] every seed of {JUDGE_SEEDS} gave a degenerate "
+            f"selectivity; seed {seed} is used")
+
+    emb = service.embed_batch(query[None]).cpu().numpy()[0]
+    e_q = (emb / (np.linalg.norm(emb) + 1e-9)).astype(np.float32)
+    recorder = RecordingJudge(LMOracle(model, params, query, tokens, ocfg))
+    kernels = zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = engine.query(e_q, recorder, ground_truth=truth, seed=0)
+    torch.cuda.synchronize()
+    q_wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    calls = st.oracle_calls_total
+    split = {"train": st.oracle_calls_train,
+             "calib": st.cascade.oracle_calls_calib,
+             "online": st.cascade.oracle_calls_online}
+    band = (st.scores >= st.cascade.l) & (st.scores <= st.cascade.r)
+    asked = np.fromiter(recorder.given, np.int64, len(recorder.given))
+    given = np.fromiter(recorder.given.values(), bool, len(asked))
+    same_given = bool(np.array_equal(given, truth[asked]))
+    same_band = bool(np.array_equal(st.cascade.labels[band], truth[band]))
+    log(f"[judge] query() with the judge as oracle: calls {calls} of {n} "
+        f"({json.dumps(split)}; the judge asked about {len(asked)} "
+        f"documents), data reduction {1 - calls / n:.4f}, wall "
+        f"{q_wall:.3f} s of which the judge {recorder.seconds:.3f} s "
+        f"({100 * recorder.seconds / q_wall:.1f}%), F1 against the "
+        f"all-documents judge {st.cascade.achieved_f1:.4f} (no bar: random "
+        f"weights), l={st.cascade.l:.4f} r={st.cascade.r:.4f}, band "
+        f"{int(band.sum())} documents; the all-documents judge took "
+        f"{base_s / q_wall:.2f}x query()'s wall; launches "
+        f"{json.dumps(counts)}")
+    log(f"[judge] every label the cascade bought equals the all-documents "
+        f"judge's: {same_given}; the mask over the band equals it: "
+        f"{same_band}")
+    if calls > n or recorder.calls > n:
+        fail(f"[judge] {calls} oracle calls > N = {n}")
+    if not (same_given and same_band):
+        fail("[judge] a label the cascade bought differs from the "
+             "all-documents judge's")
+    for name in ("flash_attention", "fused_scoring", "contrastive"):
+        if counts[name] <= 0:
+            fail(f"[judge] {name} was never launched in query()")
+
+    # the kernel path against the plain einsum path, same prompts
+    idx = np.arange(JUDGE_PLAIN_DOCS)
+    plain = LMOracle(build_model(cfg, attn_impl="einsum"), params, query,
+                     tokens, ocfg)
+    got = recorder.inner.last_logits(idx)
+    want = plain.last_logits(idx)
+    cos = F.cosine_similarity(got, want, dim=1).min().item()
+    y, no = ocfg.yes_token, ocfg.no_token
+    m_got, m_want = got[:, y] - got[:, no], want[:, y] - want[:, no]
+    agree = ((m_got > 0) == (m_want > 0)).float().mean().item()
+    d_margin = (m_got - m_want).abs().max().item()
+    del got, want
+    log(f"[judge] kernel path vs attn_impl='einsum' on {JUDGE_PLAIN_DOCS} "
+        f"prompts: min per-row cosine of the last-position logits {cos:.6f}"
+        f" (>= {COS_MIN}), decisions agree {agree:.4f} (>= "
+        f"{JUDGE_AGREE_MIN}), max |d(logit_yes - logit_no)| {d_margin:.4e} "
+        f"(|margin| max {m_want.abs().max().item():.4e})")
+    if not cos >= COS_MIN:
+        fail("[judge] the kernel path's logits disagree with the plain path")
+    if not agree >= JUDGE_AGREE_MIN:
+        fail(f"[judge] decisions agree on {agree:.4f} < {JUDGE_AGREE_MIN}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[judge] phase took {phase_s:.1f} s")
+    return {"phase_seconds": phase_s, "query_seed": seed, "seeds": seeds, "selectivity": sel,
+            "prompt_tokens": prompt_len, "judge_batch": JUDGE_BATCH,
+            "baseline_seconds": base_s, "baseline_prompts_per_second":
+                n / base_s,
+            "baseline_tokens_per_second": n * prompt_len / base_s,
+            "query_wall_seconds": q_wall, "judge_seconds": recorder.seconds,
+            "oracle_calls": calls, "calls_split": split,
+            "data_reduction": 1 - calls / n,
+            "f1_vs_all_documents_judge": st.cascade.achieved_f1,
+            "baseline_over_query_wall": base_s / q_wall,
+            "band_docs": int(band.sum()), "launches": counts,
+            "plain_min_cosine": cos, "plain_agreement": agree,
+            "plain_max_margin_diff": d_margin}
+
+
+def decode(dev, service, engine, docs) -> dict:
+    """[decode]: generate on DECODE_BATCH offline documents for
+    DECODE_STEPS tokens (greedy) with the service's model, against a
+    hand-rolled prefill + decode_step loop (bitwise); then, at the same
+    width and 2 layers in f32 through the kernels, DECODE_TOTAL -
+    DECODE_PRE decode steps against the teacher-forced forward. The
+    prefill's kernel: flash for attention, WKV6 for rwkv6 blocks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import BLOCK_RWKV6
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import generate
+
+    t_phase = time.perf_counter()
+    cfg, model, params = service.cfg, service.model, service.params
+    kernel = ("wkv6" if BLOCK_RWKV6 in cfg.block_pattern
+              else "flash_attention")
+    tag = "decode"
+    prompt = torch.as_tensor(np.stack(docs[:DECODE_BATCH]).astype(np.int32),
+                             device=dev)
+    b, s = prompt.shape
+    kernels = zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(model, params, prompt, DECODE_STEPS)
+    gen_s = time.perf_counter() - t0          # generate ends in a copy
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if counts[kernel] != cfg.num_layers:
+        fail(f"[{tag}] {kernel} launched {counts[kernel]} times in "
+             f"generate(); expected {cfg.num_layers} (the prefill)")
+
+    # the hand-rolled loop, synchronized around the prefill and each step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, prompt, cache_len=s + DECODE_STEPS)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del logits
+    manual = [tok]
+    t0 = time.perf_counter()
+    for t in range(1, DECODE_STEPS):
+        logits, cache = model.decode_step(params, tok, s + t - 1, cache)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        manual.append(tok)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (DECODE_STEPS - 1)
+    del cache, logits
+    manual = torch.cat(manual, dim=1).cpu().numpy()
+    same = bool(np.array_equal(out, manual))
+    log(f"[{tag}] {cfg.name} generate: {b} prompts of {s} tokens, {DECODE_STEPS} new "
+        f"tokens, greedy, in {gen_s:.3f} s: {b * DECODE_STEPS / gen_s:.1f} "
+        f"tokens/s; by hand, prefill {1e3 * prefill_s:.2f} ms, decode "
+        f"{1e3 * step_s:.2f} ms a step ({b / step_s:.1f} tokens/s); peak "
+        f"{peak:.2f} GB; {kernel} launches in the prefill "
+        f"{counts[kernel]}; launches {json.dumps(counts)}; tokens bitwise "
+        f"the hand-rolled loop's: {same}")
+    if not same:
+        fail(f"[{tag}] generate() differs from prefill + decode_step")
+
+    # decode against forward at 2 layers in f32, kernel path only
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    m2 = build_model(small)
+    p2 = m2.init(torch.Generator(dev).manual_seed(0))
+    toks = torch.as_tensor(np.stack(docs[DECODE_BATCH:DECODE_BATCH + 2])
+                           [:, :DECODE_TOTAL].astype(np.int32), device=dev)
+    full, _ = m2.forward(p2, toks)
+    _, cache = m2.prefill(p2, toks[:, :DECODE_PRE], cache_len=DECODE_TOTAL)
+    errs = []
+    for t in range(DECODE_PRE, DECODE_TOTAL):
+        step, cache = m2.decode_step(p2, toks[:, t:t + 1], t, cache)
+        errs.append(((step[:, 0] - full[:, t]).abs().max()
+                     / full[:, t].abs().max()).item())
+    del m2, p2, full, cache, step
+    log(f"[{tag}] {cfg.name} decode vs forward at 2 layers in f32 (full width, the "
+        f"kernel path), steps {DECODE_PRE}..{DECODE_TOTAL - 1}: max error "
+        f"of max |logit| {', '.join(f'{e:.3e}' for e in errs)} (<= "
+        f"{DECODE_REL:g})")
+    if not max(errs) <= DECODE_REL:
+        fail(f"[{tag}] decode disagrees with forward: {max(errs):.3e}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[{tag}] {cfg.name} phase took {phase_s:.1f} s")
+    return {"phase_seconds": phase_s, "arch": cfg.name, "batch": b, "prompt_tokens": s,
+            "new_tokens": DECODE_STEPS, "generate_seconds": gen_s,
+            "tokens_per_second": b * DECODE_STEPS / gen_s,
+            "prefill_ms": 1e3 * prefill_s, "decode_ms_per_step": 1e3 * step_s,
+            "decode_tokens_per_second": b / step_s, "peak_memory_gb": peak,
+            "launches": counts, "generate_equals_loop": same,
+            "decode_vs_forward_rel_err": errs}
 
 
 def flash_times(dev) -> dict:
@@ -2664,7 +2966,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     offline, service, _ = offline_phase(dev, OFF_ARCH, "flash_attention",
                                         dict(attn_impl="einsum"), "offline",
-                                        COS_MIN)
+                                        COS_MIN, after=(judge, decode))
     del service
     report["offline"] = offline
 
@@ -2708,7 +3010,7 @@ def main() -> None:
         fail(f"{held:.2f} GB still allocated after the llama3-8b phase")
     rwkv, service, batch = offline_phase(dev, RWKV_ARCH, "wkv6",
                                          dict(rwkv_mode="direct"), "rwkv",
-                                         RWKV_COS_MIN)
+                                         RWKV_COS_MIN, after=(decode,))
     tokens = torch.as_tensor(batch, device=dev)
     rc = rwkv_checks(service.cfg, service.params, tokens,
                      service.embed_batch(tokens))

@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # model configuration
@@ -131,6 +131,12 @@ def get_smoke_arch(name: str) -> ModelConfig:
     """The reduced same-family config the CPU tests use."""
     _ensure_loaded()
     return _SMOKE[name]
+
+
+def list_archs() -> List[str]:
+    """The names of the registered architectures, sorted."""
+    _ensure_loaded()
+    return sorted(_REGISTRY)
 
 
 # ---------------------------------------------------------------------------

@@ -10,14 +10,18 @@
 * The oracle-plane errors: ``OracleError`` and its ``OracleFault``,
   ``OracleTimeout`` and ``OracleUnavailable``, which the engine's
   degraded modes catch and ``repro_torch.serve.resilience`` raises.
-The LM-as-judge oracle of the JAX package is not ported yet.
+* LMOracle — the LLM judge: a ``TransformerLM`` labels a document by
+  logit(yes) > logit(no) at the last position of query ++ document, on
+  the card through the model's kernels.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 # FLOPs cost model per document. Provenance: paper §6.2 (Table 2
 # "computational cost" column) reports TOTAL FLOPs over a 10k-document
@@ -185,3 +189,96 @@ class SimulatedOracle:
             flips = self._rng.random(len(indices)) < self.flip_noise
             out = out ^ flips
         return out
+
+    @property
+    def total_flops(self) -> float:
+        return self.calls * self.flops_per_doc
+
+    def reset(self):
+        self.calls = 0
+        self.queried = set()
+
+
+@dataclasses.dataclass
+class LMOracleConfig:
+    yes_token: int = 1
+    no_token: int = 2
+    max_doc_tokens: int = 64
+
+
+# prompts a judge forward takes at once. Every forward has this many rows
+# (an ask's last micro-batch is filled with all-pad rows) and the ask's
+# width, so a document's label is a function of its prompt and that
+# width alone, never of the other documents in its ask.
+JUDGE_BATCH = 64
+
+
+class LMOracle:
+    """LM-as-judge oracle over tokenized documents
+    (``repro.core.oracle.LMOracle``).
+
+    A document's prompt is ``query_tokens ++ doc[:max_doc_tokens]``. The
+    prompts of one ask are left-padded with token 0 to the ask's longest,
+    with no attention mask, as in the JAX package: the pad tokens are
+    attended and the RoPE positions shift with the pad. The label is
+    logit(yes) > logit(no) at the last position. The JAX package runs an
+    ask as one batch; here it runs in micro-batches of ``JUDGE_BATCH``
+    prompts, each of the ask's width, and takes the logits at the last
+    position only (each position's logits are independent of the
+    others'). ``calls`` counts every document asked.
+
+    The judge runs where ``params`` lie (the card for a model drawn or
+    loaded there); it has no CPU fallback.
+    """
+
+    def __init__(self, model, params, query_tokens: np.ndarray,
+                 doc_tokens: np.ndarray,
+                 cfg: LMOracleConfig = LMOracleConfig()):
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        self.query_tokens = np.asarray(query_tokens)
+        self.doc_tokens = np.asarray(doc_tokens)
+        self.device = params["embed"]["table"].device
+        self.calls = 0
+
+    def _prompt(self, doc_idx: int) -> np.ndarray:
+        doc = self.doc_tokens[doc_idx][: self.cfg.max_doc_tokens]
+        return np.concatenate([self.query_tokens, doc])
+
+    def prompts(self, indices: Sequence[int]) -> np.ndarray:
+        """The ask's prompts, left-padded with 0 to its longest: (n,
+        width) int32."""
+        prompts = [self._prompt(int(i)) for i in np.asarray(indices)]
+        width = max((len(p) for p in prompts), default=0)
+        batch = np.zeros((len(prompts), width), np.int32)
+        for i, p in enumerate(prompts):
+            batch[i, width - len(p):] = p
+        return batch
+
+    def _last_logits(self, indices: Sequence[int]
+                     ) -> Iterator[Tuple[int, torch.Tensor]]:
+        """(rows, last-position logits (JUDGE_BATCH, V) float32) per
+        micro-batch of the ask, on the params' device."""
+        prompts = self.prompts(indices)
+        for start in range(0, len(prompts), JUDGE_BATCH):
+            chunk = prompts[start:start + JUDGE_BATCH]
+            batch = np.zeros((JUDGE_BATCH, prompts.shape[1]), np.int32)
+            batch[:len(chunk)] = chunk
+            x = self.model.hidden(self.params,
+                                  torch.as_tensor(batch, device=self.device))
+            yield len(chunk), self.model.logits(self.params, x[:, -1:])[:, 0]
+
+    def last_logits(self, indices: Sequence[int]) -> torch.Tensor:
+        """The judge's last-position logits of each asked document, (n, V)
+        float32 on the params' device. Not counted in ``calls``."""
+        return torch.cat([lg[:rows] for rows, lg in
+                          self._last_logits(indices)])
+
+    def label(self, indices: Sequence[int]) -> np.ndarray:
+        indices = np.asarray(indices, dtype=np.int64)
+        self.calls += len(indices)
+        y, n = self.cfg.yes_token, self.cfg.no_token
+        out = [(lg[:rows, y] > lg[:rows, n]).cpu()
+               for rows, lg in self._last_logits(indices)]
+        return torch.cat(out).numpy() if out else np.zeros(0, bool)

@@ -8,7 +8,9 @@ from one to the other. ``wkv6_chunked`` is
 the kernel followed by the inter-chunk combine (plain PyTorch, as the
 JAX package leaves its ``lax.scan`` outside the Pallas kernel), and
 ``wkv6`` the entry the RWKV6 time-mix calls: ``ref.wkv6_by_chunks``
-over ``wkv6_chunked``.
+over ``wkv6_chunked``. Both take ``return_state=True`` to return the
+combine's final state beside ``y`` (the prefill of a decode); the
+kernel's launch and ``y`` are the same either way.
 """
 from __future__ import annotations
 
@@ -71,15 +73,19 @@ def wkv6_intra_chunk(r, k, v, cum, lw, u):
     return y, s_inj, a_end, r_dec
 
 
-def wkv6_chunked(r, k, v, cum, lw, u) -> torch.Tensor:
+def wkv6_chunked(r, k, v, cum, lw, u, return_state: bool = False):
     """The full recurrence over chunked inputs (b, nc, Q, H, K): the
-    kernel, then the inter-chunk combine. Returns y (b, nc, Q, H, K)."""
-    return ref.chunk_combine(*wkv6_intra_chunk(r, k, v, cum, lw, u))
+    kernel, then the inter-chunk combine. Returns y (b, nc, Q, H, K), or
+    (y, S) with ``return_state``: S (b, H, K, K) after the last chunk."""
+    return ref.chunk_combine(*wkv6_intra_chunk(r, k, v, cum, lw, u),
+                             return_state=return_state)
 
 
-def wkv6(r, k, v, lw, u, *, chunk: int = 128) -> torch.Tensor:
+def wkv6(r, k, v, lw, u, *, chunk: int = 128, return_state: bool = False):
     """r, k, v, lw: (b, s, H, K) float32; u: (H, K) -> y (b, s, H, K)
     float32: S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T, y_t = r_t^T
-    S_{t-1} + (r_t . u . k_t) v_t, through the kernel."""
+    S_{t-1} + (r_t . u . k_t) v_t, through the kernel; (y, S_s) with
+    ``return_state``."""
     return ref.wkv6_by_chunks(r, k, v, lw, u, chunk=chunk,
-                              chunked=wkv6_chunked)
+                              chunked=wkv6_chunked,
+                              return_state=return_state)

@@ -14,7 +14,10 @@ the JAX ``wkv6_chunked``'s ``lax.scan`` written as a loop over chunks;
 ``wkv6_chunked`` is the two in turn, and ``wkv6_by_chunks`` the whole
 recurrence over a sequence with a given chunked step: with
 ``wkv6_chunked`` it is the exact plain scan (the time-mix's ``direct``
-mode), with the kernel's ``ops.wkv6_chunked`` it is ``ops.wkv6``.
+mode), with the kernel's ``ops.wkv6_chunked`` it is ``ops.wkv6``. Each
+of the three takes ``return_state=True`` to return the scan's final
+state ``S`` (b, H, K, K) beside ``y``, which the combine computes in
+every case; ``y`` is the same either way.
 """
 from __future__ import annotations
 
@@ -141,10 +144,11 @@ def _pairs_by_sub_chunks(r, k, cum, cum_tm1, k_slab: int,
     return A.reshape(b, nc, Q, n * sub, H)[:, :, :, :Q]
 
 
-def chunk_combine(y_intra, s_inj, a_end, r_dec) -> torch.Tensor:
+def chunk_combine(y_intra, s_inj, a_end, r_dec, return_state: bool = False):
     """The inter-chunk scan over the intra-chunk outputs: chunk c adds
     r_dec_c S to its y_intra, then S = a_end_c S + s_inj_c. Returns y
-    (b, nc, Q, H, K) float32."""
+    (b, nc, Q, H, K) float32, or (y, S) with ``return_state``: S the
+    state after the last chunk (b, H, K, K) float32."""
     b, nc, Q, H, K = y_intra.shape
     S = torch.zeros((b, H, K, K), dtype=torch.float32,
                     device=y_intra.device)
@@ -153,7 +157,7 @@ def chunk_combine(y_intra, s_inj, a_end, r_dec) -> torch.Tensor:
         ys[:, c] = y_intra[:, c] + torch.einsum("bqhk,bhkv->bqhv",
                                                 r_dec[:, c], S)
         S = a_end[:, c, :, :, None] * S + s_inj[:, c]
-    return ys
+    return (ys, S) if return_state else ys
 
 
 def chunk_len(s: int, chunk: int = 128) -> int:
@@ -167,21 +171,28 @@ def chunk_len(s: int, chunk: int = 128) -> int:
     return q
 
 
-def wkv6_chunked(r, k, v, cum, lw, u) -> torch.Tensor:
+def wkv6_chunked(r, k, v, cum, lw, u, return_state: bool = False):
     """The full recurrence over chunked inputs (b, nc, Q, H, K): the
-    plain intra-chunk step, then the combine."""
-    return chunk_combine(*wkv6_intra_chunk(r, k, v, cum, lw, u))
+    plain intra-chunk step, then the combine (y, or (y, S))."""
+    return chunk_combine(*wkv6_intra_chunk(r, k, v, cum, lw, u),
+                         return_state=return_state)
 
 
 def wkv6_by_chunks(r, k, v, lw, u, *, chunk: int = 128,
-                   chunked: Callable = wkv6_chunked) -> torch.Tensor:
+                   chunked: Callable = wkv6_chunked,
+                   return_state: bool = False):
     """r, k, v, lw: (b, s, H, K) float32; u: (H, K) -> y (b, s, H, K)
     float32: S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T, y_t = r_t^T
     S_{t-1} + (r_t . u . k_t) v_t. The sequence is cut into chunks of
     ``chunk_len(s, chunk)`` tokens, the log-decay summed within each and
-    ``chunked`` applied to them."""
+    ``chunked`` applied to them. With ``return_state`` it returns (y,
+    S_s), the state after the last token (b, H, K, K), and passes
+    ``return_state=True`` on to ``chunked``."""
     b, s, H, K = r.shape
     Q = chunk_len(s, chunk)
     rs, ks, vs, lws = (t.reshape(b, s // Q, Q, H, K) for t in (r, k, v, lw))
     cum = torch.cumsum(lws, dim=2)
-    return chunked(rs, ks, vs, cum, lws, u).reshape(b, s, H, K)
+    if not return_state:
+        return chunked(rs, ks, vs, cum, lws, u).reshape(b, s, H, K)
+    y, S = chunked(rs, ks, vs, cum, lws, u, return_state=True)
+    return y.reshape(b, s, H, K), S

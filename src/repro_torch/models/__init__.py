@@ -1,6 +1,6 @@
 """The port's models (``repro.models``): the decoder-only LM of the
-offline embedding path (dense attention and RWKV6 blocks), and the carry
-of JAX weights into it."""
+offline embedding path, the LM judge and decode (dense attention and
+RWKV6 blocks), and the carry of JAX weights and caches into it."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,6 +23,8 @@ def _leaf_to_torch(leaf) -> torch.Tensor:
 def params_from_jax(tree, device, dtype=None):
     """The JAX ``TransformerLM`` param tree (numpy or JAX leaves) -> the
     port's, on ``device``. The layout is the same; each leaf keeps its
-    type unless ``dtype`` is given."""
+    type unless ``dtype`` is given. A JAX decode cache (``prefill``'s or
+    ``init_cache``'s) has the port's layout too and is carried the same
+    way, unchanged."""
     return tree_map(lambda a: _leaf_to_torch(a).to(device=device,
                                                    dtype=dtype), tree)

@@ -1,21 +1,30 @@
-"""GQA attention for full-sequence prefill (``repro.models.attention``).
+"""GQA attention: full-sequence prefill and cached decode
+(``repro.models.attention``).
 
-Three execution strategies, as in the JAX package:
+Three execution strategies for the full sequence, as in the JAX package:
   * ``flash``   — the default: ``kernels.flash_attention.ops.attention``,
     the hand-written CUDA kernel on the card (its plain version on the
     CPU), reading the shared KV head of each query head in place;
   * ``blocked`` — the plain online softmax over KV blocks;
   * ``einsum``  — the plain quadratic masked softmax.
 The two plain strategies take K/V expanded to one head per query head.
-Decode, KV caches and cross-attention are not ported.
+
+Decode reads a KV cache: a full cache (one slot a position) for global
+layers, a ring of ``window`` slots for sliding-window layers. Decode
+attention is plain PyTorch, as in the JAX package, where it lies outside
+any Pallas kernel: f32 scores and softmax, masked by a select with
+``NEG_INF``. Cross-attention waits for the encoder-decoder models.
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple, Union
 
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.ref import (attention_blocked,
+from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                     attention_blocked,
                                                      attention_einsum,
                                                      attention_mask)
 from repro_torch.kernels.flash_attention.ref import expand_kv as _expand_kv
@@ -44,8 +53,10 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                positions: torch.Tensor, causal: bool = True,
-               window: int = 0, impl: str = "flash") -> torch.Tensor:
-    """Full-sequence attention with RoPE. x: (b, s, d) -> (b, s, d)."""
+               window: int = 0, impl: str = "flash", kv_out: bool = False):
+    """Full-sequence attention with RoPE. x: (b, s, d) -> y (b, s, d);
+    with ``kv_out``, (y, {"k": K after RoPE, "v": V}), both unexpanded
+    (b, s, kv_heads, head_dim), for a KV cache."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     b, s, d = x.shape
@@ -68,6 +79,111 @@ def attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         out = attention_blocked(q, _expand_kv(k, groups),
                                 _expand_kv(v, groups), scale, causal=causal,
                                 window=window)
-    wo = params["wo"]
-    y = out.reshape(b * s, -1) @ wo.reshape(-1, wo.shape[-1])
-    return y.reshape(b, s, -1)
+    y = _out_proj(out, params["wo"])
+    return (y, {"k": k, "v": v}) if kv_out else y
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matrix product."""
+    b, s = out.shape[:2]
+    return (out.reshape(b * s, -1) @ wo.reshape(-1, wo.shape[-1])).reshape(
+        b, s, -1)
+
+
+# -- KV caches and decode ------------------------------------------------------
+
+CACHE_AXES = ("batch", "kv_seq", "act_kv_heads", "head_dim")
+
+
+def kv_cache_spec(cfg: ModelConfig, batch: int, seq_len: int, window: int,
+                  dtype) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple]]:
+    """One attention layer's cache as (meta tensors of its shape and type,
+    logical axes): (batch, L, kv_heads, head_dim) for k and v, L =
+    ``seq_len`` for a full cache, ``min(window, seq_len)`` for a ring."""
+    length = min(window, seq_len) if window > 0 else seq_len
+    shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    meta = lambda: torch.empty(shape, dtype=dtype, device="meta")
+    return {"k": meta(), "v": meta()}, {"k": CACHE_AXES, "v": CACHE_AXES}
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, window: int,
+                  dtype, device) -> Dict[str, torch.Tensor]:
+    """An empty (zero) cache of ``kv_cache_spec``'s shape on ``device``."""
+    spec, _ = kv_cache_spec(cfg, batch, seq_len, window, dtype)
+    return {n: torch.zeros(t.shape, dtype=t.dtype, device=device)
+            for n, t in spec.items()}
+
+
+def fill_kv_cache(cache: Dict[str, torch.Tensor], kv: Dict[str, torch.Tensor],
+                  window: int) -> Dict[str, torch.Tensor]:
+    """Prefill K/V (b, s, kv, hd) written into a copy of ``cache``: at
+    slots 0..s-1, or for a ring (window > 0) shorter than the prompt the
+    last ``window`` rows rolled by ``start % window`` (start = s -
+    window), so that slot ``p % window`` holds position p."""
+    s = kv["k"].shape[1]
+    out = {}
+    for n in ("k", "v"):
+        rows = kv[n]
+        if window > 0 and s > window:
+            start = s - window
+            rows = torch.roll(rows[:, start:], shifts=start % window, dims=1)
+        c = cache[n].clone()
+        c[:, :rows.shape[1]] = rows
+        out[n] = c
+    return out
+
+
+def position_on(pos: Union[int, torch.Tensor], device) -> torch.Tensor:
+    """A decode position as a 0-d int64 tensor on ``device``. A Python
+    int becomes one by a fill on the device, with no copy from the host,
+    so it costs no host sync; so does a tensor already on the device.
+    A CPU tensor is copied there, and a copy from pageable host memory
+    waits for the device's queue: keep such a position on the device.
+    The position is never read back to the host."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.long)
+    return torch.full((), pos, dtype=torch.long, device=device)
+
+
+def attn_decode(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                pos: Union[int, torch.Tensor], cache: Dict[str, torch.Tensor],
+                window: int = 0
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode. x: (b, 1, d); ``pos`` the token's absolute
+    position (see ``position_on``); cache k/v (b, L, kv, hd). Returns (y
+    (b, 1, d), the new cache); the input cache is not changed. The
+    token's K/V go to slot ``min(pos, L - 1)`` of a full cache, ``pos %
+    L`` of a ring."""
+    b = x.shape[0]
+    groups = cfg.num_heads // cfg.num_kv_heads
+    dev = x.device
+    pos = position_on(pos, dev)
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    posb = pos.expand(b)[:, None]                           # (b, 1)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k = apply_rope(k, posb, cfg.rope_theta)
+
+    L = cache["k"].shape[1]
+    slot = (pos % L) if window > 0 else torch.clamp(pos, max=L - 1)
+    ck = cache["k"].index_copy(1, slot.reshape(1), k)
+    cv = cache["v"].index_copy(1, slot.reshape(1), v)
+
+    idx = torch.arange(L, device=dev)
+    if window > 0:
+        # slot j holds position p = j (mod L), p <= pos, p > pos - L
+        p_of_slot = pos - torch.remainder(pos - idx, L)
+        valid = (p_of_slot >= 0) & (p_of_slot > pos - window)
+    else:
+        valid = idx <= pos
+
+    kf = _expand_kv(ck, groups)                             # (b, L, h, hd)
+    vf = _expand_kv(cv, groups)
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    scores = torch.einsum("bqhk,blhk->bhql", q.float(), kf.float()) * scale
+    scores = torch.where(valid[None, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhql,blhk->bqhk", probs, vf.float())
+    return _out_proj(out.to(x.dtype), params["wo"]), {"k": ck, "v": cv}

@@ -16,10 +16,18 @@ The JAX package's third mode, ``factored``, clamps the decay for a
 lossy training lowering; it is not ported and raises. Types follow the
 JAX package: projections in the model's type, the log-decay and the
 recurrence in float32, y cast back before the per-head group norm
-(float32 inside). Decode (``timemix_decode``, ``channelmix_decode``,
-``rwkv_state_spec``) and the returned state are not ported.
+(float32 inside).
+
+Decode is recurrent, one token at a time, in plain PyTorch as in the JAX
+package (no kernel): ``timemix_apply(..., return_state=True)`` ends a
+prefill with the state ``{"wkv": S (b, H, K, K) f32, "shift_t": x[:,
+-1]}``; the model adds ``shift_c``, the channel-mix input at the last
+token. ``timemix_decode`` and ``channelmix_decode`` step it
+(``rwkv_state_spec`` gives its shapes).
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,13 +121,15 @@ WKV6 = {"kernel": wkv6_ops.wkv6, "direct": wkv6_ref.wkv6_by_chunks}
 MODES = tuple(WKV6)
 
 
-def timemix_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def timemix_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                   x_prev: torch.Tensor = None):
     """The time-mix up to the recurrence. x: (b, s, d) -> r, k, v and the
     log-decay lw per head, each (b, s, H, K) float32, and the gate g
-    (b, s, d) in x's type."""
+    (b, s, d) in x's type. ``x_prev`` is each token's previous input
+    (b, s, d); None takes ``x`` shifted one token, zeros at the first."""
     b, s, d = x.shape
     H, K = _heads(cfg), cfg.rwkv.head_dim
-    m = _token_shift_mix(p, x, _shift(x))
+    m = _token_shift_mix(p, x, _shift(x) if x_prev is None else x_prev)
     lw = _decay(p, m["w"])                                 # (b, s, d) f32
     r = m["r"] @ p["wr"]
     k = m["k"] @ p["wk"]
@@ -140,12 +150,18 @@ def timemix_output(p: Params, y: torch.Tensor, g: torch.Tensor,
 
 
 def timemix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                  mode: str = "kernel") -> torch.Tensor:
-    """Full-sequence WKV6 time-mix. x: (b, s, d) -> (b, s, d)."""
+                  mode: str = "kernel", return_state: bool = False):
+    """Full-sequence WKV6 time-mix. x: (b, s, d) -> (b, s, d); with
+    ``return_state``, (out, {"wkv": the recurrence's final state (b, H,
+    K, K) float32, "shift_t": x[:, -1]}). ``out`` is the same either
+    way."""
     check_mode(mode)
     r, k, v, lw, g = timemix_inputs(p, x, cfg)
-    return timemix_output(p, WKV6[mode](r, k, v, lw, p["u"], chunk=CHUNK),
-                          g, cfg)
+    if not return_state:
+        return timemix_output(p, WKV6[mode](r, k, v, lw, p["u"],
+                                            chunk=CHUNK), g, cfg)
+    y, S = WKV6[mode](r, k, v, lw, p["u"], chunk=CHUNK, return_state=True)
+    return timemix_output(p, y, g, cfg), {"wkv": S, "shift_t": x[:, -1]}
 
 
 def channelmix_init(generator: torch.Generator, cfg: ModelConfig,
@@ -161,13 +177,64 @@ def channelmix_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
-def channelmix_apply(p: Params, x: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+def channelmix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                     x_prev: torch.Tensor = None) -> torch.Tensor:
     """Squared-ReLU channel-mix with a sigmoid receptance gate, both
-    taken in float32 and cast back. x: (b, s, d) -> (b, s, d)."""
-    sx = _shift(x) - x
+    taken in float32 and cast back. x: (b, s, d) -> (b, s, d);
+    ``x_prev`` as in ``timemix_inputs``."""
+    sx = (_shift(x) if x_prev is None else x_prev) - x
     xk = x + sx * p["mu_k"]
     xr = x + sx * p["mu_r"]
     k = torch.square(F.relu((xk @ p["wk"]).float())).to(x.dtype)
     r = torch.sigmoid((xr @ p["wr"]).float()).to(x.dtype)
     return r * (k @ p["wv"])
+
+
+# -- decode (recurrent, one token) -------------------------------------------
+
+STATE_AXES = {"wkv": ("batch", None, None, None),
+              "shift_t": ("batch", "embed"), "shift_c": ("batch", "embed")}
+
+
+def rwkv_state_spec(cfg: ModelConfig, batch: int, dtype
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple]]:
+    """One block's decode state as (meta tensors of its shapes and types,
+    logical axes): the WKV state in float32, the two token shifts (the
+    time-mix's and the channel-mix's last input) in ``dtype``."""
+    d = cfg.d_model
+    H, K = _heads(cfg), cfg.rwkv.head_dim
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    spec = {"wkv": meta((batch, H, K, K), torch.float32),
+            "shift_t": meta((batch, d), dtype),
+            "shift_c": meta((batch, d), dtype)}
+    return spec, dict(STATE_AXES)
+
+
+def timemix_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                   state: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token. x: (b, 1, d) -> (out (b, 1, d), the state with new
+    "wkv" and "shift_t"); the input state is not changed."""
+    b, _, d = x.shape
+    H, K = _heads(cfg), cfg.rwkv.head_dim
+    r, k, v, lw, g = timemix_inputs(p, x, cfg,
+                                    x_prev=state["shift_t"][:, None, :])
+    rh, kh, vh = (t[:, 0] for t in (r, k, v))                # (b, H, K)
+    w = torch.exp(lw[:, 0])
+    S = state["wkv"]
+    o = (torch.einsum("bhk,bhkv->bhv", rh, S)
+         + torch.einsum("bhk,hk,bhk->bh", rh, p["u"], kh)[..., None] * vh)
+    new = dict(state)
+    new["wkv"] = w[..., None] * S + kh[..., None] * vh[:, :, None, :]
+    new["shift_t"] = x[:, 0]
+    return timemix_output(p, o[:, None], g, cfg), new
+
+
+def channelmix_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                      state: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token. x: (b, 1, d) -> (out, the state with a new "shift_c")."""
+    out = channelmix_apply(p, x, cfg, x_prev=state["shift_c"][:, None, :])
+    new = dict(state)
+    new["shift_c"] = x[:, 0]
+    return out, new

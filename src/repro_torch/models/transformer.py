@@ -1,5 +1,5 @@
-"""Decoder-only LM for the offline embedding path
-(``repro.models.transformer``).
+"""Decoder-only LM (``repro.models.transformer``): the offline embedding
+path, the LM judge's forward and the decode path.
 
 Params layout, as in the JAX package (leaves stacked over the
 ``num_groups`` repeats of ``cfg.block_pattern``):
@@ -9,19 +9,24 @@ Params layout, as in the JAX package (leaves stacked over the
                         (rwkv6 blocks)
   final_norm.scale
   lm_head.w             (V, d) unless cfg.tie_embeddings
+Caches (decode) mirror the block layout, as in the JAX package:
+``cache["p<i>"]`` leaves stacked over groups, {k, v} at attention
+positions and {wkv, shift_t, shift_c} at rwkv6 positions, so a JAX cache
+carried by ``models.params_from_jax`` reads as the port's.
 Attention blocks (``attn``, ``local``) with the dense MLP and RWKV6
 blocks are ported; MoE, mamba2 and shared-attention blocks raise
-``NotImplementedError``, as do decode, KV caches and recurrent state.
+``NotImplementedError``. ``loss_fn`` waits for the training scaffolding.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RWKV6,
                                 ModelConfig)
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -73,12 +78,22 @@ def group_params(params: Params, g: int) -> Params:
     return tree_map(lambda t: t[g], params["blocks"])
 
 
+def _stack_groups(trees: List[Params]) -> Params:
+    """Per-group trees -> one tree of leaves stacked over the groups."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_groups([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
 class TransformerLM:
     """Decoder-only LM over a pattern of attention and RWKV6 blocks.
 
     ``attn_impl`` picks the attention path (``models.attention.IMPLS``),
     ``rwkv_mode`` the time-mix path (``models.rwkv.MODES``); the defaults
-    are the hand-written kernels."""
+    are the hand-written kernels. Decode steps run in plain PyTorch (no
+    kernel), as in the JAX package. Every method runs where the params
+    lie."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "flash",
                  rwkv_mode: str = "kernel"):
@@ -89,6 +104,9 @@ class TransformerLM:
         self.rwkv_mode = rwkv_mode
         self.pattern = cfg.block_pattern
         self.num_groups = cfg.num_layers // len(cfg.block_pattern)
+        # serving option: prefill computes logits at the last position
+        # only (decode needs no others)
+        self.prefill_last_only = False
 
     def init(self, generator: torch.Generator) -> Params:
         """Random params drawn on ``generator`` and on its device. Each
@@ -127,29 +145,179 @@ class TransformerLM:
             return F.embedding(inputs, params["embed"]["table"])
         return inputs.to(dtype_of(self.cfg.dtype))
 
+    def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm, then the product with the (tied or separate) head
+        in the model's type, cast to float32 after it (bf16 rounds before
+        the cast, as the JAX package's einsum does), padded vocab ids set
+        to -1e30. x: (b, s, d) -> (b, s, padded_vocab) float32."""
+        cfg = self.cfg
+        x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+        table = (params["embed"]["table"] if cfg.tie_embeddings
+                 else params["lm_head"]["w"])
+        b, s, d = x.shape
+        out = (x.reshape(b * s, d) @ table.T).reshape(b, s, -1).float()
+        if cfg.padded_vocab_size != cfg.vocab_size:
+            ids = torch.arange(cfg.padded_vocab_size, device=x.device)
+            out = torch.where(ids < cfg.vocab_size, out,
+                              torch.full_like(out, -1e30))
+        return out
+
     def _group_fullseq(self, x: torch.Tensor, group_params: Params,
                        shared: Optional[Params], *, positions: torch.Tensor,
-                       collect_cache: bool
+                       collect_cache: bool, cache_len: int = 0
                        ) -> Tuple[torch.Tensor, Dict[str, Any], torch.Tensor]:
-        """One pattern group over the full sequence: (x, caches, aux)."""
-        if collect_cache:
-            raise NotImplementedError("KV caches (prefill for decode) are "
-                                      "not ported yet")
+        """One pattern group over the full sequence: (x, caches, aux).
+        With ``collect_cache`` the caches are this group's decode state
+        (an attention layer's K/V in a cache of ``cache_len`` slots, 0 =
+        the prompt's length; an rwkv6 block's final state)."""
         cfg = self.cfg
+        caches: Dict[str, Any] = {}
         for i, kind in enumerate(self.pattern):
-            p = group_params[f"p{i}"]
+            key = f"p{i}"
+            p = group_params[key]
             if kind == BLOCK_RWKV6:
                 h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-                x = x + rwkv_mod.timemix_apply(p["time"], h, cfg,
-                                               mode=self.rwkv_mode)
+                y = rwkv_mod.timemix_apply(p["time"], h, cfg,
+                                           mode=self.rwkv_mode,
+                                           return_state=collect_cache)
+                if collect_cache:
+                    y, state = y
+                x = x + y
                 h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
                 x = x + rwkv_mod.channelmix_apply(p["channel"], h, cfg)
+                if collect_cache:
+                    state["shift_c"] = h[:, -1]
+                    caches[key] = state
                 continue
             window = cfg.sliding_window if kind == BLOCK_LOCAL_ATTN else 0
             h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-            x = x + attn.attn_apply(p["attn"], h, cfg, positions=positions,
-                                    causal=True, window=window,
-                                    impl=self.attn_impl)
+            y = attn.attn_apply(p["attn"], h, cfg, positions=positions,
+                                causal=True, window=window,
+                                impl=self.attn_impl, kv_out=collect_cache)
+            if collect_cache:
+                y, kv = y
+                empty = attn.init_kv_cache(cfg, x.shape[0],
+                                           cache_len or x.shape[1], window,
+                                           x.dtype, x.device)
+                caches[key] = attn.fill_kv_cache(empty, kv, window)
+            x = x + y
             h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
             x = x + mlp_mod.mlp_apply(p["mlp"], h, cfg)
-        return x, {}, torch.zeros((), device=x.device)
+        return x, caches, torch.zeros((), device=x.device)
+
+    def _run_groups(self, params: Params, inputs: torch.Tensor, *,
+                    collect_cache: bool, cache_len: int = 0):
+        """Every group over the full sequence: (hidden (b, s, d), the
+        caches stacked over groups, or None)."""
+        inputs = torch.as_tensor(inputs,
+                                 device=params["embed"]["table"].device)
+        x = self.embed_inputs(params, inputs)
+        positions = torch.arange(x.shape[1], device=x.device)
+        shared = params.get("shared")
+        caches = []
+        for g in range(self.num_groups):
+            x, c, _ = self._group_fullseq(x, group_params(params, g), shared,
+                                          positions=positions,
+                                          collect_cache=collect_cache,
+                                          cache_len=cache_len)
+            caches.append(c)
+        return x, (_stack_groups(caches) if collect_cache else None)
+
+    @torch.inference_mode()
+    def hidden(self, params: Params, inputs: torch.Tensor) -> torch.Tensor:
+        """The last block's output (b, s, d), before the final norm:
+        ``forward``'s logits are ``logits(params, hidden(...))``."""
+        return self._run_groups(params, inputs, collect_cache=False)[0]
+
+    @torch.inference_mode()
+    def forward(self, params: Params, inputs: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced forward: (logits (b, s, V) float32, aux), aux the
+        MoE auxiliary loss, zero (the port has no MoE)."""
+        x = self.hidden(params, inputs)
+        return self.logits(params, x), torch.zeros((), device=x.device)
+
+    @torch.inference_mode()
+    def prefill(self, params: Params, inputs: torch.Tensor,
+                cache_len: int = 0) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Process a prompt: (logits, cache stacked over groups).
+        ``cache_len`` is the KV caches' capacity (>= the prompt's length)
+        so decode can go on past the prompt; 0 = the prompt's length.
+        With ``prefill_last_only`` the logits are the last position's,
+        (b, 1, V)."""
+        x, cache = self._run_groups(params, inputs, collect_cache=True,
+                                    cache_len=cache_len)
+        if self.prefill_last_only:
+            x = x[:, -1:]
+        return self.logits(params, x), cache
+
+    # -- decode ------------------------------------------------------------
+    def cache_spec(self, batch: int, seq_len: int
+                   ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(tree of meta tensors of the cache's shapes and types, tree of
+        logical axes), stacked over groups."""
+        cfg = self.cfg
+        dtype = dtype_of(cfg.dtype)
+        spec: Dict[str, Any] = {}
+        axes: Dict[str, Any] = {}
+        for i, kind in enumerate(self.pattern):
+            if kind == BLOCK_RWKV6:
+                s, a = rwkv_mod.rwkv_state_spec(cfg, batch, dtype)
+            else:
+                window = cfg.sliding_window if kind == BLOCK_LOCAL_ATTN else 0
+                s, a = attn.kv_cache_spec(cfg, batch, seq_len, window, dtype)
+            spec[f"p{i}"] = tree_map(lambda t: torch.empty(
+                (self.num_groups,) + tuple(t.shape), dtype=t.dtype,
+                device="meta"), s)
+            axes[f"p{i}"] = {k: (None,) + v for k, v in a.items()}
+        return spec, axes
+
+    def init_cache(self, batch: int, seq_len: int,
+                   device="cuda") -> Dict[str, Any]:
+        """A zero cache of ``cache_spec``'s shapes on ``device``."""
+        dev = resolve_device(device)
+        spec, _ = self.cache_spec(batch, seq_len)
+        return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                              device=dev), spec)
+
+    @torch.inference_mode()
+    def decode_step(self, params: Params, inputs: torch.Tensor,
+                    pos: Union[int, torch.Tensor], cache: Dict[str, Any]
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """inputs: tokens (b, 1) (or embeddings (b, 1, d)); ``pos`` the
+        token's position, a Python int or a 0-d tensor (a Python int or a
+        tensor on the params' device costs no host sync:
+        ``attention.position_on``). Returns (logits (b, 1, V) float32,
+        the new cache); the input cache is not changed."""
+        cfg = self.cfg
+        dev = params["embed"]["table"].device
+        x = self.embed_inputs(params, torch.as_tensor(inputs, device=dev))
+        pos = attn.position_on(pos, dev)
+        new_caches = []
+        for g in range(self.num_groups):
+            gp = group_params(params, g)
+            new: Dict[str, Any] = {}
+            for i, kind in enumerate(self.pattern):
+                key = f"p{i}"
+                p = gp[key]
+                c = tree_map(lambda t: t[g], cache[key])
+                h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+                if kind == BLOCK_RWKV6:
+                    y, nc = rwkv_mod.timemix_decode(p["time"], h, cfg,
+                                                    state=c)
+                    x = x + y
+                    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+                    y, nc = rwkv_mod.channelmix_decode(p["channel"], h, cfg,
+                                                       state=nc)
+                else:
+                    window = (cfg.sliding_window
+                              if kind == BLOCK_LOCAL_ATTN else 0)
+                    y, nc = attn.attn_decode(p["attn"], h, cfg, pos=pos,
+                                             cache=c, window=window)
+                    x = x + y
+                    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+                    y = mlp_mod.mlp_apply(p["mlp"], h, cfg)
+                x = x + y
+                new[key] = nc
+            new_caches.append(new)
+        return self.logits(params, x), _stack_groups(new_caches)

@@ -9,8 +9,9 @@ job that writes those embeddings into a store lives in
 ``repro_torch.engine.ingest``, which drives this service batch by batch
 (``embed_batch``). On the card the attention of every attention layer
 is the hand-written flash kernel, and the WKV6 recurrence of every
-RWKV6 layer the hand-written intra-chunk kernel. ``generate`` (decode)
-is not ported.
+RWKV6 layer the hand-written intra-chunk kernel. ``generate`` is the
+autoregressive decode driver: a prefill through those kernels, then
+plain-PyTorch decode steps over its caches.
 """
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ from repro_torch.checkpoint import flatten_with_paths
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.models.transformer import group_params
 
 # elements hashed per host copy when digesting the params
 _DIGEST_CHUNK = 1 << 26
@@ -95,14 +95,7 @@ class EmbeddingService:
         Rows of all-zero (pad) tokens pool to zero vectors; callers slice
         them off."""
         tokens = torch.as_tensor(batch, device=self.device)
-        model, params = self.model, self.params
-        x = model.embed_inputs(params, tokens)
-        positions = torch.arange(x.shape[1], device=self.device)
-        shared = params.get("shared")
-        for g in range(model.num_groups):
-            x, _, _ = model._group_fullseq(x, group_params(params, g), shared,
-                                           positions=positions,
-                                           collect_cache=False)
+        x = self.model.hidden(self.params, tokens)
         mask = (tokens > 0).to(x.dtype)[..., None]
         pooled = torch.sum(x * mask, dim=1) / torch.clamp(
             torch.sum(mask, dim=1), min=1.0)
@@ -134,3 +127,41 @@ class EmbeddingService:
             stats.pad_waste_frac = pad_total / max(tok_total, 1)
             stats.wall_s += time.time() - t0
         return out
+
+
+@torch.inference_mode()
+def generate(model, params, prompt_tokens, steps: int, cache_len: int = 0,
+             greedy: bool = True,
+             generator: Optional[torch.Generator] = None) -> np.ndarray:
+    """Autoregressive decode: prefill the prompt, then ``steps - 1``
+    decode steps. prompt_tokens: (b, s) ints (array or tensor). Returns
+    (b, steps) int32 generated ids, as a numpy array. Runs where the
+    params lie.
+
+    The first token is the argmax of the prefill's last logits; each
+    later one the argmax of the step's logits (ties take the first
+    index), or with ``greedy=False`` a draw from their softmax on
+    ``generator`` (one on the params' device; a fresh one seeded 0 if
+    None). Those draws are torch's, not the JAX package's threefry
+    draws, so sampled tokens differ from its; greedy tokens are the
+    same. Token t (1-based) is decoded at position s + t - 1. The tokens
+    stay on the device until the end: the loop makes no host sync."""
+    dev = params["embed"]["table"].device
+    prompt = torch.as_tensor(prompt_tokens, device=dev)
+    b, s = prompt.shape
+    total = cache_len or (s + steps)
+    logits, cache = model.prefill(params, prompt, cache_len=total)
+    if generator is None and not greedy:
+        generator = torch.Generator(dev).manual_seed(0)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    out = [tok]
+    for t in range(1, steps):
+        logits, cache = model.decode_step(params, tok, s + t - 1, cache)
+        last = logits[:, -1]
+        if greedy:
+            tok = torch.argmax(last, dim=-1)[:, None]
+        else:
+            tok = torch.multinomial(torch.softmax(last, dim=-1), 1,
+                                    generator=generator)
+        out.append(tok)
+    return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()

@@ -184,17 +184,22 @@ def test_attn_apply_matches_jax(impl, window):
 
 
 def test_unported_model_paths_raise():
-    """KV caches, the other block families and the clamped "factored"
-    RWKV6 lowering are not ported: they raise rather than run something
-    else."""
+    """The other block families and the clamped "factored" RWKV6
+    lowering are not ported: they raise rather than run something else.
+    KV caches are ported: a group's full-sequence pass collects its
+    layer's cache (``tests/test_torch_decode.py`` holds it to JAX)."""
     from repro_torch.config import MoEConfig
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import group_params
     cfg = ModelConfig(d_model=16, num_heads=2, num_kv_heads=2, d_ff=32,
                       vocab_size=32, dtype="float32")
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError):
-        model._group_fullseq(torch.zeros(1, 2, 16), {}, None,
-                             positions=torch.arange(2), collect_cache=True)
+    params = model.init(torch.Generator().manual_seed(0))
+    _, caches, _ = model._group_fullseq(
+        torch.zeros(1, 2, 16), group_params(params, 0), None,
+        positions=torch.arange(2), collect_cache=True, cache_len=5)
+    assert {n: tuple(t.shape) for n, t in caches["p0"].items()} == \
+        {"k": (1, 5, 2, 8), "v": (1, 5, 2, 8)}
     with pytest.raises(NotImplementedError, match="factored"):
         build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
                                 block_pattern=("rwkv6",)),

@@ -40,12 +40,15 @@ def test_import_loads_no_jax_and_no_repro():
                                      "repro_torch.runtime.trace",
                                      "repro_torch.runtime.metrics",
                                      "repro_torch.engine.live",
-                                     "repro_torch.gateway"])
+                                     "repro_torch.gateway",
+                                     "repro_torch.core",
+                                     "repro_torch.runtime.serve_loop"])
 def test_package_alone_loads_no_jax_and_no_repro(package):
     """``import repro_torch``, ``import repro_torch.serve`` (the server,
     the broker and the resilience layer, copies of ``repro.serve``), the
     observability modules, the live plane and the gateway (copies of
-    ``repro.engine.live`` and ``repro.gateway``), each in a fresh
+    ``repro.engine.live`` and ``repro.gateway``), the judge
+    (``repro_torch.core``) and the decode driver, each in a fresh
     interpreter."""
     code = (f"import {package}, sys\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -88,6 +91,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.engine import (LiveEngine, ScaleDocEngine,
                                     ScoringExecutor, standing_filter)
     from repro_torch.kernels.fused_scoring import ops
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.models import build_model
     from repro_torch.runtime.serve_loop import EmbeddingService
     docs = np.zeros((80, 8), np.float32)
     cfg = ProxyConfig(embed_dim=8, hidden_dim=8, latent_dim=8, proj_dim=4)
@@ -107,11 +112,35 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         lambda: scoring.direct_embedding_scores(docs[0], docs),
         lambda: ops.score_collection({}, docs[0], docs),
         lambda: EmbeddingService(None, {}),
+        lambda: build_model(get_smoke_arch("llama3-8b")).init_cache(1, 4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert ScoringExecutor(device="cpu").device.type == "cpu"
+
+
+def test_the_judge_and_decode_surface_is_there():
+    """The LLM judge, the LM's serving surface, the cache and state
+    functions of attention and RWKV6, ``generate`` and the configs'
+    ``list_archs``, by name."""
+    import repro_torch.core as core
+    from repro_torch import config
+    from repro_torch.models import attention, rwkv
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.runtime import serve_loop
+    assert core.LMOracle and core.LMOracleConfig
+    for name in ("logits", "forward", "prefill", "cache_spec", "init_cache",
+                 "decode_step"):
+        assert callable(getattr(TransformerLM, name)), name
+    for mod, names in ((attention, ("kv_cache_spec", "init_kv_cache",
+                                    "fill_kv_cache", "attn_decode")),
+                       (rwkv, ("rwkv_state_spec", "timemix_decode",
+                               "channelmix_decode")),
+                       (serve_loop, ("generate",))):
+        for name in names:
+            assert callable(getattr(mod, name)), (mod.__name__, name)
+    assert "smollm-360m" in config.list_archs()
 
 
 @pytest.mark.parametrize("path", sorted(
