@@ -7,8 +7,9 @@ Phases, each of which exits non-zero when it fails:
   1. device  — the card's name and power limit (no card: exit 1);
   2. build   — the four CUDA kernels from src/repro_torch/csrc, one nvcc
                each, all started together; ptxas's registers and spills
-               (fused scoring: per instantiation, none may spill) and
-               the fused kernel's shared memory a block;
+               of every entry, logged (fused scoring: per instantiation,
+               none may spill) and the fused kernel's shared memory a
+               block;
   3. kernels — each kernel against its plain PyTorch version on the card:
                fused scoring at D=4096, H=512, L=128 over an 8192-doc tile
                for Q in {1, 4, 5} (and its Q=1 single-query form), at
@@ -29,7 +30,11 @@ Phases, each of which exits non-zero when it fails:
                ragged / non-causal shapes, in f32 (the FP32 kernel) and
                bf16 (the tensor-core kernel, also against its plain
                version, which rounds where it rounds, and, logged but not
-               a gate, against the rounding of flash.py, P in f32);
+               a gate, against the rounding of flash.py, P in f32); the
+               same at gemma3-12b's head_dim 240 (the wide kernels), at
+               its path's shape (b=4, s=2048, 16 heads over 8 KV heads,
+               causal, with window 1024 and without) and a ragged
+               continuation inside a window;
                the WKV6 intra-chunk kernel against its plain version (the
                sub-chunk form), all four outputs, at the rwkv6-7b path's
                shape (b=8, nc=4, Q=128, H=64, K=64), a ragged chunk
@@ -174,11 +179,12 @@ Phases, each of which exits non-zero when it fails:
                path's on 256 prompts (per-row cosine >= COS_MIN,
                decisions agreeing >= JUDGE_AGREE_MIN);
                [decode] generate() of 32 tokens for 8 of the corpus's
-               prompts, greedy, bitwise a hand-rolled prefill +
-               decode_step loop (prefill ms, decode ms a step, tokens a
-               second, peak memory, flash launched once a layer in the
-               prefill), and at 2 layers in f32, full width, decode
-               against the teacher-forced forward within DECODE_REL;
+               prompts, greedy, with prefill_last_only, bitwise a
+               hand-rolled prefill + decode_step loop (prefill ms, decode
+               ms a step, tokens a second, peak memory, flash launched
+               once a layer in the prefill), and at 2 layers in f32,
+               full width, decode against the teacher-forced forward
+               within DECODE_REL;
  14. flash   — the bf16 flash kernel (and the same call non-causal), the
                FP32 kernel on the same inputs in f32, the plain version
                and PyTorch's scaled_dot_product_attention under each
@@ -205,7 +211,31 @@ Phases, each of which exits non-zero when it fails:
  16. wkv6    — the WKV6 kernel, its plain version and the plain
                pairwise form at the rwkv6-7b path's shape, its bound
                (exponentials in the sub-chunk form, FP32 operations and
-               bytes), and its share of one embedding batch.
+               bytes), and its share of one embedding batch;
+ 17. gemma3  — the rwkv6-7b weights freed, the offline path over
+               gemma3-12b at full width (48 layers, five of window 1024
+               a global one, head_dim 240, bf16, 23.3 GB of weights drawn
+               on the card) into a store of 512 documents of 2048 tokens
+               (longer than the window), batch 4: 512 finite rows of width
+               3840, flash launched 48 times a batch, 40 of those calls
+               with the window, the kernel path's pooled embeddings
+               against attn_impl="blocked" (per-row cosine >= COS_MIN),
+               the kill/resume drill, one query() over the store (the
+               fused kernel at D=3840); then [decode] as above on 4
+               prompts of 2048 tokens (local caches of 1024 slots, global
+               ones of 2080) and one pattern period (6 layers) in f32 at
+               full width over 1,100 tokens of context;
+ 18. flash   — the bf16 flash kernel at gemma3-12b's shape, global and
+               with its window, as in 14, beside its bound, the FP32
+               kernel, the plain version and SDPA;
+ 19. configs — codeqwen1.5-7b (MHA, an untied head) and internvl2-1b (14
+               heads over 2, a vocab that is not a multiple of the
+               padding, float patch embeddings) at full width with random
+               bf16 weights: one batch of 8 x 512 tokens against the
+               blocked path (per-row cosine >= COS_MIN, flash once a
+               layer), internvl2-1b's hidden over (8, 256, 896) patch
+               embeddings, generate() of 8 tokens bitwise a hand-rolled
+               loop, ms a batch and peak memory.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -293,13 +323,34 @@ JUDGE_SEEDS = (0, 1, 2, 3)
 JUDGE_MIN_CLASS = 0.01
 JUDGE_PLAIN_DOCS = 256     # prompts of the kernel-vs-plain comparison
 JUDGE_AGREE_MIN = 0.98     # decisions of the kernel path = the plain path's
-# [decode]: generate on DECODE_BATCH offline documents of OFF_DOC_LEN
-# tokens for DECODE_STEPS tokens, greedy; then decode against forward at
+# [decode]: generate on one batch of offline documents (the embedding
+# service's batch size) for DECODE_STEPS tokens, greedy; then decode
+# against forward at
 # 2 layers in f32 (4 steps after a 12-token prefill) to the JAX
 # package's own bar (tests/test_models_consistency.py), of max |logit|
-DECODE_BATCH, DECODE_STEPS = 8, 32
+DECODE_STEPS = 32
 DECODE_PRE, DECODE_TOTAL = 12, 16
 DECODE_REL = 5e-4
+# [gemma3]: gemma3-12b FULL (48 layers, 5 of window 1024 a global one,
+# head_dim 240) over documents longer than its window, or its local
+# layers would see every key as global ones do: 512 documents of 2048
+# tokens (the llama3-8b phase's 1,048,576 tokens), batch 4; a shorter
+# kill/resume drill (64 documents, killed after 32: one commit group of 8
+# batches); [decode] then generates on one batch. Decode against forward
+# runs one whole pattern period (5 local layers, 1 global) in f32 over a
+# context past the window
+GEMMA_ARCH = "gemma3-12b"
+GEMMA_DOCS, GEMMA_DOC_LEN, GEMMA_BATCH = 512, 2048, 4
+GEMMA_RESUME = (64, 32)
+GEMMA_PERIOD_PRE, GEMMA_PERIOD_TOTAL = 1100, 1104
+GEMMA_FLASH_SHAPE = (4, 2048, 16, 8, 240)   # b, s, heads, KV heads, hd
+# [configs]: the other two configs at FULL with random bf16 weights, one
+# embedding batch of CONFIGS_BATCH documents of OFF_DOC_LEN tokens each
+# (internvl2-1b also over float patch embeddings of CONFIGS_PATCHES
+# positions: its stubbed vision frontend), and generate of
+# CONFIGS_STEPS tokens
+CONFIGS_ARCHS = ("codeqwen1.5-7b", "internvl2-1b")
+CONFIGS_BATCH, CONFIGS_PATCHES, CONFIGS_STEPS = 8, 256, 8
 # the compound phase's cross-session CSE arms run on this many of the
 # main path's documents, to bound the phase's time
 CSE_DOCS = 32_768
@@ -343,21 +394,35 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_checks(dev, rng) -> tuple:
+_b, _s, _h, _kv, _hd = FLASH_SHAPE
+_gb, _gs, _gh, _gkv, _ghd = GEMMA_FLASH_SHAPE
+# name, (b, sq, skv, h, kv, hd), causal, window, q_offset
+FLASH_CASES = [
+    ("path shape causal", (_b, _s, _s, _h, _kv, _hd), True, 0, 0),
+    ("window=24", (2, 128, 128, 4, 4, 32), True, 24, 0),
+    ("q_offset=skv-sq", (1, 32, 96, 2, 2, 16), True, 0, 64),
+    ("ragged s=200 GQA 4:1", (2, 200, 200, 8, 2, 128), True, 0, 0),
+    ("non-causal s=200", (1, 200, 200, 4, 1, 128), False, 0, 0),
+]
+# gemma3-12b's head (the wide kernels): its path's shape with and without
+# its window, and a ragged continuation inside a window
+FLASH_HD240_CASES = [
+    ("hd240 gemma3 path shape causal", (_gb, _gs, _gs, _gh, _gkv, _ghd),
+     True, 0, 0),
+    ("hd240 gemma3 path shape window=1024",
+     (_gb, _gs, _gs, _gh, _gkv, _ghd), True, 1024, 0),
+    ("hd240 q_offset=123 window=24", (1, 77, 200, 4, 2, 240), True, 24, 123),
+]
+
+
+def flash_checks(dev, rng, cases=FLASH_CASES) -> tuple:
     """The flash kernels against the masked-einsum oracle on the card,
-    and the bf16 kernel against its plain version (gates); and the bf16
-    kernel against attention_blocked(..., round_p=False), stated."""
+    and the bf16 kernel against its plain version on its own tiles
+    (gates); and the bf16 kernel against attention_blocked(...,
+    round_p=False), stated."""
     import torch
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.flash_attention import ref as f_ref
-    b, s, h, kv, hd = FLASH_SHAPE
-    cases = [  # name, (b, sq, skv, h, kv, hd), causal, window, q_offset
-        ("path shape causal", (b, s, s, h, kv, hd), True, 0, 0),
-        ("window=24", (2, 128, 128, 4, 4, 32), True, 24, 0),
-        ("q_offset=skv-sq", (1, 32, 96, 2, 2, 16), True, 0, 64),
-        ("ragged s=200 GQA 4:1", (2, 200, 200, 8, 2, 128), True, 0, 0),
-        ("non-causal s=200", (1, 200, 200, 4, 1, 128), False, 0, 0),
-    ]
     errs, stated = {}, {}
     for name, (b, sq, skv, h, kv, hd), causal, window, q_off in cases:
         base = [torch.tensor(rng.normal(size=shape), dtype=torch.float32,
@@ -388,7 +453,8 @@ def flash_checks(dev, rng) -> tuple:
             plain = f_ref.attention_blocked(
                 q, f_ref.expand_kv(k, h // kv), f_ref.expand_kv(v, h // kv),
                 kw["scale"], causal=causal, window=window, q_offset=q_off,
-                q_block=64, kv_block=64, round_p=True)
+                q_block=64, kv_block=f_ops.bf16_tile_keys(hd),
+                round_p=True)
             torch.cuda.synchronize()
             tol = FLASH_BF16_PLAIN_TOL
             diff = (got.float() - plain.float()).abs()
@@ -404,7 +470,8 @@ def flash_checks(dev, rng) -> tuple:
             exact_p = f_ref.attention_blocked(
                 q, f_ref.expand_kv(k, h // kv), f_ref.expand_kv(v, h // kv),
                 kw["scale"], causal=causal, window=window, q_offset=q_off,
-                q_block=64, kv_block=64, round_p=False)
+                q_block=64, kv_block=f_ops.bf16_tile_keys(hd),
+                round_p=False)
             torch.cuda.synchronize()
             diff = (got.float() - exact_p.float()).abs()
             log(f"[kernels] {key}: vs round_p=False (P in f32 for P V, as "
@@ -632,20 +699,25 @@ def rwkv_checks(cfg, params, tokens, pooled) -> dict:
 
 
 def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
-                  tag: str, cos_min: float, after=()) -> tuple:
-    """ScaleDocEngine.from_corpus over ``arch``, then its checks:
-    ``kernel`` is the kernel each of its layers launches once per batch,
-    ``plain_opts`` the service options of its plain path, whose pooled
-    embeddings must reach a per-row cosine of ``cos_min``. Each phase
-    ``fn(dev, service, engine, docs)`` of ``after`` runs in turn over the
-    same weights, engine and corpus before the store is deleted; its
-    report goes under the key ``fn.__name__``. Returns the report, the
-    service and its first batch of tokens."""
+                  tag: str, cos_min: float, after=(), n_docs: int = OFF_DOCS,
+                  doc_len: int = OFF_DOC_LEN, batch_size: int = OFF_BATCH,
+                  resume=(RESUME_DOCS, RESUME_CUT)) -> tuple:
+    """ScaleDocEngine.from_corpus over ``arch`` into a store of
+    ``n_docs`` documents of ``doc_len`` tokens, ``batch_size`` a batch,
+    then its checks: ``kernel`` is the kernel each of its layers launches
+    once per batch, ``plain_opts`` the service options of its plain path,
+    whose pooled embeddings must reach a per-row cosine of ``cos_min``,
+    ``resume`` the kill/resume drill's documents and the row it is killed
+    at. Each phase ``fn(dev, service, engine, docs)`` of ``after`` runs in
+    turn over the same weights, engine and corpus before the store is
+    deleted; its report goes under the key ``fn.__name__``. Returns the
+    report, the service and its first batch of tokens."""
     import shutil
 
     import numpy as np
     import torch
-    from repro_torch.config import CascadeConfig, ProxyConfig, get_arch
+    from repro_torch.config import (BLOCK_LOCAL_ATTN, CascadeConfig,
+                                    ProxyConfig, get_arch)
     from repro_torch.core.encoder import tree_leaves
     from repro_torch.core.oracle import SimulatedOracle
     from repro_torch.data import make_corpus, make_query
@@ -656,7 +728,7 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
 
     cfg = get_arch(arch)
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -667,14 +739,15 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
         f"{n_params / 1e9:.3f} B params drawn on the card in {init_s:.1f} s"
         f", {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
     t0 = time.perf_counter()
-    corpus = make_corpus(0, n_docs=OFF_DOCS, dim=128, with_tokens=True,
-                         vocab=OFF_VOCAB, doc_len=OFF_DOC_LEN)
-    docs = [corpus.tokens[i] for i in range(OFF_DOCS)]
-    n_tokens = OFF_DOCS * OFF_DOC_LEN
-    log(f"[{tag}] corpus: {OFF_DOCS} docs x {OFF_DOC_LEN} tokens "
+    corpus = make_corpus(0, n_docs=n_docs, dim=128, with_tokens=True,
+                         vocab=OFF_VOCAB, doc_len=doc_len)
+    docs = [corpus.tokens[i] for i in range(n_docs)]
+    n_tokens = n_docs * doc_len
+    log(f"[{tag}] corpus: {n_docs} docs x {doc_len} tokens "
         f"(vocab {OFF_VOCAB}) = {n_tokens} tokens, made in "
         f"{time.perf_counter() - t0:.1f} s")
-    service = EmbeddingService(cfg, params, batch_size=OFF_BATCH, device=dev)
+    service = EmbeddingService(cfg, params, batch_size=batch_size,
+                               device=dev)
     t0 = time.perf_counter()
     digest = service.params_digest()
     digest_s = time.perf_counter() - t0
@@ -688,10 +761,11 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
         kernels = zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine = ScaleDocEngine.from_corpus(
-            service, docs, work / "store", proxy_cfg=ProxyConfig(),
-            cascade_cfg=CascadeConfig(accuracy_target=0.9), device=dev)
-        torch.cuda.synchronize()
+        with AttentionCalls() as calls:
+            engine = ScaleDocEngine.from_corpus(
+                service, docs, work / "store", proxy_cfg=ProxyConfig(),
+                cascade_cfg=CascadeConfig(accuracy_target=0.9), device=dev)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts(kernels)
         launches = counts[kernel]
@@ -701,32 +775,45 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
         log(f"[{tag}] from_corpus: {len(store)} x {store.dim} rows in "
             f"{wall:.1f} s: {st.docs / wall:.1f} docs/s, "
             f"{n_tokens / wall:.0f} tokens/s; {st.batches} batches, "
-            f"{st.commits} commits; launches {json.dumps(counts)}")
+            f"{st.commits} commits; launches {json.dumps(counts)}; "
+            f"attention calls by window {json.dumps(calls.by_window)}")
         split = {f: getattr(st, f) for f in (
             "host_io_seconds", "compute_seconds", "stall_seconds",
             "write_seconds", "wall_seconds")}
         split["overlap_fraction"] = st.overlap_fraction
         split["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         log(f"[{tag}] IngestStats: {json.dumps(split)}")
-        if emb.shape != (OFF_DOCS, cfg.d_model) or not np.isfinite(
+        if emb.shape != (n_docs, cfg.d_model) or not np.isfinite(
                 emb).all():
-            fail(f"the store is not {OFF_DOCS} finite rows of width "
+            fail(f"the store is not {n_docs} finite rows of width "
                  f"{cfg.d_model}: {emb.shape}")
-        if st.batches != OFF_DOCS // OFF_BATCH or \
+        if st.batches != n_docs // batch_size or \
                 launches != cfg.num_layers * st.batches:
             fail(f"{kernel} launched {launches} times over {st.batches} "
                  f"batches; expected {cfg.num_layers} per batch")
+        # each local layer's call carries the config's window, each
+        # global layer's none
+        local = cfg.block_pattern.count(BLOCK_LOCAL_ATTN) * (
+            cfg.num_layers // len(cfg.block_pattern))
+        want_calls = {}
+        if kernel == "flash_attention":
+            want_calls = {str(w): n * st.batches for w, n in (
+                (cfg.sliding_window, local), (0, cfg.num_layers - local))
+                if n}
+        if calls.by_window != want_calls:
+            fail(f"attention calls by window {calls.by_window}; expected "
+                 f"{want_calls}")
 
         # -- the kernel path against the plain path, one batch -----------
-        batch = np.stack(docs[:OFF_BATCH]).astype(np.int32)
+        batch = np.stack(docs[:batch_size]).astype(np.int32)
         got = service.embed_batch(batch)
-        plain = EmbeddingService(cfg, params, batch_size=OFF_BATCH,
+        plain = EmbeddingService(cfg, params, batch_size=batch_size,
                                  device=dev, **plain_opts)
         want = plain.embed_batch(batch)
         cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
         p_err = (got - want).abs().max().item()
         same_as_store = bool(np.array_equal(got.cpu().numpy(),
-                                            emb[:OFF_BATCH]))
+                                            emb[:batch_size]))
         log(f"[{tag}] kernel path vs {plain_opts}, batch 0: min per-row "
             f"cosine {cos.min().item():.6f} (>= {cos_min}), max abs err "
             f"{p_err:.3e} (|x| max {want.abs().max().item():.3e}); "
@@ -734,21 +821,22 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
         if not cos.min().item() >= cos_min:
             fail(f"the kernel path's embeddings disagree with {plain_opts}")
         # -- kill / resume drill -----------------------------------------
-        part_docs = docs[:RESUME_DOCS]
+        resume_docs, resume_cut = resume
+        part_docs = docs[:resume_docs]
         full = build_index(service, part_docs, work / "full")
         killed = build_index(service, part_docs, work / "killed",
-                             max_docs=RESUME_CUT)
-        if not killed.interrupted or len(killed.store) != RESUME_CUT:
-            fail(f"max_docs={RESUME_CUT} left {len(killed.store)} rows")
+                             max_docs=resume_cut)
+        if not killed.interrupted or len(killed.store) != resume_cut:
+            fail(f"max_docs={resume_cut} left {len(killed.store)} rows")
         resumed = build_index(service, part_docs, work / "killed")
         a = (work / "full" / DATA_NAME).read_bytes()
         b = (work / "killed" / DATA_NAME).read_bytes()
-        prefix = emb[:RESUME_DOCS].tobytes() == a
-        log(f"[{tag}] kill at {RESUME_CUT} of {RESUME_DOCS} docs, resume "
+        prefix = emb[:resume_docs].tobytes() == a
+        log(f"[{tag}] kill at {resume_cut} of {resume_docs} docs, resume "
             f"from row {resumed.stats.resumed_rows}: embeddings.bin "
             f"bit-identical to an uninterrupted run: {a == b} ({len(a)} "
             f"bytes); equal to the full store's first rows: {prefix}")
-        if a != b or resumed.stats.resumed_rows != RESUME_CUT \
+        if a != b or resumed.stats.resumed_rows != resume_cut \
                 or full.interrupted:
             fail("the resumed store differs from the uninterrupted one")
 
@@ -757,15 +845,19 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
         pos = np.nonzero(q.truth)[0][:4]
         e_q = emb[pos].mean(axis=0)
         e_q = (e_q / (np.linalg.norm(e_q) + 1e-9)).astype(np.float32)
+        kernels = zero_counts()
         tq = time.perf_counter()
         qs = engine.query(e_q, SimulatedOracle(q.truth), ground_truth=q.truth,
                           seed=0)
         q_wall = time.perf_counter() - tq
-        log(f"[{tag}] query (sel {q.selectivity:.2f}) over the store: F1 "
-            f"{qs.cascade.achieved_f1:.4f} (no bar: random weights), oracle "
-            f"calls {qs.oracle_calls_total} of {OFF_DOCS}, {q_wall:.2f} s")
+        q_counts = read_counts(kernels)
+        log(f"[{tag}] query (sel {q.selectivity:.2f}) over the store of "
+            f"width {store.dim}: F1 {qs.cascade.achieved_f1:.4f} (no bar: "
+            f"random weights), oracle calls {qs.oracle_calls_total} of "
+            f"{n_docs}, {q_wall:.2f} s; launches {json.dumps(q_counts)}")
         if not np.isfinite(qs.scores).all() or \
-                qs.oracle_calls_total > OFF_DOCS:
+                qs.oracle_calls_total > n_docs or \
+                q_counts["fused_scoring"] <= 0:
             fail("the query over the offline store failed")
 
         # one embedding batch on the card, and the flash share of it
@@ -776,20 +868,46 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
                         for fn in after}
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {**after_report, "arch": cfg.name, "kernel": kernel, "params": n_params,
+    phase_s = time.perf_counter() - t_phase
+    log(f"[{tag}] phase took {phase_s:.1f} s")
+    return {**after_report, "phase_seconds": phase_s, "arch": cfg.name, "kernel": kernel, "params": n_params,
             "init_seconds": init_s,
-            "digest_seconds": digest_s, "n_docs": OFF_DOCS,
+            "digest_seconds": digest_s, "n_docs": n_docs,
+            "doc_len": doc_len, "batch_size": batch_size,
             "tokens": n_tokens, "wall_seconds": wall,
-            "docs_per_second": OFF_DOCS / wall,
+            "docs_per_second": n_docs / wall,
             "tokens_per_second": n_tokens / wall, "batches": st.batches,
             "launches": launches, "launch_counts": counts,
+            "attention_calls_by_window": calls.by_window,
             "ingest_stats": split,
             "pooled_min_cosine": cos.min().item(),
             "pooled_max_abs_err": p_err, "resume_bit_identical": a == b,
             "query": {"f1": qs.cascade.achieved_f1,
                       "oracle_calls": qs.oracle_calls_total,
-                      "wall_seconds": q_wall},
+                      "wall_seconds": q_wall, "launches": q_counts},
             "embed_batch_ms": batch_ms}, service, batch
+
+
+class AttentionCalls:
+    """Within the block, the attention layer's calls of the flash entry
+    (``ops.attention``), counted by their window (the launches are
+    counted by the kernel's wrapper, as everywhere)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as f_ops
+        self.by_window = {}
+        self._ops, self._inner = f_ops, f_ops.attention
+
+        def counted(*args, window=0, **kw):
+            key = str(window)
+            self.by_window[key] = self.by_window.get(key, 0) + 1
+            return self._inner(*args, window=window, **kw)
+        f_ops.attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.attention = self._inner
+        return False
 
 
 def zero_counts() -> dict:
@@ -957,17 +1075,23 @@ def judge(dev, service, engine, docs) -> dict:
 
 
 def decode(dev, service, engine, docs) -> dict:
-    """[decode]: generate on DECODE_BATCH offline documents for
-    DECODE_STEPS tokens (greedy) with the service's model, against a
-    hand-rolled prefill + decode_step loop (bitwise); then, at the same
-    width and 2 layers in f32 through the kernels, DECODE_TOTAL -
-    DECODE_PRE decode steps against the teacher-forced forward. The
-    prefill's kernel: flash for attention, WKV6 for rwkv6 blocks."""
+    """[decode]: generate on one embedding batch of the offline documents
+    (the service's batch size) for DECODE_STEPS tokens (greedy) with the
+    service's model, against a hand-rolled
+    prefill + decode_step loop (bitwise), both with prefill_last_only
+    (the serving option: logits at the last position only); then, at the
+    same width in f32 through the kernels, decode steps against the
+    teacher-forced forward: at 2 layers after DECODE_PRE tokens, or for a
+    model with sliding-window layers one whole pattern period after
+    GEMMA_PERIOD_PRE tokens (past the window). The prefill's kernel:
+    flash for attention, WKV6 for rwkv6 blocks. A model with
+    sliding-window layers must keep ring caches of its window and full
+    caches of the prompt plus the new tokens."""
     import dataclasses
 
     import numpy as np
     import torch
-    from repro_torch.config import BLOCK_RWKV6
+    from repro_torch.config import BLOCK_LOCAL_ATTN, BLOCK_RWKV6
     from repro_torch.models import build_model
     from repro_torch.runtime.serve_loop import generate
 
@@ -976,89 +1100,133 @@ def decode(dev, service, engine, docs) -> dict:
     kernel = ("wkv6" if BLOCK_RWKV6 in cfg.block_pattern
               else "flash_attention")
     tag = "decode"
-    prompt = torch.as_tensor(np.stack(docs[:DECODE_BATCH]).astype(np.int32),
+    batch = service.batch_size
+    prompt = torch.as_tensor(np.stack(docs[:batch]).astype(np.int32),
                              device=dev)
     b, s = prompt.shape
-    kernels = zero_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = generate(model, params, prompt, DECODE_STEPS)
-    gen_s = time.perf_counter() - t0          # generate ends in a copy
-    counts = read_counts(kernels)
-    peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    if counts[kernel] != cfg.num_layers:
-        fail(f"[{tag}] {kernel} launched {counts[kernel]} times in "
-             f"generate(); expected {cfg.num_layers} (the prefill)")
+    model.prefill_last_only = True
+    try:
+        kernels = zero_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(model, params, prompt, DECODE_STEPS)
+        gen_s = time.perf_counter() - t0      # generate ends in a copy
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        if counts[kernel] != cfg.num_layers:
+            fail(f"[{tag}] {kernel} launched {counts[kernel]} times in "
+                 f"generate(); expected {cfg.num_layers} (the prefill)")
 
-    # the hand-rolled loop, synchronized around the prefill and each step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompt, cache_len=s + DECODE_STEPS)
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    del logits
-    manual = [tok]
-    t0 = time.perf_counter()
-    for t in range(1, DECODE_STEPS):
-        logits, cache = model.decode_step(params, tok, s + t - 1, cache)
+        # the hand-rolled loop, synchronized around the prefill and each
+        # step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompt,
+                                      cache_len=s + DECODE_STEPS)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        manual.append(tok)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / (DECODE_STEPS - 1)
-    del cache, logits
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        del logits
+        cache_lens = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            if "k" in cache[f"p{i}"]:
+                cache_lens.setdefault(kind, cache[f"p{i}"]["k"].shape[2])
+        manual = [tok]
+        t0 = time.perf_counter()
+        for t in range(1, DECODE_STEPS):
+            logits, cache = model.decode_step(params, tok, s + t - 1, cache)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            manual.append(tok)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (DECODE_STEPS - 1)
+        del cache, logits
+    finally:
+        model.prefill_last_only = False
     manual = torch.cat(manual, dim=1).cpu().numpy()
     same = bool(np.array_equal(out, manual))
-    log(f"[{tag}] {cfg.name} generate: {b} prompts of {s} tokens, {DECODE_STEPS} new "
-        f"tokens, greedy, in {gen_s:.3f} s: {b * DECODE_STEPS / gen_s:.1f} "
-        f"tokens/s; by hand, prefill {1e3 * prefill_s:.2f} ms, decode "
-        f"{1e3 * step_s:.2f} ms a step ({b / step_s:.1f} tokens/s); peak "
-        f"{peak:.2f} GB; {kernel} launches in the prefill "
-        f"{counts[kernel]}; launches {json.dumps(counts)}; tokens bitwise "
-        f"the hand-rolled loop's: {same}")
+    log(f"[{tag}] {cfg.name} generate: {b} prompts of {s} tokens, "
+        f"{DECODE_STEPS} new tokens, greedy, in {gen_s:.3f} s: "
+        f"{b * DECODE_STEPS / gen_s:.1f} tokens/s; by hand, prefill "
+        f"{1e3 * prefill_s:.2f} ms, decode {1e3 * step_s:.2f} ms a step "
+        f"({b / step_s:.1f} tokens/s); peak {peak:.2f} GB; {kernel} "
+        f"launches in the prefill {counts[kernel]}; launches "
+        f"{json.dumps(counts)}; KV cache lengths by block kind "
+        f"{json.dumps(cache_lens)}; tokens bitwise the hand-rolled loop's: "
+        f"{same}")
     if not same:
         fail(f"[{tag}] generate() differs from prefill + decode_step")
+    if BLOCK_LOCAL_ATTN in cache_lens and cache_lens[BLOCK_LOCAL_ATTN] != \
+            min(cfg.sliding_window, s + DECODE_STEPS):
+        fail(f"[{tag}] local layers' caches are "
+             f"{cache_lens[BLOCK_LOCAL_ATTN]} long, not the window")
+    if any(kind != BLOCK_LOCAL_ATTN and n != s + DECODE_STEPS
+           for kind, n in cache_lens.items()):
+        fail(f"[{tag}] global caches are not {s + DECODE_STEPS} long: "
+             f"{cache_lens}")
 
-    # decode against forward at 2 layers in f32, kernel path only
-    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    # decode against forward in f32, kernel path only
+    windowed = BLOCK_LOCAL_ATTN in cfg.block_pattern
+    layers = len(cfg.block_pattern) if windowed else 2
+    pre, total = ((GEMMA_PERIOD_PRE, GEMMA_PERIOD_TOTAL) if windowed
+                  else (DECODE_PRE, DECODE_TOTAL))
+    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
     m2 = build_model(small)
     p2 = m2.init(torch.Generator(dev).manual_seed(0))
-    toks = torch.as_tensor(np.stack(docs[DECODE_BATCH:DECODE_BATCH + 2])
-                           [:, :DECODE_TOTAL].astype(np.int32), device=dev)
+    toks = torch.as_tensor(np.stack(docs[batch:batch + 2])
+                           [:, :total].astype(np.int32), device=dev)
+    kernels = zero_counts()
     full, _ = m2.forward(p2, toks)
-    _, cache = m2.prefill(p2, toks[:, :DECODE_PRE], cache_len=DECODE_TOTAL)
+    _, cache = m2.prefill(p2, toks[:, :pre], cache_len=total)
     errs = []
-    for t in range(DECODE_PRE, DECODE_TOTAL):
+    for t in range(pre, total):
         step, cache = m2.decode_step(p2, toks[:, t:t + 1], t, cache)
         errs.append(((step[:, 0] - full[:, t]).abs().max()
                      / full[:, t].abs().max()).item())
+    f32_counts = read_counts(kernels)
     del m2, p2, full, cache, step
-    log(f"[{tag}] {cfg.name} decode vs forward at 2 layers in f32 (full width, the "
-        f"kernel path), steps {DECODE_PRE}..{DECODE_TOTAL - 1}: max error "
-        f"of max |logit| {', '.join(f'{e:.3e}' for e in errs)} (<= "
-        f"{DECODE_REL:g})")
+    log(f"[{tag}] {cfg.name} decode vs forward at {layers} layers "
+        f"({'/'.join(cfg.block_pattern)}) in f32 (full width, the kernel "
+        f"path), steps {pre}..{total - 1}: max error of max |logit| "
+        f"{', '.join(f'{e:.3e}' for e in errs)} (<= {DECODE_REL:g}); "
+        f"launches {json.dumps(f32_counts)}")
     if not max(errs) <= DECODE_REL:
         fail(f"[{tag}] decode disagrees with forward: {max(errs):.3e}")
+    if f32_counts[kernel] != 2 * layers:
+        fail(f"[{tag}] {kernel} launched {f32_counts[kernel]} times in the "
+             f"f32 forward and prefill; expected {2 * layers}")
     phase_s = time.perf_counter() - t_phase
     log(f"[{tag}] {cfg.name} phase took {phase_s:.1f} s")
-    return {"phase_seconds": phase_s, "arch": cfg.name, "batch": b, "prompt_tokens": s,
+    return {"phase_seconds": phase_s, "arch": cfg.name, "batch": b,
+            "prompt_tokens": s,
             "new_tokens": DECODE_STEPS, "generate_seconds": gen_s,
             "tokens_per_second": b * DECODE_STEPS / gen_s,
             "prefill_ms": 1e3 * prefill_s, "decode_ms_per_step": 1e3 * step_s,
             "decode_tokens_per_second": b / step_s, "peak_memory_gb": peak,
             "launches": counts, "generate_equals_loop": same,
+            "cache_lengths": cache_lens, "f32_layers": layers,
+            "f32_context": [pre, total], "f32_launches": f32_counts,
             "decode_vs_forward_rel_err": errs}
 
 
-def flash_times(dev) -> dict:
+def attention_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal attention over ``s`` positions visits,
+    each query seeing at most ``window`` keys (0: all before it)."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_times(dev, shape=FLASH_SHAPE, window: int = 0) -> dict:
     """The bf16 flash kernel, the FP32 kernel on the same inputs in f32,
-    the plain version and SDPA under each backend, at the path's shape."""
+    the plain version and SDPA under each backend, at ``shape`` (b, s,
+    heads, KV heads, head_dim), causal, with ``window`` (0: none; SDPA
+    then takes the mask as a boolean attn_mask)."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.flash_attention import ref as f_ref
-    b, s, h, kv, hd = FLASH_SHAPE
+    b, s, h, kv, hd = shape
     gen = torch.Generator(dev).manual_seed(1)
     q = torch.randn((b, s, h, hd), generator=gen, device=dev,
                     dtype=torch.bfloat16)
@@ -1066,22 +1234,24 @@ def flash_times(dev) -> dict:
                         dtype=torch.bfloat16) for _ in range(2))
     scale = hd ** -0.5
     g = h // kv
-    ms = cuda_ms(lambda: f_ops.flash_attention_fwd(q, k, v, scale=scale),
-                 50)
-    # the same call without the causal mask: every Q tile runs all 8 K/V
-    # tiles (16,384 tile steps against the causal call's 9,216), which
-    # shows whether the causal loops' short length or the steady state
-    # sets the time
+    ms = cuda_ms(lambda: f_ops.flash_attention_fwd(q, k, v, scale=scale,
+                                                   window=window), 50)
+    # the same call without the causal mask: every Q tile runs all K/V
+    # tiles (at FLASH_SHAPE 16,384 tile steps against the causal call's
+    # 9,216), which shows whether the causal loops' short length or the
+    # steady state sets the time
     noncausal_ms = cuda_ms(lambda: f_ops.flash_attention_fwd(
         q, k, v, scale=scale, causal=False), 50)
     q32, k32, v32 = (x.float() for x in (q, k, v))
     fp32_ms = cuda_ms(lambda: f_ops.flash_attention_fwd(
-        q32, k32, v32, scale=scale), 10)
+        q32, k32, v32, scale=scale, window=window), 10)
     del q32, k32, v32
     plain_ms = cuda_ms(lambda: f_ref.attention_blocked(
         q, f_ref.expand_kv(k, g), f_ref.expand_kv(v, g), scale,
-        causal=True, round_p=True), 10)
+        causal=True, window=window, round_p=True), 10)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = (f_ref.attention_mask(s, s, causal=True, window=window,
+                                 device=dev) if window else None)
     sdpa = {}
     for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
                  "CUDNN_ATTENTION"):
@@ -1093,7 +1263,8 @@ def flash_times(dev) -> dict:
                     sdpa[name] = cuda_ms(
                         lambda: torch.nn.functional.
                         scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True, scale=scale,
+                            qt, kt, vt, attn_mask=mask,
+                            is_causal=mask is None, scale=scale,
                             enable_gqa=True), 50)
             except (RuntimeError, AttributeError) as e:
                 why = [str(w.message).split(" (Triggered")[0] for w in said]
@@ -1101,10 +1272,11 @@ def flash_times(dev) -> dict:
                 sdpa[name] = "refused: " + (why[0] if why else str(e))
     timed = {n: t for n, t in sdpa.items() if isinstance(t, float)}
     library = min(timed, key=timed.get) if timed else None
-    flops = 4 * b * h * hd * s * (s + 1) // 2
+    flops = 4 * b * h * hd * attention_pairs(s, window)
     nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"ms": ms, "noncausal_ms": noncausal_ms,
+    return {"shape": list(shape), "window": window,
+            "ms": ms, "noncausal_ms": noncausal_ms,
             "noncausal_tflops": 4 * b * h * hd * s * s / noncausal_ms / 1e9,
             "fp32_kernel_ms": fp32_ms, "plain_ms": plain_ms,
             "library_ms": timed[library] if library else None,
@@ -2587,6 +2759,128 @@ def ablation_phase(dev, embeds, query, n_tiles) -> dict:
     return out
 
 
+def configs_phase(dev) -> dict:
+    """[configs]: CONFIGS_ARCHS at FULL width with random bf16 weights
+    drawn on the card, one after the other: one embedding batch through
+    the kernel path against attn_impl="blocked" (per-row cosine >=
+    COS_MIN, flash launched once a layer), for a model with a vision
+    frontend also ``hidden`` over float patch embeddings (mean-pooled
+    rows, the same bar), and generate of CONFIGS_STEPS tokens bitwise a
+    hand-rolled prefill + decode_step loop; init seconds, ms a batch and
+    peak memory. Each gate is checked as it comes."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.config import get_arch
+    from repro_torch.core.encoder import tree_leaves
+    from repro_torch.data import make_corpus
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import EmbeddingService, generate
+
+    t_phase = time.perf_counter()
+    corpus = make_corpus(0, n_docs=CONFIGS_BATCH, dim=128, with_tokens=True,
+                         vocab=OFF_VOCAB, doc_len=OFF_DOC_LEN)
+    tokens = torch.as_tensor(np.stack([corpus.tokens[i] for i in range(
+        CONFIGS_BATCH)]).astype(np.int32), device=dev)
+    out = {}
+    for arch in CONFIGS_ARCHS:
+        cfg = get_arch(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        service = EmbeddingService(cfg, params, batch_size=CONFIGS_BATCH,
+                                   device=dev)
+        plain = EmbeddingService(cfg, params, batch_size=CONFIGS_BATCH,
+                                 device=dev, attn_impl="blocked")
+        kernels = zero_counts()
+        got = service.embed_batch(tokens)
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+        want = plain.embed_batch(tokens)
+        cos = F.cosine_similarity(got, want, dim=1).min().item()
+        batch_ms = cuda_ms(lambda: service.embed_batch(tokens), 5, warmup=1)
+        row = {"params": n_params, "init_seconds": init_s,
+               "embed_launches": counts, "pooled_min_cosine": cos,
+               "embed_batch_ms": batch_ms}
+        log(f"[configs] {cfg.name}: {cfg.num_layers} layers, d="
+            f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} "
+            f"KV heads (head_dim {cfg.head_dim}), vocab {cfg.vocab_size} "
+            f"(padded {cfg.padded_vocab_size}), tied head "
+            f"{cfg.tie_embeddings}, {n_params / 1e9:.3f} B params drawn on "
+            f"the card in {init_s:.1f} s; a batch of {CONFIGS_BATCH} x "
+            f"{OFF_DOC_LEN} tokens {batch_ms:.2f} ms; kernel path vs "
+            f"attn_impl='blocked': min per-row cosine {cos:.6f} (>= "
+            f"{COS_MIN}); launches {json.dumps(counts)}")
+        if counts["flash_attention"] != cfg.num_layers or \
+                not torch.isfinite(got).all():
+            fail(f"[configs] {cfg.name}: flash launched "
+                 f"{counts['flash_attention']} times for one batch")
+        if not cos >= COS_MIN:
+            fail(f"[configs] {cfg.name}: the kernel path's embeddings "
+                 f"disagree with the blocked path")
+        if cfg.frontend == "vision":
+            patches = torch.randn(
+                (CONFIGS_BATCH, CONFIGS_PATCHES, cfg.d_model),
+                generator=torch.Generator(dev).manual_seed(2), device=dev)
+            kernels = zero_counts()
+            h_got = service.model.hidden(params, patches)
+            torch.cuda.synchronize()
+            p_counts = read_counts(kernels)
+            h_want = plain.model.hidden(params, patches)
+            p_cos = F.cosine_similarity(h_got.float().mean(1),
+                                        h_want.float().mean(1),
+                                        dim=1).min().item()
+            row.update(patch_launches=p_counts, patch_min_cosine=p_cos)
+            log(f"[configs] {cfg.name}: hidden over float patch embeddings "
+                f"({CONFIGS_BATCH}, {CONFIGS_PATCHES}, {cfg.d_model}), "
+                f"the stubbed vision frontend: finite "
+                f"{bool(torch.isfinite(h_got).all())}, mean-pooled rows vs "
+                f"the blocked path min cosine {p_cos:.6f} (>= {COS_MIN}); "
+                f"launches {json.dumps(p_counts)}")
+            if p_counts["flash_attention"] != cfg.num_layers or \
+                    not torch.isfinite(h_got).all() or not p_cos >= COS_MIN:
+                fail(f"[configs] {cfg.name}: the patch-embedding path "
+                     f"failed")
+            del patches, h_got, h_want
+        model = service.model
+        s = tokens.shape[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = generate(model, params, tokens, CONFIGS_STEPS)
+        gen_s = time.perf_counter() - t0
+        logits, cache = model.prefill(params, tokens,
+                                      cache_len=s + CONFIGS_STEPS)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        manual = [tok]
+        for t in range(1, CONFIGS_STEPS):
+            logits, cache = model.decode_step(params, tok, s + t - 1, cache)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            manual.append(tok)
+        same = bool(np.array_equal(gen, torch.cat(manual, 1).cpu().numpy()))
+        del logits, cache, manual
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        row.update(generate_seconds=gen_s, generate_equals_loop=same,
+                   peak_memory_gb=peak)
+        log(f"[configs] {cfg.name}: generate of {CONFIGS_STEPS} tokens for "
+            f"{CONFIGS_BATCH} prompts in {gen_s:.3f} s, tokens bitwise the "
+            f"hand-rolled loop's: {same}; peak {peak:.2f} GB")
+        if not same:
+            fail(f"[configs] {cfg.name}: generate() differs from prefill + "
+                 f"decode_step")
+        out[cfg.name] = row
+        del params, service, plain, model, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[configs] phase took {out['phase_seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -2758,9 +3052,12 @@ def main() -> None:
         fail("phase2 gradient disagrees with plain autograd")
     f_errs, f_stated = flash_checks(dev, rng)
     w_errs = wkv6_checks(dev, rng)
+    # the wide kernels (gemma3-12b's head), on inputs of their own
+    wide_errs, wide_stated = flash_checks(dev, np.random.default_rng(25),
+                                          FLASH_HD240_CASES)
     report["checks"] = {**checks, **c_errs, "phase2 grad": g_err, **f_errs,
-                        **w_errs}
-    report["flash_bf16_vs_round_p_false"] = f_stated
+                        **w_errs, **wide_errs}
+    report["flash_bf16_vs_round_p_false"] = {**f_stated, **wide_stated}
 
     # -- 4. main path: ScaleDocEngine.query() ------------------------------
     t0 = time.perf_counter()
@@ -3070,6 +3367,60 @@ def main() -> None:
         f"kernel {100 * wt['share_of_embed_batch']:.1f}% and ops.wkv6 "
         f"{100 * wt['wkv6_op_share_of_embed_batch']:.1f}%")
     report["times"]["wkv6"] = wt
+
+    # -- 17. gemma3-12b: the offline path and decode past the window ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"[gemma3] after freeing the rwkv6-7b weights: {held:.3f} GB "
+        f"allocated")
+    if held > 1.0:
+        fail(f"{held:.2f} GB still allocated after the rwkv6-7b phase")
+    gemma, service, _ = offline_phase(
+        dev, GEMMA_ARCH, "flash_attention", dict(attn_impl="blocked"),
+        "gemma3", COS_MIN, after=(decode,), n_docs=GEMMA_DOCS,
+        doc_len=GEMMA_DOC_LEN, batch_size=GEMMA_BATCH, resume=GEMMA_RESUME)
+    window = service.cfg.sliding_window
+    del service
+    report["gemma3"] = gemma
+
+    # -- 18. flash at gemma3-12b's shape, global and windowed -------------
+    wide = {w: flash_times(dev, GEMMA_FLASH_SHAPE, w) for w in (0, window)}
+    calls = gemma["attention_calls_by_window"]
+    for w, name in ((0, "flash_attention_hd240"),
+                    (window, f"flash_attention_hd240_window{window}")):
+        ft = wide[w]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+             "launches": calls[str(w)],
+             "max_abs_err": max(wide_errs.values()),
+             "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+             "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+             "library_ms": ft["library_ms"]})
+        sdpa = ", ".join(f"{n} {t:.4f} ms" if isinstance(t, float) else
+                         f"{n} {t}" for n, t in ft["sdpa"].items())
+        over = ft["ms"] / ft["bound_ms"]
+        log(f"[times] {name} at {tuple(GEMMA_FLASH_SHAPE)}: bf16 "
+            f"tensor-core kernel {ft['ms']:.4f} ms ({over:.2f}x its bound; "
+            f"{ft['flops'] / ft['ms'] / 1e9:.1f} TFLOP/s), "
+            f"non-causal {ft['noncausal_ms']:.4f} ms, FP32 kernel on the "
+            f"same inputs in f32 {ft['fp32_kernel_ms']:.4f} ms, plain "
+            f"{ft['plain_ms']:.4f} ms, bound {ft['bound_ms']:.5f} ms "
+            f"({ft['bound_by']}; {ft['flops']:.4g} FLOP, {ft['bytes']:.4g} "
+            f"B; {ft['fp32_fma_bound_ms']:.4f} ms at the FP32 peak), "
+            f"{calls[str(w)]} launches per from_corpus; SDPA: {sdpa}")
+    share = sum(calls[str(w)] * wide[w]["ms"] for w in wide) \
+        / gemma["batches"] / gemma["embed_batch_ms"]
+    log(f"[times] gemma3-12b: one embedding batch "
+        f"{gemma['embed_batch_ms']:.2f} ms, of which flash "
+        f"{100 * share:.1f}%")
+    report["times"]["flash_hd240"] = {str(w): ft for w, ft in wide.items()}
+    report["times"]["flash_hd240_share_of_embed_batch"] = share
+
+    # -- 19. codeqwen1.5-7b and internvl2-1b at full width ----------------
+    report["configs"] = configs_phase(dev)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,4 +1,15 @@
 """Registered architectures (``repro.configs``): importing the package
 registers each config module's ``FULL`` and ``SMOKE``. Ported so far:
-llama3-8b and smollm-360m (dense) and rwkv6-7b (attention-free)."""
-from repro_torch.configs import llama3_8b, rwkv6_7b, smollm_360m  # noqa: F401
+the dense llama3-8b, smollm-360m, codeqwen1.5-7b and gemma3-12b (5:1
+sliding-window and global attention), the vlm internvl2-1b (its vision
+frontend stubbed: precomputed patch embeddings, as in the JAX package)
+and the attention-free rwkv6-7b. MoE, hybrid and encoder-decoder
+configs wait for their block families."""
+from repro_torch.configs import (  # noqa: F401
+    codeqwen15_7b,
+    gemma3_12b,
+    internvl2_1b,
+    llama3_8b,
+    rwkv6_7b,
+    smollm_360m,
+)

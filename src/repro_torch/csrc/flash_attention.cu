@@ -54,9 +54,28 @@
 // batch x head along x (the query heads of one KV head adjacent, so their
 // K/V stay in L2) and the Q tiles along y in reverse order, heaviest
 // causal tiles first. The head width is templated on hd rounded up to
-// 16, 32, 64 or 128, and hd must be a multiple of 8 (whole 16-byte
-// chunks). At hd 128 a block holds 85 KB of shared memory and 250
+// 16, 32, 64, 128, 240 or 256, and hd must be a multiple of 8 (whole
+// 16-byte chunks). At hd 128 a block holds 85 KB of shared memory and 250
 // registers a thread, so two blocks share an SM.
+//
+// Wide heads (hd 129-256; gemma3-12b's is 240) take the same kernel with
+// two changes, both compile-time, that leave the narrow instantiations'
+// code as it was. At hd 240 a warp's O accumulator alone is 30 n-tiles x
+// 4 = 120 f32 registers a thread, and Q's fragments held over the loop
+// would add 60 (15 k-steps x 4): (1) Q's A fragments are read from the
+// Q tile in shared memory by one ldmatrix at each k-step of every K/V
+// tile instead of being held in registers (a quarter more ldmatrix work
+// for S = Q K^T); (2) K/V tiles are 32 keys, not 64, so S is 16
+// registers and a block's shared memory is (64 + 2 x 2 x 32) rows x
+// (hd + 8) x 2 B = 95 KB at HD 240 (101 KB at 256): two blocks an SM, as
+// at hd 128, where 64-key tiles would allow one. The arithmetic is the
+// same; only the tile on which the online softmax updates m is shorter.
+// HD 240 is instantiated on its own, so gemma3's heads compute on no
+// zero columns; 256 takes the widths from 241. ptxas gives both 255
+// registers and spills a little (68 bytes stored, 100 loaded a thread at
+// HD 240); the variants that take either change back, or unroll the
+// k-steps less, spill as much or more and run no faster
+// (tools/flash_variants.py, PERF.md).
 //
 // At the path's shape this design runs at about the time of
 // FlashAttention-2's mma.sync kernel, some 4.7x the byte bound (PERF.md).
@@ -86,7 +105,10 @@
 // the causal diagonal or wholly before the window of every row of the Q
 // tile are skipped: for such a tile every p would be 0 (or wiped by the
 // next tile's alpha = 0), so skipping is exact. The products are plain
-// FP32 FMA with float4 shared-memory reads.
+// FP32 FMA with float4 shared-memory reads. The head width is templated
+// on hd rounded up to 32, 64, 128, 240 or 256; at 240 a block holds
+// 139 KB of shared memory (one block an SM) and each thread 4 x 15
+// accumulator columns.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -310,7 +332,13 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int b,
   if (hd <= 64)
     return launch<T, 64>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
                          window, q_offset, scale, s);
-  return launch<T, 128>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
+  if (hd <= 128)
+    return launch<T, 128>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
+                          window, q_offset, scale, s);
+  if (hd <= 240)
+    return launch<T, 240>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
+                          window, q_offset, scale, s);
+  return launch<T, 256>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
                         window, q_offset, scale, s);
 }
 
@@ -324,9 +352,15 @@ constexpr int BF_THREADS = 32 * WARPS;
 constexpr int STAGES = 2;                // depth of the K/V ring
 static_assert(BQ == 16 * WARPS, "one 16-row mma tile per warp");
 
+// keys a K/V tile holds: 64, or 32 for heads wider than 128
+template <int HD>
+__host__ __device__ constexpr int bf16_tile_keys() {
+  return HD <= 128 ? BK : 32;
+}
+
 template <int HD>
 constexpr int bf16_smem_bytes() {        // Q, then the K ring, the V ring
-  return (BQ + 2 * STAGES * BK) * (HD + 8) * 2;
+  return (BQ + 2 * STAGES * bf16_tile_keys<HD>()) * (HD + 8) * 2;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -385,23 +419,44 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A (64, hd) slice with row stride `stride` (in elements) into a (64, HD)
-// bf16 tile with row stride HD + 8 by 16-byte cp.async copies; rows past
-// `valid` and columns past `hd` (a multiple of 8) are zero-filled.
-template <int HD>
+// A (ROWS, hd) slice with row stride `stride` (in elements) into a
+// (ROWS, HD) bf16 tile with row stride HD + 8 by 16-byte cp.async copies;
+// rows past `valid` and columns past `hd` (a multiple of 8) are
+// zero-filled. Where the copies do not split evenly over the threads
+// (32 rows at HD 240), the last round's surplus threads copy nothing.
+template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile_async(bf16* dst,
                                                 const bf16* __restrict__ src,
                                                 size_t stride, int valid,
                                                 int hd) {
   constexpr int LDS = HD + 8, CHUNKS = HD / 8;
-  static_assert(BK * CHUNKS % BF_THREADS == 0, "whole copies per thread");
+  constexpr bool EVEN = ROWS * CHUNKS % BF_THREADS == 0;
 #pragma unroll
-  for (int it = 0; it < BK * CHUNKS / BF_THREADS; ++it) {
+  for (int it = 0; it < (ROWS * CHUNKS + BF_THREADS - 1) / BF_THREADS;
+       ++it) {
     const int i = threadIdx.x + it * BF_THREADS;
+    if (!EVEN && i >= ROWS * CHUNKS) break;
     const int r = i / CHUNKS, c = i % CHUNKS;
     const bool ok = r < valid && c * 8 < hd;
     cp_async16(smem_addr(dst + r * LDS + c * 8),
                ok ? src + (size_t)r * stride + c * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// S += Q K^T for one k-step of 16 columns: the warp's 16 rows (A
+// fragments `a`) against the TK keys of the K tile `ks`
+template <int HD, int TK>
+__device__ __forceinline__ void qk_step(float (&s)[TK / 8][4],
+                                        const uint32_t (&a)[4],
+                                        const bf16* ks, int kk, int lane) {
+  constexpr int LDS = HD + 8;
+#pragma unroll
+  for (int jp = 0; jp < TK / 16; ++jp) {   // two n-tiles per ldmatrix
+    uint32_t b[4];
+    ldmatrix_x4(b, smem_addr(ks + (jp * 16 + (lane & 7) + (lane >> 4) * 8)
+                             * LDS + kk * 16 + ((lane >> 3) & 1) * 8));
+    mma_bf16(s[2 * jp], a, b[0], b[1]);
+    mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
   }
 }
 
@@ -413,12 +468,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       int window, int q_offset, float scale_log2) {
   constexpr int LDS = HD + 8;       // padded rows: ldmatrix without conflicts
   constexpr int KSTEPS = HD / 16;   // k-steps of S = Q K^T
-  constexpr int NT_S = BK / 8;      // 8-key n-tiles of S
+  constexpr int TK = bf16_tile_keys<HD>();   // keys of a K/V tile
+  constexpr int NT_S = TK / 8;      // 8-key n-tiles of S
   constexpr int NT_O = HD / 8;      // 8-column n-tiles of O
+  constexpr bool Q_IN_REGS = HD <= 128;   // else read at each k-step
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq_tile = reinterpret_cast<bf16*>(smem_raw);   // BQ x LDS
-  bf16* sk_ring = sq_tile + BQ * LDS;                  // STAGES x BK x LDS
-  bf16* sv_ring = sk_ring + STAGES * BK * LDS;         // STAGES x BK x LDS
+  bf16* sk_ring = sq_tile + BQ * LDS;                  // STAGES x TK x LDS
+  bf16* sv_ring = sk_ring + STAGES * TK * LDS;         // STAGES x TK x LDS
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tg = lane & 3;   // row group, lane in the group
@@ -436,21 +493,21 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int p_lo = q_offset + q0, p_hi = q_offset + q0 + nq - 1;
   const int kv_hi = causal ? min(skv, p_hi + 1) : skv;
   const int kv_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
-  const int t_lo = kv_lo / BK, t_hi = (kv_hi + BK - 1) / BK;
+  const int t_lo = kv_lo / TK, t_hi = (kv_hi + TK - 1) / TK;
 
-  load_tile_async<HD>(sq_tile, qb, q_stride, nq, hd);
+  load_tile_async<HD, BQ>(sq_tile, qb, q_stride, nq, hd);
   if (t_lo < t_hi) {
-    load_tile_async<HD>(sk_ring, kb + (size_t)t_lo * BK * kv_stride,
-                        kv_stride, skv - t_lo * BK, hd);
-    load_tile_async<HD>(sv_ring, vb + (size_t)t_lo * BK * kv_stride,
-                        kv_stride, skv - t_lo * BK, hd);
+    load_tile_async<HD, TK>(sk_ring, kb + (size_t)t_lo * TK * kv_stride,
+                            kv_stride, skv - t_lo * TK, hd);
+    load_tile_async<HD, TK>(sv_ring, vb + (size_t)t_lo * TK * kv_stride,
+                            kv_stride, skv - t_lo * TK, hd);
   }
   cp_async_commit();
 
   // this thread's rows of the warp's 16: g and g + 8
   const int row = warp * 16 + g;
   const int pos[2] = {q_offset + q0 + row, q_offset + q0 + row + 8};
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
   float o[NT_O][4];
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -464,23 +521,25 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                // everyone's; and tile t - 1 is done
     if (t + 1 < t_hi) {             // tile t + 1 into the stage of t - 1
       const int next = (t + 1 - t_lo) % STAGES;
-      const size_t off = (size_t)(t + 1) * BK * kv_stride;
-      load_tile_async<HD>(sk_ring + next * BK * LDS, kb + off, kv_stride,
-                          skv - (t + 1) * BK, hd);
-      load_tile_async<HD>(sv_ring + next * BK * LDS, vb + off, kv_stride,
-                          skv - (t + 1) * BK, hd);
+      const size_t off = (size_t)(t + 1) * TK * kv_stride;
+      load_tile_async<HD, TK>(sk_ring + next * TK * LDS, kb + off, kv_stride,
+                              skv - (t + 1) * TK, hd);
+      load_tile_async<HD, TK>(sv_ring + next * TK * LDS, vb + off, kv_stride,
+                              skv - (t + 1) * TK, hd);
       cp_async_commit();
     }
-    if (t == t_lo) {                // the warp's Q rows, once
+    if constexpr (Q_IN_REGS) {
+      if (t == t_lo) {              // the warp's Q rows, once
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qf[kk], smem_addr(sq_tile + (warp * 16 + (lane & 15))
-                                      * LDS + kk * 16 + (lane >> 4) * 8));
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          ldmatrix_x4(qf[kk], smem_addr(sq_tile + (warp * 16 + (lane & 15))
+                                        * LDS + kk * 16 + (lane >> 4) * 8));
+      }
     }
-    const bf16* ks = sk_ring + stage * BK * LDS;
-    const bf16* vs = sv_ring + stage * BK * LDS;
+    const bf16* ks = sk_ring + stage * TK * LDS;
+    const bf16* vs = sv_ring + stage * TK * LDS;
 
-    // S = Q K^T: 16 rows x 64 keys per warp
+    // S = Q K^T: 16 rows x TK keys per warp
     float s[NT_S][4];
 #pragma unroll
     for (int j = 0; j < NT_S; ++j)
@@ -488,23 +547,23 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < NT_S / 2; ++jp) {   // two n-tiles per ldmatrix
-        uint32_t b[4];
-        ldmatrix_x4(b, smem_addr(ks + (jp * 16 + (lane & 7) + (lane >> 4) * 8)
-                                 * LDS + kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+      if constexpr (Q_IN_REGS) {
+        qk_step<HD, TK>(s, qf[kk], ks, kk, lane);
+      } else {                      // the warp's Q rows, this k-step
+        uint32_t a[4];
+        ldmatrix_x4(a, smem_addr(sq_tile + (warp * 16 + (lane & 15)) * LDS
+                                 + kk * 16 + (lane >> 4) * 8));
+        qk_step<HD, TK>(s, a, ks, kk, lane);
       }
     }
 
     // scale in f32 (base 2), then mask where the tile crosses an edge
-    const int k0 = t * BK;
+    const int k0 = t * TK;
 #pragma unroll
     for (int j = 0; j < NT_S; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
-    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > p_lo) ||
+    const bool edge = k0 + TK > skv || (causal && k0 + TK - 1 > p_lo) ||
                       (window > 0 && k0 < p_hi - window + 1);
     if (edge) {
 #pragma unroll
@@ -550,7 +609,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // O += P V: S's accumulator repacked as bf16 A fragments, 16 keys each
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < TK / 16; ++kk) {
       const uint32_t a[4] = {
           pack_bf16(s[2 * kk][0], s[2 * kk][1]),
           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
@@ -628,7 +687,13 @@ int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
   if (hd <= 64)
     return launch_bf16<64>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
                            window, q_offset, scale, s);
-  return launch_bf16<128>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
+  if (hd <= 128)
+    return launch_bf16<128>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
+                            window, q_offset, scale, s);
+  if (hd <= 240)
+    return launch_bf16<240>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
+                            window, q_offset, scale, s);
+  return launch_bf16<256>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
                           window, q_offset, scale, s);
 }
 
@@ -639,14 +704,14 @@ extern "C" {
 // q (b, sq, h, hd), k and v (b, skv, hkv, hd), out (b, sq, h, hd): all
 // contiguous, of one type (bf16 != 0: bfloat16, else float32), on the
 // device of `stream`, bfloat16 ones 16-byte aligned. h must be a multiple
-// of hkv, hd at most 128 (for bfloat16 a multiple of 8), window >= 0 (0:
+// of hkv, hd at most 256 (for bfloat16 a multiple of 8), window >= 0 (0:
 // none), q_offset >= 0. Returns the CUDA error code of the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int b, int sq, int skv, int h, int hkv,
                            int hd, int causal, int window, int q_offset,
                            int bf16, float scale, void* stream) {
   if (b <= 0 || sq <= 0 || skv <= 0 || h <= 0 || hkv <= 0 || h % hkv ||
-      hd <= 0 || hd > 128 || window < 0 || q_offset < 0 ||
+      hd <= 0 || hd > 256 || window < 0 || q_offset < 0 ||
       (long long)b * h > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -26,9 +26,17 @@ KERNEL = CudaKernel(
 # the arithmetic's revision, recorded beside every store this kernel
 # writes: 2 is the bf16 kernel on the tensor cores
 REVISION = 2
-MAX_HEAD_DIM = 128          # the widest head the kernel is built for
+# the widest head the kernels are built for (their widest
+# instantiation; gemma3-12b's head is 240, an instantiation of its own)
+MAX_HEAD_DIM = 256
 MAX_GRID_Y = 65535          # blocks along a grid's y
 BLOCK_Q = 64                # query rows of a block, both kernels
+
+
+def bf16_tile_keys(hd: int) -> int:
+    """Keys of the bf16 kernel's K/V tiles at head width ``hd``: 64, or
+    32 past 128 (the tiles its plain version is compared on)."""
+    return 64 if hd <= 128 else 32
 
 
 def _check(q, k, v, window: int, q_offset: int) -> None:

@@ -13,9 +13,13 @@ Caches (decode) mirror the block layout, as in the JAX package:
 ``cache["p<i>"]`` leaves stacked over groups, {k, v} at attention
 positions and {wkv, shift_t, shift_c} at rwkv6 positions, so a JAX cache
 carried by ``models.params_from_jax`` reads as the port's.
-Attention blocks (``attn``, ``local``) with the dense MLP and RWKV6
-blocks are ported; MoE, mamba2 and shared-attention blocks raise
-``NotImplementedError``. ``loss_fn`` waits for the training scaffolding.
+Attention blocks (``attn``, ``local``: global and sliding-window) with
+the dense MLP and RWKV6 blocks are ported, so the model runs llama3-8b,
+smollm-360m, codeqwen1.5-7b, gemma3-12b (five ``local`` layers of window
+1024 a global one, head_dim 240), internvl2-1b (float inputs are the
+stubbed vision frontend's patch embeddings) and rwkv6-7b; MoE, mamba2
+and shared-attention blocks raise ``NotImplementedError``. ``loss_fn``
+waits for the training scaffolding.
 """
 from __future__ import annotations
 

@@ -269,11 +269,27 @@ FLASH_CASES = [
     (1, 200, 200, 4, 1, 128, False, 0, 0),
     (1, 77, 200, 4, 2, 128, True, 24, 123),
 ]
+# the wide kernels (-k hd240): gemma3-12b's head, causal, with a window
+# that masks, GQA 2:1, ragged s = 200, non-causal, q_offset; a head
+# between 128 and 240 (zero columns of the 240 instantiation) and the 256
+# instantiation
+FLASH_HD240_CASES = [pytest.param(case, id=f"hd240-{i}")
+                     for i, case in enumerate([
+    (2, 256, 256, 4, 2, 240, True, 0, 0),
+    (2, 256, 256, 4, 2, 240, True, 64, 0),
+    (1, 200, 200, 4, 2, 240, True, 0, 0),
+    (1, 200, 200, 2, 1, 240, True, 24, 0),
+    (1, 200, 200, 4, 2, 240, False, 0, 0),
+    (1, 77, 200, 4, 2, 240, True, 24, 123),
+    (2, 1, 300, 4, 2, 240, True, 0, 299),
+    (1, 130, 130, 2, 2, 136, True, 0, 0),
+    (1, 130, 130, 4, 2, 256, True, 40, 0),
+])]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_HD240_CASES)
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     b, sq, skv, h, kv, hd, causal, window, q_offset = case
     q, k, v = (_t(x, cuda).to(dtype)
@@ -301,7 +317,7 @@ FLASH_BF16_CASES = FLASH_CASES + [
     (2, 1, 300, 8, 2, 128, True, 0, 299),
     (1, 64, 3 * 64 + 5, 4, 2, 128, False, 0, 0),
     (1, 64, 3 * 64, 4, 4, 64, False, 0, 0),
-]
+] + FLASH_HD240_CASES
 
 
 @pytest.mark.cuda
@@ -321,7 +337,7 @@ def test_flash_bf16_kernel_matches_its_plain_version(cuda, case):
     want = f_ref.attention_blocked(
         q, f_ref.expand_kv(k, g), f_ref.expand_kv(v, g), scale,
         causal=causal, window=window, q_offset=q_offset, q_block=64,
-        kv_block=64, round_p=True)
+        kv_block=f_ops.bf16_tile_keys(hd), round_p=True)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                **FLASH_BF16_PLAIN)
@@ -329,7 +345,7 @@ def test_flash_bf16_kernel_matches_its_plain_version(cuda, case):
 
 @pytest.mark.cuda
 def test_flash_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 16, 2, 256), device=cuda)
+    q = torch.zeros((1, 16, 2, 264), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         f_ops.flash_attention_fwd(q, q, q, scale=1.0)
     q = torch.zeros((1, 16, 2, 64), device=cuda, dtype=torch.float16)
@@ -346,6 +362,23 @@ def test_flash_refuses_what_it_does_not_take(cuda):
     q = q[1:].view(1, 16, 2, 64)
     with pytest.raises(ValueError, match="aligned"):
         f_ops.flash_attention_fwd(q, q, q, scale=1.0)
+
+
+@pytest.mark.cuda
+def test_flash_hd240_repeats_bitwise_and_refuses_wider_heads(cuda):
+    """The wide kernel gives the same bits twice; heads past 256 and a
+    bf16 head that is not whole 16-byte rows are refused."""
+    q, k, v = (_t(x, cuda).to(torch.bfloat16)
+               for x in _attention_inputs(1, 128, 128, 4, 2, 240))
+    first = f_ops.flash_attention_fwd(q, k, v, scale=240 ** -0.5, window=32)
+    second = f_ops.flash_attention_fwd(q, k, v, scale=240 ** -0.5, window=32)
+    assert torch.equal(first, second)
+    for dtype, hd, match in ((torch.float32, 264, "head_dim"),
+                             (torch.bfloat16, 264, "head_dim"),
+                             (torch.bfloat16, 244, "multiple of 8")):
+        q = torch.zeros((1, 16, 2, hd), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match=match):
+            f_ops.flash_attention_fwd(q, q, q, scale=1.0)
 
 
 @pytest.mark.cuda
@@ -625,27 +658,38 @@ def test_live_pumps_on_card_equal_standing_filter(cuda, tmp_path):
 DECODE_REL = 5e-4
 
 
-def _two_layers(arch, dev):
-    """The full-width config at 2 layers in f32, drawn on ``dev``."""
+def _full_width(arch, dev):
+    """The full-width config in f32, drawn on ``dev``: at 2 layers, or
+    for a model with sliding-window layers at one pattern period with the
+    window cut to 16, so that a short context crosses it."""
     import dataclasses
     from repro_torch.config import get_arch
     from repro_torch.device import resolve_device
     from repro_torch.models import build_model
     resolve_device(dev)                      # TF32 off
-    cfg = dataclasses.replace(get_arch(arch), num_layers=2, dtype="float32")
+    cfg = get_arch(arch)
+    cut = (dict(num_layers=len(cfg.block_pattern), sliding_window=16)
+           if cfg.sliding_window else dict(num_layers=2))
+    cfg = dataclasses.replace(cfg, dtype="float32", **cut)
     model = build_model(cfg)
     return cfg, model, model.init(torch.Generator(dev).manual_seed(0))
 
 
+# the configs added with gemma3-12b (-k configs)
+CONFIGS = [pytest.param(a, id=f"configs-{a}")
+           for a in ("gemma3-12b", "codeqwen1.5-7b", "internvl2-1b")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b"] + CONFIGS)
 def test_decode_matches_forward_on_card(cuda, arch):
-    """Full width, 2 layers, f32: 4 decode steps after a 12-token prefill
-    through the kernels, each step's logits against the kernel path's
-    teacher-forced forward."""
-    cfg, model, params = _two_layers(arch, cuda)
-    kernel = f_ops.KERNEL if arch == "llama3-8b" else w_ops.KERNEL
-    pre, total = 12, 16
+    """Full width in f32 (``_full_width``): 4 decode steps after a
+    12-token prefill through the kernels (6 after 18 tokens, past the
+    window of 16, with sliding-window layers), each step's logits against
+    the kernel path's teacher-forced forward."""
+    cfg, model, params = _full_width(arch, cuda)
+    kernel = w_ops.KERNEL if arch == "rwkv6-7b" else f_ops.KERNEL
+    pre, total = (18, 24) if cfg.sliding_window else (12, 16)
     toks = torch.tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(2, total)), device=cuda)
     full, _ = model.forward(params, toks)
@@ -662,7 +706,7 @@ def test_decode_matches_forward_on_card(cuda, arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b"] + CONFIGS)
 def test_decode_generate_on_card_equals_the_hand_rolled_loop(cuda, arch):
     from repro_torch.config import get_smoke_arch
     from repro_torch.models import build_model
@@ -687,7 +731,7 @@ def test_decode_generate_on_card_equals_the_hand_rolled_loop(cuda, arch):
 def _judges(cuda, n_docs=128):
     from repro_torch.core import LMOracle
     from repro_torch.models import build_model
-    cfg, model, params = _two_layers("llama3-8b", cuda)
+    cfg, model, params = _full_width("llama3-8b", cuda)
     rng = np.random.default_rng(3)
     docs = rng.integers(3, cfg.vocab_size, size=(n_docs, 80))
     query = rng.integers(3, cfg.vocab_size, size=16)

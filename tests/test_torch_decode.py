@@ -268,12 +268,15 @@ RING = dict(block_pattern=("local",) * 5 + ("attn",), num_layers=6,
             sliding_window=16)
 
 
-def test_sliding_window_ring_cache():
+@pytest.mark.parametrize("arch,overrides", [("llama3-8b", RING),
+                                            ("gemma3-12b", {})],
+                         ids=["llama3-8b-local", "gemma3-12b"])
+def test_sliding_window_ring_cache(arch, overrides):
     """Local layers' ring caches equal windowed full attention once the
-    context exceeds the window, in both packages (llama3-8b's SMOKE with
-    five local layers a global one: the port has no gemma3 yet), and the
-    port's steps equal the JAX package's."""
-    jcfg, jm, jp, tcfg, tm, tp = _pair("llama3-8b", **RING)
+    context exceeds the window, in both packages, and the port's steps
+    equal the JAX package's: on gemma3-12b's SMOKE (its own 5:1 pattern,
+    window 16) and on llama3-8b's SMOKE given that pattern."""
+    jcfg, jm, jp, tcfg, tm, tp = _pair(arch, **overrides)
     b, pre, total = 1, 24, 28                  # pre > window
     toks = _tokens(jcfg, b, total)
     j_full, _ = jm.forward(jp, jnp.asarray(toks))
