@@ -26,7 +26,8 @@ Phases, each of which exits non-zero when it fails:
                autograd.Function's gradient against plain autograd;
                flash attention against the masked-einsum oracle at the
                offline path's shape (b=8, s=512, 32 heads over 8 KV heads,
-               head_dim 128, causal) and at small window / q_offset /
+               head_dim 128, causal), at qwen3-moe-30b-a3b's (32 heads
+               over 4) and at small window / q_offset /
                ragged / non-causal shapes, in f32 (the FP32 kernel) and
                bf16 (the tensor-core kernel, also against its plain
                version, which rounds where it rounds, and, logged but not
@@ -235,7 +236,28 @@ Phases, each of which exits non-zero when it fails:
                blocked path (per-row cosine >= COS_MIN, flash once a
                layer), internvl2-1b's hidden over (8, 256, 896) patch
                embeddings, generate() of 8 tokens bitwise a hand-rolled
-               loop, ms a batch and peak memory.
+               loop, ms a batch and peak memory;
+ 20. moe     — every earlier model's weights freed (the memory still
+               held logged), the offline path over qwen3-moe-30b-a3b at
+               full width (48 layers, 128 experts top 8, d_ff 768, 61.06
+               GB of bf16 weights drawn on the card, the router in f32)
+               into a store of 256 documents of 512 tokens, batch 8: 4,096
+               tokens a batch in four dispatch chunks of 1,024 with 80
+               slots an expert, so pairs are dropped (gate: > 0 in batch
+               0); 256 finite rows of width 2048, flash 48 times a batch,
+               the per-row cosine against attn_impl="blocked" (>= COS_MIN;
+               the (token, layer, k) pairs routed to another expert than
+               on the blocked path logged first), the kill/resume drill,
+               one query() over the store (the fused kernel at D=2048);
+               [decode] as above (the f32 check at capacity factor E / K,
+               its forward dropping nothing); then layer
+               1's real MoE input on batch 0 through moe_apply with the
+               onehot and the sort dispatch (the same drop sets, read off
+               each one's own tables; max abs difference);
+ 21. flash   — the bf16 flash kernel at qwen3-moe-30b-a3b's shape (b=8,
+               s=512, 32 heads over 4 KV heads, hd 128), as in 14; the
+               fused scoring kernel on the [moe] query's tile (256 x 2048)
+               against its plain version, with its bound.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -351,6 +373,24 @@ GEMMA_FLASH_SHAPE = (4, 2048, 16, 8, 240)   # b, s, heads, KV heads, hd
 # CONFIGS_STEPS tokens
 CONFIGS_ARCHS = ("codeqwen1.5-7b", "internvl2-1b")
 CONFIGS_BATCH, CONFIGS_PATCHES, CONFIGS_STEPS = 8, 256, 8
+# [moe]: qwen3-moe-30b-a3b FULL (48 layers, d 2048, 32 heads over 4, 128
+# experts top 8 of d_ff 768; 61.06 GB bf16) over MOE_DOCS documents of
+# OFF_DOC_LEN tokens, batch 8: 4,096 tokens a batch, four dispatch chunks
+# of 1,024 with 80 slots an expert each, so capacity drops happen. The
+# kill/resume drill is llama3-8b's (128 documents, killed after 64, one
+# commit group of 8 batches). Decode against forward needs a forward
+# that drops nothing (a forward chunk and a decode chunk drop
+# differently): the JAX test sets capacity factor 8.0 for that, which at
+# full width left the random router's crowded experts dropping pairs, so
+# the check runs at capacity factor E / K, where an expert's capacity is
+# the chunk's token count and no pair can be dropped; the gate that the
+# forward dropped nothing stays
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_DOCS, MOE_BATCH = 256, 8
+MOE_FLASH_SHAPE = (8, 512, 32, 4, 128)   # b, s, heads, KV heads, hd
+# onehot against sort on one layer's input in bf16: the same drops, sums
+# rounded at other places (of max |y|; flash's bf16 bar)
+MOE_DISPATCH_REL = 3e-2
 # the compound phase's cross-session CSE arms run on this many of the
 # main path's documents, to bound the phase's time
 CSE_DOCS = 32_768
@@ -397,8 +437,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 _b, _s, _h, _kv, _hd = FLASH_SHAPE
 _gb, _gs, _gh, _gkv, _ghd = GEMMA_FLASH_SHAPE
 # name, (b, sq, skv, h, kv, hd), causal, window, q_offset
+_mb, _ms, _mh, _mkv, _mhd = MOE_FLASH_SHAPE
 FLASH_CASES = [
     ("path shape causal", (_b, _s, _s, _h, _kv, _hd), True, 0, 0),
+    ("qwen3 path shape causal GQA 8:1", (_mb, _ms, _ms, _mh, _mkv, _mhd),
+     True, 0, 0),
     ("window=24", (2, 128, 128, 4, 4, 32), True, 24, 0),
     ("q_offset=skv-sq", (1, 32, 96, 2, 2, 16), True, 0, 64),
     ("ragged s=200 GQA 4:1", (2, 200, 200, 8, 2, 128), True, 0, 0),
@@ -806,11 +849,32 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
 
         # -- the kernel path against the plain path, one batch -----------
         batch = np.stack(docs[:batch_size]).astype(np.int32)
-        got = service.embed_batch(batch)
+        with MoERoutes() as got_routes:
+            got = service.embed_batch(batch)
         plain = EmbeddingService(cfg, params, batch_size=batch_size,
                                  device=dev, **plain_opts)
-        want = plain.embed_batch(batch)
+        with MoERoutes() as want_routes:
+            want = plain.embed_batch(batch)
         cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+        routing = {}
+        if cfg.moe.enabled:
+            # logged before the cosine's gate: a routing flip is the
+            # likeliest reason for a miss
+            dropped, routed = got_routes.dropped()
+            flips = got_routes.flips(want_routes, cfg.moe.num_experts)
+            routing = {"dropped_pairs": dropped, "routed_pairs": routed,
+                       "dropped_share": dropped / routed,
+                       "plain_dropped_pairs": want_routes.dropped()[0],
+                       "flips_vs_plain": flips}
+            log(f"[{tag}] batch 0 routing: {dropped} of {routed} (token, "
+                f"layer, k) pairs dropped by capacity "
+                f"({100 * dropped / routed:.4f}%; the plain path "
+                f"{routing['plain_dropped_pairs']}); {flips} (token, layer, "
+                f"k) pairs routed to an expert the plain path did not pick")
+            if not dropped > 0:
+                fail(f"[{tag}] no capacity drop in a batch of "
+                     f"{batch.size} tokens")
+        del got_routes, want_routes
         p_err = (got - want).abs().max().item()
         same_as_store = bool(np.array_equal(got.cpu().numpy(),
                                             emb[:batch_size]))
@@ -880,7 +944,7 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
             "launches": launches, "launch_counts": counts,
             "attention_calls_by_window": calls.by_window,
             "ingest_stats": split,
-            "pooled_min_cosine": cos.min().item(),
+            "pooled_min_cosine": cos.min().item(), "routing": routing,
             "pooled_max_abs_err": p_err, "resume_bit_identical": a == b,
             "query": {"f1": qs.cascade.achieved_f1,
                       "oracle_calls": qs.oracle_calls_total,
@@ -908,6 +972,47 @@ class AttentionCalls:
     def __exit__(self, *exc):
         self._ops.attention = self._inner
         return False
+
+
+class MoERoutes:
+    """Within the block, every MoE chunk's routing
+    (``models.moe._route``), in call order (layer by layer, chunk by
+    chunk): its experts (T, K) and which pairs fit the capacity."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.experts, self.keep = [], []
+        self._mod, self._inner = moe, moe._route
+
+        def recorded(*args, **kw):
+            out = self._inner(*args, **kw)
+            self.experts.append(out[1])
+            self.keep.append(out[3])
+            return out
+        moe._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._route = self._inner
+        return False
+
+    def dropped(self) -> tuple:
+        """(pairs dropped by capacity, pairs routed)."""
+        import torch
+        if not self.keep:
+            return 0, 0
+        keep = torch.cat(self.keep)
+        return int((~keep).sum().item()), keep.numel()
+
+    def flips(self, other, n_experts: int) -> int:
+        """(token, layer, k) pairs routed to an expert that ``other``'s
+        same token in the same call did not pick."""
+        import torch.nn.functional as F
+        n = 0
+        for mine, theirs in zip(self.experts, other.experts):
+            picked = F.one_hot(theirs, n_experts).sum(1) > 0   # (T, E)
+            n += int((~picked.gather(1, mine)).sum().item())
+        return n
 
 
 def zero_counts() -> dict:
@@ -1086,7 +1191,9 @@ def decode(dev, service, engine, docs) -> dict:
     GEMMA_PERIOD_PRE tokens (past the window). The prefill's kernel:
     flash for attention, WKV6 for rwkv6 blocks. A model with
     sliding-window layers must keep ring caches of its window and full
-    caches of the prompt plus the new tokens."""
+    caches of the prompt plus the new tokens. An MoE model's f32 check
+    runs at capacity factor E / K, and its forward must drop no (token,
+    k) pair."""
     import dataclasses
 
     import numpy as np
@@ -1171,25 +1278,41 @@ def decode(dev, service, engine, docs) -> dict:
     pre, total = ((GEMMA_PERIOD_PRE, GEMMA_PERIOD_TOTAL) if windowed
                   else (DECODE_PRE, DECODE_TOTAL))
     small = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    if cfg.moe.enabled:
+        small = dataclasses.replace(small, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     m2 = build_model(small)
     p2 = m2.init(torch.Generator(dev).manual_seed(0))
     toks = torch.as_tensor(np.stack(docs[batch:batch + 2])
                            [:, :total].astype(np.int32), device=dev)
     kernels = zero_counts()
-    full, _ = m2.forward(p2, toks)
+    with MoERoutes() as routes:
+        full, _ = m2.forward(p2, toks)
+    f32_dropped = routes.dropped()
+    del routes
+    if f32_dropped[0]:
+        fail(f"[{tag}] the f32 forward dropped {f32_dropped[0]} of "
+             f"{f32_dropped[1]} (token, k) pairs at capacity factor "
+             f"{small.moe.capacity_factor}")
     _, cache = m2.prefill(p2, toks[:, :pre], cache_len=total)
     errs = []
+    # over the real vocabulary: padded ids hold -1e30 in both, which
+    # would make max |logit| 1e30 and any error vanish beside it
+    v = cfg.vocab_size
     for t in range(pre, total):
         step, cache = m2.decode_step(p2, toks[:, t:t + 1], t, cache)
-        errs.append(((step[:, 0] - full[:, t]).abs().max()
-                     / full[:, t].abs().max()).item())
+        errs.append(((step[:, 0, :v] - full[:, t, :v]).abs().max()
+                     / full[:, t, :v].abs().max()).item())
     f32_counts = read_counts(kernels)
     del m2, p2, full, cache, step
     log(f"[{tag}] {cfg.name} decode vs forward at {layers} layers "
         f"({'/'.join(cfg.block_pattern)}) in f32 (full width, the kernel "
         f"path), steps {pre}..{total - 1}: max error of max |logit| "
         f"{', '.join(f'{e:.3e}' for e in errs)} (<= {DECODE_REL:g}); "
-        f"launches {json.dumps(f32_counts)}")
+        f"launches {json.dumps(f32_counts)}"
+        + (f"; MoE at capacity factor {small.moe.capacity_factor}: the "
+           f"forward dropped {f32_dropped[0]} of {f32_dropped[1]} (token, "
+           f"k) pairs" if cfg.moe.enabled else ""))
     if not max(errs) <= DECODE_REL:
         fail(f"[{tag}] decode disagrees with forward: {max(errs):.3e}")
     if f32_counts[kernel] != 2 * layers:
@@ -1206,7 +1329,95 @@ def decode(dev, service, engine, docs) -> dict:
             "launches": counts, "generate_equals_loop": same,
             "cache_lengths": cache_lens, "f32_layers": layers,
             "f32_context": [pre, total], "f32_launches": f32_counts,
+            "f32_forward_dropped_pairs": f32_dropped[0],
             "decode_vs_forward_rel_err": errs}
+
+
+def moe_layer(dev, service, engine, docs) -> dict:
+    """[moe] one MoE layer on its real input: layer 1's MoE input on the
+    first batch of the corpus (the hidden state after layer 0 through
+    layer 1's attention and norm), captured from the embedding path,
+    through moe_apply with each dispatch: the max abs difference of the
+    two (<= MOE_DISPATCH_REL of max |y|), the (token, k) pairs each kept,
+    read off its own tables (dropped ones > 0, the two sets equal)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import group_params
+
+    cfg, params = service.cfg, service.params
+    batch = torch.as_tensor(np.stack(docs[:service.batch_size])
+                            .astype(np.int32), device=dev)
+    inputs = []
+    inner = moe_mod.moe_apply
+
+    def recorded(p, x, *args, **kw):
+        inputs.append(x)
+        return inner(p, x, *args, **kw)
+    moe_mod.moe_apply = recorded
+    try:
+        service.embed_batch(batch)
+    finally:
+        moe_mod.moe_apply = inner
+    x = inputs[1]
+    del inputs
+    p = group_params(params, 1)["p0"]["moe"]
+    with torch.inference_mode():
+        y = {d: moe_mod.moe_apply(p, x, cfg, d) for d in ("onehot", "sort")}
+    kept = {d: moe_mod.kept_pairs(p, x, cfg, d) for d in ("onehot", "sort")}
+    torch.cuda.synchronize()
+    err = (y["onehot"][0].float() - y["sort"][0].float()).abs().max().item()
+    scale = y["onehot"][0].float().abs().max().item()
+    same = bool(torch.equal(kept["onehot"], kept["sort"]))
+    dropped = int((~kept["onehot"]).sum().item())
+    pairs = kept["onehot"].numel()
+    aux = {d: y[d][1].item() for d in y}
+    finite = all(bool(torch.isfinite(y[d][0]).all()) for d in y)
+    log(f"[moe] layer 1's MoE input on batch 0 ({tuple(x.shape)}, "
+        f"{x.dtype}; {len(moe_mod._chunks(x.shape[0] * x.shape[1]))} "
+        f"dispatch chunks of capacity "
+        f"{moe_mod._capacity(moe_mod.DISPATCH_CHUNK, cfg)}): onehot vs "
+        f"sort max abs err {err:.3e} of max |y| {scale:.3e} (<= "
+        f"{MOE_DISPATCH_REL:g} of it); (token, k) pairs dropped {dropped} "
+        f"of {pairs} ({100 * dropped / pairs:.4f}%), drop sets equal: "
+        f"{same}; aux {aux['onehot']:.6f} / {aux['sort']:.6f}")
+    if not (finite and same and dropped > 0
+            and err <= MOE_DISPATCH_REL * scale):
+        fail("[moe] the onehot and sort dispatches disagree on one layer")
+    return {"input_shape": list(x.shape), "max_abs_err": err,
+            "max_abs_y": scale, "dropped_pairs": dropped, "pairs": pairs,
+            "drop_sets_equal": same, "aux": aux}
+
+
+def fused_times(dev, n: int, d: int) -> dict:
+    """The fused scoring kernel against its plain version on one tile of
+    ``n`` documents of width ``d`` (``ProxyConfig()``'s hidden 512 and
+    latent 128, Q = 1): max abs difference, CUDA-event times and the
+    bound (FP32 operations or bytes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.config import ProxyConfig
+    from repro_torch.core.encoder import encoder_init, tree_map
+    from repro_torch.kernels.fused_scoring import ops as s_ops
+    from repro_torch.kernels.fused_scoring import ref as s_ref
+    params = tree_map(lambda p: p.to(dev), encoder_init(
+        torch.Generator().manual_seed(0), ProxyConfig(embed_dim=d)))
+    w = s_ops._unpack(params)
+    gen = torch.Generator(dev).manual_seed(3)
+    docs = torch.randn((n, d), generator=gen, device=dev) / d ** 0.5
+    zq = F.normalize(torch.randn((1, 128), generator=gen, device=dev), dim=1)
+    err = (s_ops.fused_scores_multi(docs, *w, zq)
+           - s_ref.ref_scores_multi(docs, *w, zq)).abs().max().item()
+    ms = cuda_ms(lambda: s_ops.fused_scores_multi(docs, *w, zq), 20)
+    plain_ms = cuda_ms(lambda: s_ref.ref_scores_multi(docs, *w, zq), 20)
+    h, lat = 512, 128
+    flops = 2 * n * (d * h + h * h + h * lat + lat)
+    nbytes = 4 * (n * d + d * h + h * h + h * lat + 2 * h + lat + lat + n)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return {"n": n, "d": d, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
 
 
 def attention_pairs(s: int, window: int) -> int:
@@ -3421,6 +3632,86 @@ def main() -> None:
 
     # -- 19. codeqwen1.5-7b and internvl2-1b at full width ----------------
     report["configs"] = configs_phase(dev)
+
+    # -- 20. qwen3-moe-30b-a3b: the MoE family at full width ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"[moe] after freeing the earlier models' weights: {held:.3f} GB "
+        f"allocated")
+    if held > 1.0:
+        fail(f"{held:.2f} GB still allocated before the MoE phase")
+    moe, service, _ = offline_phase(
+        dev, MOE_ARCH, "flash_attention", dict(attn_impl="blocked"), "moe",
+        COS_MIN, after=(decode, moe_layer), n_docs=MOE_DOCS,
+        batch_size=MOE_BATCH)
+    moe_cfg = service.cfg
+    del service
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["moe"] = moe
+    routing = moe["routing"]
+    log(f"[moe] {moe_cfg.name}: {moe['params'] / 1e9:.3f} B params "
+        f"(param_count {moe_cfg.param_count()}, active "
+        f"{moe_cfg.active_param_count()}); from_corpus "
+        f"{moe['wall_seconds']:.2f} s, {moe['tokens_per_second']:.0f} "
+        f"tokens/s, a batch {moe['embed_batch_ms']:.2f} ms, digest "
+        f"{moe['digest_seconds']:.1f} s, peak "
+        f"{moe['ingest_stats']['peak_memory_gb']:.2f} GB; cosine against "
+        f"the blocked path {moe['pooled_min_cosine']:.6f} with "
+        f"{routing['flips_vs_plain']} routing flips; decode "
+        f"{moe['decode']['decode_ms_per_step']:.2f} ms a step; dropped "
+        f"share of (token, k) pairs in batch 0 "
+        f"{routing['dropped_share']:.6f} (all layers), "
+        f"{moe['moe_layer']['dropped_pairs'] / moe['moe_layer']['pairs']:.6f}"
+        f" (layer 1); phase {moe['phase_seconds']:.1f} s")
+
+    # -- 21. flash at qwen3's shape (GQA 8:1), fused scoring at D = 2048 ---
+    ft = flash_times(dev, MOE_FLASH_SHAPE)
+    gqa8 = [e for k, e in f_errs.items() if "GQA 8:1" in k]
+    kernels.append(
+        {"name": "flash_attention_gqa8", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+         "launches": moe["launches"], "max_abs_err": max(gqa8),
+         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+         "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+         "library_ms": ft["library_ms"]})
+    sdpa = ", ".join(f"{n} {t:.4f} ms" if isinstance(t, float) else
+                     f"{n} {t}" for n, t in ft["sdpa"].items())
+    share = moe["launches"] / moe["batches"] * ft["ms"] \
+        / moe["embed_batch_ms"]
+    log(f"[times] flash_attention_gqa8 at {tuple(MOE_FLASH_SHAPE)}: bf16 "
+        f"tensor-core kernel {ft['ms']:.4f} ms ({ft['ms'] / ft['bound_ms']:.2f}"
+        f"x its bound; {ft['flops'] / ft['ms'] / 1e9:.1f} TFLOP/s), "
+        f"non-causal {ft['noncausal_ms']:.4f} ms, FP32 kernel on the same "
+        f"inputs in f32 {ft['fp32_kernel_ms']:.4f} ms, plain "
+        f"{ft['plain_ms']:.4f} ms, bound {ft['bound_ms']:.5f} ms "
+        f"({ft['bound_by']}), {moe['launches']} launches per from_corpus; "
+        f"SDPA: {sdpa}; one qwen3-moe-30b-a3b batch "
+        f"{moe['embed_batch_ms']:.2f} ms, of which flash "
+        f"{100 * share:.1f}%")
+    ft["share_of_embed_batch"] = share
+    report["times"]["flash_gqa8"] = ft
+    fs = fused_times(dev, MOE_DOCS, moe_cfg.d_model)
+    if not fs["max_abs_err"] <= F32_TOL:
+        fail(f"fused_scoring at D={moe_cfg.d_model} disagrees with its "
+             f"plain version: {fs['max_abs_err']}")
+    kernels.append(
+        {"name": "fused_scoring_d2048", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_scoring.cu",
+         "replaces": "src/repro/kernels/fused_scoring/scoring.py:138",
+         "launches": moe["query"]["launches"]["fused_scoring"],
+         "max_abs_err": fs["max_abs_err"], "ms": fs["ms"],
+         "plain_ms": fs["plain_ms"], "bound_ms": fs["bound_ms"],
+         "bound_by": fs["bound_by"], "library_ms": None})
+    log(f"[times] fused_scoring_d2048 at (n={fs['n']}, D={fs['d']}, H=512, "
+        f"L=128, Q=1), the [moe] query's tile: {fs['ms']:.4f} ms, plain "
+        f"{fs['plain_ms']:.4f} ms, bound {fs['bound_ms']:.5f} ms "
+        f"({fs['bound_by']}), max abs err {fs['max_abs_err']:.3e}; "
+        f"{moe['query']['launches']['fused_scoring']} launches in the "
+        f"query")
+    report["times"]["fused_d2048"] = fs
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,20 +1,30 @@
-"""Configuration dataclasses and the architecture registry.
+"""Configuration dataclasses (``repro.config.base``).
 
 Copies of ``repro.config.base``'s ``ModelConfig`` (with ``MoEConfig``,
-``SSMConfig``, ``RWKVConfig`` and the block-kind constants),
-``ProxyConfig``, ``CascadeConfig`` and ``OptimizerConfig`` (and its
-``replace``), and of ``repro.config.registry``, kept here so the port
-imports nothing of the JAX package. Field names and defaults are the
-same, so a config of one package reads as a config of the other; the
-offline store's ``config_digest`` hashes ``dataclasses.asdict`` of a
-``ModelConfig`` and so depends on every field.
+``SSMConfig``, ``RWKVConfig``, the block-kind constants and the analytic
+``param_count``/``active_param_count``), ``ProxyConfig``,
+``CascadeConfig``, ``OptimizerConfig`` and ``replace``, kept here so the
+port imports nothing of the JAX package. Field names and defaults are
+the same, so ``dataclasses.asdict`` of a config of one package equals
+that of the other; the offline store's ``config_digest`` hashes it and
+so depends on every field.
+
+Not ported yet: ``TrainConfig``, ``ServeConfig``, ``MeshConfig``,
+``RunConfig``, ``InputShape`` and the shape constants wait for the LM
+training and launch scaffolding, and ``OptimizerConfig.compress_grads``
+is a field only until the gradient compression it switches on is
+ported. ``ProxyConfig.contrastive_impl`` takes ``"auto"``, ``"kernel"``
+and ``"ref"``: the port's kernel wrappers pick the CUDA kernel or the
+plain version by the device the tensors lie on, so all three run the
+same arithmetic there; ``"interpret"`` (Pallas interpret mode) has no
+torch meaning and is refused.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # model configuration
@@ -102,41 +112,79 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def attention_free(self) -> bool:
+        return all(b in (BLOCK_MAMBA2, BLOCK_RWKV6)
+                   for b in self.layer_kinds())
 
-_REGISTRY: Dict[str, ModelConfig] = {}
-_SMOKE: Dict[str, ModelConfig] = {}
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """``block_pattern`` tiled to ``num_layers`` entries."""
+        pat = self.block_pattern
+        reps = (self.num_layers + len(pat) - 1) // len(pat)
+        return tuple((pat * reps)[: self.num_layers])
 
+    def param_count(self) -> int:
+        """Analytic parameter count, the JAX package's formula (it counts
+        ``vocab_size``, not the padded vocabulary the params hold)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        nq, nkv = self.num_heads, self.num_kv_heads
+        total = v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d
 
-def register(full: ModelConfig, smoke: ModelConfig) -> ModelConfig:
-    if full.name in _REGISTRY:
-        raise ValueError(f"duplicate arch {full.name!r}")
-    _REGISTRY[full.name] = full
-    _SMOKE[full.name] = smoke
-    return full
+        def attn_params() -> int:
+            return d * nq * hd + 2 * d * nkv * hd + nq * hd * d
 
+        def mlp_params(ff: int) -> int:
+            return 3 * d * ff  # gated: up, gate, down
 
-def _ensure_loaded() -> None:
-    import repro_torch.configs  # noqa: F401  (registers every config)
+        def moe_params() -> int:
+            e = self.moe.num_experts
+            return e * mlp_params(f) + d * e  # experts + router
 
+        def mamba_params() -> int:
+            di = self.ssm.expand * d
+            nh = di // self.ssm.head_dim
+            # in_proj (z, x, B, C, dt) + out_proj + conv + A, D
+            return (d * (2 * di + 2 * self.ssm.state_dim * nh + nh)
+                    + di * d + self.ssm.conv_width * di + 2 * nh)
 
-def get_arch(name: str) -> ModelConfig:
-    """The full-size config of a registered architecture."""
-    _ensure_loaded()
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
-    return _REGISTRY[name]
+        def rwkv_params() -> int:
+            # r, k, v, g, o projections + decay/lora + channel-mix (k, r, v)
+            return 5 * d * d + 2 * d * 64 + (d * int(3.5 * d) * 2 + d * d)
 
+        shared_counted = False
+        for k in self.layer_kinds():
+            total += 2 * d  # norms
+            if k in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
+                total += attn_params()
+                total += moe_params() if self.moe.enabled else mlp_params(f)
+            elif k == BLOCK_SHARED_ATTN:
+                if not shared_counted:
+                    total += attn_params() + mlp_params(f)
+                    shared_counted = True
+            elif k == BLOCK_MAMBA2:
+                total += mamba_params()
+            elif k == BLOCK_RWKV6:
+                total += rwkv_params()
+        if self.is_encdec:
+            ef = self.encoder_d_ff or f
+            per_enc = attn_params() + mlp_params(ef) + 2 * d
+            total += self.encoder_layers * per_enc
+            total += self.num_layers * attn_params()  # cross-attention
+        return total
 
-def get_smoke_arch(name: str) -> ModelConfig:
-    """The reduced same-family config the CPU tests use."""
-    _ensure_loaded()
-    return _SMOKE[name]
-
-
-def list_archs() -> List[str]:
-    """The names of the registered architectures, sorted."""
-    _ensure_loaded()
-    return sorted(_REGISTRY)
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: its top_k experts)."""
+        if not self.moe.enabled:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        e, k = self.moe.num_experts, self.moe.top_k
+        inactive = (e - k) * 3 * d * f * len(
+            [b for b in self.layer_kinds()
+             if b in (BLOCK_ATTN, BLOCK_LOCAL_ATTN)])
+        return self.param_count() - inactive
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +204,12 @@ class OptimizerConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    # int8 gradient compression (error feedback) for the DP all-reduce;
+    # a field only until the training scaffolding is ported
+    compress_grads: bool = False
+
+
+CONTRASTIVE_IMPLS = ("auto", "kernel", "ref")
 
 
 @dataclass(frozen=True)
@@ -179,7 +233,22 @@ class ProxyConfig:
     aug_noise: float = 0.05        # Gaussian embedding augmentation per batch
     weight_decay: float = 0.01
     qsim_variant: str = "perpos"   # "perpos" (DPR form) | "sum" (literal eq.1)
+    # phase-2 loss forward: "auto" | "kernel" | "ref", all the device's
+    # choice in the port (the module docstring); "interpret" is refused
+    contrastive_impl: str = "auto"
     seed: int = 0
+
+    def __post_init__(self):
+        if self.contrastive_impl == "interpret":
+            raise ValueError(
+                "ProxyConfig.contrastive_impl='interpret' is Pallas "
+                "interpret mode, which the port has no counterpart of; "
+                f"use one of {CONTRASTIVE_IMPLS} (the tensors' device "
+                "picks the CUDA kernel or the plain version)")
+        if self.contrastive_impl not in CONTRASTIVE_IMPLS:
+            raise ValueError(f"unknown contrastive_impl "
+                             f"{self.contrastive_impl!r}; one of "
+                             f"{CONTRASTIVE_IMPLS}")
 
 
 @dataclass(frozen=True)

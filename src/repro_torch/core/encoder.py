@@ -13,6 +13,9 @@ input.
 
 The hidden activation is GELU in its tanh form, ``jax.nn.gelu``'s
 default; ``F.gelu`` defaults to the erf form, which differs by ~4e-4.
+``encoder_init`` draws on a ``torch.Generator`` where the JAX package
+takes a PRNG key, in float32 only (its ``dtype`` argument has no use
+here); ``encoder_axes`` waits for the sharding rules.
 """
 from __future__ import annotations
 
@@ -73,6 +76,11 @@ def projector_apply(params: Params, z: torch.Tensor) -> torch.Tensor:
 def l2_normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
                            min=eps)
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity over the last axis (broadcasting)."""
+    return torch.sum(l2_normalize(a) * l2_normalize(b), dim=-1)
 
 
 def decision_scores(params: Params, e_q: torch.Tensor,

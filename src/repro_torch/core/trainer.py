@@ -28,6 +28,12 @@ The paper's ablation variants (``train_proxy_variant``: phase 1 only,
 either phase-2 objective alone, the full objective, or a plain MLP
 binary classifier) are config rewrites of the same step loop, or its
 BCE kind.
+
+The JAX package's compiled programs (``_compiled_trainer``,
+``_compiled_multi_init``, ``_donate``) and ``train_proxy``'s ``method``
+("scan" or "steps", one compiled program or one per step) have no torch
+meaning: the port runs the step loop eagerly, and takes seeds or a
+``DrawPlan`` where the JAX package takes PRNG keys.
 """
 from __future__ import annotations
 

@@ -24,7 +24,10 @@ Proxy groups always go through the fused multi-query kernel
 of a proxy's pending query latents; raw-cosine jobs (``params=None``)
 are one plain matmul, as in the JAX package. On a CPU device the same
 pipeline runs without streams and the kernel wrapper computes its plain
-version. One device only: the ``shard_map`` mesh path is not ported.
+version. One device only: the ``shard_map`` mesh path (``mesh``,
+``_sharded_fn``) waits for the multi-card slice. ``use_kernel`` and
+``interpret`` have no torch meaning: proxy groups always take the
+kernel wrapper, which computes its plain version on the CPU.
 
 Every pass returns a ``ScoringStats`` record with the JAX package's
 fields (bytes streamed, tiles scored, per-stage wall clock).
@@ -45,7 +48,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_scoring.ops import score_tile_multi
 from repro_torch.runtime import trace as trace_mod
 
-PREFETCH_DEPTH = 2      # chunks the prefetch thread may run ahead
+DEFAULT_PREFETCH_DEPTH = 2   # chunks the prefetch thread may run ahead
 STAGING_SLOTS = 2
 
 
@@ -158,8 +161,8 @@ class PrefetchThread:
 class _Prefetcher(PrefetchThread):
     """Pages store chunks host -> device ahead of the scoring compute."""
 
-    def __init__(self, store, chunk: int, put_fn):
-        super().__init__(PREFETCH_DEPTH, store, chunk, put_fn)
+    def __init__(self, store, chunk: int, depth: int, put_fn):
+        super().__init__(depth, store, chunk, put_fn)
 
     def _produce(self, store, chunk, put_fn):
         for start, block in _iter_chunks(store, chunk):
@@ -237,14 +240,19 @@ class HostStager:
 class ScoringExecutor:
     """Streams a document collection through proxy scoring.
 
-    chunk:  documents per streamed tile.
-    device: where scoring runs; ``"cuda"`` by default, and it raises
-            when no card is present.
+    chunk:          documents per streamed tile.
+    device:         where scoring runs; ``"cuda"`` by default, and it
+                    raises when no card is present.
+    prefetch_depth: chunks the background thread may run ahead
+                    (2 = double buffering; 0/1 = no lookahead). It
+                    changes when tiles are read, never their values.
     """
 
-    def __init__(self, *, chunk: int = 8192, device="cuda"):
+    def __init__(self, *, chunk: int = 8192, device="cuda",
+                 prefetch_depth: int = DEFAULT_PREFETCH_DEPTH):
         self.device = resolve_device(device)
         self.chunk = chunk
+        self.prefetch_depth = prefetch_depth
         # idle stagers; a pass owns the one it checked out
         self._stagers: List[HostStager] = []
         self._stager_lock = threading.Lock()
@@ -277,7 +285,7 @@ class ScoringExecutor:
         with self._stager_lock:
             stager = (self._stagers.pop() if self._stagers
                       else HostStager(self.device))
-        pre = _Prefetcher(store, self.chunk, stager)
+        pre = _Prefetcher(store, self.chunk, self.prefetch_depth, stager)
         out = np.empty((n, len(jobs)), np.float32)
         tiles = nbytes = 0
         compute_s = 0.0

@@ -8,7 +8,13 @@ trainable entry the proxy trainer puts on its hot path: an
 backward replays the plain objective under autograd (the batch is
 small, so recomputing beats plumbing residuals out of the kernel),
 returning no gradient for the labels, as the JAX package's custom_vjp
-does (``repro/kernels/contrastive/ops.py``).
+does (``repro/kernels/contrastive/ops.py``). ``losses`` is the
+evaluation entry of the JAX package's ``ops`` (all four loss values).
+Its ``force_ref``/``interpret`` switches and ``phase2_loss``'s ``impl``
+have no torch meaning: the tensors' device picks the kernel or the
+plain version (``ProxyConfig.contrastive_impl`` takes the same names).
+The JAX package's ``custom_vjp`` pieces (``_phase2_kernel``,
+``_phase2_fwd``, ``_phase2_bwd``) are ``_Phase2`` here.
 """
 from __future__ import annotations
 
@@ -69,6 +75,14 @@ def contrastive_losses(z_q: torch.Tensor, z_d: torch.Tensor,
     KERNEL.launch(z_d.device, z_q, z_d, y, part, out, q, n, p,
                   float(tau), float(lam))
     return out
+
+
+def losses(z_q: torch.Tensor, z_d: torch.Tensor, y: torch.Tensor,
+           tau: float, lam: float) -> torch.Tensor:
+    """The four loss values, [qsim, supcon, polar, lam * supcon + (1 -
+    lam) * polar]: the kernel for CUDA tensors, the plain version for CPU
+    ones (``contrastive_losses``)."""
+    return contrastive_losses(z_q, z_d, y, tau, lam)
 
 
 class _Phase2(torch.autograd.Function):

@@ -13,7 +13,11 @@ Decode reads a KV cache: a full cache (one slot a position) for global
 layers, a ring of ``window`` slots for sliding-window layers. Decode
 attention is plain PyTorch, as in the JAX package, where it lies outside
 any Pallas kernel: f32 scores and softmax, masked by a select with
-``NEG_INF``. Cross-attention waits for the encoder-decoder models.
+``NEG_INF``. Cross-attention (``cross_attn_{init, apply, decode}``,
+``encode_kv``) and ``attn_apply``'s ``use_rope=False`` wait for the
+encoder-decoder models, ``attn_axes`` for the sharding rules; the JAX
+package's in-model flash (``flash_attention``, ``_flash_fwd``) is the
+hand-written kernel here.
 """
 from __future__ import annotations
 

@@ -4,6 +4,10 @@ Initializers draw on a ``torch.Generator`` and on its device. RMSNorm
 and RoPE compute in float32 and cast back to the input's type, as the
 JAX package does; RoPE rotates the two halves of each head
 (``[x1 cos - x2 sin, x1 sin + x2 cos]``), not interleaved pairs.
+``rmsnorm_axes``, ``constrain``/``set_constrainer`` (a sharding
+constraint) and ``cross_entropy`` wait for the training scaffolding,
+``sinusoidal_positions``/``sinusoidal_position_at`` for the
+encoder-decoder models.
 """
 from __future__ import annotations
 

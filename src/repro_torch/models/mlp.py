@@ -1,5 +1,6 @@
 """Gated (SwiGLU-family) MLP block (``repro.models.mlp``):
-``(x wi) * act(x wg) wo``, the activation on the gate branch ``wg``."""
+``(x wi) * act(x wg) wo``, the activation on the gate branch ``wg``.
+``mlp_axes`` waits for the sharding rules."""
 from __future__ import annotations
 
 import torch

@@ -6,6 +6,7 @@ from repro_torch.models.transformer import TransformerLM
 
 
 def build_model(cfg: ModelConfig, **opts) -> TransformerLM:
-    """The model of ``cfg`` (only the decoder-only ``TransformerLM`` is
-    ported; it raises for what it does not run)."""
+    """The model of ``cfg``, ``opts`` (``attn_impl``, ``rwkv_mode``,
+    ``moe_dispatch``) passed through (only the decoder-only
+    ``TransformerLM`` is ported; it raises for what it does not run)."""
     return TransformerLM(cfg, **opts)

@@ -23,7 +23,8 @@ package (no kernel): ``timemix_apply(..., return_state=True)`` ends a
 prefill with the state ``{"wkv": S (b, H, K, K) f32, "shift_t": x[:,
 -1]}``; the model adds ``shift_c``, the channel-mix input at the last
 token. ``timemix_decode`` and ``channelmix_decode`` step it
-(``rwkv_state_spec`` gives its shapes).
+(``rwkv_state_spec`` gives its shapes). ``timemix_axes`` and
+``channelmix_axes`` wait for the sharding rules.
 """
 from __future__ import annotations
 

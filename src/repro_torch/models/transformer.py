@@ -4,9 +4,9 @@ path, the LM judge's forward and the decode path.
 Params layout, as in the JAX package (leaves stacked over the
 ``num_groups`` repeats of ``cfg.block_pattern``):
   embed.table           (V, d)
-  blocks.p<i>.*         per pattern position i: norm1, attn, norm2, mlp
-                        (attention blocks) or norm1, time, norm2, channel
-                        (rwkv6 blocks)
+  blocks.p<i>.*         per pattern position i: norm1, attn, norm2, and
+                        mlp or, in an MoE model, moe (attention blocks),
+                        or norm1, time, norm2, channel (rwkv6 blocks)
   final_norm.scale
   lm_head.w             (V, d) unless cfg.tie_embeddings
 Caches (decode) mirror the block layout, as in the JAX package:
@@ -14,12 +14,17 @@ Caches (decode) mirror the block layout, as in the JAX package:
 positions and {wkv, shift_t, shift_c} at rwkv6 positions, so a JAX cache
 carried by ``models.params_from_jax`` reads as the port's.
 Attention blocks (``attn``, ``local``: global and sliding-window) with
-the dense MLP and RWKV6 blocks are ported, so the model runs llama3-8b,
+the dense MLP or the MoE (``models.moe``, ``moe_dispatch`` picking its
+dispatch) and RWKV6 blocks are ported, so the model runs llama3-8b,
 smollm-360m, codeqwen1.5-7b, gemma3-12b (five ``local`` layers of window
 1024 a global one, head_dim 240), internvl2-1b (float inputs are the
-stubbed vision frontend's patch embeddings) and rwkv6-7b; MoE, mamba2
-and shared-attention blocks raise ``NotImplementedError``. ``loss_fn``
-waits for the training scaffolding.
+stubbed vision frontend's patch embeddings), rwkv6-7b, qwen3-moe-30b-a3b
+and dbrx-132b; mamba2 and shared-attention blocks and encoder-decoder
+models raise ``NotImplementedError``. ``forward`` returns the MoE
+auxiliary loss summed over the layers. ``loss_fn``, ``param_axes`` and
+the sharding constraint (``act_constraint``) wait for the training
+scaffolding; ``causal_skip`` has no torch meaning (the flash kernel
+skips the masked tiles itself).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RWKV6,
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (Params, dtype_of, embed_init,
                                        rmsnorm_apply, rmsnorm_init, tree_map)
@@ -45,8 +51,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's model does not run yet."""
     if cfg.is_encdec:
         raise NotImplementedError("encoder-decoder models are not ported")
-    if cfg.moe.enabled:
-        raise NotImplementedError("MoE blocks are not ported")
     other = [k for k in cfg.block_pattern if k not in PORTED_KINDS]
     if other:
         raise NotImplementedError(f"block kinds {other} are not ported; "
@@ -63,10 +67,14 @@ def _block_init(generator, kind: str, cfg: ModelConfig, dtype) -> Params:
                 "time": rwkv_mod.timemix_init(generator, cfg, dtype),
                 "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
                 "channel": rwkv_mod.channelmix_init(generator, cfg, dtype)}
-    return {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
-            "attn": attn.attn_init(generator, cfg, dtype),
-            "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
-            "mlp": mlp_mod.mlp_init(generator, cfg, dtype)}
+    p: Params = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
+                 "attn": attn.attn_init(generator, cfg, dtype),
+                 "norm2": rmsnorm_init(cfg.d_model, dtype, dev)}
+    if cfg.moe.enabled:
+        p["moe"] = moe_mod.moe_init(generator, cfg, dtype)
+    else:
+        p["mlp"] = mlp_mod.mlp_init(generator, cfg, dtype)
+    return p
 
 
 def _fill(stacked: Params, tree: Params, g: int) -> None:
@@ -95,17 +103,20 @@ class TransformerLM:
 
     ``attn_impl`` picks the attention path (``models.attention.IMPLS``),
     ``rwkv_mode`` the time-mix path (``models.rwkv.MODES``); the defaults
-    are the hand-written kernels. Decode steps run in plain PyTorch (no
-    kernel), as in the JAX package. Every method runs where the params
-    lie."""
+    are the hand-written kernels. ``moe_dispatch`` picks an MoE model's
+    dispatch (``models.moe.DISPATCH_IMPLS``; "onehot", the JAX package's
+    default). Decode steps run in plain PyTorch (no kernel), as in the
+    JAX package. Every method runs where the params lie."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "flash",
-                 rwkv_mode: str = "kernel"):
+                 rwkv_mode: str = "kernel", moe_dispatch: str = "onehot"):
         check_supported(cfg)
         rwkv_mod.check_mode(rwkv_mode)
+        moe_mod.check_dispatch(moe_dispatch)
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.rwkv_mode = rwkv_mode
+        self.moe_dispatch = moe_dispatch
         self.pattern = cfg.block_pattern
         self.num_groups = cfg.num_layers // len(cfg.block_pattern)
         # serving option: prefill computes logits at the last position
@@ -170,12 +181,14 @@ class TransformerLM:
                        shared: Optional[Params], *, positions: torch.Tensor,
                        collect_cache: bool, cache_len: int = 0
                        ) -> Tuple[torch.Tensor, Dict[str, Any], torch.Tensor]:
-        """One pattern group over the full sequence: (x, caches, aux).
-        With ``collect_cache`` the caches are this group's decode state
-        (an attention layer's K/V in a cache of ``cache_len`` slots, 0 =
-        the prompt's length; an rwkv6 block's final state)."""
+        """One pattern group over the full sequence: (x, caches, aux),
+        aux the group's MoE auxiliary losses summed (float32 zero without
+        MoE). With ``collect_cache`` the caches are this group's decode
+        state (an attention layer's K/V in a cache of ``cache_len`` slots,
+        0 = the prompt's length; an rwkv6 block's final state)."""
         cfg = self.cfg
         caches: Dict[str, Any] = {}
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(self.pattern):
             key = f"p{i}"
             p = group_params[key]
@@ -206,26 +219,35 @@ class TransformerLM:
                 caches[key] = attn.fill_kv_cache(empty, kv, window)
             x = x + y
             h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-            x = x + mlp_mod.mlp_apply(p["mlp"], h, cfg)
-        return x, caches, torch.zeros((), device=x.device)
+            if "moe" in p:
+                y, aux = moe_mod.moe_apply(p["moe"], h, cfg,
+                                           self.moe_dispatch)
+                aux_total = aux_total + aux
+            else:
+                y = mlp_mod.mlp_apply(p["mlp"], h, cfg)
+            x = x + y
+        return x, caches, aux_total
 
     def _run_groups(self, params: Params, inputs: torch.Tensor, *,
                     collect_cache: bool, cache_len: int = 0):
         """Every group over the full sequence: (hidden (b, s, d), the
-        caches stacked over groups, or None)."""
+        caches stacked over groups, or None, the MoE auxiliary loss summed
+        over the groups)."""
         inputs = torch.as_tensor(inputs,
                                  device=params["embed"]["table"].device)
         x = self.embed_inputs(params, inputs)
         positions = torch.arange(x.shape[1], device=x.device)
         shared = params.get("shared")
-        caches = []
+        caches, auxes = [], []
         for g in range(self.num_groups):
-            x, c, _ = self._group_fullseq(x, group_params(params, g), shared,
-                                          positions=positions,
-                                          collect_cache=collect_cache,
-                                          cache_len=cache_len)
+            x, c, aux = self._group_fullseq(x, group_params(params, g),
+                                            shared, positions=positions,
+                                            collect_cache=collect_cache,
+                                            cache_len=cache_len)
             caches.append(c)
-        return x, (_stack_groups(caches) if collect_cache else None)
+            auxes.append(aux)
+        return (x, (_stack_groups(caches) if collect_cache else None),
+                torch.stack(auxes).sum())
 
     @torch.inference_mode()
     def hidden(self, params: Params, inputs: torch.Tensor) -> torch.Tensor:
@@ -237,9 +259,9 @@ class TransformerLM:
     def forward(self, params: Params, inputs: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced forward: (logits (b, s, V) float32, aux), aux the
-        MoE auxiliary loss, zero (the port has no MoE)."""
-        x = self.hidden(params, inputs)
-        return self.logits(params, x), torch.zeros((), device=x.device)
+        MoE auxiliary loss summed over the layers (zero without MoE)."""
+        x, _, aux = self._run_groups(params, inputs, collect_cache=False)
+        return self.logits(params, x), aux
 
     @torch.inference_mode()
     def prefill(self, params: Params, inputs: torch.Tensor,
@@ -249,8 +271,8 @@ class TransformerLM:
         so decode can go on past the prompt; 0 = the prompt's length.
         With ``prefill_last_only`` the logits are the last position's,
         (b, 1, V)."""
-        x, cache = self._run_groups(params, inputs, collect_cache=True,
-                                    cache_len=cache_len)
+        x, cache, _ = self._run_groups(params, inputs, collect_cache=True,
+                                       cache_len=cache_len)
         if self.prefill_last_only:
             x = x[:, -1:]
         return self.logits(params, x), cache
@@ -320,7 +342,12 @@ class TransformerLM:
                                              cache=c, window=window)
                     x = x + y
                     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-                    y = mlp_mod.mlp_apply(p["mlp"], h, cfg)
+                    if "moe" in p:
+                        # b tokens, one chunk
+                        y, _ = moe_mod.moe_apply(p["moe"], h, cfg,
+                                                 self.moe_dispatch)
+                    else:
+                        y = mlp_mod.mlp_apply(p["mlp"], h, cfg)
                 x = x + y
                 new[key] = nc
             new_caches.append(new)

@@ -1,8 +1,14 @@
-"""Port parity of the configs added with gemma3-12b: gemma3-12b (5:1
-sliding-window and global attention, head_dim 240), codeqwen1.5-7b (MHA,
-an untied head) and internvl2-1b (a GQA group of 7, a vocab that is not
-a multiple of the padding, float patch embeddings through the stubbed
-vision frontend).
+"""Port parity of the configuration surface and of the configs added
+with gemma3-12b.
+
+Every config class both packages have (``asdict`` of every registered
+arch, FULL and SMOKE, with the analytic parameter counts; defaults of
+each class), ``ProxyConfig.contrastive_impl``,
+``OptimizerConfig.compress_grads`` and the ``config.{base, registry}``
+modules; then gemma3-12b (5:1 sliding-window and global attention,
+head_dim 240), codeqwen1.5-7b (MHA, an untied head) and internvl2-1b (a
+GQA group of 7, a vocab that is not a multiple of the padding, float
+patch embeddings through the stubbed vision frontend).
 
 Configs are compared field by field (the store's ``config_digest``
 hashes ``asdict``). Weights are the JAX package's own init carried
@@ -34,6 +40,7 @@ from repro.runtime.serve_loop import generate as j_generate
 from repro_torch.config import BLOCK_LOCAL_ATTN
 from repro_torch.config import get_arch as t_arch
 from repro_torch.config import get_smoke_arch as t_smoke
+from repro_torch.config import list_archs as t_list_archs
 from repro_torch.kernels.flash_attention import ops as f_ops
 from repro_torch.kernels.flash_attention import ref as f_ref
 from repro_torch.models import build_model, params_from_jax
@@ -105,6 +112,92 @@ def test_config_matches_jax(arch, size):
     hashes it."""
     t, j = (t_arch, j_arch) if size == "full" else (t_smoke, j_smoke)
     assert dataclasses.asdict(t(arch)) == dataclasses.asdict(j(arch))
+
+
+SHARED_CLASSES = ("ModelConfig", "MoEConfig", "SSMConfig", "RWKVConfig",
+                  "OptimizerConfig", "ProxyConfig", "CascadeConfig")
+
+
+@pytest.mark.parametrize("size", ["full", "smoke"])
+@pytest.mark.parametrize("arch", t_list_archs())
+def test_every_registered_config_matches_jax(arch, size):
+    """Every arch the port registers (the MoE configs too), FULL and
+    SMOKE: asdict of the config and of its MoE, SSM and RWKV parts, and
+    the analytic counts and layer kinds."""
+    t, j = (t_arch, j_arch) if size == "full" else (t_smoke, j_smoke)
+    tc, jc = t(arch), j(arch)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    for part in ("moe", "ssm", "rwkv"):
+        assert dataclasses.asdict(getattr(tc, part)) == \
+            dataclasses.asdict(getattr(jc, part))
+    assert tc.param_count() == jc.param_count()
+    assert tc.active_param_count() == jc.active_param_count()
+    assert tc.layer_kinds() == jc.layer_kinds()
+    assert tc.attention_free == jc.attention_free
+
+
+def test_moe_configs_are_registered_with_their_sizes():
+    assert {"qwen3-moe-30b-a3b", "dbrx-132b"} <= set(t_list_archs())
+    qwen = t_arch("qwen3-moe-30b-a3b")
+    assert qwen.param_count() == 30_532_108_288
+    assert qwen.active_param_count() < qwen.param_count() // 8
+    assert round(t_arch("dbrx-132b").param_count() / 1e9, 1) == 131.6
+    assert t_arch("rwkv6-7b").attention_free
+    assert not qwen.attention_free and len(qwen.layer_kinds()) == 48
+
+
+@pytest.mark.parametrize("name", SHARED_CLASSES)
+def test_shared_config_class_defaults_match_jax(name):
+    """Each config class both packages have: the same fields, in order,
+    and the same defaults."""
+    from repro.config import base as j_base
+    from repro_torch.config import base as t_base
+    t_cls, j_cls = getattr(t_base, name), getattr(j_base, name)
+    assert [f.name for f in dataclasses.fields(t_cls)] == \
+        [f.name for f in dataclasses.fields(j_cls)]
+    assert dataclasses.asdict(t_cls()) == dataclasses.asdict(j_cls())
+
+
+@pytest.mark.parametrize("impl", ["auto", "kernel", "ref"])
+def test_proxy_config_takes_the_contrastive_impl_names(impl):
+    from repro.config import ProxyConfig as JProxy
+    from repro_torch.config import ProxyConfig
+    cfg = ProxyConfig(contrastive_impl=impl)
+    assert dataclasses.asdict(cfg) == \
+        dataclasses.asdict(JProxy(contrastive_impl=impl))
+
+
+def test_proxy_config_refuses_interpret_by_name():
+    from repro_torch.config import ProxyConfig
+    with pytest.raises(ValueError, match="interpret"):
+        ProxyConfig(contrastive_impl="interpret")
+    with pytest.raises(ValueError, match="unknown"):
+        ProxyConfig(contrastive_impl="pallas")
+
+
+def test_optimizer_config_has_compress_grads():
+    from repro.config import OptimizerConfig as JOpt
+    from repro_torch.config import OptimizerConfig
+    assert OptimizerConfig().compress_grads is False
+    assert dataclasses.asdict(OptimizerConfig(compress_grads=True)) == \
+        dataclasses.asdict(JOpt(compress_grads=True))
+
+
+def test_config_package_has_base_and_registry():
+    """``repro_torch.config.{base, registry}`` mirror the JAX package's
+    modules, and ``repro_torch.config`` re-exports both."""
+    import repro_torch.config as t_config
+    from repro_torch.config.base import (CascadeConfig, ModelConfig,
+                                         ProxyConfig, replace)
+    from repro_torch.config.registry import (get_arch, get_smoke_arch,
+                                             list_archs, register)
+    assert t_config.ModelConfig is ModelConfig
+    assert t_config.ProxyConfig is ProxyConfig
+    assert t_config.CascadeConfig is CascadeConfig
+    assert t_config.replace is replace and t_config.register is register
+    assert t_config.get_arch is get_arch and \
+        t_config.get_smoke_arch is get_smoke_arch
+    assert list_archs() == t_config.list_archs()
 
 
 def test_gemma3_is_the_shape_the_kernel_was_widened_for():

@@ -257,10 +257,12 @@ def test_launch_count_is_exact_across_threads(cuda):
 
 
 # (b, sq, skv, h, kv_heads, hd, causal, window, q_offset): the embedding
-# path's shape, tests/test_kernels.py's grid and q_offset case, GQA,
-# ragged lengths and a head narrower than the kernel's tile
+# path's shape (llama3-8b's GQA 4:1 and qwen3-moe-30b-a3b's 8:1),
+# tests/test_kernels.py's grid and q_offset case, GQA, ragged lengths and
+# a head narrower than the kernel's tile
 FLASH_CASES = [
     (8, 512, 512, 32, 8, 128, True, 0, 0),
+    (8, 512, 512, 32, 4, 128, True, 0, 0),
     (2, 64, 64, 3, 3, 16, True, 0, 0),
     (1, 48, 48, 2, 2, 8, False, 0, 0),
     (2, 128, 128, 4, 4, 32, True, 24, 0),
@@ -771,3 +773,55 @@ def test_judge_label_is_a_function_of_the_prompt_on_card(cuda):
     assert torch.equal(judge.last_logits(idx[::-1]), logits.flip(0))
     for i in (0, 63, 64, 149):
         assert torch.equal(judge.last_logits([i])[0], logits[i])
+
+
+# -- MoE (-k moe): routing, capacity drops and both dispatches on the card.
+# It has no kernel of its own (einsums, batched products and gathers);
+# these hold the card's arithmetic to the CPU's and the sort form's
+# combine (a gather summed in k order, not an atomic scatter-add) to
+# bitwise repeats.
+
+def _moe_case(arch, shape=(2, 24)):
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.models import moe
+    cfg = get_smoke_arch(arch)
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg,
+                          torch.float32)
+    # tokens around one shared direction crowd onto the same experts, so
+    # the configs' capacity factor of 1.25 drops pairs
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=shape + (cfg.d_model,)) * 0.5
+         + 2.0 * rng.normal(size=cfg.d_model)).astype(np.float32)
+    return cfg, params, torch.tensor(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["onehot", "sort"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+@pytest.mark.parametrize("shape", [(2, 24), (2, 1024)],
+                         ids=["one_chunk", "two_chunks"])
+def test_moe_apply_on_card_matches_cpu(cuda, arch, dispatch, shape):
+    from repro_torch.models import moe
+    cfg, params, x = _moe_case(arch, shape)
+    want, want_aux = moe.moe_apply(params, x, cfg, dispatch)
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    got, aux = moe.moe_apply(on_card, x.to(cuda), cfg, dispatch)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **F32)
+    assert abs(aux.item() - want_aux.item()) < 1e-6
+    kept = moe.kept_pairs(on_card, x.to(cuda), cfg, dispatch)
+    assert torch.equal(kept.cpu(), moe.kept_pairs(params, x, cfg, dispatch))
+    assert not kept.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_sort_dispatch_repeats_bitwise_on_card(cuda, dtype):
+    from repro_torch.models import moe
+    cfg, params, x = _moe_case("qwen3-moe-30b-a3b", (2, 1024))
+    on_card = {k: (v if k == "router" else v.to(dtype)).to(cuda)
+               for k, v in params.items()}
+    x = x.to(cuda, dtype)
+    first, aux = moe.moe_apply(on_card, x, cfg, "sort")
+    for _ in range(3):
+        again, aux2 = moe.moe_apply(on_card, x, cfg, "sort")
+        assert torch.equal(again, first) and torch.equal(aux2, aux)

@@ -99,3 +99,28 @@ def test_plain_scoring_matches_jax(setup):
         [(ta, e[0]), (None, e[1]), (ta, e[2])], "cpu")
     assert [cols for _, cols in groups] == [[0, 2], [1]]
     assert tuple(stacks[0].shape) == (2, 64)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_prefetch_depth_matches_jax(setup, depth):
+    """``ScoringExecutor(prefetch_depth=)`` (the JAX executor's knob) moves
+    when tiles are read, never their values: scores and the masks at 0.5
+    equal the JAX executor's at the same depth, and the port's own
+    default-depth run bitwise."""
+    from repro_torch.engine.executor import DEFAULT_PREFETCH_DEPTH
+    from repro.engine.executor import DEFAULT_PREFETCH_DEPTH as J_DEPTH
+    assert DEFAULT_PREFETCH_DEPTH == J_DEPTH == 2
+    pa, _, docs, e = setup
+    ta = params_from_jax(pa)
+    j_ex = JExecutor(chunk=64, use_kernel=True, interpret=True,
+                     prefetch_depth=depth)
+    t_ex = ScoringExecutor(chunk=64, device="cpu", prefetch_depth=depth)
+    assert t_ex.prefetch_depth == depth
+    j_s, _ = j_ex.score(pa, e[0], j_store.InMemoryStore(docs))
+    t_s, st = t_ex.score(ta, e[0], InMemoryStore(docs))
+    np.testing.assert_allclose(t_s, j_s, **F32)
+    np.testing.assert_array_equal(t_s >= 0.5, np.asarray(j_s) >= 0.5)
+    assert st.tiles_scored == 5
+    base, _ = ScoringExecutor(chunk=64, device="cpu").score(
+        ta, e[0], InMemoryStore(docs))
+    np.testing.assert_array_equal(t_s, base)

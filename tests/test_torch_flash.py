@@ -184,8 +184,9 @@ def test_attn_apply_matches_jax(impl, window):
 
 
 def test_unported_model_paths_raise():
-    """The other block families and the clamped "factored" RWKV6
-    lowering are not ported: they raise rather than run something else.
+    """The other block families (mamba2, shared attention,
+    encoder-decoder) and the clamped "factored" RWKV6 lowering are not
+    ported: they raise rather than run something else.
     KV caches are ported: a group's full-sequence pass collects its
     layer's cache (``tests/test_torch_decode.py`` holds it to JAX)."""
     from repro_torch.config import MoEConfig
@@ -205,11 +206,15 @@ def test_unported_model_paths_raise():
                                 block_pattern=("rwkv6",)),
                     rwkv_mode="factored")
     for bad in (dict(block_pattern=("attn", "mamba2")),
-                dict(moe=MoEConfig(num_experts=4, top_k=2)),
+                dict(block_pattern=("mamba2", "shared")),
                 dict(encoder_layers=2)):
         with pytest.raises(NotImplementedError):
             build_model(ModelConfig(**{**dict(d_model=16, num_heads=2,
                                               num_kv_heads=2), **bad}))
+    # MoE blocks are ported (tests/test_torch_moe.py holds them to JAX)
+    moe = build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
+                                  moe=MoEConfig(num_experts=4, top_k=2)))
+    assert moe.moe_dispatch == "onehot"
 
 
 def test_grid_check_follows_each_kernel_y_axis():

@@ -180,3 +180,23 @@ def test_staging_ring_waits_for_the_copy_before_reuse():
     assert not e0.waited and s1 != s0
     s2, b2 = stager._acquire(12)
     assert s2 == s0 and b2 is b0 and e0.waited
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_pos"])
+def test_contrastive_losses_entry_matches_jax(case):
+    """``ops.losses``, the evaluation entry (all four values), against the
+    JAX package's ``ops.losses`` on the CPU (its reference), 1e-6."""
+    from repro.kernels.contrastive import ops as j_cops
+    rng = np.random.default_rng(11)
+    zq = rng.normal(size=32).astype(np.float32)
+    zd = rng.normal(size=(48, 32)).astype(np.float32)
+    y = (rng.random(48) < 0.3).astype(np.float32)
+    y[:2] = 1.0, 0.0
+    if case == "all_pos":
+        y[:] = 1.0
+    want = np.asarray(j_cops.losses(jnp.asarray(zq), jnp.asarray(zd),
+                                    jnp.asarray(y), 0.07, 0.2))
+    got = c_ops.losses(torch.tensor(zq), torch.tensor(zd), torch.tensor(y),
+                       0.07, 0.2)
+    assert got.shape == want.shape == (4,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)

@@ -215,3 +215,15 @@ def test_adamw_lanes_clip_each_lane_alone():
         for k in p:
             np.testing.assert_allclose(stacked[k][i].numpy(),
                                        one[k].numpy(), **TOL)
+
+
+def test_cosine_matches_jax():
+    """``encoder.cosine`` over the last axis, broadcasting, 1e-6."""
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(5, 3, 16)).astype(np.float32)
+    b = rng.normal(size=(3, 16)).astype(np.float32)
+    a[0, 0] = 0.0                          # a zero row: the eps clamp
+    want = np.asarray(jenc.cosine(jnp.asarray(a), jnp.asarray(b)))
+    got = tenc.cosine(_t(a), _t(b))
+    assert got.shape == want.shape == (5, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
