@@ -27,7 +27,9 @@ Phases, each of which exits non-zero when it fails:
                flash attention against the masked-einsum oracle at the
                offline path's shape (b=8, s=512, 32 heads over 8 KV heads,
                head_dim 128, causal), at qwen3-moe-30b-a3b's (32 heads
-               over 4) and at small window / q_offset /
+               over 4), at zamba2-2.7b's (b=4, s=2048, 32 heads over 32,
+               head_dim 80 on the hd-128 instantiations, causal) and at
+               small window / q_offset /
                ragged / non-causal shapes, in f32 (the FP32 kernel) and
                bf16 (the tensor-core kernel, also against its plain
                version, which rounds where it rounds, and, logged but not
@@ -257,7 +259,26 @@ Phases, each of which exits non-zero when it fails:
  21. flash   — the bf16 flash kernel at qwen3-moe-30b-a3b's shape (b=8,
                s=512, 32 heads over 4 KV heads, hd 128), as in 14; the
                fused scoring kernel on the [moe] query's tile (256 x 2048)
-               against its plain version, with its bound.
+               against its plain version, with its bound;
+ 22. zamba2  — the qwen3-moe-30b-a3b weights freed (the memory still
+               held logged), the offline path over zamba2-2.7b at full
+               width (54 layers: 45 Mamba2 SSD layers and 9 applications
+               of one shared attention block, head_dim 80; 3.96 GB of
+               bf16 weights drawn on the card, the SSD's decay, skip and
+               dt bias in f32; the drawn count, bytes and param_count()
+               logged) into a store of 256 documents of 2048 tokens,
+               batch 4 (16 SSD chunks of 128 a document): 256 finite rows
+               of width 2560, flash 9 times a batch (the shared layers),
+               the per-row cosine against attn_impl="blocked" (>=
+               COS_MIN), the kill/resume drill (64, 32), one query() over
+               the store (the fused kernel at D=2560); [decode] as above,
+               its f32 check over one pattern period (5 mamba2 layers, 1
+               shared) after 300 tokens to 316 (SSD chunks of 100 and
+               79); then the bf16 flash kernel at its shape (b=4,
+               s=2048, 32 heads over 32, hd 80) as in 14, beside the same
+               call at hd 128 (what the hd-128 instantiation's padding
+               costs), and fused scoring on the query's tile (256 x
+               2560), with their bounds.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -391,6 +412,20 @@ MOE_FLASH_SHAPE = (8, 512, 32, 4, 128)   # b, s, heads, KV heads, hd
 # onehot against sort on one layer's input in bf16: the same drops, sums
 # rounded at other places (of max |y|; flash's bf16 bar)
 MOE_DISPATCH_REL = 3e-2
+# [zamba2]: zamba2-2.7b FULL (54 layers: 45 Mamba2 SSD layers and 9
+# applications of one shared attention block, head_dim 80; 3.96 GB
+# bf16) over ZAMBA_DOCS documents of GEMMA_DOC_LEN tokens, batch 4: 16
+# SSD chunks of 128 a document, so the state is carried between chunks.
+# The kill/resume drill is gemma3-12b's (64 documents, killed after 32:
+# one commit group of 8 batches). Decode against forward runs one whole
+# pattern period (5 mamba2 layers, 1 shared) in f32 after
+# ZAMBA_PERIOD_PRE tokens, to ZAMBA_PERIOD_TOTAL: neither a multiple of
+# the chunk of 128, so the adaptive chunk runs (100 in the prefill, 79
+# in the forward)
+ZAMBA_ARCH = "zamba2-2.7b"
+ZAMBA_DOCS, ZAMBA_BATCH = 256, 4
+ZAMBA_PERIOD_PRE, ZAMBA_PERIOD_TOTAL = 300, 316
+ZAMBA_FLASH_SHAPE = (4, 2048, 32, 32, 80)   # b, s, heads, KV heads, hd
 # the compound phase's cross-session CSE arms run on this many of the
 # main path's documents, to bound the phase's time
 CSE_DOCS = 32_768
@@ -438,9 +473,12 @@ _b, _s, _h, _kv, _hd = FLASH_SHAPE
 _gb, _gs, _gh, _gkv, _ghd = GEMMA_FLASH_SHAPE
 # name, (b, sq, skv, h, kv, hd), causal, window, q_offset
 _mb, _ms, _mh, _mkv, _mhd = MOE_FLASH_SHAPE
+_zb, _zs, _zh, _zkv, _zhd = ZAMBA_FLASH_SHAPE
 FLASH_CASES = [
     ("path shape causal", (_b, _s, _s, _h, _kv, _hd), True, 0, 0),
     ("qwen3 path shape causal GQA 8:1", (_mb, _ms, _ms, _mh, _mkv, _mhd),
+     True, 0, 0),
+    ("zamba2 path shape causal hd80", (_zb, _zs, _zs, _zh, _zkv, _zhd),
      True, 0, 0),
     ("window=24", (2, 128, 128, 4, 4, 32), True, 24, 0),
     ("q_offset=skv-sq", (1, 32, 96, 2, 2, 16), True, 0, 64),
@@ -747,8 +785,8 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
                   resume=(RESUME_DOCS, RESUME_CUT)) -> tuple:
     """ScaleDocEngine.from_corpus over ``arch`` into a store of
     ``n_docs`` documents of ``doc_len`` tokens, ``batch_size`` a batch,
-    then its checks: ``kernel`` is the kernel each of its layers launches
-    once per batch, ``plain_opts`` the service options of its plain path,
+    then its checks: ``kernel`` is the kernel each of its attention (or
+    RWKV6) layers launches once per batch, ``plain_opts`` the service options of its plain path,
     whose pooled embeddings must reach a per-row cosine of ``cos_min``,
     ``resume`` the kill/resume drill's documents and the row it is killed
     at. Each phase ``fn(dev, service, engine, docs)`` of ``after`` runs in
@@ -767,6 +805,7 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
     from repro_torch.engine import ScaleDocEngine, build_index
     from repro_torch.engine.store import DATA_NAME
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import kernel_layers
     from repro_torch.runtime.serve_loop import EmbeddingService
 
     cfg = get_arch(arch)
@@ -776,18 +815,23 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers of "
         f"{'/'.join(cfg.block_pattern)}, d={cfg.d_model}, {cfg.num_heads} "
         f"heads over {cfg.num_kv_heads} KV heads, {cfg.dtype}, "
-        f"{n_params / 1e9:.3f} B params drawn on the card in {init_s:.1f} s"
-        f", {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+        f"{n_params / 1e9:.3f} B params ({n_params}; {n_bytes / 1e9:.3f} "
+        f"GB; param_count() {cfg.param_count()}) drawn on the card in "
+        f"{init_s:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+        f"allocated")
     t0 = time.perf_counter()
+    # OFF_VOCAB ids, or all of a smaller vocabulary (zamba2-2.7b's 32,000)
+    vocab = min(OFF_VOCAB, cfg.vocab_size)
     corpus = make_corpus(0, n_docs=n_docs, dim=128, with_tokens=True,
-                         vocab=OFF_VOCAB, doc_len=doc_len)
+                         vocab=vocab, doc_len=doc_len)
     docs = [corpus.tokens[i] for i in range(n_docs)]
     n_tokens = n_docs * doc_len
     log(f"[{tag}] corpus: {n_docs} docs x {doc_len} tokens "
-        f"(vocab {OFF_VOCAB}) = {n_tokens} tokens, made in "
+        f"(vocab {vocab}) = {n_tokens} tokens, made in "
         f"{time.perf_counter() - t0:.1f} s")
     service = EmbeddingService(cfg, params, batch_size=batch_size,
                                device=dev)
@@ -830,18 +874,18 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
                 emb).all():
             fail(f"the store is not {n_docs} finite rows of width "
                  f"{cfg.d_model}: {emb.shape}")
+        per_batch = kernel_layers(cfg)
         if st.batches != n_docs // batch_size or \
-                launches != cfg.num_layers * st.batches:
+                launches != per_batch * st.batches:
             fail(f"{kernel} launched {launches} times over {st.batches} "
-                 f"batches; expected {cfg.num_layers} per batch")
+                 f"batches; expected {per_batch} per batch")
         # each local layer's call carries the config's window, each
-        # global layer's none
-        local = cfg.block_pattern.count(BLOCK_LOCAL_ATTN) * (
-            cfg.num_layers // len(cfg.block_pattern))
+        # global (or shared) layer's none
+        local = cfg.layer_kinds().count(BLOCK_LOCAL_ATTN)
         want_calls = {}
         if kernel == "flash_attention":
             want_calls = {str(w): n * st.batches for w, n in (
-                (cfg.sliding_window, local), (0, cfg.num_layers - local))
+                (cfg.sliding_window, local), (0, per_batch - local))
                 if n}
         if calls.by_window != want_calls:
             fail(f"attention calls by window {calls.by_window}; expected "
@@ -934,8 +978,9 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
         shutil.rmtree(work, ignore_errors=True)
     phase_s = time.perf_counter() - t_phase
     log(f"[{tag}] phase took {phase_s:.1f} s")
-    return {**after_report, "phase_seconds": phase_s, "arch": cfg.name, "kernel": kernel, "params": n_params,
-            "init_seconds": init_s,
+    return {**after_report, "phase_seconds": phase_s, "arch": cfg.name,
+            "kernel": kernel, "params": n_params, "param_bytes": n_bytes,
+            "param_count": cfg.param_count(), "init_seconds": init_s,
             "digest_seconds": digest_s, "n_docs": n_docs,
             "doc_len": doc_len, "batch_size": batch_size,
             "tokens": n_tokens, "wall_seconds": wall,
@@ -1188,8 +1233,11 @@ def decode(dev, service, engine, docs) -> dict:
     same width in f32 through the kernels, decode steps against the
     teacher-forced forward: at 2 layers after DECODE_PRE tokens, or for a
     model with sliding-window layers one whole pattern period after
-    GEMMA_PERIOD_PRE tokens (past the window). The prefill's kernel:
-    flash for attention, WKV6 for rwkv6 blocks. A model with
+    GEMMA_PERIOD_PRE tokens (past the window), or for a model with
+    mamba2 layers one whole pattern period after ZAMBA_PERIOD_PRE tokens
+    (neither length a multiple of the chunk). The prefill's kernel:
+    flash for attention layers (a shared block's every application),
+    WKV6 for rwkv6 blocks; a mamba2 block launches none. A model with
     sliding-window layers must keep ring caches of its window and full
     caches of the prompt plus the new tokens. An MoE model's f32 check
     runs at capacity factor E / K, and its forward must drop no (token,
@@ -1198,8 +1246,10 @@ def decode(dev, service, engine, docs) -> dict:
 
     import numpy as np
     import torch
-    from repro_torch.config import BLOCK_LOCAL_ATTN, BLOCK_RWKV6
+    from repro_torch.config import BLOCK_LOCAL_ATTN, BLOCK_MAMBA2, BLOCK_RWKV6
     from repro_torch.models import build_model
+    from repro_torch.models.ssm import chunk_length
+    from repro_torch.models.transformer import kernel_layers
     from repro_torch.runtime.serve_loop import generate
 
     t_phase = time.perf_counter()
@@ -1221,9 +1271,10 @@ def decode(dev, service, engine, docs) -> dict:
         gen_s = time.perf_counter() - t0      # generate ends in a copy
         counts = read_counts(kernels)
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        if counts[kernel] != cfg.num_layers:
+        if counts[kernel] != kernel_layers(cfg):
             fail(f"[{tag}] {kernel} launched {counts[kernel]} times in "
-                 f"generate(); expected {cfg.num_layers} (the prefill)")
+                 f"generate(); expected {kernel_layers(cfg)} (the "
+                 f"prefill)")
 
         # the hand-rolled loop, synchronized around the prefill and each
         # step
@@ -1274,8 +1325,10 @@ def decode(dev, service, engine, docs) -> dict:
 
     # decode against forward in f32, kernel path only
     windowed = BLOCK_LOCAL_ATTN in cfg.block_pattern
-    layers = len(cfg.block_pattern) if windowed else 2
+    hybrid = BLOCK_MAMBA2 in cfg.block_pattern
+    layers = len(cfg.block_pattern) if windowed or hybrid else 2
     pre, total = ((GEMMA_PERIOD_PRE, GEMMA_PERIOD_TOTAL) if windowed
+                  else (ZAMBA_PERIOD_PRE, ZAMBA_PERIOD_TOTAL) if hybrid
                   else (DECODE_PRE, DECODE_TOTAL))
     small = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
     if cfg.moe.enabled:
@@ -1312,12 +1365,16 @@ def decode(dev, service, engine, docs) -> dict:
         f"launches {json.dumps(f32_counts)}"
         + (f"; MoE at capacity factor {small.moe.capacity_factor}: the "
            f"forward dropped {f32_dropped[0]} of {f32_dropped[1]} (token, "
-           f"k) pairs" if cfg.moe.enabled else ""))
+           f"k) pairs" if cfg.moe.enabled else "")
+        + (f"; SSD chunks {chunk_length(pre, cfg.ssm.chunk)} (prefill) and "
+           f"{chunk_length(total, cfg.ssm.chunk)} (forward)" if hybrid
+           else ""))
     if not max(errs) <= DECODE_REL:
         fail(f"[{tag}] decode disagrees with forward: {max(errs):.3e}")
-    if f32_counts[kernel] != 2 * layers:
+    if f32_counts[kernel] != 2 * kernel_layers(small):
         fail(f"[{tag}] {kernel} launched {f32_counts[kernel]} times in the "
-             f"f32 forward and prefill; expected {2 * layers}")
+             f"f32 forward and prefill; expected "
+             f"{2 * kernel_layers(small)}")
     phase_s = time.perf_counter() - t_phase
     log(f"[{tag}] {cfg.name} phase took {phase_s:.1f} s")
     return {"phase_seconds": phase_s, "arch": cfg.name, "batch": b,
@@ -3092,6 +3149,101 @@ def configs_phase(dev) -> dict:
     return out
 
 
+def zamba2_phase(dev, kernels: list, f_errs: dict) -> dict:
+    """[zamba2] with every earlier model's weights freed: the offline
+    path over zamba2-2.7b FULL (offline_phase, then [decode]); then the
+    bf16 flash kernel at its shape (head_dim 80 on the hd-128
+    instantiation: its time beside the same call at hd 128, the bound at
+    hd 80, SDPA and its share of a batch) and fused scoring on the
+    query's (256, 2560) tile, appended to ``kernels``."""
+    import gc
+
+    import torch
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"[zamba2] after freeing the qwen3-moe-30b-a3b weights: {held:.3f} "
+        f"GB allocated")
+    if held > 1.0:
+        fail(f"{held:.2f} GB still allocated before the zamba2 phase")
+    zamba, service, _ = offline_phase(
+        dev, ZAMBA_ARCH, "flash_attention", dict(attn_impl="blocked"),
+        "zamba2", COS_MIN, after=(decode,), n_docs=ZAMBA_DOCS,
+        doc_len=GEMMA_DOC_LEN, batch_size=ZAMBA_BATCH, resume=GEMMA_RESUME)
+    cfg = service.cfg
+    del service
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[zamba2] {cfg.name}: {zamba['params']} params drawn "
+        f"({zamba['param_bytes'] / 1e9:.3f} GB; param_count() "
+        f"{cfg.param_count()}, which counts B and C once a head); "
+        f"from_corpus {zamba['wall_seconds']:.2f} s, "
+        f"{zamba['tokens_per_second']:.0f} tokens/s, a batch "
+        f"{zamba['embed_batch_ms']:.2f} ms, digest "
+        f"{zamba['digest_seconds']:.1f} s, peak "
+        f"{zamba['ingest_stats']['peak_memory_gb']:.2f} GB; cosine against "
+        f"the blocked path {zamba['pooled_min_cosine']:.6f}; decode "
+        f"{zamba['decode']['decode_ms_per_step']:.2f} ms a step; phase "
+        f"{zamba['phase_seconds']:.1f} s")
+
+    # flash at zamba2's shape: hd 80 on the hd-128 instantiation
+    ft = flash_times(dev, ZAMBA_FLASH_SHAPE)
+    b, s, h, kv, hd = ZAMBA_FLASH_SHAPE
+    gen = torch.Generator(dev).manual_seed(1)
+    q, k, v = (torch.randn((b, s, n, 128), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for n in (h, kv, kv))
+    ft["hd128_ms"] = cuda_ms(lambda: f_ops.flash_attention_fwd(
+        q, k, v, scale=hd ** -0.5), 50)
+    del q, k, v
+    ft["share_of_embed_batch"] = share = zamba["launches"] \
+        / zamba["batches"] * ft["ms"] / zamba["embed_batch_ms"]
+    hd80 = [e for name, e in f_errs.items() if "hd80" in name]
+    kernels.append(
+        {"name": "flash_attention_hd80", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+         "launches": zamba["launches"], "max_abs_err": max(hd80),
+         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+         "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+         "library_ms": ft["library_ms"]})
+    sdpa = ", ".join(f"{n} {t:.4f} ms" if isinstance(t, float) else
+                     f"{n} {t}" for n, t in ft["sdpa"].items())
+    log(f"[times] flash_attention_hd80 at {tuple(ZAMBA_FLASH_SHAPE)} (the "
+        f"hd-128 instantiation): bf16 tensor-core kernel {ft['ms']:.4f} ms "
+        f"({ft['ms'] / ft['bound_ms']:.2f}x its bound at hd 80; "
+        f"{ft['flops'] / ft['ms'] / 1e9:.1f} TFLOP/s counted at hd 80), "
+        f"the same call at hd 128 {ft['hd128_ms']:.4f} ms (hd 80 takes "
+        f"{ft['ms'] / ft['hd128_ms']:.3f} of it; 80/128 = 0.625), "
+        f"non-causal {ft['noncausal_ms']:.4f} ms, FP32 kernel on the same "
+        f"inputs in f32 {ft['fp32_kernel_ms']:.4f} ms, plain "
+        f"{ft['plain_ms']:.4f} ms, bound {ft['bound_ms']:.5f} ms "
+        f"({ft['bound_by']}; {ft['flops']:.4g} FLOP, {ft['bytes']:.4g} B), "
+        f"{zamba['launches']} launches per from_corpus; SDPA: {sdpa}; one "
+        f"zamba2-2.7b batch {zamba['embed_batch_ms']:.2f} ms, of which "
+        f"flash {100 * share:.1f}%")
+    fs = fused_times(dev, ZAMBA_DOCS, cfg.d_model)
+    if not fs["max_abs_err"] <= F32_TOL:
+        fail(f"fused_scoring at D={cfg.d_model} disagrees with its plain "
+             f"version: {fs['max_abs_err']}")
+    kernels.append(
+        {"name": "fused_scoring_d2560", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_scoring.cu",
+         "replaces": "src/repro/kernels/fused_scoring/scoring.py:138",
+         "launches": zamba["query"]["launches"]["fused_scoring"],
+         "max_abs_err": fs["max_abs_err"], "ms": fs["ms"],
+         "plain_ms": fs["plain_ms"], "bound_ms": fs["bound_ms"],
+         "bound_by": fs["bound_by"], "library_ms": None})
+    log(f"[times] fused_scoring_d2560 at (n={fs['n']}, D={fs['d']}, H=512, "
+        f"L=128, Q=1), the [zamba2] query's tile: {fs['ms']:.4f} ms, plain "
+        f"{fs['plain_ms']:.4f} ms, bound {fs['bound_ms']:.5f} ms "
+        f"({fs['bound_by']}), max abs err {fs['max_abs_err']:.3e}; "
+        f"{zamba['query']['launches']['fused_scoring']} launches in the "
+        f"query")
+    zamba["times"] = {"flash_hd80": ft, "fused_d2560": fs}
+    return zamba
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -3712,6 +3864,9 @@ def main() -> None:
         f"{moe['query']['launches']['fused_scoring']} launches in the "
         f"query")
     report["times"]["fused_d2048"] = fs
+
+    # -- 22. zamba2-2.7b: Mamba2 SSD blocks and the shared attention block -
+    report["zamba2"] = zamba2_phase(dev, kernels, f_errs)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,8 +4,9 @@ the dense llama3-8b, smollm-360m, codeqwen1.5-7b and gemma3-12b (5:1
 sliding-window and global attention), the vlm internvl2-1b (its vision
 frontend stubbed: precomputed patch embeddings, as in the JAX package),
 the attention-free rwkv6-7b and the MoE qwen3-moe-30b-a3b (128 experts,
-top 8) and dbrx-132b (16 experts, top 4). The hybrid zamba2-2.7b and the
-encoder-decoder whisper-base wait for their block families."""
+top 8) and dbrx-132b (16 experts, top 4), and the hybrid zamba2-2.7b
+(Mamba2 blocks and one shared attention block applied every sixth
+layer). The encoder-decoder whisper-base waits for its block family."""
 from repro_torch.configs import (  # noqa: F401
     codeqwen15_7b,
     dbrx_132b,
@@ -15,4 +16,5 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_moe_30b_a3b,
     rwkv6_7b,
     smollm_360m,
+    zamba2_27b,
 )

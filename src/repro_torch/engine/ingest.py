@@ -70,6 +70,7 @@ from repro_torch.engine.store import (MANIFEST_NAME, MemmapStore,
                                       load_manifest)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
+from repro_torch.models.transformer import ATTN_KINDS
 from repro_torch.runtime.serve_loop import EmbeddingService
 
 DEFAULT_COMMIT_EVERY_BATCHES = 8
@@ -199,7 +200,7 @@ def producer_note(service: EmbeddingService) -> Dict:
     model = service.model
     kinds = set(model.pattern)
     revisions = {}
-    if kinds - {BLOCK_RWKV6} and model.attn_impl == "flash":
+    if kinds & set(ATTN_KINDS) and model.attn_impl == "flash":
         revisions["flash_attention"] = flash_ops.REVISION
     if BLOCK_RWKV6 in kinds and model.rwkv_mode == "kernel":
         revisions["wkv6"] = wkv6_ops.REVISION

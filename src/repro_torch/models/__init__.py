@@ -1,6 +1,7 @@
 """The port's models (``repro.models``): the decoder-only LM of the
-offline embedding path, the LM judge and decode (dense attention, MoE
-and RWKV6 blocks), and the carry of JAX weights and caches into it."""
+offline embedding path, the LM judge and decode (dense attention, MoE,
+RWKV6, Mamba2 and shared attention blocks), and the carry of JAX weights
+and caches into it."""
 from __future__ import annotations
 
 import numpy as np
@@ -19,23 +20,35 @@ def _leaf_to_torch(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+# leaves both packages draw and run in float32 whatever the model's type,
+# by (parent key, key): the MoE router, the Mamba2 decay, skip and dt
+# bias, and the RWKV6 time-mix's decay bias, bonus and group-norm scale;
+# and the decode caches' recurrent states (Mamba2's SSD, RWKV6's WKV)
+F32_LEAVES = {("moe", "router"), ("mamba", "a_log"), ("mamba", "d_skip"),
+              ("mamba", "dt_bias"), ("time", "w0"), ("time", "u"),
+              ("time", "ln_x")}
+F32_CACHE_KEYS = {"ssm", "wkv"}
+
+
 def params_from_jax(tree, device, dtype=None):
     """The JAX ``TransformerLM`` param tree (numpy or JAX leaves) -> the
     port's, on ``device``. The layout is the same; each leaf keeps its
-    type unless ``dtype`` is given, except an MoE router
-    (``blocks.p<i>.moe.router``), which stays float32 as both packages
-    draw and run it. A JAX decode cache (``prefill``'s or
-    ``init_cache``'s) has the port's layout too and is carried the same
-    way, unchanged."""
-    def carry(sub, in_moe):
+    type unless ``dtype`` is given, except the leaves of ``F32_LEAVES``
+    (an MoE router, a Mamba2 block's ``a_log``, ``d_skip`` and
+    ``dt_bias``, an RWKV6 time-mix's ``w0``, ``u`` and ``ln_x``), which
+    stay float32 as both packages draw and run them. A JAX decode cache
+    (``prefill``'s or ``init_cache``'s) has the port's layout too and is
+    carried the same way, its Mamba2 ``ssm`` and RWKV6 ``wkv`` states
+    kept float32: a carry in the model's type would change what the
+    model computes."""
+    def carry(sub, parent):
         out = {}
         for key, val in sub.items():
             if isinstance(val, dict):
-                out[key] = carry(val, key == "moe")
+                out[key] = carry(val, key)
                 continue
-            leaf_dtype = torch.float32 if (in_moe and key == "router") \
-                else dtype
-            out[key] = _leaf_to_torch(val).to(device=device,
-                                              dtype=leaf_dtype)
+            keep = (parent, key) in F32_LEAVES or key in F32_CACHE_KEYS
+            out[key] = _leaf_to_torch(val).to(
+                device=device, dtype=torch.float32 if keep else dtype)
         return out
-    return carry(tree, False)
+    return carry(tree, None)

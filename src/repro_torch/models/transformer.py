@@ -6,21 +6,30 @@ Params layout, as in the JAX package (leaves stacked over the
   embed.table           (V, d)
   blocks.p<i>.*         per pattern position i: norm1, attn, norm2, and
                         mlp or, in an MoE model, moe (attention blocks),
-                        or norm1, time, norm2, channel (rwkv6 blocks)
+                        norm1, time, norm2, channel (rwkv6 blocks),
+                        norm1, mamba (mamba2 blocks), or nothing (a
+                        shared block: its weights are ``shared``)
+  shared.*              the Zamba2-style shared attention block (norm1,
+                        attn, norm2, mlp), drawn once, when the pattern
+                        has ``shared`` positions
   final_norm.scale
   lm_head.w             (V, d) unless cfg.tie_embeddings
 Caches (decode) mirror the block layout, as in the JAX package:
 ``cache["p<i>"]`` leaves stacked over groups, {k, v} at attention
-positions and {wkv, shift_t, shift_c} at rwkv6 positions, so a JAX cache
-carried by ``models.params_from_jax`` reads as the port's.
+positions (a shared block's application at each depth keeps its own),
+{ssm, conv} at mamba2 positions and {wkv, shift_t, shift_c} at rwkv6
+positions, so a JAX cache carried by ``models.params_from_jax`` reads as
+the port's.
 Attention blocks (``attn``, ``local``: global and sliding-window) with
 the dense MLP or the MoE (``models.moe``, ``moe_dispatch`` picking its
-dispatch) and RWKV6 blocks are ported, so the model runs llama3-8b,
-smollm-360m, codeqwen1.5-7b, gemma3-12b (five ``local`` layers of window
-1024 a global one, head_dim 240), internvl2-1b (float inputs are the
-stubbed vision frontend's patch embeddings), rwkv6-7b, qwen3-moe-30b-a3b
-and dbrx-132b; mamba2 and shared-attention blocks and encoder-decoder
-models raise ``NotImplementedError``. ``forward`` returns the MoE
+dispatch), RWKV6 blocks, Mamba2 blocks (``models.ssm``) and the shared
+attention block are ported, so the model runs llama3-8b, smollm-360m,
+codeqwen1.5-7b, gemma3-12b (five ``local`` layers of window 1024 a
+global one, head_dim 240), internvl2-1b (float inputs are the stubbed
+vision frontend's patch embeddings), rwkv6-7b, qwen3-moe-30b-a3b,
+dbrx-132b and zamba2-2.7b (five mamba2 layers a shared one, head_dim
+80); encoder-decoder models raise ``NotImplementedError``. An unknown
+block kind raises ``ValueError``. ``forward`` returns the MoE
 auxiliary loss summed over the layers. ``loss_fn``, ``param_axes`` and
 the sharding constraint (``act_constraint``) wait for the training
 scaffolding; ``causal_skip`` has no torch meaning (the flash kernel
@@ -33,48 +42,78 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RWKV6,
-                                ModelConfig)
+from repro_torch.config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_MAMBA2,
+                                BLOCK_RWKV6, BLOCK_SHARED_ATTN, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Params, dtype_of, embed_init,
                                        rmsnorm_apply, rmsnorm_init, tree_map)
 
-ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN)
-PORTED_KINDS = ATTN_KINDS + (BLOCK_RWKV6,)
+ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_SHARED_ATTN)
+BLOCK_KINDS = ATTN_KINDS + (BLOCK_MAMBA2, BLOCK_RWKV6)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's model does not run yet."""
+    """Raise for what the port's model does not run yet
+    (``NotImplementedError``) and for a block kind no package knows
+    (``ValueError``)."""
     if cfg.is_encdec:
         raise NotImplementedError("encoder-decoder models are not ported")
-    other = [k for k in cfg.block_pattern if k not in PORTED_KINDS]
+    other = [k for k in cfg.block_pattern if k not in BLOCK_KINDS]
     if other:
-        raise NotImplementedError(f"block kinds {other} are not ported; "
-                                  f"only {PORTED_KINDS}")
+        raise ValueError(f"unknown block kinds {other}; one of "
+                         f"{BLOCK_KINDS}")
     if cfg.num_layers % len(cfg.block_pattern):
         raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} % "
                          f"pattern {len(cfg.block_pattern)} != 0")
 
 
+def kernel_layers(cfg: ModelConfig) -> int:
+    """Layers whose full-sequence pass launches the model's kernel once:
+    every RWKV6 layer (WKV6), else every attention layer (flash; a shared
+    block's every application). Mamba2 blocks launch none."""
+    kinds = cfg.layer_kinds()
+    if BLOCK_RWKV6 in kinds:
+        return kinds.count(BLOCK_RWKV6)
+    return sum(k in ATTN_KINDS for k in kinds)
+
+
 def _block_init(generator, kind: str, cfg: ModelConfig, dtype) -> Params:
     dev = generator.device
+    if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
+        p: Params = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
+                     "attn": attn.attn_init(generator, cfg, dtype),
+                     "norm2": rmsnorm_init(cfg.d_model, dtype, dev)}
+        if cfg.moe.enabled:
+            p["moe"] = moe_mod.moe_init(generator, cfg, dtype)
+        else:
+            p["mlp"] = mlp_mod.mlp_init(generator, cfg, dtype)
+        return p
+    if kind == BLOCK_MAMBA2:
+        return {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
+                "mamba": ssm_mod.mamba_init(generator, cfg, dtype)}
     if kind == BLOCK_RWKV6:
         return {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
                 "time": rwkv_mod.timemix_init(generator, cfg, dtype),
                 "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
                 "channel": rwkv_mod.channelmix_init(generator, cfg, dtype)}
-    p: Params = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
-                 "attn": attn.attn_init(generator, cfg, dtype),
-                 "norm2": rmsnorm_init(cfg.d_model, dtype, dev)}
-    if cfg.moe.enabled:
-        p["moe"] = moe_mod.moe_init(generator, cfg, dtype)
-    else:
-        p["mlp"] = mlp_mod.mlp_init(generator, cfg, dtype)
-    return p
+    if kind == BLOCK_SHARED_ATTN:
+        return {}  # weights live in params["shared"]
+    raise ValueError(kind)
+
+
+def _shared_init(generator, cfg: ModelConfig, dtype) -> Params:
+    """The shared attention block: drawn once, applied at every
+    ``shared`` position (always the dense MLP)."""
+    dev = generator.device
+    return {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
+            "attn": attn.attn_init(generator, cfg, dtype),
+            "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
+            "mlp": mlp_mod.mlp_init(generator, cfg, dtype)}
 
 
 def _fill(stacked: Params, tree: Params, g: int) -> None:
@@ -99,7 +138,8 @@ def _stack_groups(trees: List[Params]) -> Params:
 
 
 class TransformerLM:
-    """Decoder-only LM over a pattern of attention and RWKV6 blocks.
+    """Decoder-only LM over a pattern of attention, shared-attention,
+    Mamba2 and RWKV6 blocks.
 
     ``attn_impl`` picks the attention path (``models.attention.IMPLS``),
     ``rwkv_mode`` the time-mix path (``models.rwkv.MODES``); the defaults
@@ -119,6 +159,7 @@ class TransformerLM:
         self.moe_dispatch = moe_dispatch
         self.pattern = cfg.block_pattern
         self.num_groups = cfg.num_layers // len(cfg.block_pattern)
+        self.has_shared = BLOCK_SHARED_ATTN in self.pattern
         # serving option: prefill computes logits at the last position
         # only (decode needs no others)
         self.prefill_last_only = False
@@ -126,7 +167,8 @@ class TransformerLM:
     def init(self, generator: torch.Generator) -> Params:
         """Random params drawn on ``generator`` and on its device. Each
         group's block is drawn on its own and copied into the stacked
-        leaves, so the peak is one block beyond the model."""
+        leaves, so the peak is one block beyond the model. A shared
+        block's weights are drawn once, after the blocks."""
         cfg = self.cfg
         dtype = dtype_of(cfg.dtype)
         dev = generator.device
@@ -147,6 +189,8 @@ class TransformerLM:
                 _fill(stacked, tree, g)
                 del tree
             params["blocks"][f"p{i}"] = stacked
+        if self.has_shared:
+            params["shared"] = _shared_init(generator, cfg, dtype)
         if not cfg.tie_embeddings:
             params["lm_head"] = {"w": embed_init(
                 generator, cfg.padded_vocab_size, cfg.d_model, dtype)}
@@ -185,14 +229,46 @@ class TransformerLM:
         aux the group's MoE auxiliary losses summed (float32 zero without
         MoE). With ``collect_cache`` the caches are this group's decode
         state (an attention layer's K/V in a cache of ``cache_len`` slots,
-        0 = the prompt's length; an rwkv6 block's final state)."""
+        0 = the prompt's length; an rwkv6 or mamba2 block's final state).
+        A shared position runs the attention body on ``shared``."""
         cfg = self.cfg
         caches: Dict[str, Any] = {}
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(self.pattern):
             key = f"p{i}"
-            p = group_params[key]
-            if kind == BLOCK_RWKV6:
+            p = group_params.get(key, {})
+            if kind in ATTN_KINDS:
+                if kind == BLOCK_SHARED_ATTN:
+                    p = shared
+                window = cfg.sliding_window if kind == BLOCK_LOCAL_ATTN else 0
+                h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+                y = attn.attn_apply(p["attn"], h, cfg, positions=positions,
+                                    causal=True, window=window,
+                                    impl=self.attn_impl,
+                                    kv_out=collect_cache)
+                if collect_cache:
+                    y, kv = y
+                    empty = attn.init_kv_cache(cfg, x.shape[0],
+                                               cache_len or x.shape[1],
+                                               window, x.dtype, x.device)
+                    caches[key] = attn.fill_kv_cache(empty, kv, window)
+                x = x + y
+                h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+                if "moe" in p:
+                    y, aux = moe_mod.moe_apply(p["moe"], h, cfg,
+                                               self.moe_dispatch)
+                    aux_total = aux_total + aux
+                else:
+                    y = mlp_mod.mlp_apply(p["mlp"], h, cfg)
+                x = x + y
+            elif kind == BLOCK_MAMBA2:
+                h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+                y = ssm_mod.mamba_apply(p["mamba"], h, cfg,
+                                        return_state=collect_cache)
+                if collect_cache:
+                    y, caches[key] = y
+                x = x + y
+            elif kind == BLOCK_RWKV6:
                 h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
                 y = rwkv_mod.timemix_apply(p["time"], h, cfg,
                                            mode=self.rwkv_mode,
@@ -205,27 +281,8 @@ class TransformerLM:
                 if collect_cache:
                     state["shift_c"] = h[:, -1]
                     caches[key] = state
-                continue
-            window = cfg.sliding_window if kind == BLOCK_LOCAL_ATTN else 0
-            h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-            y = attn.attn_apply(p["attn"], h, cfg, positions=positions,
-                                causal=True, window=window,
-                                impl=self.attn_impl, kv_out=collect_cache)
-            if collect_cache:
-                y, kv = y
-                empty = attn.init_kv_cache(cfg, x.shape[0],
-                                           cache_len or x.shape[1], window,
-                                           x.dtype, x.device)
-                caches[key] = attn.fill_kv_cache(empty, kv, window)
-            x = x + y
-            h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-            if "moe" in p:
-                y, aux = moe_mod.moe_apply(p["moe"], h, cfg,
-                                           self.moe_dispatch)
-                aux_total = aux_total + aux
             else:
-                y = mlp_mod.mlp_apply(p["mlp"], h, cfg)
-            x = x + y
+                raise ValueError(kind)
         return x, caches, aux_total
 
     def _run_groups(self, params: Params, inputs: torch.Tensor, *,
@@ -287,11 +344,16 @@ class TransformerLM:
         spec: Dict[str, Any] = {}
         axes: Dict[str, Any] = {}
         for i, kind in enumerate(self.pattern):
-            if kind == BLOCK_RWKV6:
-                s, a = rwkv_mod.rwkv_state_spec(cfg, batch, dtype)
-            else:
+            if kind in ATTN_KINDS:
+                # a shared block's every application: a full cache
                 window = cfg.sliding_window if kind == BLOCK_LOCAL_ATTN else 0
                 s, a = attn.kv_cache_spec(cfg, batch, seq_len, window, dtype)
+            elif kind == BLOCK_MAMBA2:
+                s, a = ssm_mod.mamba_state_spec(cfg, batch, dtype)
+            elif kind == BLOCK_RWKV6:
+                s, a = rwkv_mod.rwkv_state_spec(cfg, batch, dtype)
+            else:
+                raise ValueError(kind)
             spec[f"p{i}"] = tree_map(lambda t: torch.empty(
                 (self.num_groups,) + tuple(t.shape), dtype=t.dtype,
                 device="meta"), s)
@@ -319,25 +381,21 @@ class TransformerLM:
         dev = params["embed"]["table"].device
         x = self.embed_inputs(params, torch.as_tensor(inputs, device=dev))
         pos = attn.position_on(pos, dev)
+        shared = params.get("shared")
         new_caches = []
         for g in range(self.num_groups):
             gp = group_params(params, g)
             new: Dict[str, Any] = {}
             for i, kind in enumerate(self.pattern):
                 key = f"p{i}"
-                p = gp[key]
+                p = gp.get(key, {})
                 c = tree_map(lambda t: t[g], cache[key])
-                h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-                if kind == BLOCK_RWKV6:
-                    y, nc = rwkv_mod.timemix_decode(p["time"], h, cfg,
-                                                    state=c)
-                    x = x + y
-                    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-                    y, nc = rwkv_mod.channelmix_decode(p["channel"], h, cfg,
-                                                       state=nc)
-                else:
+                if kind in ATTN_KINDS:
+                    if kind == BLOCK_SHARED_ATTN:
+                        p = shared
                     window = (cfg.sliding_window
                               if kind == BLOCK_LOCAL_ATTN else 0)
+                    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
                     y, nc = attn.attn_decode(p["attn"], h, cfg, pos=pos,
                                              cache=c, window=window)
                     x = x + y
@@ -348,6 +406,19 @@ class TransformerLM:
                                                  self.moe_dispatch)
                     else:
                         y = mlp_mod.mlp_apply(p["mlp"], h, cfg)
+                elif kind == BLOCK_MAMBA2:
+                    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+                    y, nc = ssm_mod.mamba_decode(p["mamba"], h, cfg, state=c)
+                elif kind == BLOCK_RWKV6:
+                    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+                    y, nc = rwkv_mod.timemix_decode(p["time"], h, cfg,
+                                                    state=c)
+                    x = x + y
+                    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+                    y, nc = rwkv_mod.channelmix_decode(p["channel"], h, cfg,
+                                                       state=nc)
+                else:
+                    raise ValueError(kind)
                 x = x + y
                 new[key] = nc
             new_caches.append(new)

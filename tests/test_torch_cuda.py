@@ -20,6 +20,7 @@ from repro_torch.kernels.fused_scoring import ops as s_ops
 from repro_torch.kernels.fused_scoring import ref as s_ref
 from repro_torch.kernels.wkv6 import ops as w_ops
 from repro_torch.kernels.wkv6 import ref as w_ref
+from repro_torch.models.transformer import kernel_layers
 from torch_kernel_inputs import (F32, FLASH, FLASH_BF16_PLAIN,
                                  FUSED_RAGGED_N, FUSED_WIDTHS, LOSS,
                                  _attention_inputs, _contrastive_inputs,
@@ -287,11 +288,22 @@ FLASH_HD240_CASES = [pytest.param(case, id=f"hd240-{i}")
     (1, 130, 130, 2, 2, 136, True, 0, 0),
     (1, 130, 130, 4, 2, 256, True, 40, 0),
 ])]
+# zamba2-2.7b's head of 80 (-k hd80), on the hd-128 instantiations (zero
+# columns past 80): MHA 32 over 32 at s 512, a ragged s = 200 with GQA
+# 2:1, non-causal, and q_offset with a window
+FLASH_HD80_CASES = [pytest.param(case, id=f"hd80-{i}")
+                    for i, case in enumerate([
+    (2, 512, 512, 32, 32, 80, True, 0, 0),
+    (1, 200, 200, 4, 2, 80, True, 0, 0),
+    (1, 200, 200, 4, 4, 80, False, 0, 0),
+    (1, 77, 200, 4, 2, 80, True, 24, 123),
+])]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES + FLASH_HD240_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_HD240_CASES
+                         + FLASH_HD80_CASES)
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     b, sq, skv, h, kv, hd, causal, window, q_offset = case
     q, k, v = (_t(x, cuda).to(dtype)
@@ -319,7 +331,7 @@ FLASH_BF16_CASES = FLASH_CASES + [
     (2, 1, 300, 8, 2, 128, True, 0, 299),
     (1, 64, 3 * 64 + 5, 4, 2, 128, False, 0, 0),
     (1, 64, 3 * 64, 4, 4, 64, False, 0, 0),
-] + FLASH_HD240_CASES
+] + FLASH_HD240_CASES + FLASH_HD80_CASES
 
 
 @pytest.mark.cuda
@@ -663,7 +675,9 @@ DECODE_REL = 5e-4
 def _full_width(arch, dev):
     """The full-width config in f32, drawn on ``dev``: at 2 layers, or
     for a model with sliding-window layers at one pattern period with the
-    window cut to 16, so that a short context crosses it."""
+    window cut to 16, so that a short context crosses it, or for a longer
+    pattern (zamba2-2.7b's 5 mamba2 layers and a shared one) at one
+    pattern period."""
     import dataclasses
     from repro_torch.config import get_arch
     from repro_torch.device import resolve_device
@@ -671,15 +685,17 @@ def _full_width(arch, dev):
     resolve_device(dev)                      # TF32 off
     cfg = get_arch(arch)
     cut = (dict(num_layers=len(cfg.block_pattern), sliding_window=16)
-           if cfg.sliding_window else dict(num_layers=2))
+           if cfg.sliding_window else
+           dict(num_layers=max(2, len(cfg.block_pattern))))
     cfg = dataclasses.replace(cfg, dtype="float32", **cut)
     model = build_model(cfg)
     return cfg, model, model.init(torch.Generator(dev).manual_seed(0))
 
 
-# the configs added with gemma3-12b (-k configs)
+# the configs added with gemma3-12b (-k configs), and zamba2-2.7b
 CONFIGS = [pytest.param(a, id=f"configs-{a}")
            for a in ("gemma3-12b", "codeqwen1.5-7b", "internvl2-1b")]
+CONFIGS += [pytest.param("zamba2-2.7b", id="zamba2")]
 
 
 @pytest.mark.cuda
@@ -698,13 +714,13 @@ def test_decode_matches_forward_on_card(cuda, arch):
     before = kernel.launches
     _, cache = model.prefill(params, toks[:, :pre], cache_len=total)
     torch.cuda.synchronize()
-    assert kernel.launches == before + cfg.num_layers
+    assert kernel.launches == before + kernel_layers(cfg)
     for t in range(pre, total):
         step, cache = model.decode_step(params, toks[:, t:t + 1], t, cache)
         err = ((step[:, 0] - full[:, t]).abs().max()
                / full[:, t].abs().max()).item()
         assert err < DECODE_REL, (arch, t, err)
-    assert kernel.launches == before + cfg.num_layers
+    assert kernel.launches == before + kernel_layers(cfg)
 
 
 @pytest.mark.cuda
@@ -825,3 +841,35 @@ def test_moe_sort_dispatch_repeats_bitwise_on_card(cuda, dtype):
     for _ in range(3):
         again, aux2 = moe.moe_apply(on_card, x, cfg, "sort")
         assert torch.equal(again, first) and torch.equal(aux2, aux)
+
+
+# -- zamba2-2.7b: Mamba2 blocks and the shared attention block (-k zamba2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [17, 40])
+def test_zamba2_smoke_forward_on_card_matches_cpu(cuda, s):
+    """The SMOKE model (f32) on the card, its shared layer through the
+    flash kernel, against the same params on the CPU (the flash wrapper's
+    plain version there): logits within the flash kernel's f32 bar of max
+    |logit|, 17 tokens at chunk 1 and 40 at chunk 8; the flash kernel
+    launched once a shared layer."""
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    resolve_device(cuda)                     # TF32 off
+    cfg = get_smoke_arch("zamba2-2.7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = np.random.default_rng(4).integers(
+        1, cfg.vocab_size, size=(3, s)).astype(np.int32)
+    want, _ = model.forward(params, toks)
+    before = f_ops.KERNEL.launches
+    got, _ = model.forward(on_card, toks)
+    torch.cuda.synchronize()
+    assert f_ops.KERNEL.launches == before + kernel_layers(cfg) == \
+        before + 1
+    err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    assert err < FLASH[torch.float32]["rtol"], err

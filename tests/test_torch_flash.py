@@ -184,12 +184,14 @@ def test_attn_apply_matches_jax(impl, window):
 
 
 def test_unported_model_paths_raise():
-    """The other block families (mamba2, shared attention,
-    encoder-decoder) and the clamped "factored" RWKV6 lowering are not
-    ported: they raise rather than run something else.
+    """Encoder-decoder models and the clamped "factored" RWKV6 lowering
+    are not ported: they raise rather than run something else; an
+    unknown block kind raises ``ValueError``. Mamba2 and shared-attention
+    patterns build and run a prefill and a decode step
+    (``tests/test_torch_ssm.py`` holds them to JAX).
     KV caches are ported: a group's full-sequence pass collects its
     layer's cache (``tests/test_torch_decode.py`` holds it to JAX)."""
-    from repro_torch.config import MoEConfig
+    from repro_torch.config import MoEConfig, SSMConfig
     from repro_torch.models import build_model
     from repro_torch.models.transformer import group_params
     cfg = ModelConfig(d_model=16, num_heads=2, num_kv_heads=2, d_ff=32,
@@ -205,12 +207,27 @@ def test_unported_model_paths_raise():
         build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
                                 block_pattern=("rwkv6",)),
                     rwkv_mode="factored")
-    for bad in (dict(block_pattern=("attn", "mamba2")),
-                dict(block_pattern=("mamba2", "shared")),
-                dict(encoder_layers=2)):
-        with pytest.raises(NotImplementedError):
-            build_model(ModelConfig(**{**dict(d_model=16, num_heads=2,
-                                              num_kv_heads=2), **bad}))
+    with pytest.raises(NotImplementedError):
+        build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
+                                encoder_layers=2))
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
+                                block_pattern=("attn", "mamba3")))
+    for pattern in (("attn", "mamba2"), ("mamba2", "shared")):
+        hybrid = build_model(ModelConfig(
+            d_model=16, num_heads=2, num_kv_heads=2, d_ff=32,
+            vocab_size=32, dtype="float32", block_pattern=pattern,
+            ssm=SSMConfig(state_dim=8, head_dim=8, chunk=4)))
+        params = hybrid.init(torch.Generator().manual_seed(0))
+        assert ("shared" in params) == ("shared" in pattern)
+        toks = torch.tensor([[3, 1, 4, 1, 5]])
+        logits, cache = hybrid.prefill(params, toks, cache_len=6)
+        step, cache = hybrid.decode_step(params, toks[:, :1], 5, cache)
+        assert step.shape == (1, 1, 256) and torch.isfinite(step).all()
+        assert cache["p1" if pattern[1] == "shared" else "p0"]["k"].shape \
+            == (1, 1, 6, 2, 8)
+        assert cache["p0" if pattern[0] == "mamba2" else "p1"]["ssm"].dtype \
+            == torch.float32
     # MoE blocks are ported (tests/test_torch_moe.py holds them to JAX)
     moe = build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
                                   moe=MoEConfig(num_experts=4, top_k=2)))

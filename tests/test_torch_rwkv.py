@@ -150,6 +150,28 @@ def test_params_from_jax_carries_an_rwkv6_tree():
             np.testing.assert_array_equal(leaf.numpy(), want)
 
 
+def test_params_from_jax_with_a_dtype_keeps_the_f32_leaves_and_state():
+    """Carried into bf16 from an f32 tree, w0, u and ln_x stay f32 (as
+    the port's own bf16 init draws them) and so does a carried cache's
+    WKV state; the other leaves take the dtype."""
+    jcfg, _ = _cfgs("float32")
+    jm = j_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu",
+                         torch.bfloat16)
+    f32 = sorted(k for k, v in t_ckpt.flatten_with_paths(tp)
+                 if v.dtype == torch.float32)
+    assert f32 == [f"blocks/p0/time/{n}" for n in ("ln_x", "u", "w0")]
+    toks = np.random.default_rng(1).integers(1, 256, size=(2, 9))
+    _, jcache = jm.prefill(jp, jnp.asarray(toks, jnp.int32))
+    cache = params_from_jax(jax.tree.map(np.asarray, jcache), "cpu",
+                            torch.bfloat16)
+    assert cache["p0"]["wkv"].dtype == torch.float32
+    assert cache["p0"]["shift_t"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(cache["p0"]["wkv"].numpy(),
+                                  np.asarray(jcache["p0"]["wkv"]))
+
+
 def test_port_init_has_the_jax_layout():
     jcfg, tcfg = _cfgs("bfloat16")
     tp = build_model(tcfg).init(torch.Generator().manual_seed(0))

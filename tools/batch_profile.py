@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Split one qwen3-moe-30b-a3b embedding batch on one card.
+"""Split one embedding batch of a full-width model on one card.
 
-    python3 tools/moe_batch_profile.py [--rows 15]
+    python3 tools/batch_profile.py [--arch qwen3-moe-30b-a3b] [--rows 15]
 
-Draws qwen3-moe-30b-a3b FULL (48 layers, 128 experts top 8; 61 GB bf16)
-on the card from seed 0, as chip_smoke.py's [moe] phase does, and takes
-its first batch: 8 documents of 512 tokens of chip_smoke.py's corpus.
-It times ``EmbeddingService.embed_batch`` with CUDA events under each
-MoE dispatch ("onehot", the path's, and "sort"), then records one
-"onehot" batch with ``torch.profiler`` and prints the ``aten``
-operators with the most device time (their calls, device and host
-milliseconds) and the batch's device time in all. It prints one JSON
-line (also written to chiprun_out/) and the card's name and power
-limit, and exits 1 without a card.
+Draws the arch's FULL config on the card from seed 0, as chip_smoke.py's
+phase of that model does, and takes its first batch of chip_smoke.py's
+corpus: for qwen3-moe-30b-a3b ([moe]: 48 layers, 128 experts top 8; 61
+GB bf16) 8 documents of 512 tokens, for zamba2-2.7b ([zamba2]: 45
+Mamba2 layers and 9 shared attention ones; 3.96 GB) 4 of 2048 (ids below
+its vocabulary of 32,000). It times ``EmbeddingService.embed_batch``
+with CUDA events (an MoE model under each dispatch: "onehot", the
+path's, and "sort"), then records one batch with ``torch.profiler`` and
+prints the ``aten`` operators with the most device time (their calls,
+device and host milliseconds), the batch's device time in all and its
+kernel launches. It prints one JSON line (also written to
+chiprun_out/) and the card's name and power limit, and exits 1 without
+a card.
 """
 from __future__ import annotations
 
@@ -23,8 +26,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCH = "qwen3-moe-30b-a3b"
-DOCS, DOC_LEN, VOCAB = 8, 512, 32768     # chip_smoke.py's OFF_* corpus
+# each arch's batch (documents, tokens) in chip_smoke.py; ids below
+# chip_smoke.py's OFF_VOCAB or the model's vocabulary
+BATCHES = {"qwen3-moe-30b-a3b": (8, 512), "zamba2-2.7b": (4, 2048)}
+VOCAB = 32768
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -43,13 +48,15 @@ def cuda_ms(fn, iters: int) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", choices=sorted(BATCHES),
+                    default="qwen3-moe-30b-a3b")
     ap.add_argument("--rows", type=int, default=15)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
-        print("moe_batch_profile: no CUDA card", file=sys.stderr)
+        print("batch_profile: no CUDA card", file=sys.stderr)
         sys.exit(1)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -63,15 +70,18 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    cfg = get_arch(ARCH)
+    cfg = get_arch(args.arch)
+    docs, doc_len = BATCHES[args.arch]
     params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
-    corpus = make_corpus(0, n_docs=DOCS, dim=128, with_tokens=True,
-                         vocab=VOCAB, doc_len=DOC_LEN)
-    batch = torch.as_tensor(np.stack([corpus.tokens[i] for i in range(DOCS)])
+    corpus = make_corpus(0, n_docs=docs, dim=128, with_tokens=True,
+                         vocab=min(VOCAB, cfg.vocab_size), doc_len=doc_len)
+    batch = torch.as_tensor(np.stack([corpus.tokens[i] for i in range(docs)])
                             .astype(np.int32), device=dev)
-    services = {d: EmbeddingService(cfg, params, batch_size=DOCS,
-                                    device=dev) for d in ("onehot", "sort")}
-    services["sort"].model.moe_dispatch = "sort"
+    dispatches = ("onehot", "sort") if cfg.moe.enabled else ("onehot",)
+    services = {d: EmbeddingService(cfg, params, batch_size=docs,
+                                    device=dev) for d in dispatches}
+    for d, s in services.items():
+        s.model.moe_dispatch = d
     ms = {d: cuda_ms(lambda: s.embed_batch(batch), 5)
           for d, s in services.items()}
     with profile(activities=[ProfilerActivity.CPU,
@@ -82,20 +92,22 @@ def main() -> None:
     rows = sorted((e for e in events if e.key.startswith("aten::")),
                   key=lambda e: -e.device_time_total)[:args.rows]
     # the kernels' own rows (an operator's row repeats its kernels' time)
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
     top = [{"op": e.key, "calls": e.count,
             "device_ms": e.device_time_total / 1e3,
             "cpu_ms": e.cpu_time_total / 1e3} for e in rows]
-    out = {"arch": ARCH, "batch": [DOCS, DOC_LEN], "nvidia_smi": smi,
+    out = {"arch": args.arch, "batch": [docs, doc_len], "nvidia_smi": smi,
            "batch_ms": ms, "profiled_device_ms": device_ms,
-           "top_ops": top}
+           "kernel_launches": launches, "top_ops": top}
     for row in top:
         print(f"{row['op']:<28} {row['calls']:>6} calls  device "
               f"{row['device_ms']:9.3f} ms  cpu {row['cpu_ms']:9.3f} ms")
     line = json.dumps(out)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "moe_batch_profile.json").write_text(line)
+    (ROOT / "chiprun_out" / f"batch_profile_{args.arch}.json").write_text(
+        line)
     print(line)
     print(smi)
 
