@@ -278,7 +278,29 @@ Phases, each of which exits non-zero when it fails:
                s=2048, 32 heads over 32, hd 80) as in 14, beside the same
                call at hd 128 (what the hd-128 instantiation's padding
                costs), and fused scoring on the query's tile (256 x
-               2560), with their bounds.
+               2560), with their bounds;
+ 23. whisper — the zamba2-2.7b weights freed (the memory still held
+               logged), whisper-base at full width (6 encoder and 6
+               decoder layers, d 512, 8 heads of 64, vocab 51,865; bf16
+               weights drawn on the card; the drawn count, bytes and
+               param_count() logged) over 32 clips of 1500 frames (the
+               stubbed conv stem's output, N(0, 1)) and 448 decoder
+               tokens each: the teacher-forced forward through the
+               kernel (flash 18 times: 6 encoder, 6 self, 6 cross) and
+               on attn_impl="blocked" (6: the cross-attention, as the
+               JAX package routes it), the per-(clip, position) cosine
+               of the logits over the real vocabulary (>= COS_MIN),
+               finite, padded ids at -1e30, each encoder layer's
+               attention on the kernel path's input and the drift of the
+               encoder's state with depth, logged; encode, forward,
+               prefill of a 4-token prompt and 32 greedy decode steps
+               after the self cache is padded by hand to 448 (ms, peak
+               memory, tokens/s); f32 decode against the forward at full
+               depth (2 clips, 8 steps after a 4-token prompt, <=
+               DECODE_REL); then the bf16 flash kernel at its three
+               shapes (encoder 1500 x 1500 and cross-attention 448 x
+               1500, non-causal; self-attention 448, causal) as in 14,
+               with their bounds and their shares of a forward.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -426,6 +448,19 @@ ZAMBA_ARCH = "zamba2-2.7b"
 ZAMBA_DOCS, ZAMBA_BATCH = 256, 4
 ZAMBA_PERIOD_PRE, ZAMBA_PERIOD_TOTAL = 300, 316
 ZAMBA_FLASH_SHAPE = (4, 2048, 32, 32, 80)   # b, s, heads, KV heads, hd
+# [whisper]: whisper-base FULL (6 encoder and 6 decoder layers, d 512, 8
+# heads of 64, vocab 51,865 padded to 51,968; 0.166 GB bf16) over one
+# batch of WHISPER_CLIPS clips: WHISPER_FRAMES frames each (a 30-s window
+# after Whisper's stride-2 conv stem, which is stubbed) and
+# WHISPER_TOKENS decoder tokens (Whisper's decoder context); a prompt of
+# WHISPER_PROMPT tokens (the start-of-transcript prefix) for prefill and
+# decode. The f32 decode check runs at full depth on WHISPER_F32_CLIPS
+# clips for WHISPER_F32_STEPS steps
+WHISPER_ARCH = "whisper-base"
+WHISPER_CLIPS, WHISPER_FRAMES, WHISPER_TOKENS = 32, 1500, 448
+WHISPER_PROMPT = 4
+WHISPER_F32_CLIPS, WHISPER_F32_STEPS = 2, 8
+_wb, _wf, _wt = WHISPER_CLIPS, WHISPER_FRAMES, WHISPER_TOKENS
 # the compound phase's cross-session CSE arms run on this many of the
 # main path's documents, to bound the phase's time
 CSE_DOCS = 32_768
@@ -484,6 +519,12 @@ FLASH_CASES = [
     ("q_offset=skv-sq", (1, 32, 96, 2, 2, 16), True, 0, 64),
     ("ragged s=200 GQA 4:1", (2, 200, 200, 8, 2, 128), True, 0, 0),
     ("non-causal s=200", (1, 200, 200, 4, 1, 128), False, 0, 0),
+    ("whisper encoder s=1500 non-causal hd64", (_wb, _wf, _wf, 8, 8, 64),
+     False, 0, 0),
+    ("whisper cross 448x1500 non-causal hd64", (_wb, _wt, _wf, 8, 8, 64),
+     False, 0, 0),
+    ("whisper self s=448 causal hd64", (_wb, _wt, _wt, 8, 8, 64), True, 0,
+     0),
 ]
 # gemma3-12b's head (the wide kernels): its path's shape with and without
 # its window, and a ragged continuation inside a window
@@ -999,18 +1040,22 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
 
 class AttentionCalls:
     """Within the block, the attention layer's calls of the flash entry
-    (``ops.attention``), counted by their window (the launches are
-    counted by the kernel's wrapper, as everywhere)."""
+    (``ops.attention``), counted by their window and by their form
+    ("causal" or "non-causal", sq x skv) (the launches are counted by
+    the kernel's wrapper, as everywhere)."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import ops as f_ops
-        self.by_window = {}
+        self.by_window, self.by_form = {}, {}
         self._ops, self._inner = f_ops, f_ops.attention
 
-        def counted(*args, window=0, **kw):
+        def counted(q, k, v, *, window=0, causal=True, **kw):
             key = str(window)
             self.by_window[key] = self.by_window.get(key, 0) + 1
-            return self._inner(*args, window=window, **kw)
+            form = (f"{'causal' if causal else 'non-causal'} "
+                    f"{q.shape[1]}x{k.shape[1]}")
+            self.by_form[form] = self.by_form.get(form, 0) + 1
+            return self._inner(q, k, v, window=window, causal=causal, **kw)
         f_ops.attention = counted
         return self
 
@@ -1485,40 +1530,43 @@ def attention_pairs(s: int, window: int) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def flash_times(dev, shape=FLASH_SHAPE, window: int = 0) -> dict:
+def flash_times(dev, shape=FLASH_SHAPE, window: int = 0, *,
+                causal: bool = True, skv: int = 0) -> dict:
     """The bf16 flash kernel, the FP32 kernel on the same inputs in f32,
     the plain version and SDPA under each backend, at ``shape`` (b, s,
-    heads, KV heads, head_dim), causal, with ``window`` (0: none; SDPA
-    then takes the mask as a boolean attn_mask)."""
+    heads, KV heads, head_dim): s queries over ``skv`` keys (0: s),
+    causal or not, with ``window`` (0: none; SDPA then takes the mask as
+    a boolean attn_mask)."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.flash_attention import ref as f_ref
     b, s, h, kv, hd = shape
+    skv = skv or s
     gen = torch.Generator(dev).manual_seed(1)
     q = torch.randn((b, s, h, hd), generator=gen, device=dev,
                     dtype=torch.bfloat16)
-    k, v = (torch.randn((b, s, kv, hd), generator=gen, device=dev,
+    k, v = (torch.randn((b, skv, kv, hd), generator=gen, device=dev,
                         dtype=torch.bfloat16) for _ in range(2))
     scale = hd ** -0.5
     g = h // kv
-    ms = cuda_ms(lambda: f_ops.flash_attention_fwd(q, k, v, scale=scale,
-                                                   window=window), 50)
-    # the same call without the causal mask: every Q tile runs all K/V
-    # tiles (at FLASH_SHAPE 16,384 tile steps against the causal call's
-    # 9,216), which shows whether the causal loops' short length or the
-    # steady state sets the time
+    ms = cuda_ms(lambda: f_ops.flash_attention_fwd(
+        q, k, v, scale=scale, causal=causal, window=window), 50)
+    # a causal call again without the causal mask: every Q tile runs all
+    # K/V tiles (at FLASH_SHAPE 16,384 tile steps against the causal
+    # call's 9,216), which shows whether the causal loops' short length
+    # or the steady state sets the time
     noncausal_ms = cuda_ms(lambda: f_ops.flash_attention_fwd(
-        q, k, v, scale=scale, causal=False), 50)
+        q, k, v, scale=scale, causal=False), 50) if causal else ms
     q32, k32, v32 = (x.float() for x in (q, k, v))
     fp32_ms = cuda_ms(lambda: f_ops.flash_attention_fwd(
-        q32, k32, v32, scale=scale, window=window), 10)
+        q32, k32, v32, scale=scale, causal=causal, window=window), 10)
     del q32, k32, v32
     plain_ms = cuda_ms(lambda: f_ref.attention_blocked(
         q, f_ref.expand_kv(k, g), f_ref.expand_kv(v, g), scale,
-        causal=True, window=window, round_p=True), 10)
+        causal=causal, window=window, round_p=True), 10)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = (f_ref.attention_mask(s, s, causal=True, window=window,
+    mask = (f_ref.attention_mask(s, skv, causal=causal, window=window,
                                  device=dev) if window else None)
     sdpa = {}
     for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
@@ -1532,7 +1580,7 @@ def flash_times(dev, shape=FLASH_SHAPE, window: int = 0) -> dict:
                         lambda: torch.nn.functional.
                         scaled_dot_product_attention(
                             qt, kt, vt, attn_mask=mask,
-                            is_causal=mask is None, scale=scale,
+                            is_causal=causal and mask is None, scale=scale,
                             enable_gqa=True), 50)
             except (RuntimeError, AttributeError) as e:
                 why = [str(w.message).split(" (Triggered")[0] for w in said]
@@ -1540,12 +1588,14 @@ def flash_times(dev, shape=FLASH_SHAPE, window: int = 0) -> dict:
                 sdpa[name] = "refused: " + (why[0] if why else str(e))
     timed = {n: t for n, t in sdpa.items() if isinstance(t, float)}
     library = min(timed, key=timed.get) if timed else None
-    flops = 4 * b * h * hd * attention_pairs(s, window)
-    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    pairs = attention_pairs(s, window) if causal else s * skv
+    flops = 4 * b * h * hd * pairs
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * skv * kv * hd)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"shape": list(shape), "window": window,
-            "ms": ms, "noncausal_ms": noncausal_ms,
-            "noncausal_tflops": 4 * b * h * hd * s * s / noncausal_ms / 1e9,
+    return {"shape": list(shape), "skv": skv, "causal": causal,
+            "window": window, "ms": ms, "noncausal_ms": noncausal_ms,
+            "noncausal_tflops": 4 * b * h * hd * s * skv / noncausal_ms
+            / 1e9,
             "fp32_kernel_ms": fp32_ms, "plain_ms": plain_ms,
             "library_ms": timed[library] if library else None,
             "library_backend": library, "sdpa": sdpa,
@@ -3244,6 +3294,312 @@ def zamba2_phase(dev, kernels: list, f_errs: dict) -> dict:
     return zamba
 
 
+def encoder_drift(kernel_model, plain_model, params, frames) -> dict:
+    """The encoder's layers run by hand on both attention paths: each
+    layer's attention on the kernel path's own input through the flash
+    kernel and through the blocked path (min per-row cosine, max abs
+    difference), and the per-row cosine of the two paths' states after
+    each layer, each path fed its own (the drift with depth)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models.common import rmsnorm_apply, tree_map
+    cfg = kernel_model.cfg
+    x = kernel_model._with_positions(frames.to(torch.bfloat16))
+    y = x.clone()
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def attend(p, h, impl):
+        return attn.attn_apply(p["attn"], h, cfg, positions=positions,
+                               causal=False, impl=impl, use_rope=False)
+
+    def rows_cos(a, b):
+        return F.cosine_similarity(a.float().reshape(-1, a.shape[-1]),
+                                   b.float().reshape(-1, b.shape[-1]),
+                                   dim=1).min().item()
+    layers, drift = [], []
+    with torch.inference_mode():
+        for i in range(cfg.encoder_layers):
+            p = tree_map(lambda t: t[i], params["encoder"])
+            h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+            got = attend(p, h, kernel_model.attn_impl)
+            want = attend(p, h, plain_model.attn_impl)
+            layers.append({"min_cosine": rows_cos(got, want),
+                           "max_abs_err": (got.float() - want.float())
+                           .abs().max().item()})
+            x = x + got
+            x = x + mlp_mod.mlp_apply(
+                p["mlp"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps), cfg)
+            h = rmsnorm_apply(p["norm1"], y, cfg.norm_eps)
+            y = y + attend(p, h, plain_model.attn_impl)
+            y = y + mlp_mod.mlp_apply(
+                p["mlp"], rmsnorm_apply(p["norm2"], y, cfg.norm_eps), cfg)
+            drift.append(rows_cos(x, y))
+    return {"layer": layers, "drift_min_cosine": drift}
+
+
+def whisper_phase(dev, kernels: list, f_errs: dict) -> dict:
+    """[whisper] with every earlier model's weights freed: whisper-base
+    FULL on one batch of WHISPER_CLIPS clips (forward on both attention
+    paths, the encoder's per-layer check, encode / forward / prefill /
+    decode times, f32 decode against the forward at full depth); then
+    the bf16 flash kernel at its encoder, cross- and self-attention
+    shapes, appended to ``kernels``."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.config import get_arch
+    from repro_torch.core.encoder import tree_leaves
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.common import tree_map
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"[whisper] after freeing the zamba2-2.7b weights: {held:.3f} GB "
+        f"allocated")
+    if held > 1.0:
+        fail(f"{held:.2f} GB still allocated before the whisper phase")
+    cfg = get_arch(WHISPER_ARCH)
+    v, d, L = cfg.vocab_size, cfg.d_model, cfg.num_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = EncDecLM(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[whisper] {cfg.name}: {cfg.encoder_layers} encoder and {L} "
+        f"decoder layers, d={d}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads} (head_dim {cfg.head_dim}), d_ff {cfg.d_ff}, "
+        f"vocab {v} (padded {cfg.padded_vocab_size}); {n_params} params "
+        f"drawn on the card ({n_bytes / 1e9:.3f} GB {cfg.dtype}) in "
+        f"{init_s:.2f} s; param_count() {cfg.param_count()}")
+    plain = EncDecLM(cfg, attn_impl="blocked")
+    gen = torch.Generator(dev).manual_seed(1)
+    b, nf, nt = WHISPER_CLIPS, WHISPER_FRAMES, WHISPER_TOKENS
+    frames = torch.randn((b, nf, d), generator=gen, device=dev)
+    tokens = torch.randint(1, v, (b, nt), generator=gen, device=dev)
+
+    # -- teacher-forced forward, kernel path against the blocked path
+    counts = {}
+    forms = {}
+    outs = {}
+    for name, m in (("flash", model), ("blocked", plain)):
+        kern = zero_counts()
+        with AttentionCalls() as calls:
+            outs[name], aux = m.forward(params, frames, tokens)
+        torch.cuda.synchronize()
+        counts[name], forms[name] = read_counts(kern), calls.by_form
+        if aux.item() != 0.0:
+            fail(f"[whisper] the {name} forward's aux is {aux.item()}")
+    got, want = outs["flash"], outs["blocked"]
+    del outs
+    finite = bool(torch.isfinite(got[..., :v]).all())
+    padded_ok = bool((got[..., v:] == -1e30).all())
+    cos = F.cosine_similarity(got[..., :v], want[..., :v],
+                              dim=-1).min().item()
+    diff = (got[..., :v] - want[..., :v]).abs().max().item()
+    scale = want[..., :v].abs().max().item()
+    del got, want
+    log(f"[whisper] forward over {b} clips of {nf} frames and {nt} tokens: "
+        f"flash launches {counts['flash']['flash_attention']} on the "
+        f"kernel path (by form {json.dumps(forms['flash'])}), "
+        f"{counts['blocked']['flash_attention']} on attn_impl='blocked' "
+        f"(by form {json.dumps(forms['blocked'])}); logits finite "
+        f"{finite}, padded ids at -1e30 {padded_ok}; kernel vs blocked "
+        f"path: min per-(clip, position) cosine {cos:.6f} (>= {COS_MIN}), "
+        f"max |diff| {diff:.4e} of max |logit| {scale:.4e}")
+    if counts["flash"]["flash_attention"] != 3 * L or \
+            sum(forms["flash"].values()) != 3 * L:
+        fail(f"[whisper] flash launched "
+             f"{counts['flash']['flash_attention']} times in the kernel "
+             f"path's forward; expected {3 * L}")
+    if counts["blocked"]["flash_attention"] != L or \
+            list(forms["blocked"]) != [f"non-causal {nt}x{nf}"]:
+        fail(f"[whisper] the blocked path's forward launched flash "
+             f"{counts['blocked']['flash_attention']} times ("
+             f"{forms['blocked']}); expected {L}, the cross-attention")
+    if not finite or not padded_ok:
+        fail("[whisper] the forward's logits are not finite, or padded ids "
+             "are not -1e30")
+    drift = encoder_drift(model, plain, params, frames)
+    log("[whisper] each encoder layer's attention on the kernel path's "
+        "input, kernel vs blocked: min per-row cosine " + ", ".join(
+            f"{r['min_cosine']:.6f}" for r in drift["layer"])
+        + "; max abs err " + ", ".join(
+            f"{r['max_abs_err']:.3e}" for r in drift["layer"])
+        + "; the two paths' encoder states after each layer, min per-row "
+        "cosine " + ", ".join(f"{c:.6f}" for c in drift["drift_min_cosine"]))
+    if not cos >= COS_MIN:
+        fail("[whisper] the kernel path's logits disagree with the blocked "
+             "path")
+
+    # -- times
+    torch.cuda.reset_peak_memory_stats(dev)
+    encode_ms = cuda_ms(lambda: model.encode(params, frames), 5, warmup=1)
+    encode_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    forward_ms = cuda_ms(lambda: model.forward(params, frames, tokens), 5,
+                         warmup=1)
+    forward_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    prompt = tokens[:, :WHISPER_PROMPT]
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern = zero_counts()
+    with AttentionCalls() as calls:
+        logits, cache = model.prefill(params, frames, prompt)
+    torch.cuda.synchronize()
+    prefill_counts, prefill_forms = read_counts(kern), calls.by_form
+    prefill_ms = cuda_ms(lambda: model.prefill(params, frames, prompt), 5,
+                         warmup=1)
+    prefill_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if prefill_counts["flash_attention"] != 3 * L:
+        fail(f"[whisper] the prefill launched flash "
+             f"{prefill_counts['flash_attention']} times; expected {3 * L}")
+    # the self cache padded by hand to the decoder's context, as the JAX
+    # test pads it
+    grow = lambda c: torch.cat([c, c.new_zeros(
+        c.shape[:2] + (nt - c.shape[2],) + c.shape[3:])], dim=2)
+    cache = {"self": tree_map(grow, cache["self"]), "cross": cache["cross"]}
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del logits
+    drawn = [tok]
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern = zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_STEPS):
+        logits, cache = model.decode_step(params, tok, WHISPER_PROMPT + t,
+                                          cache)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        drawn.append(tok)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / DECODE_STEPS
+    decode_counts = read_counts(kern)
+    decode_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    drawn = torch.cat(drawn, dim=1)
+    in_vocab = bool(((drawn >= 0) & (drawn < v)).all())
+    cache_len = cache["self"]["k"].shape[2]
+    del cache, logits
+    log(f"[whisper] encode {encode_ms:.3f} ms (peak {encode_peak:.2f} GB); "
+        f"forward {forward_ms:.3f} ms (peak {forward_peak:.2f} GB); "
+        f"prefill of a {WHISPER_PROMPT}-token prompt {prefill_ms:.3f} ms "
+        f"(peak {prefill_peak:.2f} GB; flash by form "
+        f"{json.dumps(prefill_forms)}); {DECODE_STEPS} greedy decode steps "
+        f"from the self cache padded to {cache_len}: "
+        f"{1e3 * step_s:.3f} ms a step, {b / step_s:.1f} tokens/s (peak "
+        f"{decode_peak:.2f} GB; launches {json.dumps(decode_counts)}); "
+        f"every token drawn below vocab_size: {in_vocab}")
+    if not in_vocab or decode_counts["flash_attention"] != 0:
+        fail("[whisper] decode drew a token outside the vocabulary or "
+             "launched flash")
+
+    # -- f32 decode against the forward, at full depth
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = EncDecLM(cfg32)
+    p32 = tree_map(lambda t: t.float(), params)
+    n32, pre, total = (WHISPER_F32_CLIPS, WHISPER_PROMPT,
+                       WHISPER_PROMPT + WHISPER_F32_STEPS)
+    f32_frames, f32_toks = frames[:n32], tokens[:n32, :total]
+    kern = zero_counts()
+    full, _ = m32.forward(p32, f32_frames, f32_toks)
+    _, cache = m32.prefill(p32, f32_frames, f32_toks[:, :pre])
+    f32_counts = read_counts(kern)
+    grow = lambda c: torch.cat([c, c.new_zeros(
+        c.shape[:2] + (total - c.shape[2],) + c.shape[3:])], dim=2)
+    cache = {"self": tree_map(grow, cache["self"]), "cross": cache["cross"]}
+    errs = []
+    for t in range(pre, total):
+        step, cache = m32.decode_step(p32, f32_toks[:, t:t + 1], t, cache)
+        errs.append(((step[:, 0, :v] - full[:, t, :v]).abs().max()
+                     / full[:, t, :v].abs().max()).item())
+    del m32, p32, full, cache, step
+    log(f"[whisper] f32 decode vs forward at full depth ({cfg.encoder_layers}"
+        f" + {L} layers, {n32} clips of {nf} frames), steps {pre}..{total - 1}"
+        f" from the self cache padded to {total}: max error of max |logit| "
+        f"{', '.join(f'{e:.3e}' for e in errs)} (<= {DECODE_REL:g}); "
+        f"launches {json.dumps(f32_counts)}")
+    if not max(errs) <= DECODE_REL:
+        fail(f"[whisper] f32 decode disagrees with forward: {max(errs):.3e}")
+    if f32_counts["flash_attention"] != 6 * L:
+        fail(f"[whisper] the f32 forward and prefill launched flash "
+             f"{f32_counts['flash_attention']} times; expected {6 * L}")
+    del params, model, plain, frames, tokens, drawn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the flash kernel at whisper's three shapes
+    # name: (FLASH_CASES row, flash_times arguments, the call's form in
+    # the forward, in the prefill)
+    p = WHISPER_PROMPT
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    shapes = {
+        "enc": ("whisper encoder", dict(shape=(b, nf, *heads), causal=False),
+                f"non-causal {nf}x{nf}", f"non-causal {nf}x{nf}"),
+        "cross": ("whisper cross", dict(shape=(b, nt, *heads), causal=False,
+                                        skv=nf),
+                  f"non-causal {nt}x{nf}", f"non-causal {p}x{nf}"),
+        "self": ("whisper self", dict(shape=(b, nt, *heads)),
+                 f"causal {nt}x{nt}", f"causal {p}x{p}"),
+    }
+    times = {}
+    for key, (case, kw, form, prefill_form) in shapes.items():
+        ft = flash_times(dev, **kw)
+        ft["share_of_forward"] = forms["flash"][form] * ft["ms"] / forward_ms
+        errs_case = [e for name, e in f_errs.items() if case in name]
+        kernels.append(
+            {"name": f"flash_attention_whisper_{key}", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+             "launches": forms["flash"][form],
+             "max_abs_err": max(errs_case),
+             "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+             "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+             "library_ms": ft["library_ms"]})
+        sdpa = ", ".join(f"{n} {t:.4f} ms" if isinstance(t, float) else
+                         f"{n} {t}" for n, t in ft["sdpa"].items())
+        log(f"[times] flash_attention_whisper_{key} at (b={b}, sq="
+            f"{kw['shape'][1]}, skv={ft['skv']}, {heads[0]} heads over "
+            f"{heads[1]}, hd {heads[2]}, "
+            f"{'causal' if ft['causal'] else 'non-causal'}): bf16 "
+            f"tensor-core kernel {ft['ms']:.4f} ms "
+            f"({ft['ms'] / ft['bound_ms']:.2f}x its bound; "
+            f"{ft['flops'] / ft['ms'] / 1e9:.1f} TFLOP/s), FP32 "
+            f"kernel on the same inputs in f32 {ft['fp32_kernel_ms']:.4f} ms,"
+            f" plain {ft['plain_ms']:.4f} ms, bound {ft['bound_ms']:.5f} ms "
+            f"({ft['bound_by']}; {ft['flops']:.4g} FLOP, {ft['bytes']:.4g} "
+            f"B); SDPA: {sdpa}; {forms['flash'][form]} launches a forward, "
+            f"{prefill_forms.get(prefill_form, 0)} a prefill; "
+            f"{100 * ft['share_of_forward']:.1f}% of a {forward_ms:.2f}-ms "
+            f"forward")
+        ft["prefill_launches"] = prefill_forms.get(prefill_form, 0)
+        times[key] = ft
+    phase_s = time.perf_counter() - t_phase
+    log(f"[whisper] phase took {phase_s:.1f} s")
+    return {"phase_seconds": phase_s, "params": n_params,
+            "param_bytes": n_bytes, "param_count": cfg.param_count(),
+            "init_seconds": init_s, "clips": b, "frames": nf, "tokens": nt,
+            "launches": counts, "forms": forms,
+            "logits_min_cosine": cos, "logits_max_abs_diff": diff,
+            "logits_max_abs": scale, "encoder": drift,
+            "encode_ms": encode_ms, "forward_ms": forward_ms,
+            "prefill_ms": prefill_ms, "prefill_forms": prefill_forms,
+            "decode_ms_per_step": 1e3 * step_s,
+            "decode_tokens_per_second": b / step_s,
+            "peak_memory_gb": {"encode": encode_peak,
+                               "forward": forward_peak,
+                               "prefill": prefill_peak,
+                               "decode": decode_peak},
+            "f32_decode_vs_forward_rel_err": errs, "f32_launches": f32_counts,
+            "times": times}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -3867,6 +4223,9 @@ def main() -> None:
 
     # -- 22. zamba2-2.7b: Mamba2 SSD blocks and the shared attention block -
     report["zamba2"] = zamba2_phase(dev, kernels, f_errs)
+
+    # -- 23. whisper-base: the encoder-decoder family ------------------------
+    report["whisper"] = whisper_phase(dev, kernels, f_errs)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -6,7 +6,8 @@ frontend stubbed: precomputed patch embeddings, as in the JAX package),
 the attention-free rwkv6-7b and the MoE qwen3-moe-30b-a3b (128 experts,
 top 8) and dbrx-132b (16 experts, top 4), and the hybrid zamba2-2.7b
 (Mamba2 blocks and one shared attention block applied every sixth
-layer). The encoder-decoder whisper-base waits for its block family."""
+layer), and the encoder-decoder whisper-base (its audio frontend
+stubbed: precomputed frame embeddings, as in the JAX package)."""
 from repro_torch.configs import (  # noqa: F401
     codeqwen15_7b,
     dbrx_132b,
@@ -16,5 +17,6 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_moe_30b_a3b,
     rwkv6_7b,
     smollm_360m,
+    whisper_base,
     zamba2_27b,
 )

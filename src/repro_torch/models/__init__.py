@@ -1,12 +1,14 @@
 """The port's models (``repro.models``): the decoder-only LM of the
 offline embedding path, the LM judge and decode (dense attention, MoE,
-RWKV6, Mamba2 and shared attention blocks), and the carry of JAX weights
-and caches into it."""
+RWKV6, Mamba2 and shared attention blocks), the encoder-decoder LM
+(prefill and decode over stubbed frame embeddings), and the carry of
+JAX weights and caches into them."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models.encdec import EncDecLM  # noqa: F401
 from repro_torch.models.model import build_model  # noqa: F401
 from repro_torch.models.transformer import TransformerLM  # noqa: F401
 
@@ -31,13 +33,14 @@ F32_CACHE_KEYS = {"ssm", "wkv"}
 
 
 def params_from_jax(tree, device, dtype=None):
-    """The JAX ``TransformerLM`` param tree (numpy or JAX leaves) -> the
-    port's, on ``device``. The layout is the same; each leaf keeps its
-    type unless ``dtype`` is given, except the leaves of ``F32_LEAVES``
-    (an MoE router, a Mamba2 block's ``a_log``, ``d_skip`` and
-    ``dt_bias``, an RWKV6 time-mix's ``w0``, ``u`` and ``ln_x``), which
-    stay float32 as both packages draw and run them. A JAX decode cache
-    (``prefill``'s or ``init_cache``'s) has the port's layout too and is
+    """A JAX ``TransformerLM`` or ``EncDecLM`` param tree (numpy or JAX
+    leaves) -> the port's, on ``device``. The layout is the same; each
+    leaf keeps its type unless ``dtype`` is given, except the leaves of
+    ``F32_LEAVES`` (an MoE router, a Mamba2 block's ``a_log``,
+    ``d_skip`` and ``dt_bias``, an RWKV6 time-mix's ``w0``, ``u`` and
+    ``ln_x``), which stay float32 as both packages draw and run them. A
+    JAX decode cache (``prefill``'s or ``init_cache``'s; an
+    ``EncDecLM``'s {"self", "cross"}) has the port's layout too and is
     carried the same way, its Mamba2 ``ssm`` and RWKV6 ``wkv`` states
     kept float32: a carry in the model's type would change what the
     model computes."""

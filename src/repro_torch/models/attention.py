@@ -13,11 +13,16 @@ Decode reads a KV cache: a full cache (one slot a position) for global
 layers, a ring of ``window`` slots for sliding-window layers. Decode
 attention is plain PyTorch, as in the JAX package, where it lies outside
 any Pallas kernel: f32 scores and softmax, masked by a select with
-``NEG_INF``. Cross-attention (``cross_attn_{init, apply, decode}``,
-``encode_kv``) and ``attn_apply``'s ``use_rope=False`` wait for the
-encoder-decoder models, ``attn_axes`` for the sharding rules; the JAX
-package's in-model flash (``flash_attention``, ``_flash_fwd``) is the
-hand-written kernel here.
+``NEG_INF``. ``use_rope=False`` leaves Q and K unrotated (the
+encoder-decoder models add sinusoidal positions to their inputs).
+
+Cross-attention (``cross_attn_{init, apply, decode}``, ``encode_kv``)
+reads K/V projected once from the encoder's output, with no RoPE and no
+mask. Its full-sequence form always goes through the flash entry,
+non-causal, whatever the model's ``attn_impl``, as in the JAX package;
+its decode form is plain f32 scores and softmax. ``attn_axes`` waits
+for the sharding rules; the JAX package's in-model flash
+(``flash_attention``, ``_flash_fwd``) is the hand-written kernel here.
 """
 from __future__ import annotations
 
@@ -48,6 +53,12 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     }
 
 
+def cross_attn_init(generator: torch.Generator, cfg: ModelConfig,
+                    dtype) -> Params:
+    """The same four weights as ``attn_init``."""
+    return attn_init(generator, cfg, dtype)
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matrix product."""
     b, s, d = x.shape
@@ -57,10 +68,12 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                positions: torch.Tensor, causal: bool = True,
-               window: int = 0, impl: str = "flash", kv_out: bool = False):
-    """Full-sequence attention with RoPE. x: (b, s, d) -> y (b, s, d);
-    with ``kv_out``, (y, {"k": K after RoPE, "v": V}), both unexpanded
-    (b, s, kv_heads, head_dim), for a KV cache."""
+               window: int = 0, impl: str = "flash", kv_out: bool = False,
+               use_rope: bool = True):
+    """Full-sequence attention, with RoPE unless ``use_rope`` is False.
+    x: (b, s, d) -> y (b, s, d); with ``kv_out``, (y, {"k": K (after
+    RoPE), "v": V}), both unexpanded (b, s, kv_heads, head_dim), for a
+    KV cache."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     b, s, d = x.shape
@@ -68,8 +81,9 @@ def attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / (cfg.head_dim ** 0.5)
     if impl == "flash":
         out = flash_ops.attention(q, k, v, scale=scale, causal=causal,
@@ -92,6 +106,26 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     b, s = out.shape[:2]
     return (out.reshape(b * s, -1) @ wo.reshape(-1, wo.shape[-1])).reshape(
         b, s, -1)
+
+
+def cross_attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                     kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Cross-attention of x (b, s, d) over ``encode_kv``'s K/V (b, skv,
+    kv_heads, head_dim): the flash entry, non-causal (the kernel on the
+    card whatever the model's ``attn_impl``, as in the JAX package)."""
+    q = _project(x, params["wq"])
+    out = flash_ops.attention(q, kv["k"], kv["v"],
+                              scale=1.0 / (cfg.head_dim ** 0.5),
+                              causal=False)
+    return _out_proj(out, params["wo"])
+
+
+def encode_kv(params: Params, x_enc: torch.Tensor
+              ) -> Dict[str, torch.Tensor]:
+    """The encoder output (b, skv, d) projected to cross-attention K/V,
+    unexpanded (b, skv, kv_heads, head_dim): once a layer, then cached."""
+    return {"k": _project(x_enc, params["wk"]),
+            "v": _project(x_enc, params["wv"])}
 
 
 # -- KV caches and decode ------------------------------------------------------
@@ -151,13 +185,13 @@ def position_on(pos: Union[int, torch.Tensor], device) -> torch.Tensor:
 
 def attn_decode(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 pos: Union[int, torch.Tensor], cache: Dict[str, torch.Tensor],
-                window: int = 0
+                window: int = 0, use_rope: bool = True
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode. x: (b, 1, d); ``pos`` the token's absolute
     position (see ``position_on``); cache k/v (b, L, kv, hd). Returns (y
     (b, 1, d), the new cache); the input cache is not changed. The
-    token's K/V go to slot ``min(pos, L - 1)`` of a full cache, ``pos %
-    L`` of a ring."""
+    token's K/V (rotated unless ``use_rope`` is False) go to slot
+    ``min(pos, L - 1)`` of a full cache, ``pos % L`` of a ring."""
     b = x.shape[0]
     groups = cfg.num_heads // cfg.num_kv_heads
     dev = x.device
@@ -165,9 +199,10 @@ def attn_decode(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
-    posb = pos.expand(b)[:, None]                           # (b, 1)
-    q = apply_rope(q, posb, cfg.rope_theta)
-    k = apply_rope(k, posb, cfg.rope_theta)
+    if use_rope:
+        posb = pos.expand(b)[:, None]                       # (b, 1)
+        q = apply_rope(q, posb, cfg.rope_theta)
+        k = apply_rope(k, posb, cfg.rope_theta)
 
     L = cache["k"].shape[1]
     slot = (pos % L) if window > 0 else torch.clamp(pos, max=L - 1)
@@ -191,3 +226,19 @@ def attn_decode(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhql,blhk->bqhk", probs, vf.float())
     return _out_proj(out.to(x.dtype), params["wo"]), {"k": ck, "v": cv}
+
+
+def cross_attn_decode(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                      kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One-token cross-attention, x (b, 1, d), over cached encoder K/V
+    (b, L, kv, hd): f32 scores and softmax over every slot, no mask (a
+    zero cache attends uniformly over zeros, as in the JAX package)."""
+    groups = cfg.num_heads // cfg.num_kv_heads
+    q = _project(x, params["wq"])
+    kf = _expand_kv(kv["k"], groups)
+    vf = _expand_kv(kv["v"], groups)
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    scores = torch.einsum("bqhk,blhk->bhql", q.float(), kf.float()) * scale
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhql,blhk->bqhk", probs, vf.float())
+    return _out_proj(out.to(x.dtype), params["wo"])

@@ -4,10 +4,10 @@ Initializers draw on a ``torch.Generator`` and on its device. RMSNorm
 and RoPE compute in float32 and cast back to the input's type, as the
 JAX package does; RoPE rotates the two halves of each head
 (``[x1 cos - x2 sin, x1 sin + x2 cos]``), not interleaved pairs.
-``rmsnorm_axes``, ``constrain``/``set_constrainer`` (a sharding
-constraint) and ``cross_entropy`` wait for the training scaffolding,
-``sinusoidal_positions``/``sinusoidal_position_at`` for the
-encoder-decoder models.
+The sinusoidal positions of the encoder-decoder models compute in
+float32 with the JAX package's ``div`` expression. ``rmsnorm_axes``,
+``constrain``/``set_constrainer`` (a sharding constraint) and
+``cross_entropy`` wait for the training scaffolding.
 """
 from __future__ import annotations
 
@@ -85,6 +85,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x2 = x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def _sinusoid_div(dim: int, device) -> torch.Tensor:
+    return torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                  device=device)
+                     * (-math.log(10000.0) / dim))
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """(seq, dim) float32: sin at the even columns, cos at the odd ones,
+    of position times ``exp(2i * -log(10000) / dim)``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    ang = pos * _sinusoid_div(dim, device)
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def sinusoidal_position_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """The (dim,) float32 row of ``sinusoidal_positions`` for a 0-d
+    position tensor, on its device: nothing is read back to the host."""
+    ang = pos.float() * _sinusoid_div(dim, pos.device)
+    pe = torch.zeros((dim,), dtype=torch.float32, device=pos.device)
+    pe[0::2] = torch.sin(ang)
+    pe[1::2] = torch.cos(ang)
+    return pe
 
 
 def activation(name: str):

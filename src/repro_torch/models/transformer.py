@@ -28,7 +28,8 @@ codeqwen1.5-7b, gemma3-12b (five ``local`` layers of window 1024 a
 global one, head_dim 240), internvl2-1b (float inputs are the stubbed
 vision frontend's patch embeddings), rwkv6-7b, qwen3-moe-30b-a3b,
 dbrx-132b and zamba2-2.7b (five mamba2 layers a shared one, head_dim
-80); encoder-decoder models raise ``NotImplementedError``. An unknown
+80); an encoder-decoder config raises ``NotImplementedError`` here
+(``build_model`` gives it ``models.encdec.EncDecLM``). An unknown
 block kind raises ``ValueError``. ``forward`` returns the MoE
 auxiliary loss summed over the layers. ``loss_fn``, ``param_axes`` and
 the sharding constraint (``act_constraint``) wait for the training
@@ -62,7 +63,9 @@ def check_supported(cfg: ModelConfig) -> None:
     (``NotImplementedError``) and for a block kind no package knows
     (``ValueError``)."""
     if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported")
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder model: TransformerLM runs "
+            f"decoder-only ones; build_model gives it an EncDecLM")
     other = [k for k in cfg.block_pattern if k not in BLOCK_KINDS]
     if other:
         raise ValueError(f"unknown block kinds {other}; one of "
@@ -124,16 +127,48 @@ def _fill(stacked: Params, tree: Params, g: int) -> None:
             stacked[k][g].copy_(v)
 
 
+def draw_stacked(n: int, draw) -> Params:
+    """``n`` trees of ``draw()``, drawn one at a time and copied into
+    leaves stacked over a leading axis of ``n``: the peak is one tree
+    beyond the stack."""
+    stacked = None
+    for g in range(n):
+        tree = draw()
+        if stacked is None:
+            stacked = tree_map(lambda t: torch.empty(
+                (n,) + tuple(t.shape), dtype=t.dtype, device=t.device), tree)
+        _fill(stacked, tree, g)
+        del tree
+    return stacked
+
+
+def lm_logits(cfg: ModelConfig, final_norm: Params, table: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """Final norm, then the product with the head ``table`` (V, d) in the
+    model's type, cast to float32 after it (bf16 rounds before the cast,
+    as the JAX package's einsum does), padded vocab ids set to -1e30.
+    x: (b, s, d) -> (b, s, padded_vocab) float32."""
+    x = rmsnorm_apply(final_norm, x, cfg.norm_eps)
+    b, s, d = x.shape
+    out = (x.reshape(b * s, d) @ table.T).reshape(b, s, -1).float()
+    if cfg.padded_vocab_size != cfg.vocab_size:
+        ids = torch.arange(cfg.padded_vocab_size, device=x.device)
+        out = torch.where(ids < cfg.vocab_size, out,
+                          torch.full_like(out, -1e30))
+    return out
+
+
 def group_params(params: Params, g: int) -> Params:
     """The params of pattern group ``g``: views of the stacked leaves."""
     return tree_map(lambda t: t[g], params["blocks"])
 
 
-def _stack_groups(trees: List[Params]) -> Params:
-    """Per-group trees -> one tree of leaves stacked over the groups."""
+def stack_trees(trees: List[Params]) -> Params:
+    """Trees of one layout (a group's, a layer's) -> one tree of leaves
+    stacked over a new leading axis."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack_groups([t[k] for t in trees]) for k in first}
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
 
 
@@ -179,16 +214,9 @@ class TransformerLM:
             "blocks": {},
         }
         for i, kind in enumerate(self.pattern):
-            stacked = None
-            for g in range(self.num_groups):
-                tree = _block_init(generator, kind, cfg, dtype)
-                if stacked is None:
-                    stacked = tree_map(lambda t: torch.empty(
-                        (self.num_groups,) + tuple(t.shape), dtype=t.dtype,
-                        device=t.device), tree)
-                _fill(stacked, tree, g)
-                del tree
-            params["blocks"][f"p{i}"] = stacked
+            params["blocks"][f"p{i}"] = draw_stacked(
+                self.num_groups,
+                lambda: _block_init(generator, kind, cfg, dtype))
         if self.has_shared:
             params["shared"] = _shared_init(generator, cfg, dtype)
         if not cfg.tie_embeddings:
@@ -205,21 +233,10 @@ class TransformerLM:
         return inputs.to(dtype_of(self.cfg.dtype))
 
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """Final norm, then the product with the (tied or separate) head
-        in the model's type, cast to float32 after it (bf16 rounds before
-        the cast, as the JAX package's einsum does), padded vocab ids set
-        to -1e30. x: (b, s, d) -> (b, s, padded_vocab) float32."""
-        cfg = self.cfg
-        x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-        table = (params["embed"]["table"] if cfg.tie_embeddings
+        """``lm_logits`` with the tied or separate head."""
+        table = (params["embed"]["table"] if self.cfg.tie_embeddings
                  else params["lm_head"]["w"])
-        b, s, d = x.shape
-        out = (x.reshape(b * s, d) @ table.T).reshape(b, s, -1).float()
-        if cfg.padded_vocab_size != cfg.vocab_size:
-            ids = torch.arange(cfg.padded_vocab_size, device=x.device)
-            out = torch.where(ids < cfg.vocab_size, out,
-                              torch.full_like(out, -1e30))
-        return out
+        return lm_logits(self.cfg, params["final_norm"], table, x)
 
     def _group_fullseq(self, x: torch.Tensor, group_params: Params,
                        shared: Optional[Params], *, positions: torch.Tensor,
@@ -303,7 +320,7 @@ class TransformerLM:
                                             cache_len=cache_len)
             caches.append(c)
             auxes.append(aux)
-        return (x, (_stack_groups(caches) if collect_cache else None),
+        return (x, (stack_trees(caches) if collect_cache else None),
                 torch.stack(auxes).sum())
 
     @torch.inference_mode()
@@ -422,4 +439,4 @@ class TransformerLM:
                 x = x + y
                 new[key] = nc
             new_caches.append(new)
-        return self.logits(params, x), _stack_groups(new_caches)
+        return self.logits(params, x), stack_trees(new_caches)

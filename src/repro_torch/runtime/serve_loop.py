@@ -11,7 +11,9 @@ job that writes those embeddings into a store lives in
 is the hand-written flash kernel, and the WKV6 recurrence of every
 RWKV6 layer the hand-written intra-chunk kernel. ``generate`` is the
 autoregressive decode driver: a prefill through those kernels, then
-plain-PyTorch decode steps over its caches.
+plain-PyTorch decode steps over its caches. Both drive decoder-only
+models, as in the JAX package: an encoder-decoder model raises
+``TypeError`` (its prefill takes frames and has no ``cache_len``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from repro_torch.checkpoint import flatten_with_paths
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import EncDecLM, build_model
 
 # elements hashed per host copy when digesting the params
 _DIGEST_CHUNK = 1 << 26
@@ -72,6 +74,10 @@ class EmbeddingService:
                  device="cuda", attn_impl: str = "flash",
                  rwkv_mode: str = "kernel"):
         self.device = resolve_device(device)
+        if cfg.is_encdec:
+            raise TypeError(f"{cfg.name} is an encoder-decoder model; the "
+                            f"embedding service runs decoder-only blocks, "
+                            f"as the JAX package's does")
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params are on {table.device}, the service "
@@ -145,7 +151,13 @@ def generate(model, params, prompt_tokens, steps: int, cache_len: int = 0,
     None). Those draws are torch's, not the JAX package's threefry
     draws, so sampled tokens differ from its; greedy tokens are the
     same. Token t (1-based) is decoded at position s + t - 1. The tokens
-    stay on the device until the end: the loop makes no host sync."""
+    stay on the device until the end: the loop makes no host sync. An
+    ``EncDecLM`` raises ``TypeError``, as the JAX package's
+    ``generate`` does (it prefills with ``cache_len=``)."""
+    if isinstance(model, EncDecLM):
+        raise TypeError(f"generate drives a decoder-only model; "
+                        f"{model.cfg.name} is an encoder-decoder one, whose "
+                        f"prefill takes frames and no cache_len")
     dev = params["embed"]["table"].device
     prompt = torch.as_tensor(prompt_tokens, device=dev)
     b, s = prompt.shape

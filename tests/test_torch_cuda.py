@@ -873,3 +873,97 @@ def test_zamba2_smoke_forward_on_card_matches_cpu(cuda, s):
         before + 1
     err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
     assert err < FLASH[torch.float32]["rtol"], err
+
+
+# -- whisper-base: the encoder-decoder family (-k whisper) --------------------
+
+# head_dim 64, non-causal with sq != skv: a cross-attention's 70 queries
+# over 1500 keys (23 whole 64-key tiles and a partial one of 28), the
+# encoder's 1500 over 1500, and GQA 2:1 over a ragged 130 x 1500
+WHISPER_FLASH_CASES = [pytest.param(case, id=f"whisper-{i}")
+                       for i, case in enumerate([
+    (2, 70, 1500, 8, 8, 64, False, 0, 0),
+    (1, 1500, 1500, 8, 8, 64, False, 0, 0),
+    (1, 130, 1500, 4, 2, 64, False, 0, 0),
+])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WHISPER_FLASH_CASES)
+def test_flash_whisper_shapes_match_plain(cuda, case, dtype):
+    """Against the einsum oracle (f32 and bf16) and, in bf16, against the
+    tensor-core kernel's plain version on its 64-row, 64-key tiles."""
+    b, sq, skv, h, kv, hd, causal, window, q_offset = case
+    q, k, v = (_t(x, cuda).to(dtype)
+               for x in _attention_inputs(b, sq, skv, h, kv, hd))
+    scale = hd ** -0.5
+    before = f_ops.KERNEL.launches
+    got = f_ops.flash_attention_fwd(q, k, v, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    assert f_ops.KERNEL.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    g = h // kv
+    kf, vf = f_ref.expand_kv(k, g), f_ref.expand_kv(v, g)
+    want = f_ref.ref_attention(q, kf, vf, scale=scale, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **FLASH[dtype])
+    if dtype == torch.bfloat16:
+        plain = f_ref.attention_blocked(
+            q, kf, vf, scale, causal=causal, q_block=64,
+            kv_block=f_ops.bf16_tile_keys(hd), round_p=True)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   plain.float().cpu().numpy(),
+                                   **FLASH_BF16_PLAIN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["flash", "blocked"])
+def test_whisper_smoke_on_card_matches_cpu(cuda, impl):
+    """whisper-base SMOKE (f32, head_dim 12: the FP32 kernel) on the card
+    against the same params on the CPU (the flash wrapper's plain version
+    there): the forward's logits, a prefill and a decode step after the
+    self cache is padded by hand, within the flash kernel's f32 bar of
+    max |logit|. Flash launches 3 a layer pair on the kernel path
+    (encoder, self, cross) and 1 (the cross-attention) on the blocked
+    path; the decode step launches none."""
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.common import tree_map
+    resolve_device(cuda)                     # TF32 off
+    cfg = get_smoke_arch("whisper-base")
+    model = EncDecLM(cfg, attn_impl=impl)
+    params = model.init(torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(5)
+    frames = rng.normal(size=(3, 70, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(1, cfg.vocab_size, size=(3, 17)).astype(np.int32)
+    per_layer = 3 if impl == "flash" else 1
+    want, _ = model.forward(params, frames, toks)
+    before = f_ops.KERNEL.launches
+    got, _ = model.forward(on_card, frames, toks)
+    torch.cuda.synchronize()
+    assert f_ops.KERNEL.launches == before + per_layer * cfg.num_layers
+    bar = FLASH[torch.float32]["rtol"]
+    assert ((got.cpu() - want).abs().max() / want.abs().max()).item() < bar
+
+    def padded(cache):
+        grow = lambda c: torch.cat([c, torch.zeros_like(c[:, :, :4])], 2)
+        return {"self": tree_map(grow, cache["self"]),
+                "cross": cache["cross"]}
+    steps = {}
+    for name, p in (("cpu", params), ("card", on_card)):
+        _, cache = model.prefill(p, frames, toks[:, :16])
+        before = f_ops.KERNEL.launches
+        steps[name], _ = model.decode_step(p, toks[:, 16:], 16,
+                                           padded(cache))
+        torch.cuda.synchronize()
+        assert f_ops.KERNEL.launches == before
+    ref = steps["cpu"]
+    assert ((steps["card"].cpu() - ref).abs().max()
+            / ref.abs().max()).item() < bar
+    # the step against the forward at that position, on the card
+    err = ((steps["card"][:, 0] - got[:, 16]).abs().max()
+           / got[:, 16].abs().max()).item()
+    assert err < DECODE_REL, err

@@ -244,12 +244,41 @@ def _port_model(arch, **overrides):
     return cfg, model, model.init(torch.Generator().manual_seed(0))
 
 
+def _frames(cfg, b, s, seed=2):
+    return np.random.default_rng(seed).normal(
+        size=(b, s, cfg.d_model)).astype(np.float32)
+
+
+def _forward_and_prefill(cfg, model, params, toks, pre, cache_len):
+    """(the teacher-forced logits over ``toks``, the prefill cache of its
+    first ``pre`` tokens with room for ``cache_len``). An
+    encoder-decoder model runs over frames of SEQ positions and its
+    self cache, as long as the prompt, is padded by hand, as the JAX
+    test pads it (tests/test_models_consistency.py)."""
+    if not cfg.is_encdec:
+        full, _ = model.forward(params, toks)
+        return full, model.prefill(params, toks[:, :pre],
+                                   cache_len=cache_len)[1]
+    frames = _frames(cfg, toks.shape[0], SEQ)
+    full, _ = model.forward(params, frames, toks)
+    _, cache = model.prefill(params, frames, toks[:, :pre])
+    spec, _ = model.cache_spec(toks.shape[0], cache_len)
+
+    def pad(c, s):
+        out = torch.zeros(s.shape, dtype=s.dtype)
+        out[:, :, :c.shape[2]] = c
+        return out
+    return full, {"self": {n: pad(c, spec["self"][n])
+                           for n, c in cache["self"].items()},
+                  "cross": cache["cross"]}
+
+
 @pytest.mark.parametrize("arch", list_archs())
 def test_decode_matches_forward(arch):
     cfg, model, params = _port_model(arch)
     toks = _tokens(cfg, 2, SEQ + 1)
-    full, _ = model.forward(params, toks)
-    _, cache = model.prefill(params, toks[:, :SEQ], cache_len=SEQ + 4)
+    full, cache = _forward_and_prefill(cfg, model, params, toks, SEQ,
+                                       SEQ + 4)
     step, _ = model.decode_step(params, toks[:, SEQ:], SEQ, cache)
     assert _rel(step[:, 0], full[:, SEQ].numpy()) < DECODE_REL
 
@@ -260,8 +289,7 @@ def test_multi_step_decode(arch):
     cfg, model, params = _port_model(arch)
     pre, total = 12, 16
     toks = _tokens(cfg, 2, total)
-    full, _ = model.forward(params, toks)
-    _, cache = model.prefill(params, toks[:, :pre], cache_len=total)
+    full, cache = _forward_and_prefill(cfg, model, params, toks, pre, total)
     for t in range(pre, total):
         step, cache = model.decode_step(params, toks[:, t:t + 1], t, cache)
         err = _rel(step[:, 0], full[:, t].numpy())

@@ -184,11 +184,13 @@ def test_attn_apply_matches_jax(impl, window):
 
 
 def test_unported_model_paths_raise():
-    """Encoder-decoder models and the clamped "factored" RWKV6 lowering
-    are not ported: they raise rather than run something else; an
-    unknown block kind raises ``ValueError``. Mamba2 and shared-attention
-    patterns build and run a prefill and a decode step
-    (``tests/test_torch_ssm.py`` holds them to JAX).
+    """The clamped "factored" RWKV6 lowering is not ported: it raises
+    rather than run something else; an unknown block kind raises
+    ``ValueError``. An encoder-decoder config builds an ``EncDecLM``
+    that runs a prefill and a decode step (``tests/test_torch_encdec.py``
+    holds it to JAX), Mamba2 and shared-attention patterns build and
+    run a prefill and a decode step (``tests/test_torch_ssm.py`` holds
+    them to JAX).
     KV caches are ported: a group's full-sequence pass collects its
     layer's cache (``tests/test_torch_decode.py`` holds it to JAX)."""
     from repro_torch.config import MoEConfig, SSMConfig
@@ -207,9 +209,20 @@ def test_unported_model_paths_raise():
         build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
                                 block_pattern=("rwkv6",)),
                     rwkv_mode="factored")
-    with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
-                                encoder_layers=2))
+    from repro_torch.models import EncDecLM
+    encdec = build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
+                                     d_ff=32, vocab_size=32, dtype="float32",
+                                     encoder_layers=2))
+    assert isinstance(encdec, EncDecLM)
+    params = encdec.init(torch.Generator().manual_seed(0))
+    frames = torch.randn(1, 7, 16, generator=torch.Generator().manual_seed(1))
+    toks = torch.tensor([[3, 1, 4, 1, 5]])
+    logits, cache = encdec.prefill(params, frames, toks)
+    assert logits.shape == (1, 5, 256) and torch.isfinite(logits).all()
+    step, cache = encdec.decode_step(params, toks[:, :1], 5, cache)
+    assert step.shape == (1, 1, 256) and torch.isfinite(step).all()
+    assert cache["self"]["k"].shape == (2, 1, 5, 2, 8)
+    assert cache["cross"]["v"].shape == (2, 1, 7, 2, 8)
     with pytest.raises(ValueError, match="unknown block kinds"):
         build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
                                 block_pattern=("attn", "mamba3")))

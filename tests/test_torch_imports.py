@@ -113,6 +113,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         lambda: ops.score_collection({}, docs[0], docs),
         lambda: EmbeddingService(None, {}),
         lambda: build_model(get_smoke_arch("llama3-8b")).init_cache(1, 4),
+        lambda: build_model(get_smoke_arch("whisper-base")).init_cache(1, 4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
