@@ -300,7 +300,30 @@ Phases, each of which exits non-zero when it fails:
                DECODE_REL); then the bf16 flash kernel at its three
                shapes (encoder 1500 x 1500 and cross-attention 448 x
                1500, non-causal; self-attention 448, causal) as in 14,
-               with their bounds and their shares of a forward.
+               with their bounds and their shares of a forward;
+ 24. train   — the whisper-base weights freed, the port's Trainer on
+               smollm-360m at full width (32 layers, d 960, 15 heads
+               over 5 of 64, vocab 49,152; bf16, remat "full") at 8
+               sequences of 4,096 tokens (TRAIN_4K's batch of 256 cut
+               to 8) for 8 steps, async checkpoints every 4 under
+               build/, a WorkerFailure injected at step 6: one restart,
+               the latest checkpoint at step 8, the replayed steps 4
+               and 5 bitwise the first pass's losses, step 7's loss
+               below step 0's, flash 64 times a step (32 forward, 32 by
+               the remat) and no other kernel, the plain attention
+               never called; ms a step (steps 1-7), tokens/s, peak
+               memory, the checkpoint's host copy and write, the params
+               digest of the step-8 checkpoint; one loss_fn gradient of
+               a 2-layer model of its widths over (2, 2048) on the
+               kernel path against attn_impl="blocked" (f32: each leaf
+               within TRAIN_GRAD_REL of its max |g|; bf16: cosine >=
+               TRAIN_GRAD_COS); the kernel's LSE form at the training
+               shape (b=8, s=4096, 15 heads over 5, hd 64, causal) in
+               bf16 and f32: out bitwise the form without it, lse
+               against the plain version's (LSE_TOL); then its time,
+               the form without it, the plain forward and backward and
+               SDPA at that shape as in 14, with the bound and the
+               shares of a step.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -461,6 +484,31 @@ WHISPER_CLIPS, WHISPER_FRAMES, WHISPER_TOKENS = 32, 1500, 448
 WHISPER_PROMPT = 4
 WHISPER_F32_CLIPS, WHISPER_F32_STEPS = 2, 8
 _wb, _wf, _wt = WHISPER_CLIPS, WHISPER_FRAMES, WHISPER_TOKENS
+# [train]: smollm-360m FULL (32 layers, d 960, 15 heads over 5 of 64,
+# vocab 49,152, tied; bf16, remat "full") trained by the port's Trainer
+# at TRAIN_4K's sequence of 4,096 with its global batch of 256 cut to
+# TRAIN_BATCH (the f32 logits alone would be 206 GB at 256), for
+# TRAIN_STEPS steps, checkpoints every TRAIN_CKPT_EVERY (async, under
+# build/), one WorkerFailure injected at TRAIN_FAIL_AT; then one loss_fn
+# gradient of a TRAIN_GRAD_LAYERS-layer model of FULL's widths over
+# TRAIN_GRAD_SHAPE (b, s), kernel path against attn_impl="blocked": f32
+# (the FP32 kernel) each leaf within TRAIN_GRAD_REL of its max |g|, bf16
+# (the tensor-core kernel) each leaf's cosine >= TRAIN_GRAD_COS
+TRAIN_ARCH = "smollm-360m"
+TRAIN_SEQ, TRAIN_BATCH = 4096, 8
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
+TRAIN_GRAD_LAYERS, TRAIN_GRAD_SHAPE = 2, (2, 2048)
+TRAIN_GRAD_REL, TRAIN_GRAD_COS = 1e-4, 0.999
+# after the run, the step-0 batch's loss under the final params must lie
+# at least this far below its loss under init_state()'s (both taken
+# without a gradient, so no batch-to-batch noise enters): a quarter of
+# the 0.016 fall from step 0 to step 7 of the first chip runs; params
+# that the optimizer left unchanged give a fall of exactly 0
+TRAIN_FALL_MIN = 0.004
+TRAIN_FLASH_SHAPE = (8, 4096, 15, 5, 64)   # b, s, heads, KV heads, hd
+# the kernel's LSE against the plain version's (tests/test_torch_cuda.py)
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # the compound phase's cross-session CSE arms run on this many of the
 # main path's documents, to bound the phase's time
 CSE_DOCS = 32_768
@@ -3600,7 +3648,384 @@ def whisper_phase(dev, kernels: list, f_errs: dict) -> dict:
             "times": times}
 
 
+class PlainAttentionCalls:
+    """Within the block, calls of the plain attention versions
+    (``attention_blocked`` and ``attention_einsum`` as the attention
+    layer and the flash wrapper reach them): on the card's kernel path
+    there must be none."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ref
+        from repro_torch.models import attention
+        self.calls = 0
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod in (ref, attention)
+                       for name in ("attention_blocked", "attention_einsum")]
+
+        def counting(inner):
+            def call(*args, **kw):
+                self.calls += 1
+                return inner(*args, **kw)
+            return call
+        for mod, name, fn in self._saved:
+            setattr(mod, name, counting(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def train_grad_check(dev, cfg, dtype: str) -> dict:
+    """One loss_fn gradient of a TRAIN_GRAD_LAYERS-layer model of
+    ``cfg``'s widths in ``dtype``, on the kernel path (flash launches:
+    a forward and the remat's recompute a layer) and on
+    attn_impl="blocked", compared leaf by leaf: max |diff| over max |g|
+    and the cosine."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.data.loader import BatchSpec, SyntheticLMLoader
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime.train_loop import grad_tree
+    small = dataclasses.replace(cfg, num_layers=TRAIN_GRAD_LAYERS,
+                                dtype=dtype)
+    b, s = TRAIN_GRAD_SHAPE
+    batch = SyntheticLMLoader(BatchSpec(b, s + 1, cfg.vocab_size),
+                              seed=1).batch(0)
+    params = build_model(small).init(torch.Generator(dev).manual_seed(2))
+    grads, losses, launches = {}, {}, {}
+    for impl in ("flash", "blocked"):
+        model = build_model(small, attn_impl=impl)
+        kern = zero_counts()
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = model.loss_fn(live, {k: torch.as_tensor(v, device=dev)
+                                    for k, v in batch.items()})
+        g = grad_tree(loss, live)
+        torch.cuda.synchronize()
+        launches[impl] = read_counts(kern)["flash_attention"]
+        losses[impl] = loss.item()
+        grads[impl] = dict(flatten_with_paths(g))
+        del live, loss, g
+    leaves = {}
+    for path, want in grads["blocked"].items():
+        got = grads["flash"][path].float()
+        want = want.float()
+        leaves[path] = {
+            "rel": ((got - want).abs().max()
+                    / want.abs().max().clamp(min=1e-30)).item(),
+            "cos": F.cosine_similarity(got.flatten(), want.flatten(),
+                                       dim=0).item()}
+    del grads
+    return {"dtype": dtype, "layers": TRAIN_GRAD_LAYERS,
+            "shape": list(TRAIN_GRAD_SHAPE), "losses": losses,
+            "launches": launches, "leaves": leaves,
+            "max_rel": max(v["rel"] for v in leaves.values()),
+            "min_cos": min(v["cos"] for v in leaves.values())}
+
+
+def train_flash_checks(dev) -> dict:
+    """The flash kernel's LSE form at the training shape, for the bf16
+    kernel (the path's) and the FP32 one: out bitwise the form without
+    LSE, and out and lse against the plain version's (the bf16 kernel's
+    on its own tiles with P rounded, gated at FLASH_BF16_PLAIN_TOL; the
+    FP32 one's at FLASH_TOL; lse at LSE_TOL)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.flash_attention import ref as f_ref
+    b, s, h, kv, hd = TRAIN_FLASH_SHAPE
+    gen = torch.Generator(dev).manual_seed(5)
+    base = [torch.randn((b, s, n, hd), generator=gen, device=dev)
+            for n in (h, kv, kv)]
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (x.to(dt) for x in base)
+        kw = dict(scale=hd ** -0.5, causal=True)
+        plain_out = f_ops.flash_attention_fwd(q, k, v, **kw)
+        with_lse, lse = f_ops.flash_attention_fwd(q, k, v, return_lse=True,
+                                                  **kw)
+        bf16 = dt == torch.bfloat16
+        tiles = (dict(q_block=64, kv_block=f_ops.bf16_tile_keys(hd))
+                 if bf16 else {})
+        want_out, want = f_ref.attention_blocked(
+            q, f_ref.expand_kv(k, h // kv), f_ref.expand_kv(v, h // kv),
+            kw["scale"], causal=True, round_p=bf16, return_lse=True,
+            **tiles)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[1]
+        tol = FLASH_BF16_PLAIN_TOL if bf16 else FLASH_TOL[name]
+        out[name] = {
+            "out_bitwise": bool(torch.equal(plain_out, with_lse)),
+            "out_max_abs_err": (with_lse.float() - want_out.float()
+                                ).abs().max().item(),
+            "out_tol": tol,
+            "out_ok": with_lse.dtype == dt and bool(torch.allclose(
+                with_lse.float(), want_out.float(), rtol=tol, atol=tol)),
+            "lse_max_abs_err": (lse - want).abs().max().item(),
+            "lse_ok": bool(torch.allclose(lse, want, **LSE_TOL)),
+            "lse_finite": bool(torch.isfinite(lse).all())}
+        del q, k, v, plain_out, with_lse, lse, want_out, want
+    return out
+
+
+def train_flash_times(dev) -> dict:
+    """At the training shape: the kernel's LSE form (what the train step
+    launches), the plain forward with its LSE, the plain backward
+    (``models.attention.flash_backward``) and, through ``flash_times``,
+    the form without LSE and SDPA's backends."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.flash_attention import ref as f_ref
+    from repro_torch.models.attention import flash_backward
+    ft = flash_times(dev, TRAIN_FLASH_SHAPE)
+    b, s, h, kv, hd = TRAIN_FLASH_SHAPE
+    gen = torch.Generator(dev).manual_seed(6)
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale = hd ** -0.5
+    ft["lse_ms"] = cuda_ms(lambda: f_ops.flash_attention_fwd(
+        q, k, v, scale=scale, causal=True, return_lse=True), 50)
+    ft["plain_lse_ms"] = cuda_ms(lambda: f_ref.attention_blocked(
+        q, f_ref.expand_kv(k, h // kv), f_ref.expand_kv(v, h // kv), scale,
+        causal=True, round_p=True, return_lse=True), 3, warmup=1)
+    out, lse = f_ops.flash_attention_fwd(q, k, v, scale=scale, causal=True,
+                                         return_lse=True)
+    dout = torch.randn_like(q)
+    ft["plain_backward_ms"] = cuda_ms(lambda: flash_backward(
+        q, k, v, out, lse, dout, scale, causal=True), 3, warmup=1)
+    ft["exp_bound_ms"] = b * h * attention_pairs(s, 0) / PEAK_EXP * 1e3
+    return ft
+
+
+def train_phase(dev, kernels: list) -> dict:
+    """[train] with every earlier model's weights freed: the port's
+    Trainer on smollm-360m FULL (TRAIN_* above): restart and learning,
+    speed and memory, launch counts, the plain attention never called;
+    the full-width gradient check, the LSE checks, and the flash times
+    at the training shape, appended to ``kernels``."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch import checkpoint as t_ckpt
+    from repro_torch.config import (InputShape, OptimizerConfig,
+                                    TrainConfig, get_arch)
+    from repro_torch.data.loader import device_batch
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.runtime.fault import WorkerFailure
+    from repro_torch.runtime.serve_loop import params_digest
+    from repro_torch.runtime.train_loop import Trainer
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"[train] after freeing the earlier models' weights: {held:.3f} GB "
+        f"allocated")
+    if held > 1.0:
+        fail(f"{held:.2f} GB still allocated before the train phase")
+    cfg = get_arch(TRAIN_ARCH)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    shape = InputShape(f"train_4k_b{TRAIN_BATCH}", TRAIN_SEQ, TRAIN_BATCH,
+                       "train")
+    tc = TrainConfig(shape=shape,
+                     optimizer=OptimizerConfig(lr=3e-4, warmup_steps=2,
+                                               total_steps=TRAIN_STEPS),
+                     checkpoint_every=TRAIN_CKPT_EVERY,
+                     checkpoint_dir=str(TRAIN_DIR), keep_checkpoints=2)
+    fails = {TRAIN_FAIL_AT}
+    entries = []            # (step, flash launches so far) at each start
+
+    def injector(step):
+        entries.append((step, f_ops.KERNEL.launches))
+        if step in fails:
+            fails.discard(step)
+            raise WorkerFailure(f"injected at step {step}")
+
+    kern = zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with PlainAttentionCalls() as plain_calls, \
+            Trainer(cfg, tc, fail_injector=injector, device=dev) as tr:
+        rep = tr.run(TRAIN_STEPS, resume=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    counts = read_counts(kern)
+    # launches of each step run: from its start to the next one's (the
+    # failed step 6 launched nothing before it raised)
+    marks = entries + [(None, counts["flash_attention"])]
+    per_step = [(st, nxt - at) for (st, at), (_, nxt)
+                in zip(marks, marks[1:])]
+    ran = [n for st, n in per_step]
+    records = [r for r in tr.metrics.ring if "step_time_s" in r]
+    last = {r["step"]: r for r in records}          # the final pass's
+    step_s = [last[i]["step_time_s"] for i in range(1, TRAIN_STEPS)]
+    ms_step = 1e3 * sum(step_s) / len(step_s)
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (ms_step / 1e3)
+    losses = rep.losses
+    n_first = TRAIN_FAIL_AT
+    replay = losses[n_first:]
+    latest = t_ckpt.latest_step(str(TRAIN_DIR))
+    ckpt_s = {"host_copy": tr.checkpointer.host_seconds,
+              "write": tr.checkpointer.write_seconds}
+    log(f"[train] {cfg.name} FULL ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}, remat "
+        f"{cfg.remat}) at {TRAIN_BATCH} x {TRAIN_SEQ}: {TRAIN_STEPS} steps, "
+        f"{len(losses)} run, restarts {rep.restarts}, latest checkpoint "
+        f"{latest}, in {run_s:.2f} s")
+    log(f"[train] losses (first pass, then from the step-"
+        f"{TRAIN_CKPT_EVERY} checkpoint): "
+        + ", ".join(f"{x!r}" for x in losses))
+    log(f"[train] ms a step (host clock after a synchronize, steps 1-"
+        f"{TRAIN_STEPS - 1} of the final pass): "
+        + ", ".join(f"{1e3 * t:.1f}" for t in step_s)
+        + f"; mean {ms_step:.2f} ms, {tokens_s:.1f} tokens/s; peak memory "
+        f"{peak_gb:.2f} GB; checkpoint host copy "
+        f"{ckpt_s['host_copy']:.2f} s, write {ckpt_s['write']:.2f} s (the "
+        f"last one, {TRAIN_STEPS})")
+    log(f"[train] launches a step run (flash): {json.dumps(per_step)}; all "
+        f"kernels over the run {json.dumps(counts)}; plain attention calls "
+        f"{plain_calls.calls}")
+    want_replay = losses[TRAIN_CKPT_EVERY:n_first]
+    if rep.restarts != 1 or latest != TRAIN_STEPS:
+        fail(f"[train] restarts {rep.restarts}, latest checkpoint {latest}")
+    if len(losses) != n_first + TRAIN_STEPS - TRAIN_CKPT_EVERY:
+        fail(f"[train] {len(losses)} steps ran")
+    if replay[:len(want_replay)] != want_replay:
+        fail(f"[train] the replayed losses {replay[:len(want_replay)]} are "
+             f"not the first pass's {want_replay}")
+    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)) or \
+            not losses[-1] < losses[0]:
+        fail(f"[train] the loss did not fall: step 0 {losses[0]}, step "
+             f"{TRAIN_STEPS - 1} {losses[-1]}")
+    want = 2 * cfg.num_layers
+    if [n for st, n in per_step if st != TRAIN_FAIL_AT or n] != \
+            [want] * len(losses) or counts["flash_attention"] != \
+            want * len(losses):
+        fail(f"[train] flash launched {ran}, not {want} a step")
+    if any(n for name, n in counts.items() if name != "flash_attention"):
+        fail(f"[train] other kernels launched: {counts}")
+    if plain_calls.calls:
+        fail(f"[train] the plain attention ran {plain_calls.calls} times "
+             f"on the card")
+    t0 = time.perf_counter()
+    state, step = tr.restore_latest()
+    digest = params_digest(state[0])
+    digest_s = time.perf_counter() - t0
+    init_params = tr.init_state()[0]
+    init_digest = params_digest(init_params)
+    batch0 = device_batch(tr.loader.batch(0), dev)
+    with torch.no_grad():
+        fall = {"init": tr.model.loss_fn(init_params, batch0).item(),
+                "final": tr.model.loss_fn(state[0], batch0).item()}
+    fall["fall"] = fall["init"] - fall["final"]
+    log(f"[train] the step-{step} checkpoint restored, params digest "
+        f"{digest} ({digest_s:.2f} s with the restore), init_state()'s "
+        f"{init_digest}; the step-0 batch's loss under init_state()'s "
+        f"params {fall['init']!r}, under the step-{step} ones "
+        f"{fall['final']!r}: a fall of {fall['fall']!r} (gate >= "
+        f"{TRAIN_FALL_MIN:g})")
+    if digest == init_digest:
+        fail(f"[train] the step-{step} params are init_state()'s")
+    if not fall["fall"] >= TRAIN_FALL_MIN:
+        fail(f"[train] the step-0 batch's loss fell {fall['fall']} < "
+             f"{TRAIN_FALL_MIN}")
+    del state, tr, init_params, batch0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    grad = {}
+    for dtype in ("float32", "bfloat16"):
+        g = train_grad_check(dev, cfg, dtype)
+        grad[dtype] = g
+        worst = sorted(g["leaves"].items(), key=lambda kv: kv[1]["cos"])[0]
+        log(f"[train] gradient check, {g['layers']} layers of "
+            f"{cfg.name}'s widths in {dtype} over {tuple(g['shape'])}: "
+            f"loss kernel path {g['losses']['flash']!r}, blocked "
+            f"{g['losses']['blocked']!r}; flash launches "
+            f"{json.dumps(g['launches'])}; every leaf: max |diff| / max "
+            f"|g| <= {g['max_rel']:.3e}, cosine >= {g['min_cos']:.7f} "
+            f"(least: {worst[0]})")
+        if g["launches"]["flash"] != 2 * TRAIN_GRAD_LAYERS or \
+                g["launches"]["blocked"]:
+            fail(f"[train] {dtype} gradient check launches {g['launches']}")
+        if dtype == "float32" and not g["max_rel"] <= TRAIN_GRAD_REL:
+            fail(f"[train] f32 gradients differ by {g['max_rel']}")
+        if dtype == "bfloat16" and not g["min_cos"] >= TRAIN_GRAD_COS:
+            fail(f"[train] bf16 gradients' cosine {g['min_cos']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lse = train_flash_checks(dev)
+    for name, c in lse.items():
+        log(f"[train] flash LSE form at {tuple(TRAIN_FLASH_SHAPE)} causal, "
+            f"{name}: out bitwise the form without it {c['out_bitwise']}; "
+            f"out vs the plain version's max abs err "
+            f"{c['out_max_abs_err']:.3e} (rtol = atol = {c['out_tol']:g}); "
+            f"lse vs the plain version's max abs err "
+            f"{c['lse_max_abs_err']:.3e} (rtol {LSE_TOL['rtol']:g}, atol "
+            f"{LSE_TOL['atol']:g})")
+        if not (c["out_bitwise"] and c["out_ok"] and c["lse_ok"]
+                and c["lse_finite"]):
+            fail(f"[train] flash LSE form ({name}) fails: {c}")
+    ft = train_flash_times(dev)
+    total = counts["flash_attention"]
+    kernels.append(
+        {"name": "flash_attention_train_lse", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+         "launches": total,
+         "max_abs_err": max(max(c["out_max_abs_err"], c["lse_max_abs_err"])
+                            for c in lse.values()),
+         "ms": ft["lse_ms"], "plain_ms": ft["plain_lse_ms"],
+         "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+         "library_ms": ft["library_ms"]})
+    sdpa = ", ".join(f"{n} {t:.4f} ms" if isinstance(t, float) else
+                     f"{n} {t}" for n, t in ft["sdpa"].items())
+    bwd_share = cfg.num_layers * ft["plain_backward_ms"] / ms_step
+    fwd_share = want * ft["lse_ms"] / ms_step
+    log(f"[times] flash_attention_train_lse at {tuple(TRAIN_FLASH_SHAPE)} "
+        f"causal: the LSE form {ft['lse_ms']:.4f} ms "
+        f"({ft['lse_ms'] / ft['bound_ms']:.2f}x its bound; "
+        f"{ft['flops'] / ft['lse_ms'] / 1e9:.1f} TFLOP/s), the form "
+        f"without it {ft['ms']:.4f} ms, non-causal {ft['noncausal_ms']:.4f} "
+        f"ms, FP32 kernel on f32 {ft['fp32_kernel_ms']:.4f} ms; plain "
+        f"forward with LSE {ft['plain_lse_ms']:.4f} ms, plain backward "
+        f"{ft['plain_backward_ms']:.4f} ms; bound {ft['bound_ms']:.5f} ms "
+        f"({ft['bound_by']}; {ft['flops']:.4g} FLOP, exponentials "
+        f"{ft['exp_bound_ms']:.4f} ms); {total} launches in the run "
+        f"({want} a step); SDPA: {sdpa}; of a {ms_step:.1f}-ms step the "
+        f"flash launches {100 * fwd_share:.1f}%, the plain backward "
+        f"(one a layer) {100 * bwd_share:.1f}%")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[train] phase {phase_s:.1f} s")
+    return {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "losses": losses,
+            "restarts": rep.restarts, "latest_checkpoint": latest,
+            "step_seconds": step_s, "ms_per_step": ms_step,
+            "tokens_per_second": tokens_s, "peak_memory_gb": peak_gb,
+            "run_seconds": run_s, "launches_per_step_run": per_step,
+            "launches": counts, "plain_attention_calls": plain_calls.calls,
+            "checkpoint_seconds": ckpt_s,
+            "params_digest": digest, "digest_seconds": digest_s,
+            "init_params_digest": init_digest, "step0_batch_loss": fall,
+            "grad_check": grad, "lse": lse, "flash": ft,
+            "flash_share_of_step": fwd_share,
+            "plain_backward_share_of_step": bwd_share,
+            "phase_seconds": phase_s}
+
+
 def main() -> None:
+    t_main = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").exists():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(SRC))
@@ -4227,6 +4652,12 @@ def main() -> None:
     # -- 23. whisper-base: the encoder-decoder family ------------------------
     report["whisper"] = whisper_phase(dev, kernels, f_errs)
 
+    # -- 24. smollm-360m: LM training --------------------------------------
+    report["train"] = train_phase(dev, kernels)
+
+    report["total_seconds"] = time.perf_counter() - t_main
+    log(f"[total] {report['total_seconds']:.1f} s from the start of main, "
+        f"the kernels' build included")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=2))

@@ -9,11 +9,13 @@ the same, so ``dataclasses.asdict`` of a config of one package equals
 that of the other; the offline store's ``config_digest`` hashes it and
 so depends on every field.
 
-Not ported yet: ``TrainConfig``, ``ServeConfig``, ``MeshConfig``,
-``RunConfig``, ``InputShape`` and the shape constants wait for the LM
-training and launch scaffolding, and ``OptimizerConfig.compress_grads``
-is a field only until the gradient compression it switches on is
-ported. ``ProxyConfig.contrastive_impl`` takes ``"auto"``, ``"kernel"``
+``InputShape``, the four LM shapes (``TRAIN_4K``, ``PREFILL_32K``,
+``DECODE_32K``, ``LONG_500K``, with ``ALL_SHAPES`` and
+``SHAPES_BY_NAME``) and ``TrainConfig`` are copies too (the LM
+trainer's, ``runtime.train_loop``); ``OptimizerConfig.compress_grads``
+switches on ``optimizer.compression``. Not ported yet: ``ServeConfig``,
+``MeshConfig`` and ``RunConfig`` wait for the launch and mesh
+scaffolding. ``ProxyConfig.contrastive_impl`` takes ``"auto"``, ``"kernel"``
 and ``"ref"``: the port's kernel wrappers pick the CUDA kernel or the
 plain version by the device the tensors lie on, so all three run the
 same arithmetic there; ``"interpret"`` (Pallas interpret mode) has no
@@ -204,9 +206,40 @@ class OptimizerConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
-    # int8 gradient compression (error feedback) for the DP all-reduce;
-    # a field only until the training scaffolding is ported
+    # int8 gradient compression (error feedback) for the DP all-reduce
     compress_grads: bool = False
+
+
+# ---------------------------------------------------------------------------
+# input shapes (the four assigned LM shapes) and LM training
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    shape: InputShape = TRAIN_4K
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    microbatch: int = 0          # 0 = no gradient accumulation
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = True
+    seed: int = 0
 
 
 CONTRASTIVE_IMPLS = ("auto", "kernel", "ref")

@@ -14,6 +14,18 @@
 // bfloat16 runs on the tensor cores, float32 on the FP32 pipes. Neither
 // ever falls back to the other.
 //
+// Each kernel has a second form that also writes every row's
+// log-sum-exp, lse = m + log(max(l, 1e-30)) as (b, h, sq) float32: the
+// residual that the JAX package's custom VJP keeps beside out for its
+// backward (_flash_fwd, src/repro/models/attention.py:179-281). The
+// attention layer's autograd Function (models/attention.py) asks for it
+// when a gradient is wanted. A template flag on each kernel gates the
+// write, and lse is a last parameter that the forms without it never
+// read, so those keep the code they had before the flag existed
+// (tools/flash_variants.py --against matches them to an older source's
+// kernels by name, flag and lse taken off, and compares their SASS), and
+// out is the same in both forms.
+//
 // What bounds it: at the embedding path's shape (b=8, s=512, 32 query
 // heads over 8 KV heads, head_dim 128, causal, bf16) one launch needs
 // 4*b*h*hd*s(s+1)/2 = 1.7e10 FLOP and 84 MB of reads and writes (q, k, v
@@ -151,12 +163,14 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
   }
 }
 
-template <typename T, int HD>
+// The FP32 kernel; with LSE it also writes each row's log-sum-exp
+// m + log(max(l, 1e-30)) to lse (b, h, sq), else lse is never read.
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int sq,
                  int skv, int h, int hkv, int hd, int causal, int window,
-                 int q_offset, float scale) {
+                 int q_offset, float scale, float* __restrict__ lse) {
   constexpr int LD = HD + 4;      // padded rows keep float4 reads aligned
   constexpr int LDP = BK + 4;     // and spread them over the banks
   constexpr int CPT = HD / 16;    // output columns per thread
@@ -298,47 +312,72 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = tx + 16 * c;
       if (d < hd) ob[(size_t)r * q_stride + d] = from_float<T>(acc[i][c] / denom);
     }
+    // m and l are whole-row values in each of the row's 16 lanes
+    if constexpr (LSE) {
+      if (tx == 0) lse[((size_t)bi * h + hi) * sq + q0 + r] = m[i] + logf(denom);
+    }
   }
 }
 
+// cudaFuncSetAttribute once per kernel and process: the dynamic shared
+// memory a block asks for beyond the default 48 KB
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) configured = true;
+  return err;
+}
+
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int skv, int h, int hkv, int hd, int causal, int window,
-           int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int sq, int skv, int h, int hkv, int hd,
+           int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
-  static bool configured = false;   // once per instantiation and process
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static bool configured = false, configured_lse = false;
   const dim3 grid((sq + BQ - 1) / BQ, b * h);
-  flash_fwd_kernel<T, HD><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, h, hkv, hd,
-      causal, window, q_offset, scale);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  cudaError_t err;
+  if (lse == nullptr) {
+    if ((err = allow_smem(flash_fwd_kernel<T, HD, false>, bytes, configured)))
+      return (int)err;
+    flash_fwd_kernel<T, HD, false><<<grid, THREADS, bytes, stream>>>(
+        qt, kt, vt, ot, sq, skv, h, hkv, hd, causal, window, q_offset,
+        scale, nullptr);
+  } else {
+    if ((err = allow_smem(flash_fwd_kernel<T, HD, true>, bytes,
+                          configured_lse)))
+      return (int)err;
+    flash_fwd_kernel<T, HD, true><<<grid, THREADS, bytes, stream>>>(
+        qt, kt, vt, ot, sq, skv, h, hkv, hd, causal, window, q_offset,
+        scale, lse);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int b,
-              int sq, int skv, int h, int hkv, int hd, int causal,
-              int window, int q_offset, float scale, cudaStream_t s) {
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              float* lse, int b, int sq, int skv, int h, int hkv, int hd,
+              int causal, int window, int q_offset, float scale,
+              cudaStream_t s) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
+    return launch<T, 32>(q, k, v, out, lse, b, sq, skv, h, hkv, hd, causal,
                          window, q_offset, scale, s);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
+    return launch<T, 64>(q, k, v, out, lse, b, sq, skv, h, hkv, hd, causal,
                          window, q_offset, scale, s);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                          window, q_offset, scale, s);
+    return launch<T, 128>(q, k, v, out, lse, b, sq, skv, h, hkv, hd,
+                          causal, window, q_offset, scale, s);
   if (hd <= 240)
-    return launch<T, 240>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                          window, q_offset, scale, s);
-  return launch<T, 256>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
+    return launch<T, 240>(q, k, v, out, lse, b, sq, skv, h, hkv, hd,
+                          causal, window, q_offset, scale, s);
+  return launch<T, 256>(q, k, v, out, lse, b, sq, skv, h, hkv, hd, causal,
                         window, q_offset, scale, s);
 }
 
@@ -460,12 +499,16 @@ __device__ __forceinline__ void qk_step(float (&s)[TK / 8][4],
   }
 }
 
-template <int HD>
+// The bf16 kernel; with LSE it also writes each row's log-sum-exp to
+// lse (b, h, sq): m lives in the base-2 domain, so the natural-log value
+// is m ln 2 + log(max(l, 1e-30)). Without LSE, lse is never read.
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(BF_THREADS, 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
                       int sq, int skv, int h, int hkv, int hd, int causal,
-                      int window, int q_offset, float scale_log2) {
+                      int window, int q_offset, float scale_log2,
+                      float* __restrict__ lse) {
   constexpr int LDS = HD + 8;       // padded rows: ldmatrix without conflicts
   constexpr int KSTEPS = HD / 16;   // k-steps of S = Q K^T
   constexpr int TK = bf16_tile_keys<HD>();   // keys of a K/V tile
@@ -641,6 +684,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < NT_O; ++n)
       *reinterpret_cast<uint32_t*>(dst + n * 8) =
           pack_bf16(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    // m is the row's in all 4 lanes of its group, l now summed over them
+    if constexpr (LSE) {
+      if (tg == 0 && row + 8 * r < nq)
+        lse[((size_t)bi * h + hi) * sq + q0 + row + 8 * r] =
+            m[r] * 0.6931471805599453f + logf(denom);
+    }
   }
   __syncwarp();
   constexpr int CHUNKS = HD / 8;
@@ -655,46 +704,56 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int b, int sq, int skv, int h, int hkv, int hd, int causal,
-                int window, int q_offset, float scale, cudaStream_t stream) {
+                float* lse, int b, int sq, int skv, int h, int hkv, int hd,
+                int causal, int window, int q_offset, float scale,
+                cudaStream_t stream) {
   constexpr int bytes = bf16_smem_bytes<HD>();
-  static bool configured = false;   // once per instantiation and process
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static bool configured = false, configured_lse = false;
   const dim3 grid(b * h, (sq + BQ - 1) / BQ);
-  flash_fwd_bf16_kernel<HD><<<grid, BF_THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, skv, h, hkv,
-      hd, causal, window, q_offset, scale * 1.4426950408889634f);
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  bf16* ot = static_cast<bf16*>(out);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  cudaError_t err;
+  if (lse == nullptr) {
+    if ((err = allow_smem(flash_fwd_bf16_kernel<HD, false>, bytes, configured)))
+      return (int)err;
+    flash_fwd_bf16_kernel<HD, false><<<grid, BF_THREADS, bytes, stream>>>(
+        qt, kt, vt, ot, sq, skv, h, hkv, hd, causal, window, q_offset,
+        scale_log2, nullptr);
+  } else {
+    if ((err = allow_smem(flash_fwd_bf16_kernel<HD, true>, bytes,
+                          configured_lse)))
+      return (int)err;
+    flash_fwd_bf16_kernel<HD, true><<<grid, BF_THREADS, bytes, stream>>>(
+        qt, kt, vt, ot, sq, skv, h, hkv, hd, causal, window, q_offset,
+        scale_log2, lse);
+  }
   return (int)cudaGetLastError();
 }
 
 int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
-                   int b, int sq, int skv, int h, int hkv, int hd,
-                   int causal, int window, int q_offset, float scale,
+                   float* lse, int b, int sq, int skv, int h, int hkv,
+                   int hd, int causal, int window, int q_offset, float scale,
                    cudaStream_t s) {
   if (hd <= 16)
-    return launch_bf16<16>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                           window, q_offset, scale, s);
+    return launch_bf16<16>(q, k, v, out, lse, b, sq, skv, h, hkv, hd,
+                           causal, window, q_offset, scale, s);
   if (hd <= 32)
-    return launch_bf16<32>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                           window, q_offset, scale, s);
+    return launch_bf16<32>(q, k, v, out, lse, b, sq, skv, h, hkv, hd,
+                           causal, window, q_offset, scale, s);
   if (hd <= 64)
-    return launch_bf16<64>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                           window, q_offset, scale, s);
+    return launch_bf16<64>(q, k, v, out, lse, b, sq, skv, h, hkv, hd,
+                           causal, window, q_offset, scale, s);
   if (hd <= 128)
-    return launch_bf16<128>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                            window, q_offset, scale, s);
+    return launch_bf16<128>(q, k, v, out, lse, b, sq, skv, h, hkv, hd,
+                            causal, window, q_offset, scale, s);
   if (hd <= 240)
-    return launch_bf16<240>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                            window, q_offset, scale, s);
-  return launch_bf16<256>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                          window, q_offset, scale, s);
+    return launch_bf16<240>(q, k, v, out, lse, b, sq, skv, h, hkv, hd,
+                            causal, window, q_offset, scale, s);
+  return launch_bf16<256>(q, k, v, out, lse, b, sq, skv, h, hkv, hd,
+                          causal, window, q_offset, scale, s);
 }
 
 }  // namespace
@@ -703,13 +762,17 @@ extern "C" {
 
 // q (b, sq, h, hd), k and v (b, skv, hkv, hd), out (b, sq, h, hd): all
 // contiguous, of one type (bf16 != 0: bfloat16, else float32), on the
-// device of `stream`, bfloat16 ones 16-byte aligned. h must be a multiple
-// of hkv, hd at most 256 (for bfloat16 a multiple of 8), window >= 0 (0:
-// none), q_offset >= 0. Returns the CUDA error code of the launch.
+// device of `stream`, bfloat16 ones 16-byte aligned. lse: null, or a
+// contiguous float32 (b, h, sq) that receives each row's log-sum-exp
+// (the kernels' LSE instantiations; without it the others run). h must be
+// a multiple of hkv, hd at most 256 (for bfloat16 a multiple of 8),
+// window >= 0 (0: none), q_offset >= 0. Returns the CUDA error code of the
+// launch.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int b, int sq, int skv, int h, int hkv,
-                           int hd, int causal, int window, int q_offset,
-                           int bf16, float scale, void* stream) {
+                           void* out, void* lse, int b, int sq, int skv,
+                           int h, int hkv, int hd, int causal, int window,
+                           int q_offset, int bf16, float scale,
+                           void* stream) {
   if (b <= 0 || sq <= 0 || skv <= 0 || h <= 0 || hkv <= 0 || h % hkv ||
       hd <= 0 || hd > 256 || window < 0 || q_offset < 0 ||
       (long long)b * h > 0x7fffffffLL)
@@ -721,11 +784,13 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     if (hd % 8 || (sq + BQ - 1) / BQ > 65535 ||
         ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
       return (int)cudaErrorInvalidValue;
-    return launch_bf16_hd(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                          window, q_offset, scale, s);
+    return launch_bf16_hd(q, k, v, out, static_cast<float*>(lse), b, sq,
+                          skv, h, hkv, hd, causal, window, q_offset, scale,
+                          s);
   }
-  return launch_hd<float>(q, k, v, out, b, sq, skv, h, hkv, hd, causal,
-                          window, q_offset, scale, s);
+  return launch_hd<float>(q, k, v, out, static_cast<float*>(lse), b, sq,
+                          skv, h, hkv, hd, causal, window, q_offset, scale,
+                          s);
 }
 
 const char* kernel_error_string(int code) {

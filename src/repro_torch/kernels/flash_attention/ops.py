@@ -7,8 +7,12 @@ computes the plain PyTorch version (``ref.attention_blocked`` over
 GQA-expanded K/V, the JAX package's own non-TPU path) for CPU tensors;
 it never falls back from one to the other. K and V may have fewer heads
 than Q (GQA): query head ``j`` reads KV head ``j // (h // kv_heads)``,
-which the kernel does in place of a copy. ``attention`` is the entry
-the model's attention layer calls.
+which the kernel does in place of a copy. With ``return_lse`` it also
+returns each row's log-sum-exp (b, h, sq) float32 (the kernels' LSE
+instantiations on the card, ``attention_blocked(..., return_lse=True)``
+on the CPU), the residual of the attention layer's autograd Function
+(``models.attention.flash_attention``). ``attention`` is the entry the
+model's attention layer calls when no gradient is wanted.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from repro_torch.kernels.flash_attention import ref
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float])
 
 # the arithmetic's revision, recorded beside every store this kernel
 # writes: 2 is the bf16 kernel on the tensor cores
@@ -88,23 +92,28 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool = True,
-                        window: int = 0, q_offset: int = 0) -> torch.Tensor:
+                        window: int = 0, q_offset: int = 0,
+                        return_lse: bool = False):
     """q: (b, sq, h, hd); k, v: (b, skv, kv_heads, hd) -> (b, sq, h, hd)
-    in ``q.dtype``: masked online softmax, f32 inside."""
+    in ``q.dtype``: masked online softmax, f32 inside; with
+    ``return_lse``, (out, lse (b, h, sq) float32)."""
     if not q.is_cuda:
         groups = q.shape[2] // k.shape[2]
         return ref.attention_blocked(
             q, ref.expand_kv(k, groups), ref.expand_kv(v, groups), scale,
-            causal=causal, window=window, q_offset=q_offset)
+            causal=causal, window=window, q_offset=q_offset,
+            return_lse=return_lse)
     _check(q, k, v, window, q_offset)
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    KERNEL.launch(q.device, q, k, v, out, b, sq, k.shape[1], h, k.shape[2],
-                  hd, int(causal), int(window), int(q_offset),
-                  int(q.dtype == torch.bfloat16), float(scale))
-    return out
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if out.numel():
+        KERNEL.launch(q.device, q, k, v, out, lse, b, sq, k.shape[1], h,
+                      k.shape[2], hd, int(causal), int(window),
+                      int(q_offset), int(q.dtype == torch.bfloat16),
+                      float(scale))
+    return (out, lse) if return_lse else out
 
 
 def attention(q, k, v, *, scale, causal=True, window=0, q_offset=0):

@@ -66,8 +66,8 @@ def ref_attention(q, k, v, *, scale, causal=True, window=0, q_offset=0):
 def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: float, *, causal: bool, window: int = 0,
                       q_offset: int = 0, q_block: int = 512,
-                      kv_block: int = 512,
-                      round_p: bool = False) -> torch.Tensor:
+                      kv_block: int = 512, round_p: bool = False,
+                      return_lse: bool = False):
     """Online-softmax attention over KV blocks (flash-equivalent).
 
     Every (q block, kv block) pair is visited, masked keys score
@@ -76,7 +76,10 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by ``max(l, 1e-30)``, as in the JAX package's ``attention_blocked``.
     ``round_p``: the probabilities enter P V rounded to ``v.dtype`` while
     ``l`` sums them in f32 (the bfloat16 kernel's arithmetic; at f32 the
-    rounding is the identity).
+    rounding is the identity). ``return_lse``: (out, lse), lse = m +
+    log(max(l, 1e-30)) (b, h, sq) float32, each row's log-sum-exp of its
+    scaled scores, what the JAX package's ``_flash_fwd`` returns beside
+    ``out`` for its backward.
     """
     b, sq, h, hd = q.shape
     skv = k.shape[1]
@@ -84,7 +87,7 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_block = min(kv_block, skv)
     nq = -(-sq // q_block)
     nk = -(-skv // kv_block)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qblk = q[:, qi * q_block:(qi + 1) * q_block].float()
         rows = qblk.shape[1]
@@ -118,5 +121,8 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                         p, vblk)
             m = m_new
         outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+        if return_lse:
+            lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
     out = torch.cat(outs, dim=2)                      # (b, h, sq, hd)
-    return out.transpose(1, 2).to(v.dtype)
+    out = out.transpose(1, 2).to(v.dtype)
+    return (out, torch.cat(lses, dim=2)) if return_lse else out

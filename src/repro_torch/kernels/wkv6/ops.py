@@ -11,6 +11,11 @@ JAX package leaves its ``lax.scan`` outside the Pallas kernel), and
 over ``wkv6_chunked``. Both take ``return_state=True`` to return the
 combine's final state beside ``y`` (the prefill of a decode); the
 kernel's launch and ``y`` are the same either way.
+
+The kernel has no backward (nor has the Pallas kernel it replaces): a
+CUDA input that requires grad, with grad mode on, raises rather than
+leave the inputs with no gradient. RWKV training on the card waits for
+a WKV6 backward; on the CPU the plain version is differentiable.
 """
 from __future__ import annotations
 
@@ -60,6 +65,11 @@ def wkv6_intra_chunk(r, k, v, cum, lw, u):
     Q, H, K)), all float32 (see ``ref.wkv6_intra_chunk``)."""
     if not r.is_cuda:
         return ref.wkv6_intra_chunk(r, k, v, cum, lw, u, sub=ref.SUB)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, cum, lw, u)):
+        raise NotImplementedError(
+            "wkv6_intra_chunk: the CUDA kernel has no backward; RWKV "
+            "training waits for a WKV6 backward (its inputs require grad)")
     _check(r, k, v, cum, lw, u)
     b, nc, Q, H, K = r.shape
     y = torch.empty_like(r)

@@ -1,15 +1,21 @@
 """The port's models (``repro.models``): the decoder-only LM of the
 offline embedding path, the LM judge and decode (dense attention, MoE,
 RWKV6, Mamba2 and shared attention blocks), the encoder-decoder LM
-(prefill and decode over stubbed frame embeddings), and the carry of
-JAX weights and caches into them."""
+(prefill and decode over stubbed frame embeddings), their training
+losses and step functions, and the carry of JAX weights and caches into
+them."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.models.encdec import EncDecLM  # noqa: F401
-from repro_torch.models.model import build_model  # noqa: F401
+from repro_torch.models.model import (  # noqa: F401
+    build_model,
+    make_decode_step,
+    make_forward_loss,
+    make_prefill_step,
+)
 from repro_torch.models.transformer import TransformerLM  # noqa: F401
 
 

@@ -21,8 +21,19 @@ reads K/V projected once from the encoder's output, with no RoPE and no
 mask. Its full-sequence form always goes through the flash entry,
 non-causal, whatever the model's ``attn_impl``, as in the JAX package;
 its decode form is plain f32 scores and softmax. ``attn_axes`` waits
-for the sharding rules; the JAX package's in-model flash
-(``flash_attention``, ``_flash_fwd``) is the hand-written kernel here.
+for the sharding rules.
+
+The flash entry is ``flash_attention``, the port of the JAX package's
+custom VJP (``_make_flash``): with no gradient wanted it is the plain
+kernel call (``flash_ops.attention``); with one, a
+``torch.autograd.Function`` whose forward is the kernel with its
+log-sum-exp output on the card (the plain online softmax over blocks
+of ``q_block`` x ``kv_block`` on the CPU) and keeps q, the unexpanded
+k and v, out and lse, and whose backward (``flash_backward``) is the
+JAX package's: P = exp(s - lse) recomputed per (q block, kv block) in
+float32, delta = rowsum(dO * O), dK and dV for each KV head summed
+over its query group. The JAX backward is XLA, not a Pallas kernel, so
+the backward here is plain PyTorch too.
 """
 from __future__ import annotations
 
@@ -66,6 +77,133 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         b, s, w.shape[1], w.shape[2])
 
 
+# -- flash attention with its gradient ------------------------------------------
+
+def _tile_valid(qpos: torch.Tensor, kpos: torch.Tensor, skv: int,
+                causal: bool, window: int) -> torch.Tensor:
+    """(rows, cols) bool: which keys each query row of a tile sees
+    (``_tile_mask`` of the JAX package)."""
+    valid = (kpos[None, :] < skv).expand(qpos.shape[0], -1)
+    if causal:
+        valid = valid & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        valid = valid & (kpos[None, :] > qpos[:, None] - window)
+    return valid
+
+
+def flash_backward(q, k, v, out, lse, dout, scale: float, *, causal: bool,
+                   window: int = 0, q_offset: int = 0, q_block: int = 512,
+                   kv_block: int = 512):
+    """The gradient of ``flash_attention`` (the JAX package's ``bwd`` of
+    ``_make_flash``), in plain PyTorch. q, dout, out (b, sq, h, hd); k, v
+    (b, skv, kv_heads, hd), unexpanded; lse (b, h, sq) float32. For each
+    (q block, kv block) tile it recomputes s in float32, masks it as the
+    forward did, takes P = exp(s - lse), and adds P^T dO to dV, dS^T Q to
+    dK and dS K to dQ, dS = P (dO V^T - delta) scale, delta = rowsum(dO
+    O); query head j's share goes to KV head j // (h / kv_heads). Tiles
+    that no row of the q block sees are skipped: every P there is 0
+    (exp(-1e30 - lse)), so skipping them changes no sum. Returns (dq, dk,
+    dv) in the types of q, k and v."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qb, kb = min(q_block, sq), min(kv_block, skv)
+    f32 = torch.float32
+    dev = q.device
+    dout = dout.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", dout, out.float())
+    q5 = q.reshape(b, sq, kvh, g, hd)
+    do5 = dout.reshape(b, sq, kvh, g, hd)
+    lse4 = lse.reshape(b, kvh, g, sq)
+    dt4 = delta.reshape(b, kvh, g, sq)
+    dq = torch.zeros((b, sq, kvh, g, hd), dtype=f32, device=dev)
+    dk = torch.zeros((b, skv, kvh, hd), dtype=f32, device=dev)
+    dv = torch.zeros((b, skv, kvh, hd), dtype=f32, device=dev)
+    for q0 in range(0, sq, qb):
+        rows = min(qb, sq - q0)
+        p_lo, p_hi = q_offset + q0, q_offset + q0 + rows - 1
+        qblk = q5[:, q0:q0 + rows].float()
+        doblk = do5[:, q0:q0 + rows]
+        lseblk = lse4[..., q0:q0 + rows, None]
+        dtblk = dt4[..., q0:q0 + rows, None]
+        qpos = p_lo + torch.arange(rows, device=dev)
+        for k0 in range(0, skv, kb):
+            cols = min(kb, skv - k0)
+            if causal and k0 > p_hi:
+                break
+            if window > 0 and k0 + cols - 1 <= p_lo - window:
+                continue
+            kblk = k[:, k0:k0 + cols].float()
+            vblk = v[:, k0:k0 + cols].float()
+            s = torch.einsum("bqkgd,bjkd->bkgqj", qblk, kblk) * scale
+            valid = _tile_valid(qpos, k0 + torch.arange(cols, device=dev),
+                                skv, causal, window)
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+            p = torch.exp(s - lseblk)                      # (b,kv,g,qb,kb)
+            dv[:, k0:k0 + cols] += torch.einsum("bkgqj,bqkgd->bjkd", p,
+                                                doblk)
+            dp = torch.einsum("bqkgd,bjkd->bkgqj", doblk, vblk)
+            ds = p * (dp - dtblk) * scale
+            dq[:, q0:q0 + rows] += torch.einsum("bkgqj,bjkd->bqkgd", ds,
+                                                kblk)
+            dk[:, k0:k0 + cols] += torch.einsum("bkgqj,bqkgd->bjkd", ds,
+                                                qblk)
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel with its LSE (card) or the plain blocked online
+    softmax (CPU); backward: ``flash_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, q_offset, q_block,
+                kv_block):
+        if q.is_cuda:
+            out, lse = flash_ops.flash_attention_fwd(
+                q, k, v, scale=scale, causal=causal, window=window,
+                q_offset=q_offset, return_lse=True)
+        else:
+            groups = q.shape[2] // k.shape[2]
+            out, lse = attention_blocked(
+                q, _expand_kv(k, groups), _expand_kv(v, groups), scale,
+                causal=causal, window=window, q_offset=q_offset,
+                q_block=q_block, kv_block=kv_block, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        q_block=q_block, kv_block=kv_block)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ctx.scale,
+                                    **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, *, causal: bool, window: int = 0,
+                    q_offset: int = 0, q_block: int = 512,
+                    kv_block: int = 512) -> torch.Tensor:
+    """Memory-efficient attention with recompute in the backward, GQA
+    residuals unexpanded (``repro.models.attention.flash_attention``).
+    q: (b, sq, h, hd); k, v: (b, skv, kv_heads, hd) -> (b, sq, h, hd) in
+    v's type. Without a gradient to take (grad mode off, or no input
+    requiring one) it is ``flash_ops.attention``, the kernel on the card
+    and its plain version on the CPU; with one, ``_FlashAttention``.
+    ``q_block`` and ``kv_block`` set the backward's tiles and, on the CPU,
+    the forward's."""
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return flash_ops.attention(q, k, v, scale=scale, causal=causal,
+                                   window=window, q_offset=q_offset)
+    return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
+                                 int(window), int(q_offset), int(q_block),
+                                 int(kv_block))
+
+
 def attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                positions: torch.Tensor, causal: bool = True,
                window: int = 0, impl: str = "flash", kv_out: bool = False,
@@ -86,8 +224,7 @@ def attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / (cfg.head_dim ** 0.5)
     if impl == "flash":
-        out = flash_ops.attention(q, k, v, scale=scale, causal=causal,
-                                  window=window)
+        out = flash_attention(q, k, v, scale, causal=causal, window=window)
     elif impl == "einsum":
         mask = attention_mask(s, s, causal=causal, window=window,
                               device=x.device)
@@ -114,9 +251,8 @@ def cross_attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     kv_heads, head_dim): the flash entry, non-causal (the kernel on the
     card whatever the model's ``attn_impl``, as in the JAX package)."""
     q = _project(x, params["wq"])
-    out = flash_ops.attention(q, kv["k"], kv["v"],
-                              scale=1.0 / (cfg.head_dim ** 0.5),
-                              causal=False)
+    out = flash_attention(q, kv["k"], kv["v"], 1.0 / (cfg.head_dim ** 0.5),
+                          causal=False)
     return _out_proj(out, params["wo"])
 
 

@@ -5,9 +5,9 @@ and RoPE compute in float32 and cast back to the input's type, as the
 JAX package does; RoPE rotates the two halves of each head
 (``[x1 cos - x2 sin, x1 sin + x2 cos]``), not interleaved pairs.
 The sinusoidal positions of the encoder-decoder models compute in
-float32 with the JAX package's ``div`` expression. ``rmsnorm_axes``,
-``constrain``/``set_constrainer`` (a sharding constraint) and
-``cross_entropy`` wait for the training scaffolding.
+float32 with the JAX package's ``div`` expression. ``cross_entropy``
+is the LM loss. ``rmsnorm_axes`` and ``constrain``/``set_constrainer``
+(a sharding constraint) wait for the sharding rules.
 """
 from __future__ import annotations
 
@@ -120,3 +120,18 @@ def activation(name: str):
             "gelu": lambda x: F.gelu(x, approximate="tanh"),
             "relu": F.relu,
             "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """Softmax cross-entropy: logits (..., V) taken in float32, labels
+    int (...). The mean over every position, or with ``mask`` (...) the
+    masked sum over ``max(sum(mask), 1)``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=nll.device).to(torch.float32)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

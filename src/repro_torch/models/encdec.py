@@ -19,9 +19,13 @@ non-causal, the decoder's self-attention causal, both through
 (``attention.cross_attn_apply``). The decode cache is
 {"self": {k, v}, "cross": {k, v}}, each (L, b, S, kv_heads, head_dim):
 ``prefill``'s self cache is as long as the prompt, so a step past it
-writes to the last slot, as in the JAX package. ``param_axes``,
-``loss_fn`` and the sharding constraint (``act_constraint``) wait for
-the training scaffolding; ``remat`` has no inference meaning.
+writes to the last slot, as in the JAX package. ``loss_fn`` is the
+training loss, the cross-entropy of the teacher-forced logits, on a
+forward with gradients (the entries above run under
+``torch.inference_mode``); with ``cfg.remat == "full"`` every encoder
+layer and decoder layer is recomputed in the backward, as
+``jax.checkpoint`` does. ``param_axes`` and the sharding constraint
+(``act_constraint``) wait for the sharding rules.
 """
 from __future__ import annotations
 
@@ -34,12 +38,12 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import (Params, dtype_of, embed_init,
-                                       rmsnorm_apply, rmsnorm_init,
-                                       sinusoidal_position_at,
+from repro_torch.models.common import (Params, cross_entropy, dtype_of,
+                                       embed_init, rmsnorm_apply,
+                                       rmsnorm_init, sinusoidal_position_at,
                                        sinusoidal_positions, tree_map)
 from repro_torch.models.transformer import (draw_stacked, lm_logits,
-                                            stack_trees)
+                                            remat_wrap, stack_trees)
 
 
 def _layer(params: Params, i: int) -> Params:
@@ -106,24 +110,33 @@ class EncDecLM:
     def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """Frame embeddings (b, s, d) -> the encoder's output (b, s, d)
         in the model's type."""
+        return self._encode(params, frames)
+
+    def _encode(self, params: Params, frames: torch.Tensor,
+                remat: bool = False) -> torch.Tensor:
         cfg = self.cfg
         dev = params["embed"]["table"].device
         x = torch.as_tensor(frames, device=dev).to(dtype_of(cfg.dtype))
         x = self._with_positions(x)
         positions = torch.arange(x.shape[1], device=dev)
-        for i in range(cfg.encoder_layers):
-            p = _layer(params["encoder"], i)
+
+        def body(x, p):
             h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
             x = x + attn.attn_apply(p["attn"], h, cfg, positions=positions,
                                     causal=False, impl=self.attn_impl,
                                     use_rope=False)
             h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-            x = x + mlp_mod.mlp_apply(p["mlp"], h, cfg)
+            return x + mlp_mod.mlp_apply(p["mlp"], h, cfg)
+
+        body = remat_wrap(remat)(body)
+        for i in range(cfg.encoder_layers):
+            x = body(x, _layer(params["encoder"], i))
         return rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
     # -- decoder, teacher-forced and prefill ----------------------------------
     def _decoder_fullseq(self, params: Params, enc_out: torch.Tensor,
-                         tokens: torch.Tensor, collect_cache: bool):
+                         tokens: torch.Tensor, collect_cache: bool,
+                         remat: bool = False):
         """(logits (b, s, V) float32, the {"self", "cross"} cache stacked
         over the layers, or None)."""
         cfg = self.cfg
@@ -132,13 +145,13 @@ class EncDecLM:
         x = self._with_positions(F.embedding(tokens,
                                              params["embed"]["table"]))
         positions = torch.arange(x.shape[1], device=dev)
-        caches = []
-        for i in range(cfg.num_layers):
-            p = _layer(params["decoder"], i)
+
+        def body(x, p):
             h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
             y = attn.attn_apply(p["self_attn"], h, cfg, positions=positions,
                                 causal=True, impl=self.attn_impl,
                                 kv_out=collect_cache, use_rope=False)
+            kv = None
             if collect_cache:
                 y, kv = y
             x = x + y
@@ -148,8 +161,15 @@ class EncDecLM:
                                           kv=cross_kv)
             h = rmsnorm_apply(p["norm3"], x, cfg.norm_eps)
             x = x + mlp_mod.mlp_apply(p["mlp"], h, cfg)
+            return x, ({"self": kv, "cross": cross_kv} if collect_cache
+                       else None)
+
+        body = remat_wrap(remat and not collect_cache)(body)
+        caches = []
+        for i in range(cfg.num_layers):
+            x, c = body(x, _layer(params["decoder"], i))
             if collect_cache:
-                caches.append({"self": kv, "cross": cross_kv})
+                caches.append(c)
         return (self.logits(params, x),
                 stack_trees(caches) if collect_cache else None)
 
@@ -162,6 +182,19 @@ class EncDecLM:
         logits, _ = self._decoder_fullseq(params, enc_out, tokens, False)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
+
+    def loss_fn(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
+        """The cross-entropy of the teacher-forced logits on ``batch``
+        ({"frames", "tokens", "labels", an optional "mask"}), a 0-d
+        float32 tensor with its graph (``repro.models.encdec``'s
+        ``loss_fn``)."""
+        remat = self.cfg.remat == "full"
+        enc_out = self._encode(params, batch["frames"], remat)
+        logits, _ = self._decoder_fullseq(params, enc_out, batch["tokens"],
+                                          False, remat)
+        return cross_entropy(
+            logits, torch.as_tensor(batch["labels"], device=logits.device),
+            batch.get("mask"))
 
     @torch.inference_mode()
     def prefill(self, params: Params, frames: torch.Tensor,

@@ -31,10 +31,16 @@ dbrx-132b and zamba2-2.7b (five mamba2 layers a shared one, head_dim
 80); an encoder-decoder config raises ``NotImplementedError`` here
 (``build_model`` gives it ``models.encdec.EncDecLM``). An unknown
 block kind raises ``ValueError``. ``forward`` returns the MoE
-auxiliary loss summed over the layers. ``loss_fn``, ``param_axes`` and
-the sharding constraint (``act_constraint``) wait for the training
-scaffolding; ``causal_skip`` has no torch meaning (the flash kernel
-skips the masked tiles itself).
+auxiliary loss summed over the layers. ``loss_fn`` is the training
+loss (cross-entropy plus ``router_aux_weight`` times the MoE auxiliary
+loss) on a forward with gradients: ``forward``, ``hidden`` and
+``prefill`` run under ``torch.inference_mode``, ``loss_fn`` does not,
+and with ``cfg.remat == "full"`` it recomputes every block in the
+backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` does), so
+only each block's input is kept. ``param_axes`` and the sharding
+constraint (``act_constraint``) wait for the sharding rules;
+``causal_skip`` has no torch meaning (the flash kernel skips the masked
+tiles itself).
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_MAMBA2,
                                 BLOCK_RWKV6, BLOCK_SHARED_ATTN, ModelConfig)
@@ -51,8 +58,9 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (Params, dtype_of, embed_init,
-                                       rmsnorm_apply, rmsnorm_init, tree_map)
+from repro_torch.models.common import (Params, cross_entropy, dtype_of,
+                                       embed_init, rmsnorm_apply,
+                                       rmsnorm_init, tree_map)
 
 ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_SHARED_ATTN)
 BLOCK_KINDS = ATTN_KINDS + (BLOCK_MAMBA2, BLOCK_RWKV6)
@@ -158,6 +166,17 @@ def lm_logits(cfg: ModelConfig, final_norm: Params, table: torch.Tensor,
     return out
 
 
+def remat_wrap(enabled: bool):
+    """``jax.checkpoint`` for a block: with ``enabled`` and grad mode on,
+    the block's activations are not kept but recomputed in the backward
+    (non-reentrant ``torch.utils.checkpoint``); else the block as it
+    is."""
+    if not (enabled and torch.is_grad_enabled()):
+        return lambda f: f
+    return lambda f: (lambda *args: checkpoint(f, *args,
+                                               use_reentrant=False))
+
+
 def group_params(params: Params, g: int) -> Params:
     """The params of pattern group ``g``: views of the stacked leaves."""
     return tree_map(lambda t: t[g], params["blocks"])
@@ -195,6 +214,7 @@ class TransformerLM:
         self.pattern = cfg.block_pattern
         self.num_groups = cfg.num_layers // len(cfg.block_pattern)
         self.has_shared = BLOCK_SHARED_ATTN in self.pattern
+        self.takes_embeds = cfg.frontend != "none"
         # serving option: prefill computes logits at the last position
         # only (decode needs no others)
         self.prefill_last_only = False
@@ -240,17 +260,21 @@ class TransformerLM:
 
     def _group_fullseq(self, x: torch.Tensor, group_params: Params,
                        shared: Optional[Params], *, positions: torch.Tensor,
-                       collect_cache: bool, cache_len: int = 0
+                       collect_cache: bool, cache_len: int = 0,
+                       remat: bool = False
                        ) -> Tuple[torch.Tensor, Dict[str, Any], torch.Tensor]:
         """One pattern group over the full sequence: (x, caches, aux),
         aux the group's MoE auxiliary losses summed (float32 zero without
         MoE). With ``collect_cache`` the caches are this group's decode
         state (an attention layer's K/V in a cache of ``cache_len`` slots,
         0 = the prompt's length; an rwkv6 or mamba2 block's final state).
-        A shared position runs the attention body on ``shared``."""
+        A shared position runs the attention body on ``shared``. With
+        ``remat`` (and no caches to collect) each block is recomputed in
+        the backward (``remat_wrap``)."""
         cfg = self.cfg
         caches: Dict[str, Any] = {}
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        wrap = remat_wrap(remat and not collect_cache)
         for i, kind in enumerate(self.pattern):
             key = f"p{i}"
             p = group_params.get(key, {})
@@ -258,52 +282,73 @@ class TransformerLM:
                 if kind == BLOCK_SHARED_ATTN:
                     p = shared
                 window = cfg.sliding_window if kind == BLOCK_LOCAL_ATTN else 0
-                h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-                y = attn.attn_apply(p["attn"], h, cfg, positions=positions,
-                                    causal=True, window=window,
-                                    impl=self.attn_impl,
-                                    kv_out=collect_cache)
+
+                def attn_block(x, p, window=window):
+                    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+                    y = attn.attn_apply(p["attn"], h, cfg,
+                                        positions=positions, causal=True,
+                                        window=window, impl=self.attn_impl,
+                                        kv_out=collect_cache)
+                    kv = None
+                    if collect_cache:
+                        y, kv = y
+                    x = x + y
+                    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+                    aux = None
+                    if "moe" in p:
+                        y, aux = moe_mod.moe_apply(p["moe"], h, cfg,
+                                                   self.moe_dispatch)
+                    else:
+                        y = mlp_mod.mlp_apply(p["mlp"], h, cfg)
+                    return x + y, kv, aux
+
+                x, kv, aux = wrap(attn_block)(x, p)
+                if aux is not None:
+                    aux_total = aux_total + aux
                 if collect_cache:
-                    y, kv = y
                     empty = attn.init_kv_cache(cfg, x.shape[0],
                                                cache_len or x.shape[1],
                                                window, x.dtype, x.device)
                     caches[key] = attn.fill_kv_cache(empty, kv, window)
-                x = x + y
-                h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-                if "moe" in p:
-                    y, aux = moe_mod.moe_apply(p["moe"], h, cfg,
-                                               self.moe_dispatch)
-                    aux_total = aux_total + aux
-                else:
-                    y = mlp_mod.mlp_apply(p["mlp"], h, cfg)
-                x = x + y
             elif kind == BLOCK_MAMBA2:
-                h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-                y = ssm_mod.mamba_apply(p["mamba"], h, cfg,
-                                        return_state=collect_cache)
+                def mamba_block(x, p):
+                    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+                    y = ssm_mod.mamba_apply(p["mamba"], h, cfg,
+                                            return_state=collect_cache)
+                    state = None
+                    if collect_cache:
+                        y, state = y
+                    return x + y, state
+
+                x, state = wrap(mamba_block)(x, p)
                 if collect_cache:
-                    y, caches[key] = y
-                x = x + y
+                    caches[key] = state
             elif kind == BLOCK_RWKV6:
-                h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-                y = rwkv_mod.timemix_apply(p["time"], h, cfg,
-                                           mode=self.rwkv_mode,
-                                           return_state=collect_cache)
+                def rwkv_block(x, p):
+                    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+                    y = rwkv_mod.timemix_apply(p["time"], h, cfg,
+                                               mode=self.rwkv_mode,
+                                               return_state=collect_cache)
+                    state = None
+                    if collect_cache:
+                        y, state = y
+                    x = x + y
+                    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+                    if collect_cache:
+                        state["shift_c"] = h[:, -1]
+                    return x + rwkv_mod.channelmix_apply(p["channel"], h,
+                                                         cfg), state
+
+                x, state = wrap(rwkv_block)(x, p)
                 if collect_cache:
-                    y, state = y
-                x = x + y
-                h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-                x = x + rwkv_mod.channelmix_apply(p["channel"], h, cfg)
-                if collect_cache:
-                    state["shift_c"] = h[:, -1]
                     caches[key] = state
             else:
                 raise ValueError(kind)
         return x, caches, aux_total
 
     def _run_groups(self, params: Params, inputs: torch.Tensor, *,
-                    collect_cache: bool, cache_len: int = 0):
+                    collect_cache: bool, cache_len: int = 0,
+                    remat: bool = False):
         """Every group over the full sequence: (hidden (b, s, d), the
         caches stacked over groups, or None, the MoE auxiliary loss summed
         over the groups)."""
@@ -317,11 +362,30 @@ class TransformerLM:
             x, c, aux = self._group_fullseq(x, group_params(params, g),
                                             shared, positions=positions,
                                             collect_cache=collect_cache,
-                                            cache_len=cache_len)
+                                            cache_len=cache_len, remat=remat)
             caches.append(c)
             auxes.append(aux)
         return (x, (stack_trees(caches) if collect_cache else None),
                 torch.stack(auxes).sum())
+
+    def loss_fn(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
+        """The training loss on ``batch`` ({"tokens" or, for a model with
+        a frontend, "embeds"; "labels"; an optional "mask"}): the
+        cross-entropy of the teacher-forced logits plus
+        ``router_aux_weight`` times the MoE auxiliary loss, a 0-d float32
+        tensor with its graph. Not under ``inference_mode``: gradients
+        flow to every param that requires one, through the flash kernel's
+        autograd Function on the kernel path; with ``cfg.remat ==
+        "full"`` each block is recomputed in the backward."""
+        inputs = batch["embeds"] if self.takes_embeds else batch["tokens"]
+        x, _, aux = self._run_groups(params, inputs, collect_cache=False,
+                                     remat=self.cfg.remat == "full")
+        logits = self.logits(params, x)
+        dev = logits.device
+        loss = cross_entropy(logits,
+                             torch.as_tensor(batch["labels"], device=dev),
+                             batch.get("mask"))
+        return loss + self.cfg.moe.router_aux_weight * aux
 
     @torch.inference_mode()
     def hidden(self, params: Params, inputs: torch.Tensor) -> torch.Tensor:

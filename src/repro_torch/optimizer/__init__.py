@@ -1,1 +1,2 @@
-"""The proxy optimizer (``repro.optimizer``)."""
+"""The optimizer (``repro.optimizer``): hand-rolled AdamW (the proxy
+trainer's and the LM trainer's) and int8 gradient compression."""

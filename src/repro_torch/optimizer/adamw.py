@@ -7,6 +7,9 @@ The update of ``repro.optimizer.adamw``, which differs from
   * weight decay applies only to matrices (``ndim >= 2``).
 
 State is ``{step, mu, nu}`` over the same dictionary tree as the params.
+``apply_updates`` returns, beside the new params and state, the metrics
+the LM training loop logs (``grad_norm`` before clipping, and ``lr``);
+``update`` is the same step without them.
 ``lanes=True`` treats the leading axis of every leaf as independent
 lanes (``train_proxy_multi``'s Q proxies): each lane is clipped by its
 own global norm and a leaf's ``ndim`` is counted without that axis,
@@ -14,7 +17,7 @@ which is what ``jax.vmap`` of the reference update does.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -73,19 +76,40 @@ def clip_by_global_norm(grads: Any, max_norm: float, lanes: bool = False
     return tree_map(clip, grads), gnorm
 
 
-def _zip_map(fn, *trees):
+def zip_map(fn, *trees):
+    """``fn`` over the matching leaves of dictionary trees of one
+    layout."""
     if isinstance(trees[0], dict):
-        return {k: _zip_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+        return {k: zip_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
 
 
-@torch.no_grad()
 def update(cfg: OptimizerConfig, params: Any, grads: Any,
            state: AdamWState, *, lanes: bool = False
            ) -> Tuple[Any, AdamWState]:
+    new_params, new_state, _, _ = _update(cfg, params, grads, state, lanes)
+    return new_params, new_state
+
+
+def apply_updates(cfg: OptimizerConfig, params: Any, grads: Any,
+                  state: AdamWState
+                  ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
+    """(new params, new state, {"grad_norm": the global norm of
+    ``grads`` before clipping, a 0-d float32 tensor; "lr": this step's
+    learning rate})."""
+    new_params, new_state, gnorm, lr = _update(cfg, params, grads, state,
+                                               False)
+    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def _update(cfg: OptimizerConfig, params: Any, grads: Any,
+            state: AdamWState, lanes: bool):
+    """(params, state, the gradients' global norm before clipping, lr)."""
     if cfg.grad_clip > 0:
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip, lanes)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, lanes)
     else:
+        gnorm = global_norm(grads, lanes)
         grads = tree_map(lambda g: g.float(), grads)
     step = state.step + 1
     lr = schedule(cfg, step)
@@ -103,7 +127,7 @@ def update(cfg: OptimizerConfig, params: Any, grads: Any,
         newp = p.float() - lr * delta
         return newp.to(p.dtype), m, v
 
-    out = _zip_map(upd, params, grads, state.mu, state.nu)
+    out = zip_map(upd, params, grads, state.mu, state.nu)
     return (tree_map(lambda o: o[0], out),
             AdamWState(step, tree_map(lambda o: o[1], out),
-                       tree_map(lambda o: o[2], out)))
+                       tree_map(lambda o: o[2], out)), gnorm, lr)

@@ -967,3 +967,166 @@ def test_whisper_smoke_on_card_matches_cpu(cuda, impl):
     err = ((steps["card"][:, 0] - got[:, 16]).abs().max()
            / got[:, 16].abs().max()).item()
     assert err < DECODE_REL, err
+
+
+# -- training: the flash kernel's log-sum-exp, gradients on the card -----------
+
+# the LSE against its plain version's: the kernels' m and l are those of
+# the plain online softmax; the bf16 kernel keeps m in base 2 and sums
+# ex2.approx values (~2 f32 ulps each), so lse = m ln 2 + log l differs
+# from the plain f32 exp's by ~1e-6 at scores of a few units
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+# (b, sq, skv, h, kv, hd, causal, window, q_offset) at heads 64
+# (smollm-360m's 15 over 5), 80 (zamba2-2.7b, on the hd-128
+# instantiations), 128 and 240: causal, windowed, non-causal, q_offset,
+# ragged
+FLASH_LSE_CASES = [pytest.param(c, id=f"lse-hd{c[5]}-{i}")
+                   for i, c in enumerate([
+    (2, 256, 256, 15, 5, 64, True, 0, 0),
+    (1, 200, 200, 4, 2, 64, True, 24, 0),
+    (1, 77, 200, 4, 2, 64, False, 0, 0),
+    (2, 130, 130, 4, 4, 80, True, 0, 0),
+    (1, 77, 200, 4, 2, 128, True, 24, 123),
+    (2, 256, 256, 4, 2, 128, True, 0, 0),
+    (2, 256, 256, 4, 2, 240, True, 64, 0),
+    (1, 200, 200, 4, 2, 240, False, 0, 0),
+])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_LSE_CASES)
+def test_flash_lse_matches_plain_and_leaves_out_bitwise(cuda, case, dtype):
+    """Each instantiation's LSE form: lse (b, h, sq) float32 against the
+    plain version's on the kernel's own tiles, and out bitwise the form
+    without it."""
+    b, sq, skv, h, kv, hd, causal, window, q_offset = case
+    q, k, v = (_t(x, cuda).to(dtype)
+               for x in _attention_inputs(b, sq, skv, h, kv, hd))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              q_offset=q_offset)
+    before = f_ops.KERNEL.launches
+    out = f_ops.flash_attention_fwd(q, k, v, **kw)
+    out_lse, lse = f_ops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert f_ops.KERNEL.launches == before + 2
+    assert torch.equal(out, out_lse)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    g = h // kv
+    bf16 = dtype == torch.bfloat16
+    _, want = f_ref.attention_blocked(
+        q, f_ref.expand_kv(k, g), f_ref.expand_kv(v, g), kw["scale"],
+        causal=causal, window=window, q_offset=q_offset, q_block=64,
+        kv_block=f_ops.bf16_tile_keys(hd) if bf16 else 64, round_p=bf16,
+        return_lse=True)
+    np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(),
+                               **LSE_TOL)
+
+
+# (b, sq, skv, h, kv, hd, causal, window): smollm-360m's heads, a window,
+# a cross-attention (sq != skv, non-causal); blocks of 32 so that every
+# case runs several tiles
+FLASH_GRAD_CARD_CASES = [
+    (2, 100, 100, 15, 5, 64, True, 0),
+    (1, 96, 96, 4, 2, 64, True, 24),
+    (2, 40, 75, 4, 4, 32, False, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_GRAD_CARD_CASES)
+def test_flash_autograd_on_card_matches_cpu(cuda, case):
+    """``models.attention.flash_attention`` with a gradient: on the card
+    one kernel launch (its LSE form) and the plain backward there,
+    against the plain forward and backward on the CPU. float32 (the FP32
+    kernel): out and (dq, dk, dv) within 1e-4 of max |CPU value|; bf16
+    (the tensor-core kernel) against the CPU's float32 on the same
+    bf16-rounded inputs: cosine >= 0.999 each."""
+    from repro_torch.models import attention as t_attn
+    b, sq, skv, h, kv, hd, causal, window = case
+    base = _attention_inputs(b, sq, skv, h, kv, hd)
+    dout = np.random.default_rng(3).normal(size=(b, sq, h, hd)).astype(
+        np.float32)
+    opts = dict(causal=causal, window=window, q_block=32, kv_block=32)
+
+    def run(dev, dtype):
+        qkv = [torch.tensor(x, device=dev).to(dtype).requires_grad_()
+               for x in base]
+        out = t_attn.flash_attention(*qkv, hd ** -0.5, **opts)
+        out.backward(torch.tensor(dout, device=dev).to(dtype))
+        return [t.detach().float().cpu() for t in [out] + [x.grad
+                                                          for x in qkv]]
+
+    want = run("cpu", torch.float32)
+    before = f_ops.KERNEL.launches
+    got = run(cuda, torch.float32)
+    assert f_ops.KERNEL.launches == before + 1
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        err = ((g - w).abs().max() / w.abs().max()).item()
+        assert err < 1e-4, (name, err)
+    want = [t.float() for t in run("cpu", torch.bfloat16)]
+    got = run(cuda, torch.bfloat16)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        cos = torch.nn.functional.cosine_similarity(
+            g.flatten(), w.flatten(), dim=0).item()
+        assert cos >= 0.999, (name, cos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma3-12b",
+                                  "qwen3-moe-30b-a3b", "zamba2-2.7b",
+                                  "whisper-base"])
+def test_loss_gradient_on_card_matches_cpu(cuda, arch):
+    """One SMOKE ``loss_fn`` and every leaf's gradient on the card (the
+    flash kernel's LSE form forward, the plain backward) against the same
+    params and batch on the CPU: loss within 1e-5 relative, each leaf
+    within 1e-4 of its max |CPU gradient|."""
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime.train_loop import grad_tree
+    resolve_device(cuda)                     # TF32 off
+    cfg = get_smoke_arch(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 33)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encdec:
+        batch["frames"] = rng.normal(size=(2, 40, cfg.d_model)).astype(
+            np.float32)
+
+    def run(dev):
+        live = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        loss = model.loss_fn(live, {k: torch.as_tensor(v, device=dev)
+                                    for k, v in batch.items()})
+        return loss.item(), dict(flatten_with_paths(tree_map(
+            lambda g: g.cpu(), grad_tree(loss, live))))
+
+    want_loss, want = run("cpu")
+    before = f_ops.KERNEL.launches
+    got_loss, got = run(cuda)
+    assert f_ops.KERNEL.launches > before
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    for path, w in want.items():
+        err = ((got[path] - w).abs().max() / (w.abs().max() + 1e-30)).item()
+        assert err < 1e-4, (path, err)
+
+
+@pytest.mark.cuda
+def test_rwkv_does_not_train_on_the_card(cuda, tmp_path):
+    """The WKV6 kernel has no backward: a CUDA input that requires grad
+    raises, and so does a Trainer over an RWKV6 model on the card."""
+    from repro_torch.config import TrainConfig, get_smoke_arch
+    from repro_torch.runtime.train_loop import Trainer
+    r, k, v, cum, lw, u = (torch.tensor(x, device=cuda)
+                           for x in wkv6_inputs(1, 2, 16, 2, 16))
+    with pytest.raises(NotImplementedError, match="WKV6 backward"):
+        w_ops.wkv6_intra_chunk(r.requires_grad_(), k, v, cum, lw, u)
+    with torch.no_grad():
+        w_ops.wkv6_intra_chunk(r, k, v, cum, lw, u)
+    with pytest.raises(NotImplementedError, match="WKV6 backward"):
+        Trainer(get_smoke_arch("rwkv6-7b"),
+                TrainConfig(checkpoint_dir=str(tmp_path)), device=cuda)

@@ -42,7 +42,9 @@ def test_import_loads_no_jax_and_no_repro():
                                      "repro_torch.engine.live",
                                      "repro_torch.gateway",
                                      "repro_torch.core",
-                                     "repro_torch.runtime.serve_loop"])
+                                     "repro_torch.runtime.serve_loop",
+                                     "repro_torch.runtime.train_loop",
+                                     "repro_torch.launch.train"])
 def test_package_alone_loads_no_jax_and_no_repro(package):
     """``import repro_torch``, ``import repro_torch.serve`` (the server,
     the broker and the resilience layer, copies of ``repro.serve``), the

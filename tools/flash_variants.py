@@ -15,7 +15,9 @@ on the kernel's tiles, rtol = atol = 8e-3), and timed with CUDA events in
 turns (every variant, then the same in reverse order, then forward
 again). With ``--against``, the SASS of every instantiation that both the
 committed source and OLD.cu build is compared, instruction by
-instruction (``cuobjdump -sass``). It prints one line a variant and
+instruction (``cuobjdump -sass``); a kernel with its LSE flag off is
+matched to the same kernel of a source from before the flag
+(``sass_key``). It prints one line a variant and
 writes ``build/variants/flash_variants.json``. It exits 1 without a card,
 or when a variant fails to build or disagrees.
 """
@@ -62,9 +64,11 @@ def variant_source(src: str, subs) -> str:
 
 
 def ptxas_wide_entry(log: str) -> dict:
-    """Registers and spills of the bf16 kernel's HD 240 entry."""
+    """Registers and spills of the bf16 kernel's HD 240 entry (the form
+    without the LSE output)."""
     for chunk in log.split("Compiling entry function")[1:]:
-        if "flash_fwd_bf16_kernelILi240E" not in chunk.split("\n", 1)[0]:
+        if not re.search(r"flash_fwd_bf16_kernelILi240E(Lb0E)?E",
+                         chunk.split("\n", 1)[0]):
             continue
         get = lambda pat: int(m.group(1)) if (m := re.search(pat, chunk)) \
             else 0
@@ -74,9 +78,23 @@ def ptxas_wide_entry(log: str) -> dict:
     return {}
 
 
+def sass_key(mangled: str):
+    """A kernel's key for the comparison: its mangled name with the
+    file's own anonymous-namespace prefix taken off, and for a kernel
+    with the LSE flag off the flag (``Lb0E``) and its trailing ``float*
+    lse`` parameter (``Pf``) taken off too, so it matches the same
+    kernel of a source from before the flag. An LSE form (``Lb1E``) has
+    no counterpart there: None."""
+    name = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}", "", mangled)
+    if "Lb1E" in name:
+        return None
+    if "Lb0E" in name and name.endswith("Pf"):
+        name = name.replace("Lb0E", "")[:-2]
+    return name
+
+
 def sass_functions(lib: Path) -> dict:
-    """Each kernel's SASS instructions, keyed by the kernel's name with
-    the file's own anonymous-namespace prefix taken off."""
+    """Each kernel's SASS instructions, keyed by ``sass_key``."""
     out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                           str(lib)], capture_output=True, text=True,
                          check=True).stdout
@@ -84,8 +102,9 @@ def sass_functions(lib: Path) -> dict:
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            cur = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}", "", m.group(1))
-            funcs[cur] = []
+            cur = sass_key(m.group(1))
+            if cur is not None:
+                funcs[cur] = []
             continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;", line)
         if cur is not None and m:
@@ -166,7 +185,7 @@ def main() -> None:
 
     def call(fn, out, window):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, s, h, kv, hd, 1, window, 0, 1, scale,
+                 None, b, s, s, h, kv, hd, 1, window, 0, 1, scale,
                  torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
