@@ -323,7 +323,34 @@ Phases, each of which exits non-zero when it fails:
                against the plain version's (LSE_TOL); then its time,
                the form without it, the plain forward and backward and
                SDPA at that shape as in 14, with the bound and the
-               shares of a step.
+               shares of a step;
+ 25. launch  — the launch layer's cell plans (launch.steps.make_plan on
+               launch.mesh.make_test_mesh(1, 1)) on the card: the flash
+               kernel at (1, 32768, 32, 8, 128) causal, three 64-row
+               query blocks against its plain version on its tiles and
+               every row against the timed plain pass (512-row blocks),
+               at LONG_FLASH_TOL, its time, the plain version's and cuDNN
+               SDPA's (a flash_attention_hd128_32k kernels entry);
+               llama3-8b FULL
+               through its PREFILL_32K plan at batch 1 (last_logit; 32
+               flash launches) and its DECODE_32K plan at batch 1 after a
+               prefill of 32,767 tokens into a 32,768-slot cache (the
+               cache as the plan's spec; the step's logits against the
+               prefill's last ones: cosine, its top-1 token one of the
+               prefill's; no kernel launched; timed 5 times); rwkv6-7b
+               FULL through its PREFILL_32K plan at batch 1 (factored
+               WKV6: no kernel launched, the clamped log-decays counted
+               on the card) against rwkv_mode="kernel" (32 WKV6
+               launches), last logits' cosine; the first RWKV_DEPTH
+               blocks by hand on the same tokens, each layer's time-mix
+               in f32 through the factored recurrence against the
+               kernel's (per-row cosine >= LAYER_COS_MIN) and the
+               factored path's pooled drift after RWKV_DEPTH layers (>=
+               RWKV_DEPTH_COS_MIN); smollm-360m FULL train-plan steps at 8 x
+               4,096 with default_microbatches (2) and with 1 from one
+               state and batch (loss, per-leaf update cosine, flash 128
+               and 64 launches, ms and peak memory); launch.serve.main
+               at smollm-360m's full width over 64 documents.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -509,6 +536,40 @@ TRAIN_FLASH_SHAPE = (8, 4096, 15, 5, 64)   # b, s, heads, KV heads, hd
 # the kernel's LSE against the plain version's (tests/test_torch_cuda.py)
 LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+# the [launch] phase: the launch layer's cell plans (launch.steps.make_plan
+# over launch.mesh.make_test_mesh(1, 1)) at their cells' widths on one
+# card. llama3-8b FULL at PREFILL_32K (a) and DECODE_32K (b), each global
+# batch cut to 1 (at 32 the prefill's KV cache alone is 137 GB); the
+# decode step's logits against the prefill's last ones, cosine >=
+# LAUNCH_DECODE_COS and its top-1 token one of the prefill's (the
+# logits are bf16 products, so tokens may tie at the max; argmax takes
+# the first of them); the decode step timed
+# LAUNCH_DECODE_REPS times from the same inputs. (c) the flash kernel at
+# the prefill's call, LONG_FLASH_SHAPE. (d) smollm-360m FULL at TRAIN_4K
+# cut to TRAIN_BATCH, default_microbatches (2) against 1 from one state
+# and batch: loss within LAUNCH_LOSS_REL, each leaf's update (new - old
+# params) cosine >= LAUNCH_UPDATE_COS. (e) rwkv6-7b FULL at PREFILL_32K
+# cut to batch 1 through the prefill plan (factored WKV6, no kernel)
+# against rwkv_mode="kernel" (the WKV6 kernel): last logits' cosine >=
+# RWKV_COS_MIN, as the pooled rwkv6-7b gate, and the first RWKV_DEPTH
+# layers held as [rwkv] holds the kernel against the direct scan: each
+# time-mix (in f32 here) at LAYER_COS_MIN, the pooled drift at
+# RWKV_DEPTH_COS_MIN. (f) the serving CLI at smollm-360m's full width
+LAUNCH_ARCH, LAUNCH_RWKV_ARCH, LAUNCH_SEQ = "llama3-8b", "rwkv6-7b", 32768
+LAUNCH_DECODE_REPS = 5
+LAUNCH_DECODE_COS = 0.999
+LAUNCH_LOSS_REL = 1e-4
+LAUNCH_UPDATE_COS = 0.99
+LAUNCH_OPT = dict(lr=1e-3, warmup_steps=0, schedule="constant")
+LONG_FLASH_SHAPE = (1, 32768, 32, 8, 128)   # b, s, heads, KV heads, hd
+# At 32,768 keys an output element is ~N(0, e / keys), ~0.01 at the far
+# rows, so FLASH_BF16_PLAIN_TOL's atol would be one typical value. The
+# long row keeps its rtol (one bf16 ulp) and takes as atol this share of
+# each query position's max |want| over its heads and dims: ~0.03 of a
+# typical value there, several bf16 ulps, while a dropped or misweighted
+# K/V tile moves an output by a sizeable share of it
+LONG_FLASH_TOL = dict(rtol=FLASH_BF16_PLAIN_TOL, row_atol=8e-3)
+LAUNCH_SERVE_ARGS = ["--arch", "smollm-360m", "--docs", "64"]
 # the compound phase's cross-session CSE arms run on this many of the
 # main path's documents, to bound the phase's time
 CSE_DOCS = 32_768
@@ -4024,6 +4085,550 @@ def train_phase(dev, kernels: list) -> dict:
             "phase_seconds": phase_s}
 
 
+def _cosine(a, b) -> float:
+    import torch
+    a, b = a.double().flatten(), b.double().flatten()
+    return (torch.dot(a, b) / (a.norm() * b.norm())).item()
+
+
+def long_close(got, want) -> dict:
+    """``got`` against ``want`` (b, s, heads, hd) at LONG_FLASH_TOL: the
+    largest error, the largest error over its position's max |want|, the
+    largest error over its bar rtol |want| + row_atol max_row |want|, and
+    whether every element is within its bar."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    row_max = want.abs().amax(dim=(2, 3), keepdim=True)
+    bar = (LONG_FLASH_TOL["rtol"] * want.abs()
+           + LONG_FLASH_TOL["row_atol"] * row_max)
+    return {"max_abs_err": diff.max().item(),
+            "max_err_over_row_max": (diff / row_max.clamp(min=1e-30))
+            .max().item(),
+            "max_share_of_bar": (diff / bar.clamp(min=1e-30)).max().item(),
+            "ok": bool((diff <= bar).all())}
+
+
+def long_flash(dev) -> dict:
+    """The bf16 flash kernel at LONG_FLASH_SHAPE (causal): its time (CUDA
+    events over 10 calls); three 64-row query blocks (first, middle,
+    last) against its plain version on its own tiles (P rounded; each
+    block over the keys it sees) and every row against the plain
+    version's timed pass over the whole call (P rounded, 512-row blocks,
+    one call, as the other rows' plain ms), both at LONG_FLASH_TOL;
+    cuDNN's SDPA (timed only) and the bound."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.flash_attention import ref as f_ref
+    b, s, h, kv, hd = LONG_FLASH_SHAPE
+    gen = torch.Generator(dev).manual_seed(32)
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale, g = hd ** -0.5, h // kv
+    got = f_ops.flash_attention_fwd(q, k, v, scale=scale, causal=True)
+    errs = {}
+    for start in (0, s // 2, s - 64):
+        end = start + 64
+        want = f_ref.attention_blocked(
+            q[:, start:end], f_ref.expand_kv(k[:, :end], g),
+            f_ref.expand_kv(v[:, :end], g), scale, causal=True,
+            q_offset=start, q_block=64, kv_block=f_ops.bf16_tile_keys(hd),
+            round_p=True)
+        errs[str(start)] = long_close(got[:, start:end], want)
+    finite = bool(torch.isfinite(got).all())
+    ms = cuda_ms(lambda: f_ops.flash_attention_fwd(
+        q, k, v, scale=scale, causal=True), 10)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    plain = f_ref.attention_blocked(
+        q, f_ref.expand_kv(k, g), f_ref.expand_kv(v, g), scale,
+        causal=True, round_p=True)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    whole = long_close(got, plain)
+    del got, plain
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+            library_ms = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=scale,
+                    enable_gqa=True), 10)
+    except RuntimeError as e:
+        library_ms, why = None, str(e).splitlines()[0][:160]
+    else:
+        why = None
+    pairs = attention_pairs(s, 0)
+    flops = 4 * b * h * hd * pairs
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return {"shape": list(LONG_FLASH_SHAPE), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_refused": why,
+            "blocks_vs_plain": errs, "all_rows_vs_plain": whole,
+            "finite": finite, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "exp_bound_ms": b * h * pairs / PEAK_EXP * 1e3}
+
+
+def _synced_s(fn):
+    """(fn()'s result, seconds on the host clock between two
+    synchronizes)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def launch_llama(dev, mesh) -> dict:
+    """(a) the prefill plan over LAUNCH_SEQ random tokens, last_logit;
+    (b) the prefill of the first LAUNCH_SEQ - 1 with cache_len LAUNCH_SEQ,
+    then the decode plan's step with the last token at its position,
+    against (a)'s last logits, and timed LAUNCH_DECODE_REPS times."""
+    import torch
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.config import InputShape, get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    cfg = get_arch(LAUNCH_ARCH)
+    (params, draw_s) = _synced_s(lambda: build_model(cfg).init(
+        torch.Generator(dev).manual_seed(0)))
+    gen = torch.Generator(dev).manual_seed(30)
+    tokens = torch.randint(1, cfg.vocab_size, (1, LAUNCH_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pshape = InputShape("prefill_32k_b1", LAUNCH_SEQ, 1, "prefill")
+    plan = steps.make_plan(cfg, pshape, mesh, last_logit=True)
+    kern = zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (last, cache), prefill_s = _synced_s(
+        lambda: plan.step_fn(params, {"tokens": tokens}))
+    counts = read_counts(kern)
+    prefill_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    v = cfg.vocab_size
+    out = {"description": plan.description, "draw_seconds": draw_s,
+           "layers": cfg.num_layers,
+           "prefill_ms": 1e3 * prefill_s, "prefill_peak_gb": prefill_peak,
+           "prefill_launches": counts,
+           "prefill_fallbacks": plan.ruleset.fallback_report(),
+           "last_logits_shape": list(last.shape),
+           "last_logits_finite": bool(torch.isfinite(last[:, :v]).all())}
+    del cache
+    dshape = InputShape("decode_32k_b1", LAUNCH_SEQ, 1, "decode")
+    dplan = steps.make_plan(cfg, dshape, mesh)
+    model = steps.build_model_for_scale(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern = zero_counts()
+    (_, cache), cache_s = _synced_s(lambda: model.prefill(
+        params, tokens[:, :-1], cache_len=LAUNCH_SEQ))
+    out["cache_prefill_launches"] = read_counts(kern)
+    out["cache_prefill_ms"] = 1e3 * cache_s
+    want = [(k, tuple(t.shape))
+            for k, t in flatten_with_paths(dplan.arg_sds[1]["cache"])]
+    got = [(k, tuple(t.shape)) for k, t in flatten_with_paths(cache)]
+    out["cache_shapes_match_spec"] = want == got
+    batch = {"tokens": tokens[:, -1:], "pos": LAUNCH_SEQ - 1,
+             "cache": cache}
+    kern = zero_counts()
+    times = []
+    for _ in range(LAUNCH_DECODE_REPS + 1):
+        (dec, new_cache), step_s = _synced_s(
+            lambda: dplan.step_fn(params, batch))
+        times.append(1e3 * step_s)
+        del new_cache
+    out["decode_launches"] = read_counts(kern)
+    out["decode_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["decode_ms"] = times[1:]
+    out["decode_first_ms"] = times[0]
+    a, d = last[0, :v].float(), dec[0, :v].float()
+    top2 = torch.topk(a, 2).values
+    # the logits are bf16 products cast to f32, so several tokens may tie
+    # at the max: each path's top-1 tokens are every index at its max
+    tops = [torch.nonzero(x == x.max()).flatten()[:8].tolist()
+            for x in (a, d)]
+    t_d = int(d.argmax())
+    out.update({"cosine": _cosine(a, d),
+                "max_abs_diff": (a - d).abs().max().item(),
+                "top1_prefill": tops[0], "top1_decode": tops[1],
+                "decode_top1_is_a_prefill_top1": bool(a[t_d] == a.max()),
+                "decode_top1_rank_in_prefill": int((a > a[t_d]).sum()),
+                "top1_gap_prefill": (top2[0] - top2[1]).item()})
+    del params, cache, batch, last, dec
+    return out
+
+
+def launch_train(dev, mesh) -> dict:
+    """(d) smollm-360m FULL at TRAIN_4K cut to TRAIN_BATCH: one train-plan
+    step with default_microbatches and one with 1, from the same state and
+    batch; losses, per-leaf update cosines, times, peaks, launches."""
+    import torch
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.config import (InputShape, OptimizerConfig,
+                                    get_arch)
+    from repro_torch.data.loader import (BatchSpec, SyntheticLMLoader,
+                                         device_batch)
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optimizer import adamw
+    cfg = get_arch(TRAIN_ARCH)
+    shape = InputShape(f"train_4k_b{TRAIN_BATCH}", TRAIN_SEQ, TRAIN_BATCH,
+                       "train")
+    nmicro = steps.default_microbatches(shape, mesh, cfg)
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
+    # sequences of TRAIN_SEQ + 1 tokens: inputs and labels TRAIN_SEQ each
+    loader = SyntheticLMLoader(BatchSpec(TRAIN_BATCH, TRAIN_SEQ + 1,
+                                         cfg.vocab_size))
+    batch = device_batch(loader.batch(0), dev)
+    opt = OptimizerConfig(**LAUNCH_OPT)
+    before = {p: t.float() for p, t in flatten_with_paths(params)}
+    runs, updates = {}, {}
+    for k in (nmicro, 1):
+        plan = steps.make_train_plan(cfg, shape, mesh, opt_cfg=opt,
+                                     microbatches=k)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kern = zero_counts()
+        ((new, state), metrics), step_s = _synced_s(
+            lambda: plan.step_fn((params, adamw.init(params)), batch))
+        runs[k] = {"description": plan.description,
+                   "loss": metrics["loss"].item(),
+                   "grad_norm": metrics["grad_norm"].item(),
+                   "ms": 1e3 * step_s,
+                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                   "launches": read_counts(kern)}
+        updates[k] = {p: t.float() - before[p]
+                      for p, t in flatten_with_paths(new)}
+        del new, state, metrics
+    cos = {p: _cosine(updates[nmicro][p], updates[1][p])
+           for p in updates[1]}
+    worst = min(cos, key=cos.get)
+    del updates, before, params, batch
+    return {"microbatches": nmicro, "layers": cfg.num_layers,
+            # a loss_fn launches flash once a layer, and once more a layer
+            # in the backward under remat "full"
+            "flash_per_loss": cfg.num_layers * (2 if cfg.remat == "full"
+                                                else 1),
+            "runs": {str(k): r for k, r in runs.items()},
+            "loss_rel_diff": abs(runs[nmicro]["loss"] - runs[1]["loss"])
+            / abs(runs[1]["loss"]),
+            "update_min_cosine": cos[worst], "update_least_leaf": worst}
+
+
+def factored_layers(cfg, params, tokens) -> dict:
+    """The first RWKV_DEPTH rwkv6 blocks by hand over ``tokens``, as
+    rwkv_checks runs them against the direct scan: per layer, on the
+    kernel path's inputs, the time-mix output in float32 from the factored
+    recurrence against the kernel's (per-row cosine, relative error of
+    y); after RWKV_DEPTH layers, the factored path's hidden state against
+    the kernel path's (pooled over the sequence, and per row)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.wkv6 import ops as w_ops
+    from repro_torch.models import rwkv
+    from repro_torch.models.common import rmsnorm_apply
+    from repro_torch.models.transformer import group_params
+
+    def block(p, x, wkv):
+        h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        *args, g = rwkv.timemix_inputs(p["time"], h, cfg)
+        y = wkv(*args, p["time"]["u"], chunk=rwkv.CHUNK)
+        x = x + rwkv.timemix_output(p["time"], y, g, cfg)
+        h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        return x + rwkv.channelmix_apply(p["channel"], h, cfg), (args, g, y)
+
+    def row_cos(a, b):               # in float64: 1 - cos reaches 1e-7
+        return F.cosine_similarity(a.double().flatten(1),
+                                   b.double().flatten(1), dim=1).min().item()
+
+    layers = []
+    with torch.inference_mode():
+        x = F.embedding(tokens, params["embed"]["table"])
+        xf = x
+        for depth in range(RWKV_DEPTH):
+            p = group_params(params, depth)["p0"]
+            x_next, (args, g, y) = block(p, x, w_ops.wkv6)
+            y_f = rwkv.WKV6["factored"](*args, p["time"]["u"],
+                                        chunk=rwkv.CHUNK)
+            p32 = {n: p["time"][n].float() for n in ("ln_x", "wo")}
+            layers.append({
+                "y_rel_err": ((y_f - y).abs().max() / y.abs().max()).item(),
+                "time_mix_f32_min_cosine": row_cos(
+                    rwkv.timemix_output(p32, y_f, g.float(), cfg)[0],
+                    rwkv.timemix_output(p32, y, g.float(), cfg)[0])})
+            del args, g, y, y_f
+            x = x_next
+            xf = block(p, xf, rwkv.WKV6["factored"])[0]
+        return {"layers": layers,
+                "pooled_cosine": row_cos(x.float().mean(dim=1),
+                                         xf.float().mean(dim=1)),
+                "row_min_cosine": row_cos(x[0], xf[0])}
+
+
+def launch_rwkv(dev, mesh) -> dict:
+    """(e) rwkv6-7b FULL at PREFILL_32K cut to batch 1: the prefill plan
+    (factored WKV6; the clamped log-decays counted on the card, read
+    after the step) against the same params in rwkv_mode="kernel" (the
+    WKV6 kernel), last logits; then factored_layers on the same tokens."""
+    import torch
+    from repro_torch.config import InputShape, get_arch
+    from repro_torch.kernels.wkv6 import ref as w_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models import rwkv as t_rwkv
+    cfg = get_arch(LAUNCH_RWKV_ARCH)
+    (params, draw_s) = _synced_s(lambda: build_model(cfg).init(
+        torch.Generator(dev).manual_seed(0)))
+    gen = torch.Generator(dev).manual_seed(31)
+    tokens = torch.randint(1, cfg.vocab_size, (1, LAUNCH_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    plan = steps.make_plan(cfg, InputShape("prefill_32k_b1", LAUNCH_SEQ, 1,
+                                           "prefill"), mesh, last_logit=True)
+    clamped = []
+    inner = t_rwkv.WKV6["factored"]
+
+    def counting(r, k, v, lw, u, *, chunk, **kw):
+        # a count on the card, read after the timed window: no sync in it
+        q = w_ref.chunk_len(lw.shape[1], chunk)
+        clamped.append((lw < -t_rwkv.FACTORED_CLAMP / q).sum())
+        return inner(r, k, v, lw, u, chunk=chunk, **kw)
+    t_rwkv.WKV6["factored"] = counting
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern = zero_counts()
+    try:
+        (fac, cache), fac_s = _synced_s(
+            lambda: plan.step_fn(params, {"tokens": tokens}))
+    finally:
+        t_rwkv.WKV6["factored"] = inner
+    fac_counts = read_counts(kern)
+    fac_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    clamped = [int(n) for n in clamped]
+    del cache
+    kernel_model = build_model(cfg, rwkv_mode="kernel")
+    kernel_model.prefill_last_only = True
+    kern = zero_counts()
+    (ker, cache), ker_s = _synced_s(lambda: kernel_model.prefill(params,
+                                                                 tokens))
+    ker_counts = read_counts(kern)
+    v = cfg.vocab_size
+    a, b = fac[:, :v], ker[:, -1, :v]
+    out = {"description": plan.description, "draw_seconds": draw_s,
+           "layers": cfg.num_layers,
+           "factored_ms": 1e3 * fac_s, "kernel_ms": 1e3 * ker_s,
+           "factored_peak_gb": fac_peak, "factored_launches": fac_counts,
+           "kernel_launches": ker_counts, "clamped_per_layer": clamped,
+           "clamped_total": sum(clamped),
+           "log_decays": cfg.num_layers * LAUNCH_SEQ * cfg.d_model,
+           "finite": bool(torch.isfinite(a).all()),
+           "cosine": _cosine(a[0], b[0]),
+           "top1": [int(a[0].argmax()), int(b[0].argmax())]}
+    del cache, fac, ker
+    torch.cuda.empty_cache()
+    (out["by_hand"], out["by_hand_s"]) = _synced_s(
+        lambda: factored_layers(cfg, params, tokens))
+    del params
+    return out
+
+
+def launch_phase(dev, kernels: list) -> dict:
+    """[launch]: the launch layer's cell plans on one card, (a) to (f)
+    above; the flash kernel's entry at the prefill's call appended to
+    ``kernels``. Every gate is checked and logged; the phase fails after
+    the last."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.launch import mesh as t_mesh
+    from repro_torch.launch.serve import main as serve_main
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"[launch] after freeing the earlier models' weights: {held:.3f} GB "
+        f"allocated")
+    if held > 1.0:
+        fail(f"{held:.2f} GB still allocated before the launch phase")
+    mesh = t_mesh.make_test_mesh(1, 1, device=dev)
+    errors = []
+
+    def gate(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+            log(f"[launch] GATE FAILED: {msg}")
+
+    # (c) first: the kernel alone, nothing else on the card
+    lf = long_flash(dev)
+    tol = (f"rtol {LONG_FLASH_TOL['rtol']:g}, atol "
+           f"{LONG_FLASH_TOL['row_atol']:g} x the position's max |want|")
+    for start, e in lf["blocks_vs_plain"].items():
+        log(f"[launch] flash at {tuple(LONG_FLASH_SHAPE)} causal, query rows "
+            f"{start}..+64 vs its plain version on its tiles: max abs err "
+            f"{e['max_abs_err']:.3e}, {e['max_err_over_row_max']:.3e} of its "
+            f"position's max |want|, {e['max_share_of_bar']:.3f} of the bar "
+            f"({tol})")
+        gate(e["ok"], f"flash at 32k, rows {start}: disagrees with its plain "
+             f"version")
+    e = lf["all_rows_vs_plain"]
+    log(f"[launch] flash at {tuple(LONG_FLASH_SHAPE)} causal, all rows vs the "
+        f"plain version's timed pass (512-row blocks): max abs err "
+        f"{e['max_abs_err']:.3e}, {e['max_err_over_row_max']:.3e} of its "
+        f"position's max |want|, {e['max_share_of_bar']:.3f} of the bar "
+        f"({tol})")
+    gate(e["ok"], "flash at 32k: disagrees with its plain version's pass")
+    gate(lf["finite"], "flash at 32k: non-finite output")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a), (b) llama3-8b
+    ll = launch_llama(dev, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = ll["layers"]                  # one flash call a layer
+    log(f"[launch] (a) {ll['description']} (batch cut to 1, last_logit): "
+        f"params drawn in {ll['draw_seconds']:.2f} s; the step "
+        f"{ll['prefill_ms']:.1f} ms ({LAUNCH_SEQ / ll['prefill_ms'] * 1e3:.0f}"
+        f" tokens/s), peak {ll['prefill_peak_gb']:.2f} GB, launches "
+        f"{json.dumps(ll['prefill_launches'])}, logits "
+        f"{ll['last_logits_shape']}; rule fallbacks on the 1 x 1 mesh: "
+        f"{ll['prefill_fallbacks']}")
+    gate(ll["prefill_launches"]["flash_attention"] == want and not any(
+        n for name, n in ll["prefill_launches"].items()
+        if name != "flash_attention"),
+        f"(a) launches {ll['prefill_launches']}, not {want} flash")
+    gate(ll["last_logits_finite"] and ll["last_logits_shape"][0] == 1,
+         "(a) last logits not finite")
+    log(f"[launch] (b) prefill of {LAUNCH_SEQ - 1} tokens into a "
+        f"{LAUNCH_SEQ}-slot cache {ll['cache_prefill_ms']:.1f} ms (cache "
+        f"shapes = the decode plan's spec: {ll['cache_shapes_match_spec']}); "
+        f"the decode plan's step at position {LAUNCH_SEQ - 1}: "
+        + ", ".join(f"{t:.2f}" for t in ll["decode_ms"])
+        + f" ms (first {ll['decode_first_ms']:.2f}), peak "
+        f"{ll['decode_peak_gb']:.2f} GB, launches "
+        f"{json.dumps(ll['decode_launches'])}; against (a)'s last logits: "
+        f"cosine {ll['cosine']:.7f} (gate >= {LAUNCH_DECODE_COS}), max abs "
+        f"diff {ll['max_abs_diff']:.4f}; top-1 tokens (every index at the "
+        f"max of the bf16-rounded logits) decode {ll['top1_decode']}, "
+        f"prefill {ll['top1_prefill']} (the prefill's top-2 gap "
+        f"{ll['top1_gap_prefill']:.4f}); the decode's first is a top-1 "
+        f"token of the prefill: {ll['decode_top1_is_a_prefill_top1']} "
+        f"(tokens above it there: {ll['decode_top1_rank_in_prefill']})")
+    gate(ll["cache_shapes_match_spec"], "(b) cache shapes differ from the "
+         "decode plan's spec")
+    gate(ll["cosine"] >= LAUNCH_DECODE_COS, f"(b) cosine {ll['cosine']}")
+    gate(ll["decode_top1_is_a_prefill_top1"],
+         "(b) the decode's top-1 token is not a top-1 token of the prefill")
+    gate(not any(ll["decode_launches"].values()),
+         f"(b) the decode step launched {ll['decode_launches']}")
+
+    # (e) rwkv6-7b
+    rw = launch_rwkv(dev, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[launch] (e) {rw['description']} (batch cut to 1; factored WKV6): "
+        f"params drawn in {rw['draw_seconds']:.2f} s; the step "
+        f"{rw['factored_ms']:.1f} ms, peak {rw['factored_peak_gb']:.2f} GB, "
+        f"launches {json.dumps(rw['factored_launches'])}; log-decays the "
+        f"clamp changed {rw['clamped_total']} of {rw['log_decays']} "
+        f"(per layer {rw['clamped_per_layer'][:4]}...); the same params in "
+        f"rwkv_mode='kernel' {rw['kernel_ms']:.1f} ms, launches "
+        f"{json.dumps(rw['kernel_launches'])}; last logits cosine "
+        f"{rw['cosine']:.7f} (gate >= {RWKV_COS_MIN}), top-1 {rw['top1']}")
+    gate(not any(rw["factored_launches"].values()),
+         f"(e) factored mode launched {rw['factored_launches']}")
+    gate(rw["kernel_launches"]["wkv6"] == rw["layers"],
+         f"(e) kernel mode launched {rw['kernel_launches']}")
+    gate(rw["finite"] and rw["cosine"] >= RWKV_COS_MIN,
+         f"(e) cosine {rw['cosine']}")
+    bh = rw["by_hand"]
+    log(f"[launch] (e) the first {RWKV_DEPTH} blocks by hand over the same "
+        f"{LAUNCH_SEQ} tokens ({rw['by_hand_s']:.1f} s): factored vs the "
+        f"kernel's recurrence on the kernel path's inputs, y's relative "
+        f"error " + ", ".join(f"{x['y_rel_err']:.2e}" for x in bh["layers"])
+        + "; the time-mix in f32, least per-row cosine "
+        + ", ".join(f"{x['time_mix_f32_min_cosine']:.9f}"
+                    for x in bh["layers"])
+        + f" (gate >= {LAYER_COS_MIN}); after {RWKV_DEPTH} layers the "
+        f"factored path vs the kernel path, pooled over the sequence "
+        f"{bh['pooled_cosine']:.9f} (gate >= {RWKV_DEPTH_COS_MIN}), least "
+        f"per-row {bh['row_min_cosine']:.9f}")
+    gate(all(x["time_mix_f32_min_cosine"] >= LAYER_COS_MIN
+             for x in bh["layers"]), "(e) a factored time-mix layer differs "
+         "from the kernel's")
+    gate(bh["pooled_cosine"] >= RWKV_DEPTH_COS_MIN,
+         f"(e) after {RWKV_DEPTH} layers the factored path has drifted: "
+         f"{bh['pooled_cosine']}")
+
+    # (d) smollm-360m training with microbatches
+    tr = launch_train(dev, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, r in tr["runs"].items():
+        log(f"[launch] (d) {r['description']} at {TRAIN_BATCH} x {TRAIN_SEQ}:"
+            f" loss {r['loss']!r}, grad norm {r['grad_norm']:.6f}, step "
+            f"{r['ms']:.1f} ms, peak {r['peak_gb']:.2f} GB, launches "
+            f"{json.dumps(r['launches'])}")
+    log(f"[launch] (d) microbatches {tr['microbatches']} vs 1: loss rel diff "
+        f"{tr['loss_rel_diff']:.3e} (gate <= {LAUNCH_LOSS_REL:g}), least "
+        f"per-leaf update cosine {tr['update_min_cosine']:.6f} "
+        f"({tr['update_least_leaf']}; gate >= {LAUNCH_UPDATE_COS})")
+    gate(tr["microbatches"] == 2, f"(d) default_microbatches "
+         f"{tr['microbatches']}")
+    per = tr["flash_per_loss"]
+    gate(tr["runs"]["2"]["launches"]["flash_attention"] == 2 * per and
+         tr["runs"]["1"]["launches"]["flash_attention"] == per,
+         "(d) flash launches")
+    gate(tr["loss_rel_diff"] <= LAUNCH_LOSS_REL, "(d) losses differ")
+    gate(tr["update_min_cosine"] >= LAUNCH_UPDATE_COS, "(d) updates differ")
+
+    # (f) the serving CLI
+    kern = zero_counts()
+    embeds, serve_s = _synced_s(lambda: serve_main(LAUNCH_SERVE_ARGS))
+    serve_counts = read_counts(kern)
+    serve_cfg = get_arch(LAUNCH_SERVE_ARGS[1])
+    log(f"[launch] (f) launch.serve.main({LAUNCH_SERVE_ARGS}): "
+        f"{embeds.shape} embeddings in {serve_s:.2f} s, launches "
+        f"{json.dumps(serve_counts)}")
+    gate(embeds.shape == (64, serve_cfg.d_model)
+         and bool(np.isfinite(embeds).all()), "(f) embeddings")
+    # 64 documents in batches of 8: 8 batches, one flash call a layer
+    gate(serve_counts["flash_attention"] == 8 * serve_cfg.num_layers,
+         f"(f) launches {serve_counts}")
+
+    kernels.append(
+        {"name": "flash_attention_hd128_32k", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+         "launches": ll["prefill_launches"]["flash_attention"],
+         "max_abs_err": max(e["max_abs_err"] for e in (
+             lf["all_rows_vs_plain"], *lf["blocks_vs_plain"].values())),
+         "ms": lf["ms"], "plain_ms": lf["plain_ms"],
+         "bound_ms": lf["bound_ms"], "bound_by": lf["bound_by"],
+         "library_ms": lf["library_ms"]})
+    share = want * lf["ms"] / ll["prefill_ms"]
+    cudnn = (f"{lf['library_ms']:.4f} ms" if lf["library_ms"] is not None
+             else f"refused ({lf['library_refused']})")
+    log(f"[times] flash_attention_hd128_32k at {tuple(LONG_FLASH_SHAPE)} "
+        f"causal: {lf['ms']:.4f} ms ({lf['ms'] / lf['bound_ms']:.2f}x its "
+        f"bound; {lf['flops'] / lf['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{lf['plain_ms']:.2f} ms, bound {lf['bound_ms']:.4f} ms "
+        f"({lf['bound_by']}; {lf['flops']:.4g} FLOP, exponentials "
+        f"{lf['exp_bound_ms']:.4f} ms), cuDNN SDPA {cudnn}; {want} "
+        f"launches a prefill step, {100 * share:.1f}% of it")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[launch] phase {phase_s:.1f} s")
+    if errors:
+        fail(f"[launch] {len(errors)} gates failed: {errors}")
+    return {"flash_32k": lf, "llama": ll, "rwkv": rw, "train": tr,
+            "serve": {"seconds": serve_s, "launches": serve_counts,
+                      "shape": list(embeds.shape)},
+            "flash_share_of_prefill": share, "phase_seconds": phase_s}
+
+
 def main() -> None:
     t_main = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").exists():
@@ -4654,6 +5259,9 @@ def main() -> None:
 
     # -- 24. smollm-360m: LM training --------------------------------------
     report["train"] = train_phase(dev, kernels)
+
+    # -- 25. the launch layer's cell plans ---------------------------------
+    report["launch"] = launch_phase(dev, kernels)
 
     report["total_seconds"] = time.perf_counter() - t_main
     log(f"[total] {report['total_seconds']:.1f} s from the start of main, "

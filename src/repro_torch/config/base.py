@@ -13,9 +13,10 @@ so depends on every field.
 ``DECODE_32K``, ``LONG_500K``, with ``ALL_SHAPES`` and
 ``SHAPES_BY_NAME``) and ``TrainConfig`` are copies too (the LM
 trainer's, ``runtime.train_loop``); ``OptimizerConfig.compress_grads``
-switches on ``optimizer.compression``. Not ported yet: ``ServeConfig``,
-``MeshConfig`` and ``RunConfig`` wait for the launch and mesh
-scaffolding. ``ProxyConfig.contrastive_impl`` takes ``"auto"``, ``"kernel"``
+switches on ``optimizer.compression``. ``MeshConfig`` (with
+``SINGLE_POD``, ``MULTI_POD`` and ``TEST_MESH``), ``ServeConfig`` and
+``RunConfig`` are copies as well; ``launch.mesh`` makes a mesh of a
+``MeshConfig``. ``ProxyConfig.contrastive_impl`` takes ``"auto"``, ``"kernel"``
 and ``"ref"``: the port's kernel wrappers pick the CUDA kernel or the
 plain version by the device the tensors lie on, so all three run the
 same arithmetic there; ``"interpret"`` (Pallas interpret mode) has no
@@ -211,6 +212,33 @@ class OptimizerConfig:
 
 
 # ---------------------------------------------------------------------------
+# mesh / distribution
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+
+SINGLE_POD = MeshConfig(shape=(16, 16), axes=("data", "model"))
+MULTI_POD = MeshConfig(shape=(2, 16, 16), axes=("pod", "data", "model"))
+# the one-device mesh of the CPU tests and of one card
+TEST_MESH = MeshConfig(shape=(1, 1), axes=("data", "model"))
+
+
+# ---------------------------------------------------------------------------
 # input shapes (the four assigned LM shapes) and LM training
 # ---------------------------------------------------------------------------
 
@@ -240,6 +268,15 @@ class TrainConfig:
     keep_checkpoints: int = 3
     async_checkpoint: bool = True
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    shape: InputShape = DECODE_32K
+    # decode attention strategy: "gspmd" (baseline) | "flash_shmap"
+    # (sequence-sharded flash-decoding; the JAX package's names, kept)
+    decode_attention: str = "gspmd"
+    max_batch: int = 128
 
 
 CONTRASTIVE_IMPLS = ("auto", "kernel", "ref")
@@ -314,6 +351,18 @@ class CascadeConfig:
             if self.use_margin:
                 object.__setattr__(self, "margin_mode", "bernstein")
             object.__setattr__(self, "use_margin", None)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Top-level config: one run of the framework."""
+    arch: str = "smollm-360m"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    mesh: MeshConfig = SINGLE_POD
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    proxy: ProxyConfig = field(default_factory=ProxyConfig)
+    cascade: CascadeConfig = field(default_factory=CascadeConfig)
 
 
 def replace(cfg, **kw):

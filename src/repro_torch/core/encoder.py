@@ -15,7 +15,8 @@ The hidden activation is GELU in its tanh form, ``jax.nn.gelu``'s
 default; ``F.gelu`` defaults to the erf form, which differs by ~4e-4.
 ``encoder_init`` draws on a ``torch.Generator`` where the JAX package
 takes a PRNG key, in float32 only (its ``dtype`` argument has no use
-here); ``encoder_axes`` waits for the sharding rules.
+here). ``encoder_axes`` is the proxy's logical-axes table
+(``sharding.rules``).
 """
 from __future__ import annotations
 
@@ -55,6 +56,13 @@ def _dense(layer: Params, x: torch.Tensor) -> torch.Tensor:
     w, b = layer["w"], layer["b"]
     # a stacked (lane-axis) tree adds each lane's bias to all its rows
     return x @ w + (b.unsqueeze(-2) if w.dim() == 3 else b)
+
+
+def encoder_axes(cfg: ProxyConfig) -> Params:
+    layers = {f"l{i}": {"w": ("proxy_in", "proxy_out"), "b": ("proxy_out",)}
+              for i in range(cfg.num_layers)}
+    return {"layers": layers,
+            "proj": {"w": ("proxy_in", "proxy_out"), "b": ("proxy_out",)}}
 
 
 def encoder_apply(params: Params, e: torch.Tensor) -> torch.Tensor:

@@ -1,3 +1,4 @@
-"""Launchers (``repro.launch``): the LM training CLI. The mesh, the
-step plans and the dry-run and roofline tools wait for the launch and
-mesh slice."""
+"""Launchers (``repro.launch``): the LM training CLI (``train``), the
+serving CLI (``serve``), meshes (``mesh``) and the cell plans
+(``steps``). The dry-run, HLO-analysis and roofline tools are not
+ported yet."""

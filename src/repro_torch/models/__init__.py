@@ -12,6 +12,8 @@ import torch
 from repro_torch.models.encdec import EncDecLM  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
     build_model,
+    input_axes,
+    input_specs,
     make_decode_step,
     make_forward_loss,
     make_prefill_step,

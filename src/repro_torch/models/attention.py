@@ -20,8 +20,9 @@ Cross-attention (``cross_attn_{init, apply, decode}``, ``encode_kv``)
 reads K/V projected once from the encoder's output, with no RoPE and no
 mask. Its full-sequence form always goes through the flash entry,
 non-causal, whatever the model's ``attn_impl``, as in the JAX package;
-its decode form is plain f32 scores and softmax. ``attn_axes`` waits
-for the sharding rules.
+its decode form is plain f32 scores and softmax. ``attn_axes`` is the
+projections' logical-axes table (``sharding.rules``); a cross-attention
+block has the same.
 
 The flash entry is ``flash_attention``, the port of the JAX package's
 custom VJP (``_make_flash``): with no gradient wanted it is the plain
@@ -61,6 +62,15 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> Params:
         "wk": dense_init(generator, d, (nkv, hd), dtype),
         "wv": dense_init(generator, d, (nkv, hd), dtype),
         "wo": dense_init(generator, nq * hd, (d,), dtype).reshape(nq, hd, d),
+    }
+
+
+def attn_axes(cfg: ModelConfig) -> Params:
+    return {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
     }
 
 

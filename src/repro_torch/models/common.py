@@ -6,18 +6,51 @@ JAX package does; RoPE rotates the two halves of each head
 (``[x1 cos - x2 sin, x1 sin + x2 cos]``), not interleaved pairs.
 The sinusoidal positions of the encoder-decoder models compute in
 float32 with the JAX package's ``div`` expression. ``cross_entropy``
-is the LM loss. ``rmsnorm_axes`` and ``constrain``/``set_constrainer``
-(a sharding constraint) wait for the sharding rules.
+is the LM loss. ``rmsnorm_axes`` is RMSNorm's logical-axes table (the
+sharding rules' input, ``sharding.rules``).
+
+``constrain(x, logical_axes)`` is the activation-sharding hook the
+blocks call inside their chunk scans, where the JAX package calls its
+own. The JAX package installs its resolver in a module global
+(``set_constrainer``) that nothing resets; here ``constrainer(fn)``
+installs ``fn`` in a ``contextvars.ContextVar`` for the duration of a
+``with`` block (a launch plan's step, ``launch.steps``) and resets it
+on leaving, so no state outlives the call and another thread or
+context never sees it. With none installed ``constrain`` returns ``x``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
+
+
+# the resolver of the active launch step, if any (``constrainer``)
+_CONSTRAINER: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("repro_torch_constrainer", default=None)
+
+
+@contextlib.contextmanager
+def constrainer(fn: Callable) -> Iterator[None]:
+    """Within the block, ``constrain(x, axes)`` is ``fn(x, axes)``."""
+    token = _CONSTRAINER.set(fn)
+    try:
+        yield
+    finally:
+        _CONSTRAINER.reset(token)
+
+
+def constrain(x, logical_axes):
+    """``x`` through the active step's resolver (``constrainer``), or
+    ``x`` itself when none is installed."""
+    fn = _CONSTRAINER.get()
+    return x if fn is None else fn(x, logical_axes)
 
 
 def tree_map(fn, tree):
@@ -32,6 +65,31 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+class _ShapeOnly:
+    """A stand-in for a ``torch.Generator`` on the meta device: an init
+    given it draws nothing and returns meta tensors of the params' shapes
+    and types (``param_specs``), as ``jax.eval_shape`` of an init does."""
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = _ShapeOnly()
+
+
+def param_specs(model) -> Params:
+    """``model.init``'s tree as meta tensors: shapes and types, no
+    storage and no draws, at any size."""
+    return model.init(SHAPE_ONLY)
+
+
+def randn(shape: Tuple[int, ...], generator) -> torch.Tensor:
+    """A float32 standard normal of ``shape`` drawn on ``generator``'s
+    device (empty on the meta device)."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=torch.float32)
+
+
 def dense_init(generator: torch.Generator, in_dim: int,
                out_shape: Tuple[int, ...],
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -40,8 +98,9 @@ def dense_init(generator: torch.Generator, in_dim: int,
     and cast to ``dtype``."""
     w = torch.empty((in_dim,) + tuple(out_shape), dtype=torch.float32,
                     device=generator.device)
-    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
-                                generator=generator)
+    if w.device.type != "meta":
+        torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                    generator=generator)
     return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
 
 
@@ -49,13 +108,15 @@ def embed_init(generator: torch.Generator, vocab: int, dim: int,
                dtype: torch.dtype) -> torch.Tensor:
     """A standard normal times 0.02, drawn in float32 and scaled in place
     before the cast, so the table is never held twice in float32."""
-    w = torch.randn((vocab, dim), generator=generator,
-                    device=generator.device, dtype=torch.float32)
-    return w.mul_(0.02).to(dtype)
+    return randn((vocab, dim), generator).mul_(0.02).to(dtype)
 
 
 def rmsnorm_init(dim: int, dtype: torch.dtype, device) -> Params:
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm_axes() -> Params:
+    return {"scale": ("embed",)}
 
 
 def rmsnorm_apply(params: Params, x: torch.Tensor,

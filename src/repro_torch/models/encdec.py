@@ -24,8 +24,11 @@ training loss, the cross-entropy of the teacher-forced logits, on a
 forward with gradients (the entries above run under
 ``torch.inference_mode``); with ``cfg.remat == "full"`` every encoder
 layer and decoder layer is recomputed in the backward, as
-``jax.checkpoint`` does. ``param_axes`` and the sharding constraint
-(``act_constraint``) wait for the sharding rules.
+``jax.checkpoint`` does. ``param_axes`` is the params' logical-axes
+tree (``sharding.rules``); ``act_constraint``, None unless a launch plan
+sets it (``launch.steps``), is applied to the hidden state at each
+encoder and decoder layer's start in the full-sequence passes, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -40,10 +43,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (Params, cross_entropy, dtype_of,
                                        embed_init, rmsnorm_apply,
-                                       rmsnorm_init, sinusoidal_position_at,
+                                       rmsnorm_axes, rmsnorm_init,
+                                       sinusoidal_position_at,
                                        sinusoidal_positions, tree_map)
 from repro_torch.models.transformer import (draw_stacked, lm_logits,
-                                            remat_wrap, stack_trees)
+                                            prepend_axis, remat_wrap,
+                                            stack_trees)
 
 
 def _layer(params: Params, i: int) -> Params:
@@ -63,6 +68,9 @@ class EncDecLM:
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.takes_embeds = True   # the encoder's input: frame embeddings
+        # set by a launch plan (launch.steps): applied to the hidden state
+        # at each layer's start
+        self.act_constraint = None
 
     def init(self, generator: torch.Generator) -> Params:
         """Random params drawn on ``generator`` and on its device, one
@@ -95,6 +103,25 @@ class EncDecLM:
             "decoder": draw_stacked(cfg.num_layers, dec_block),
             "final_norm": rmsnorm_init(d, dtype, dev),
         }
+
+    def param_axes(self) -> Params:
+        """The params' logical axes, leaf for leaf."""
+        cfg = self.cfg
+        enc = {"norm1": rmsnorm_axes(), "attn": attn.attn_axes(cfg),
+               "norm2": rmsnorm_axes(), "mlp": mlp_mod.mlp_axes(cfg)}
+        dec = {"norm1": rmsnorm_axes(), "self_attn": attn.attn_axes(cfg),
+               "norm2": rmsnorm_axes(), "cross_attn": attn.attn_axes(cfg),
+               "norm3": rmsnorm_axes(), "mlp": mlp_mod.mlp_axes(cfg)}
+        return {
+            "embed": {"table": ("vocab", "fsdp_embed")},
+            "encoder": prepend_axis(enc),
+            "enc_norm": rmsnorm_axes(),
+            "decoder": prepend_axis(dec),
+            "final_norm": rmsnorm_axes(),
+        }
+
+    def _constrained(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.act_constraint is None else self.act_constraint(x)
 
     def _with_positions(self, x: torch.Tensor) -> torch.Tensor:
         """x (b, s, d) plus the sinusoidal table, cast to x's type."""
@@ -130,7 +157,7 @@ class EncDecLM:
 
         body = remat_wrap(remat)(body)
         for i in range(cfg.encoder_layers):
-            x = body(x, _layer(params["encoder"], i))
+            x = body(self._constrained(x), _layer(params["encoder"], i))
         return rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
     # -- decoder, teacher-forced and prefill ----------------------------------
@@ -167,7 +194,7 @@ class EncDecLM:
         body = remat_wrap(remat and not collect_cache)(body)
         caches = []
         for i in range(cfg.num_layers):
-            x, c = body(x, _layer(params["decoder"], i))
+            x, c = body(self._constrained(x), _layer(params["decoder"], i))
             if collect_cache:
                 caches.append(c)
         return (self.logits(params, x),

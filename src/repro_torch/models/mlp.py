@@ -1,6 +1,6 @@
 """Gated (SwiGLU-family) MLP block (``repro.models.mlp``):
 ``(x wi) * act(x wg) wo``, the activation on the gate branch ``wg``.
-``mlp_axes`` waits for the sharding rules."""
+``mlp_axes`` is its logical-axes table (``sharding.rules``)."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +18,11 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig, dtype,
         "wg": dense_init(generator, d, (f,), dtype),     # gate
         "wo": dense_init(generator, f, (d,), dtype),     # down
     }
+
+
+def mlp_axes(cfg: ModelConfig) -> Params:
+    return {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
 
 
 def mlp_apply(params: Params, x: torch.Tensor,

@@ -3,13 +3,20 @@
 ``make_forward_loss``, ``make_prefill_step`` and ``make_decode_step``
 wrap a model's ``loss_fn``, ``prefill`` and ``decode_step`` as functions
 of (params, batch), the JAX package's step functions. ``input_specs``
-and ``input_axes`` wait for the sharding rules.
+gives, for one step of an ``InputShape``, every model input as a meta
+tensor (its shape and type, no storage), and ``input_axes`` the
+matching logical-axes tree for the sharding rules (``sharding.rules``);
+a decode step's inputs are the token, its position and the cache
+(``cache_spec``). Token ids are int32, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Dict, Union
 
-from repro_torch.config import ModelConfig
+import torch
+
+from repro_torch.config import InputShape, ModelConfig
+from repro_torch.models.common import dtype_of
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import TransformerLM
 
@@ -23,6 +30,63 @@ def build_model(cfg: ModelConfig, **opts) -> Union[TransformerLM, EncDecLM]:
     if cfg.is_encdec:
         return EncDecLM(cfg, **opts)
     return TransformerLM(cfg, **opts)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """Meta tensors of every input of one step of ``shape``'s kind."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = dtype_of(cfg.dtype)
+    i32 = torch.int32
+    if shape.kind == "train":
+        if cfg.is_encdec:
+            return {"frames": _meta((B, S, cfg.d_model), dt),
+                    "tokens": _meta((B, S), i32),
+                    "labels": _meta((B, S), i32)}
+        if cfg.frontend != "none":
+            return {"embeds": _meta((B, S, cfg.d_model), dt),
+                    "labels": _meta((B, S), i32)}
+        return {"tokens": _meta((B, S), i32), "labels": _meta((B, S), i32)}
+    if shape.kind == "prefill":
+        if cfg.is_encdec:
+            return {"frames": _meta((B, S, cfg.d_model), dt),
+                    "tokens": _meta((B, S), i32)}
+        if cfg.frontend != "none":
+            return {"embeds": _meta((B, S, cfg.d_model), dt)}
+        return {"tokens": _meta((B, S), i32)}
+    if shape.kind == "decode":
+        cache, _ = build_model(cfg).cache_spec(B, S)
+        return {"tokens": _meta((B, 1), i32), "pos": _meta((), i32),
+                "cache": cache}
+    raise ValueError(shape.kind)
+
+
+def input_axes(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """Logical-axis tuples mirroring ``input_specs``."""
+    if shape.kind == "train":
+        if cfg.is_encdec:
+            return {"frames": ("batch", "seq", "embed"),
+                    "tokens": ("batch", "seq"),
+                    "labels": ("batch", "seq")}
+        if cfg.frontend != "none":
+            return {"embeds": ("batch", "seq", "embed"),
+                    "labels": ("batch", "seq")}
+        return {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if shape.kind == "prefill":
+        if cfg.is_encdec:
+            return {"frames": ("batch", "seq", "embed"),
+                    "tokens": ("batch", "seq")}
+        if cfg.frontend != "none":
+            return {"embeds": ("batch", "seq", "embed")}
+        return {"tokens": ("batch", "seq")}
+    if shape.kind == "decode":
+        _, cache_axes = build_model(cfg).cache_spec(shape.global_batch,
+                                                    shape.seq_len)
+        return {"tokens": ("batch", None), "pos": (), "cache": cache_axes}
+    raise ValueError(shape.kind)
 
 
 def make_forward_loss(model):

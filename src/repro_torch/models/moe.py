@@ -30,8 +30,8 @@ An unknown ``dispatch`` raises (the JAX package takes it as
 ``"onehot"``). The chunk is a constant: the JAX package reads
 ``REPRO_MOE_CHUNK`` from the environment as a tuning knob, but the chunk
 decides which pairs are dropped, so a store's rows would change with the
-environment. ``moe_axes`` waits for the sharding rules, as every
-``*_axes`` function does.
+environment. ``moe_axes`` is the block's logical-axes table
+(``sharding.rules``).
 """
 from __future__ import annotations
 
@@ -60,6 +60,15 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> Params:
 
     return {"router": dense_init(generator, d, (e,), torch.float32),
             "wi": experts(d, f), "wg": experts(d, f), "wo": experts(f, d)}
+
+
+def moe_axes(cfg: ModelConfig) -> Params:
+    return {
+        "router": ("embed", None),
+        "wi": ("experts", "embed", "expert_mlp"),
+        "wg": ("experts", "embed", "expert_mlp"),
+        "wo": ("experts", "expert_mlp", "embed"),
+    }
 
 
 def _capacity(tokens: int, cfg: ModelConfig) -> int:

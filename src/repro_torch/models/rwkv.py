@@ -5,18 +5,32 @@ The WKV6 recurrence per head (K = V = head_dim):
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
     o_t = r_t^T S_{t-1} + (r_t . (u * k_t)) v_t
 with w_t in (0, 1) produced per channel by a LoRA on the shifted input.
-``timemix_apply`` runs it in one of two exact modes:
+``timemix_apply`` runs it in one of three modes:
   * ``kernel`` — the default: ``kernels.wkv6.ops.wkv6``, the hand-written
     CUDA intra-chunk kernel on the card (its plain version on the CPU)
-    followed by the inter-chunk combine;
+    followed by the inter-chunk combine; exact;
   * ``direct`` — the same exact chunked scan in plain PyTorch
     (``kernels.wkv6.ref.wkv6_by_chunks``: the kernel's plain version and
-    the same combine), as the JAX package's ``direct`` mode computes it.
-The JAX package's third mode, ``factored``, clamps the decay for a
-lossy training lowering; it is not ported and raises. Types follow the
-JAX package: projections in the model's type, the log-decay and the
-recurrence in float32, y cast back before the per-head group norm
-(float32 inside).
+    the same combine), as the JAX package's ``direct`` mode computes it;
+  * ``factored`` — the JAX package's large-scale lowering
+    (``wkv6_factored``), in plain PyTorch as the JAX package writes it
+    in XLA ops (it reaches no Pallas kernel, so it launches no kernel
+    here either): each per-step log-decay is clamped to
+    ``-FACTORED_CLAMP / Q`` so that ``exp(-cum_j)`` stays finite in
+    float32, and the intra-chunk pairs factor as ``A = (r exp(cum_{t-1}))
+    (k exp(-cum_j))^T`` under the strict lower triangle (a select). Its
+    chunk loop recomputes each chunk in the backward
+    (``torch.utils.checkpoint``, as ``jax.checkpoint(body)`` does), so a
+    gradient does not hold every chunk's (b, Q, Q, H) tile. The clamp
+    changes the function wherever a decay passes it: no mode falls back
+    to another.
+Types follow the JAX package: projections in the model's type, the
+log-decay and the recurrence in float32, y cast back before the per-head
+group norm (float32 inside). The log-decay, and in factored mode each
+chunk's inputs and the carried state, go through ``common.constrain``
+where the JAX package constrains them (the kernel modes' chunking lies
+inside their wrappers, so there the whole sequence's r, k, v and
+log-decay go through it before the recurrence).
 
 Decode is recurrent, one token at a time, in plain PyTorch as in the JAX
 package (no kernel): ``timemix_apply(..., return_state=True)`` ends a
@@ -24,7 +38,8 @@ prefill with the state ``{"wkv": S (b, H, K, K) f32, "shift_t": x[:,
 -1]}``; the model adds ``shift_c``, the channel-mix input at the last
 token. ``timemix_decode`` and ``channelmix_decode`` step it
 (``rwkv_state_spec`` gives its shapes). ``timemix_axes`` and
-``channelmix_axes`` wait for the sharding rules.
+``channelmix_axes`` are the blocks' logical-axes tables
+(``sharding.rules``).
 """
 from __future__ import annotations
 
@@ -32,11 +47,12 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6 import ref as wkv6_ref
-from repro_torch.models.common import Params, dense_init
+from repro_torch.models.common import Params, constrain, dense_init, randn
 
 LORA_RANK = 64
 CHUNK = 128
@@ -44,9 +60,6 @@ MIX_NAMES = ("w", "k", "v", "r", "g")
 
 
 def check_mode(mode: str) -> None:
-    if mode == "factored":
-        raise NotImplementedError("rwkv_mode='factored' (the clamped "
-                                  "training lowering) is not ported")
     if mode not in MODES:
         raise ValueError(f"unknown rwkv mode {mode!r}; one of {MODES}")
 
@@ -70,13 +83,27 @@ def timemix_init(generator: torch.Generator, cfg: ModelConfig,
         "w0": full((d,), -6.0, torch.float32),
         "wa": dense_init(generator, d, (LORA_RANK,), dtype),
         "wb": dense_init(generator, LORA_RANK, (d,), dtype),
-        "u": torch.randn((H, K), generator=generator, device=dev).mul_(0.1),
+        "u": randn((H, K), generator).mul_(0.1),
         "wr": dense_init(generator, d, (d,), dtype),
         "wk": dense_init(generator, d, (d,), dtype),
         "wv": dense_init(generator, d, (d,), dtype),
         "wg": dense_init(generator, d, (d,), dtype),
         "wo": dense_init(generator, d, (d,), dtype),
         "ln_x": full((d,), 1.0, torch.float32),
+    }
+
+
+def timemix_axes(cfg: ModelConfig) -> Params:
+    return {
+        "mu_x": ("embed",), "mu": (None, "embed"),
+        "lora_a": ("embed", None, None), "lora_b": (None, None, "embed"),
+        # decay / bonus / groupnorm are per channel of the head layout:
+        # sharded like the inner (model) dim
+        "w0": ("inner",), "wa": ("embed", None), "wb": (None, "inner"),
+        "u": ("act_heads", "head_dim"),
+        "wr": ("embed", "inner"), "wk": ("embed", "inner"),
+        "wv": ("embed", "inner"), "wg": ("embed", "inner"),
+        "wo": ("inner", "embed"), "ln_x": ("inner",),
     }
 
 
@@ -117,8 +144,72 @@ def _groupnorm_heads(x: torch.Tensor, scale: torch.Tensor, H: int,
     return (y.reshape(b, s, d) * scale).to(x.dtype)
 
 
-# the recurrence of each mode: (r, k, v, lw, u, *, chunk) -> y, exact both
-WKV6 = {"kernel": wkv6_ops.wkv6, "direct": wkv6_ref.wkv6_by_chunks}
+# Per-step log-decay clamp of the factored mode: with chunk Q the factored
+# exponent -cum_j is bounded by Q * FACTORED_CLAMP / Q = 80 < 88 (float32
+# exp overflow). The exact modes have no clamp.
+FACTORED_CLAMP = 80.0
+
+# the (b, Q, H, K) chunk tensors and the carried (b, H, K, K) state
+_BODY_AXES = ("batch", None, "act_heads", None)
+_STATE_AXES = ("batch", "act_heads", None, None)
+
+
+def _factored_chunk(S_prev, r_c, k_c, v_c, cum_c, lw_c, u, tri_strict):
+    """One chunk of the factored WKV6, float32: r_c, k_c, v_c, cum_c,
+    lw_c (b, Q, H, K), S_prev (b, H, K, K) -> (S_new, y_c (b, Q, H, K))."""
+    r_c, k_c, v_c, cum_c, lw_c = (constrain(t, _BODY_AXES)
+                                  for t in (r_c, k_c, v_c, cum_c, lw_c))
+    S_prev = constrain(S_prev, _STATE_AXES)
+    cum_tm1 = cum_c - lw_c
+    r_fac = r_c * torch.exp(cum_tm1)
+    k_fac = k_c * torch.exp(-cum_c)
+    A = torch.einsum("bqhk,bjhk->bqjh", r_fac, k_fac)
+    A = torch.where(tri_strict[None, :, :, None], A, A.new_zeros(()))
+    diag = torch.einsum("bqhk,hk,bqhk->bqh", r_c, u, k_c)
+    y_c = torch.einsum("bqjh,bjhk->bqhk", A, v_c) + diag[..., None] * v_c
+    # inter-chunk, from the carried state
+    y_c = y_c + torch.einsum("bqhk,bhkv->bqhv", r_fac, S_prev)
+    dec_end = torch.exp(cum_c[:, -1:] - cum_c)
+    S_inj = torch.einsum("bqhk,bqhv->bhkv", k_c * dec_end, v_c)
+    a_end = torch.exp(cum_c[:, -1])
+    return a_end[..., None] * S_prev + S_inj, y_c
+
+
+def wkv6_factored(r, k, v, lw, u, *, chunk: int = CHUNK,
+                  return_state: bool = False):
+    """The factored WKV6 (``repro.models.rwkv``'s ``mode="factored"``):
+    r, k, v, lw (b, s, H, K) float32, u (H, K) -> y (b, s, H, K), or (y,
+    S) with ``return_state``. Chunks of ``chunk_len(s, chunk)`` tokens;
+    each log-decay clamped to ``-FACTORED_CLAMP / Q`` first. With grad
+    mode on, each chunk is recomputed in the backward."""
+    b, s, H, K = r.shape
+    Q = wkv6_ref.chunk_len(s, chunk)
+    nc = s // Q
+    lw = torch.clamp(lw, min=-FACTORED_CLAMP / Q)
+    rs, ks, vs, lws = (t.reshape(b, nc, Q, H, K) for t in (r, k, v, lw))
+    cum = torch.cumsum(lws, dim=2)
+    chunk_axes = ("batch", None, None, "act_heads", None)
+    rs, ks, vs, lws, cum = (constrain(t, chunk_axes)
+                            for t in (rs, ks, vs, lws, cum))
+    tri_strict = torch.ones((Q, Q), dtype=torch.bool,
+                            device=r.device).tril(-1)
+    step = _factored_chunk
+    if torch.is_grad_enabled():
+        step = lambda *a: checkpoint(_factored_chunk, *a,
+                                     use_reentrant=False)
+    S = r.new_zeros((b, H, K, K))
+    ys = []
+    for c in range(nc):
+        S, y_c = step(S, rs[:, c], ks[:, c], vs[:, c], cum[:, c], lws[:, c],
+                      u, tri_strict)
+        ys.append(y_c)
+    y = torch.stack(ys, dim=1).reshape(b, s, H, K)
+    return (y, S) if return_state else y
+
+
+# the recurrence of each mode: (r, k, v, lw, u, *, chunk) -> y
+WKV6 = {"kernel": wkv6_ops.wkv6, "direct": wkv6_ref.wkv6_by_chunks,
+        "factored": wkv6_factored}
 MODES = tuple(WKV6)
 
 
@@ -132,6 +223,7 @@ def timemix_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig,
     H, K = _heads(cfg), cfg.rwkv.head_dim
     m = _token_shift_mix(p, x, _shift(x) if x_prev is None else x_prev)
     lw = _decay(p, m["w"])                                 # (b, s, d) f32
+    lw = constrain(lw, ("batch", None, "act_mlp"))
     r = m["r"] @ p["wr"]
     k = m["k"] @ p["wk"]
     v = m["v"] @ p["wv"]
@@ -158,6 +250,8 @@ def timemix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     way."""
     check_mode(mode)
     r, k, v, lw, g = timemix_inputs(p, x, cfg)
+    if mode != "factored":
+        r, k, v, lw = (constrain(t, _BODY_AXES) for t in (r, k, v, lw))
     if not return_state:
         return timemix_output(p, WKV6[mode](r, k, v, lw, p["u"],
                                             chunk=CHUNK), g, cfg)
@@ -176,6 +270,12 @@ def channelmix_init(generator: torch.Generator, cfg: ModelConfig,
         "wv": dense_init(generator, f, (d,), dtype),
         "wr": dense_init(generator, d, (d,), dtype),
     }
+
+
+def channelmix_axes(cfg: ModelConfig) -> Params:
+    return {"mu_k": ("embed",), "mu_r": ("embed",),
+            "wk": ("embed", "mlp"), "wv": ("mlp", "embed"),
+            "wr": ("embed", "inner")}
 
 
 def channelmix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -17,7 +17,9 @@ before the gated RMS norm (float32 inside).
 State layout (per layer):
   ssm : (b, heads, head_dim, state) float32 — the SSD hidden state
   conv: (b, conv_width-1, d_conv)    — rolling buffer of the causal conv
-``mamba_axes`` waits for the sharding rules.
+``mamba_axes`` is the block's logical-axes table (``sharding.rules``);
+each chunk's inputs and the carried state go through
+``common.constrain``, where the JAX package constrains them.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.common import Params, dense_init
+from repro_torch.models.common import Params, constrain, dense_init, randn
 
 STATE_AXES = {"ssm": ("batch", None, None, None),
               "conv": ("batch", None, None)}
@@ -60,14 +62,25 @@ def mamba_init(generator: torch.Generator, cfg: ModelConfig,
     f32 = dict(dtype=torch.float32, device=dev)
     return {
         "in_proj": dense_init(generator, d, (out_dim,), dtype),
-        "conv_w": torch.randn((cfg.ssm.conv_width, d_conv),
-                              generator=generator, **f32).mul_(0.1)
+        "conv_w": randn((cfg.ssm.conv_width, d_conv), generator).mul_(0.1)
                   .to(dtype),
         "a_log": torch.zeros((nheads,), **f32),         # A = -exp(a_log)
         "d_skip": torch.ones((nheads,), **f32),
         "dt_bias": torch.zeros((nheads,), **f32),
         "out_proj": dense_init(generator, d_inner, (d,), dtype),
         "norm_z": torch.ones((d_inner,), dtype=dtype, device=dev),
+    }
+
+
+def mamba_axes(cfg: ModelConfig) -> Params:
+    return {
+        "in_proj": ("embed", "inner"),
+        "conv_w": ("conv", None),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "dt_bias": (None,),
+        "out_proj": ("inner", "embed"),
+        "norm_z": ("inner",),
     }
 
 
@@ -166,8 +179,11 @@ def mamba_apply(params: Params, x_in: torch.Tensor, cfg: ModelConfig,
     S = torch.zeros((b, H, P, n), dtype=torch.float32, device=x_in.device)
     ys = []
     for c in range(nc):
-        y_c, S = _ssd_chunk(S, xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c],
-                            cum[:, c], tri)
+        x_c = constrain(xc[:, c], ("batch", None, "act_heads", None))
+        dt_c = constrain(dtc[:, c], ("batch", None, "act_heads"))
+        cum_c = constrain(cum[:, c], ("batch", None, "act_heads"))
+        S = constrain(S, ("batch", "act_heads", None, None))
+        y_c, S = _ssd_chunk(S, x_c, dt_c, Bc[:, c], Cc[:, c], cum_c, tri)
         ys.append(y_c)
     y = torch.stack(ys, dim=1).reshape(b, s, H, P)
     y = y + params["d_skip"][None, None, :, None] * xh

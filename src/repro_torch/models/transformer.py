@@ -37,10 +37,14 @@ loss) on a forward with gradients: ``forward``, ``hidden`` and
 ``prefill`` run under ``torch.inference_mode``, ``loss_fn`` does not,
 and with ``cfg.remat == "full"`` it recomputes every block in the
 backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` does), so
-only each block's input is kept. ``param_axes`` and the sharding
-constraint (``act_constraint``) wait for the sharding rules;
-``causal_skip`` has no torch meaning (the flash kernel skips the masked
-tiles itself).
+only each block's input is kept. ``param_axes`` is the logical-axes
+tree of the params (``sharding.rules``' input: the params' layout, each
+leaf a tuple of names, a stacked leaf's first one None), and
+``act_constraint``, None unless a launch plan sets it
+(``launch.steps``), is applied to the hidden state at the start of each
+pattern group, in the full-sequence passes and in decode, as in the JAX
+package. ``causal_skip`` has no torch meaning (the flash kernel skips
+the masked tiles itself).
 """
 from __future__ import annotations
 
@@ -60,7 +64,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Params, cross_entropy, dtype_of,
                                        embed_init, rmsnorm_apply,
-                                       rmsnorm_init, tree_map)
+                                       rmsnorm_axes, rmsnorm_init, tree_map)
 
 ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_SHARED_ATTN)
 BLOCK_KINDS = ATTN_KINDS + (BLOCK_MAMBA2, BLOCK_RWKV6)
@@ -115,6 +119,37 @@ def _block_init(generator, kind: str, cfg: ModelConfig, dtype) -> Params:
     if kind == BLOCK_SHARED_ATTN:
         return {}  # weights live in params["shared"]
     raise ValueError(kind)
+
+
+def _block_axes(kind: str, cfg: ModelConfig) -> Params:
+    if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
+        p: Params = {"norm1": rmsnorm_axes(), "attn": attn.attn_axes(cfg),
+                     "norm2": rmsnorm_axes()}
+        if cfg.moe.enabled:
+            p["moe"] = moe_mod.moe_axes(cfg)
+        else:
+            p["mlp"] = mlp_mod.mlp_axes(cfg)
+        return p
+    if kind == BLOCK_MAMBA2:
+        return {"norm1": rmsnorm_axes(), "mamba": ssm_mod.mamba_axes(cfg)}
+    if kind == BLOCK_RWKV6:
+        return {"norm1": rmsnorm_axes(), "time": rwkv_mod.timemix_axes(cfg),
+                "norm2": rmsnorm_axes(),
+                "channel": rwkv_mod.channelmix_axes(cfg)}
+    if kind == BLOCK_SHARED_ATTN:
+        return {}
+    raise ValueError(kind)
+
+
+def _shared_axes(cfg: ModelConfig) -> Params:
+    return {"norm1": rmsnorm_axes(), "attn": attn.attn_axes(cfg),
+            "norm2": rmsnorm_axes(), "mlp": mlp_mod.mlp_axes(cfg)}
+
+
+def prepend_axis(tree, name=None):
+    """Prepend a logical axis (default replicated) to every axes-tuple
+    leaf of a dictionary tree."""
+    return tree_map(lambda t: (name,) + t, tree)
 
 
 def _shared_init(generator, cfg: ModelConfig, dtype) -> Params:
@@ -218,6 +253,9 @@ class TransformerLM:
         # serving option: prefill computes logits at the last position
         # only (decode needs no others)
         self.prefill_last_only = False
+        # set by a launch plan (launch.steps): applied to the hidden state
+        # at each pattern group's start
+        self.act_constraint = None
 
     def init(self, generator: torch.Generator) -> Params:
         """Random params drawn on ``generator`` and on its device. Each
@@ -243,6 +281,25 @@ class TransformerLM:
             params["lm_head"] = {"w": embed_init(
                 generator, cfg.padded_vocab_size, cfg.d_model, dtype)}
         return params
+
+    def param_axes(self) -> Params:
+        """The params' logical axes, leaf for leaf."""
+        cfg = self.cfg
+        axes: Params = {
+            "embed": {"table": ("vocab", "fsdp_embed")},
+            "final_norm": rmsnorm_axes(),
+            "blocks": {},
+        }
+        for i, kind in enumerate(self.pattern):
+            axes["blocks"][f"p{i}"] = prepend_axis(_block_axes(kind, cfg))
+        if self.has_shared:
+            axes["shared"] = _shared_axes(cfg)
+        if not cfg.tie_embeddings:
+            axes["lm_head"] = {"w": ("vocab", "fsdp_embed")}
+        return axes
+
+    def _constrained(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.act_constraint is None else self.act_constraint(x)
 
     def embed_inputs(self, params: Params,
                      inputs: torch.Tensor) -> torch.Tensor:
@@ -359,6 +416,7 @@ class TransformerLM:
         shared = params.get("shared")
         caches, auxes = [], []
         for g in range(self.num_groups):
+            x = self._constrained(x)
             x, c, aux = self._group_fullseq(x, group_params(params, g),
                                             shared, positions=positions,
                                             collect_cache=collect_cache,
@@ -465,6 +523,7 @@ class TransformerLM:
         shared = params.get("shared")
         new_caches = []
         for g in range(self.num_groups):
+            x = self._constrained(x)
             gp = group_params(params, g)
             new: Dict[str, Any] = {}
             for i, kind in enumerate(self.pattern):

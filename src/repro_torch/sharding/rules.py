@@ -1,0 +1,186 @@
+"""Logical-axis sharding rules with divisibility fallback
+(``repro.sharding.rules``).
+
+Every tensor dimension is annotated with a *logical* name ("batch",
+"heads", "mlp", ...). A rule table maps logical names to mesh axes.
+``RuleSet.spec`` resolves a tuple of logical names into a ``P`` (the
+partition spec: one mesh-axis assignment a dimension) against a mesh,
+**dropping** any mesh axis that does not evenly divide the dimension
+(replicating instead) and recording the fallback, never using one mesh
+axis twice, and trimming trailing ``None``s, as the JAX package
+resolves them. A ``RuleSet`` reads only ``mesh.shape`` (an ordered
+mapping of axis -> size), so it resolves an abstract production mesh
+with no devices (``launch.mesh.make_production_mesh``) as well as the
+one-device mesh a plan runs on. ``P`` and ``NamedSharding`` are the
+port's own records of JAX's ``PartitionSpec`` and ``NamedSharding``;
+placing a tensor on a mesh of more than one device waits for the
+multi-card port (``launch.mesh``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+AxisAssignment = Union[str, Tuple[str, ...], None]
+
+# Default logical->mesh rules. "fsdp" behaviour: weights' embed/mlp dims are
+# additionally sharded over the data axis when enabled (ZeRO-3 style).
+DEFAULT_RULES: Dict[str, AxisAssignment] = {
+    # activations
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "act_mlp": "model",
+    "act_heads": "model",
+    "act_kv_heads": "model",
+    "act_vocab": "model",
+    "kv_seq": None,
+    # weights (tensor parallel)
+    "heads": "model",
+    "kv_heads": "model",
+    "qkv_out": "model",      # fused head*dim output dim
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "head_dim": None,
+    "state": None,           # SSM state dim
+    "conv": None,
+    "inner": "model",        # mamba/rwkv inner channels
+    # fsdp shard dim for weights (opt-in per arch)
+    "fsdp_embed": None,
+}
+
+FSDP_RULES: Dict[str, AxisAssignment] = dict(DEFAULT_RULES)
+FSDP_RULES.update({"fsdp_embed": "data"})
+
+
+class P(tuple):
+    """A partition spec: one entry a tensor dimension, each a mesh axis,
+    a tuple of mesh axes, or None (replicated). Equal, as a tuple, to
+    the JAX ``PartitionSpec`` of the same entries."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A (mesh, spec) record: where each dimension of a tensor lies."""
+    mesh: Any
+    spec: P
+
+
+@dataclasses.dataclass
+class FallbackEvent:
+    logical: str
+    dim: int
+    axis: str
+    axis_size: int
+
+
+class RuleSet:
+    """Resolves logical dimension names into partition specs for a mesh."""
+
+    def __init__(self, mesh, rules: Optional[Dict[str, AxisAssignment]] = None,
+                 overrides: Optional[Dict[str, AxisAssignment]] = None):
+        self.mesh = mesh
+        self.rules: Dict[str, AxisAssignment] = dict(rules or DEFAULT_RULES)
+        if overrides:
+            self.rules.update(overrides)
+        self.fallbacks: List[FallbackEvent] = []
+
+    def _axis_size(self, axis: str) -> int:
+        return self.mesh.shape.get(axis, 1)
+
+    def _resolve_dim(self, logical: Optional[str], dim: Optional[int],
+                     used: set) -> AxisAssignment:
+        if logical is None:
+            return None
+        assignment = self.rules.get(logical)
+        if assignment is None:
+            return None
+        axes = ((assignment,) if isinstance(assignment, str)
+                else tuple(assignment))
+        kept: List[str] = []
+        size_so_far = 1
+        for ax in axes:
+            if ax not in self.mesh.shape or ax in used:
+                continue
+            axsz = self._axis_size(ax)
+            if dim is not None and dim % (size_so_far * axsz) != 0:
+                self.fallbacks.append(FallbackEvent(logical, dim, ax, axsz))
+                continue
+            kept.append(ax)
+            size_so_far *= axsz
+        used.update(kept)
+        if not kept:
+            return None
+        return kept[0] if len(kept) == 1 else tuple(kept)
+
+    def spec(self, logical_axes: Sequence[Optional[str]],
+             shape: Optional[Sequence[int]] = None) -> P:
+        """Resolve logical axis names (+ optional concrete shape) to a
+        spec."""
+        used: set = set()
+        parts = [self._resolve_dim(name, None if shape is None else shape[i],
+                                   used)
+                 for i, name in enumerate(logical_axes)]
+        # trim trailing Nones for a tidy spec
+        while parts and parts[-1] is None:
+            parts.pop()
+        return P(*parts)
+
+    def sharding(self, logical_axes: Sequence[Optional[str]],
+                 shape: Optional[Sequence[int]] = None) -> NamedSharding:
+        return NamedSharding(self.mesh, self.spec(logical_axes, shape))
+
+    def fallback_report(self) -> List[str]:
+        seen = set()
+        out = []
+        for ev in self.fallbacks:
+            key = (ev.logical, ev.dim, ev.axis)
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append(
+                f"replicated {ev.logical}(dim={ev.dim}) over mesh axis "
+                f"{ev.axis!r}(size={ev.axis_size}): not divisible")
+        return out
+
+
+def is_axes(x) -> bool:
+    """A leaf of a logical-axes tree: a tuple of names and Nones (``()``
+    for a 0-d tensor)."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        isinstance(e, (str, type(None))) for e in x)
+
+
+def map_axes(fn: Callable, axes_tree, *trees):
+    """``fn(axes, *leaves)`` at every leaf of a logical-axes tree, with
+    the matching subtrees of ``trees`` (dictionaries, lists, tuples and
+    NamedTuples of the same layout), as ``jax.tree.map`` with axes tuples
+    as leaves."""
+    if is_axes(axes_tree):
+        return fn(axes_tree, *trees)
+    if isinstance(axes_tree, dict):
+        return {k: map_axes(fn, v, *(t[k] for t in trees))
+                for k, v in axes_tree.items()}
+    if isinstance(axes_tree, (list, tuple)):
+        out = [map_axes(fn, v, *(t[i] for t in trees))
+               for i, v in enumerate(axes_tree)]
+        if hasattr(axes_tree, "_fields"):
+            return type(axes_tree)(*out)
+        return type(axes_tree)(out)
+    raise TypeError(f"not a logical-axes tree node: {axes_tree!r}")
+
+
+def tree_shardings(ruleset: RuleSet, logical_tree, shape_tree):
+    """A tree of logical-axis tuples (+ the matching tree of tensors or
+    meta tensors, or None leaves) -> the tree of ``NamedSharding``s."""
+    def one(axes, t):
+        return ruleset.sharding(axes, None if t is None else t.shape)
+    return map_axes(one, logical_tree, shape_tree)

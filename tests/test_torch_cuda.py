@@ -25,7 +25,7 @@ from torch_kernel_inputs import (F32, FLASH, FLASH_BF16_PLAIN,
                                  FUSED_RAGGED_N, FUSED_WIDTHS, LOSS,
                                  _attention_inputs, _contrastive_inputs,
                                  _degenerate, _scoring_inputs, _t,
-                                 _t_misaligned)
+                                 _t_misaligned, assert_flash_long_close)
 from torch_wkv6_inputs import wkv6_inputs, wkv6_sequence
 
 
@@ -1130,3 +1130,119 @@ def test_rwkv_does_not_train_on_the_card(cuda, tmp_path):
     with pytest.raises(NotImplementedError, match="WKV6 backward"):
         Trainer(get_smoke_arch("rwkv6-7b"),
                 TrainConfig(checkpoint_dir=str(tmp_path)), device=cuda)
+
+
+# the launch layer's prefill cell (llama3-8b PREFILL_32K at batch 1): one
+# flash call over 32,768 causal keys, held to the plain version on the
+# kernel's own tiles for three 64-row query blocks (first, middle, last),
+# each against the keys it sees (q_offset), and every row to the plain
+# version's pass on 512-row, 512-key blocks (the kernel-tile pass at this
+# length would be 512 x 512 tile steps), at the long-row bar
+LONG_FLASH_SHAPE = (1, 32768, 32, 8, 128)    # b, s, heads, KV heads, hd
+
+
+@pytest.mark.cuda
+def test_flash_at_32k_keys_matches_its_plain_version(cuda):
+    b, s, h, kv, hd = LONG_FLASH_SHAPE
+    gen = torch.Generator(cuda).manual_seed(32)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, hd), generator=gen, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale = hd ** -0.5
+    before = f_ops.KERNEL.launches
+    got = f_ops.flash_attention_fwd(q, k, v, scale=scale, causal=True)
+    torch.cuda.synchronize()
+    assert f_ops.KERNEL.launches == before + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    for start in (0, s // 2, s - 64):
+        end = start + 64
+        want = f_ref.attention_blocked(
+            q[:, start:end], f_ref.expand_kv(k[:, :end], h // kv),
+            f_ref.expand_kv(v[:, :end], h // kv), scale, causal=True,
+            q_offset=start, q_block=64, kv_block=f_ops.bf16_tile_keys(hd),
+            round_p=True)
+        assert_flash_long_close(got[:, start:end], want)
+    assert_flash_long_close(got, f_ref.attention_blocked(
+        q, f_ref.expand_kv(k, h // kv), f_ref.expand_kv(v, h // kv), scale,
+        causal=True, round_p=True))
+
+
+# Adam's first step moves a param by lr * g / (|g| + eps), so where |g|
+# is near eps two roundings of g give params up to lr apart; where |g| >=
+# 1e-5 the step's slope is <= 1 (tests/test_torch_launch_train.py)
+ADAM_COND = 1e-5
+
+
+def _train_plan_step(arch, dev, microbatches):
+    """One SMOKE train-plan step in float32 on ``dev`` from seed-0 params
+    and a seeded batch: (loss, params, the gradient from AdamW's mu)."""
+    import dataclasses
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.config import (InputShape, OptimizerConfig,
+                                    get_smoke_arch)
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.optimizer import adamw
+    cfg = dataclasses.replace(get_smoke_arch(arch), dtype="float32")
+    opt = OptimizerConfig(lr=1e-2, warmup_steps=0, total_steps=10,
+                          schedule="constant", grad_clip=0.0,
+                          weight_decay=0.0)
+    plan = steps.make_train_plan(
+        cfg, InputShape("t", seq_len=32, global_batch=4, kind="train"),
+        mesh.make_test_mesh(1, 1, device=dev), opt_cfg=opt,
+        microbatches=microbatches)
+    params = tree_map(lambda t: t.to(dev), build_model(cfg).init(
+        torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(7)
+    batch = {n: rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+             for n in ("tokens", "labels")}
+    (new, state), metrics = plan.step_fn((params, adamw.init(params)),
+                                         batch)
+    grads = {p: (t / (1 - opt.b1)).cpu()
+             for p, t in flatten_with_paths(state.mu)}
+    return (metrics["loss"].item(),
+            {p: t.cpu() for p, t in flatten_with_paths(new)}, grads,
+            opt.lr)
+
+
+def _same_step(a, b):
+    """Loss rtol 1e-5, each gradient leaf within 1e-4 of its max |g|,
+    params within lr everywhere and rtol = atol = 2e-4 where |g| >=
+    ADAM_COND."""
+    (la, pa, ga, lr), (lb, pb, gb, _) = a, b
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    for path, g in gb.items():
+        assert (ga[path] - g).abs().max() <= 1e-4 * g.abs().max(), path
+        assert (pa[path] - pb[path]).abs().max() <= lr * (1 + 1e-3), path
+        cond = g.abs() >= ADAM_COND
+        np.testing.assert_allclose(pa[path][cond].numpy(),
+                                   pb[path][cond].numpy(), rtol=2e-4,
+                                   atol=2e-4, err_msg=path)
+
+
+@pytest.mark.cuda
+def test_rwkv_train_plan_on_card_matches_cpu(cuda):
+    """The plan's factored WKV6 trains on the card (plain PyTorch through
+    autograd, no kernel): one rwkv6-7b SMOKE step against the CPU's."""
+    from repro_torch.device import resolve_device
+    resolve_device(cuda)                     # TF32 off
+    before = w_ops.KERNEL.launches
+    on_card = _train_plan_step("rwkv6-7b", cuda, 2)
+    assert w_ops.KERNEL.launches == before
+    _same_step(on_card, _train_plan_step("rwkv6-7b", "cpu", 2))
+
+
+@pytest.mark.cuda
+def test_microbatches_agree_on_card(cuda):
+    """smollm-360m SMOKE on the card: microbatches 1 and 2 give the same
+    step, and the flash kernel runs both."""
+    from repro_torch.device import resolve_device
+    resolve_device(cuda)
+    before = f_ops.KERNEL.launches
+    one = _train_plan_step("smollm-360m", cuda, 1)
+    mid = f_ops.KERNEL.launches
+    two = _train_plan_step("smollm-360m", cuda, 2)
+    assert mid > before and f_ops.KERNEL.launches - mid == 2 * (mid - before)
+    _same_step(two, one)

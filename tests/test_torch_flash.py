@@ -8,6 +8,8 @@ tensor-core kernel (``attention_blocked(..., round_p=True)``). The CUDA
 kernels themselves are held against the plain versions on the card by
 test_torch_cuda.py.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,8 @@ from repro_torch.kernels.flash_attention import ops as f_ops
 from repro_torch.kernels.flash_attention import ref as f_ref
 from repro_torch.models import attention as t_attn
 from repro_torch.models import params_from_jax
-from torch_kernel_inputs import FLASH, _attention_inputs
+from torch_kernel_inputs import (FLASH, _attention_inputs,
+                                 assert_flash_long_close)
 
 F32 = FLASH[torch.float32]
 
@@ -163,6 +166,27 @@ def test_plain_with_rounded_p_bf16_matches_jax(sq, skv, h, hd, causal,
                                **FLASH[torch.bfloat16])
 
 
+def test_long_row_bar_holds_two_tilings_and_catches_a_lost_tile():
+    """The bar the 32,768-key flash call is held to on the card: the bf16
+    kernel's plain version on its 64 x 64 tiles passes against the
+    512-row, 512-key pass; with the first 64 keys' values lost from P V
+    (what a dropped K/V tile does) it fails."""
+    q, k, v = (torch.tensor(a).to(torch.bfloat16)
+               for a in _attention_inputs(1, 2048, 2048, 4, 4, 128))
+    scale = 128 ** -0.5
+    tiles = f_ref.attention_blocked(q, k, v, scale, causal=True, q_block=64,
+                                    kv_block=64, round_p=True)
+    blocks = f_ref.attention_blocked(q, k, v, scale, causal=True,
+                                     round_p=True)
+    assert_flash_long_close(tiles, blocks)
+    lost = v.clone()
+    lost[:, :64] = 0
+    dropped = f_ref.attention_blocked(q, k, lost, scale, causal=True,
+                                      round_p=True)
+    with pytest.raises(AssertionError):
+        assert_flash_long_close(dropped[:, -64:], blocks[:, -64:])
+
+
 @pytest.mark.parametrize("impl", ["flash", "blocked", "einsum"])
 @pytest.mark.parametrize("window", [0, 6])
 def test_attn_apply_matches_jax(impl, window):
@@ -184,9 +208,9 @@ def test_attn_apply_matches_jax(impl, window):
 
 
 def test_unported_model_paths_raise():
-    """The clamped "factored" RWKV6 lowering is not ported: it raises
-    rather than run something else; an unknown block kind raises
-    ``ValueError``. An encoder-decoder config builds an ``EncDecLM``
+    """The clamped "factored" RWKV6 lowering builds and runs
+    (``tests/test_torch_factored.py`` holds it to JAX); an unknown block
+    kind raises ``ValueError``. An encoder-decoder config builds an ``EncDecLM``
     that runs a prefill and a decode step (``tests/test_torch_encdec.py``
     holds it to JAX), Mamba2 and shared-attention patterns build and
     run a prefill and a decode step (``tests/test_torch_ssm.py`` holds
@@ -205,10 +229,18 @@ def test_unported_model_paths_raise():
         positions=torch.arange(2), collect_cache=True, cache_len=5)
     assert {n: tuple(t.shape) for n, t in caches["p0"].items()} == \
         {"k": (1, 5, 2, 8), "v": (1, 5, 2, 8)}
-    with pytest.raises(NotImplementedError, match="factored"):
-        build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
-                                block_pattern=("rwkv6",)),
-                    rwkv_mode="factored")
+    # the factored WKV6 (the launch plans' mode) builds and runs
+    rcfg = ModelConfig(d_model=16, num_heads=2, num_kv_heads=2, d_ff=32,
+                       vocab_size=32, dtype="float32",
+                       block_pattern=("rwkv6",),
+                       rwkv=dataclasses.replace(ModelConfig().rwkv,
+                                                head_dim=8))
+    rmodel = build_model(rcfg, rwkv_mode="factored")
+    assert rmodel.rwkv_mode == "factored"
+    rlogits, _ = rmodel.forward(rmodel.init(torch.Generator().manual_seed(0)),
+                                torch.tensor([[3, 1, 4, 1, 5]]))
+    assert rlogits.shape == (1, 5, rcfg.padded_vocab_size)
+    assert torch.isfinite(rlogits[..., :32]).all()
     from repro_torch.models import EncDecLM
     encdec = build_model(ModelConfig(d_model=16, num_heads=2, num_kv_heads=2,
                                      d_ff=32, vocab_size=32, dtype="float32",

@@ -44,14 +44,20 @@ def test_import_loads_no_jax_and_no_repro():
                                      "repro_torch.core",
                                      "repro_torch.runtime.serve_loop",
                                      "repro_torch.runtime.train_loop",
-                                     "repro_torch.launch.train"])
+                                     "repro_torch.launch.train",
+                                     "repro_torch.launch.steps",
+                                     "repro_torch.launch.mesh",
+                                     "repro_torch.launch.serve",
+                                     "repro_torch.sharding.rules",
+                                     "repro_torch.configs.shapes"])
 def test_package_alone_loads_no_jax_and_no_repro(package):
     """``import repro_torch``, ``import repro_torch.serve`` (the server,
     the broker and the resilience layer, copies of ``repro.serve``), the
     observability modules, the live plane and the gateway (copies of
     ``repro.engine.live`` and ``repro.gateway``), the judge
-    (``repro_torch.core``) and the decode driver, each in a fresh
-    interpreter."""
+    (``repro_torch.core``), ``serve_loop.generate``, the trainer and the launch
+    layer (the cell plans, meshes, the serving CLI, the sharding rules
+    and the cells), each in a fresh interpreter."""
     code = (f"import {package}, sys\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"

@@ -115,18 +115,24 @@ def test_groupnorm_uses_the_population_variance():
 
 
 def test_unported_modes_raise():
+    """The factored mode runs (``tests/test_torch_factored.py`` holds it
+    to JAX), the embedding service takes it, and a mode no package has
+    raises ``ValueError``."""
     cfg = t_smoke(ARCH)
-    x = torch.zeros((1, 4, cfg.d_model))
+    x = torch.randn((1, 4, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
     p = t_rwkv.timemix_init(torch.Generator().manual_seed(0), cfg,
                             torch.float32)
-    with pytest.raises(NotImplementedError, match="factored"):
-        t_rwkv.timemix_apply(p, x, cfg, mode="factored")
+    y = t_rwkv.timemix_apply(p, x, cfg, mode="factored")
+    assert y.shape == x.shape and torch.isfinite(y).all()
     with pytest.raises(ValueError):
         t_rwkv.timemix_apply(p, x, cfg, mode="pallas")
-    with pytest.raises(NotImplementedError, match="factored"):
-        EmbeddingService(cfg, build_model(cfg).init(
-            torch.Generator().manual_seed(0)), device="cpu",
-            rwkv_mode="factored")
+    service = EmbeddingService(cfg, build_model(cfg).init(
+        torch.Generator().manual_seed(0)), device="cpu",
+        rwkv_mode="factored")
+    assert service.model.rwkv_mode == "factored"
+    emb = service.embed_batch(np.array([[3, 1, 4, 1, 5, 9, 0, 0]]))
+    assert emb.shape == (1, cfg.d_model) and torch.isfinite(emb).all()
 
 
 def test_params_from_jax_carries_an_rwkv6_tree():
