@@ -216,12 +216,13 @@ Phases, each of which exits non-zero when it fails:
                (exponentials in the sub-chunk form, FP32 operations and
                bytes), and its share of one embedding batch;
  17. gemma3  — the rwkv6-7b weights freed, the offline path over
-               gemma3-12b at full width (48 layers, five of window 1024
-               a global one, head_dim 240, bf16, 23.3 GB of weights drawn
-               on the card) into a store of 512 documents of 2048 tokens
-               (longer than the window), batch 4: 512 finite rows of width
-               3840, flash launched 48 times a batch, 40 of those calls
-               with the window, the kernel path's pooled embeddings
+               gemma3-12b at full width and half depth (GEMMA_DEPTH: 24
+               of its 48 layers, five of window 1024 a global one,
+               head_dim 240, bf16, ~12.4 GB of weights drawn on the card)
+               into a store of 512 documents of 2048 tokens (longer than
+               the window), batch 4: 512 finite rows of width 3840, flash
+               launched 24 times a batch, 20 of those calls with the
+               window, the kernel path's pooled embeddings
                against attn_impl="blocked" (per-row cosine >= COS_MIN),
                the kill/resume drill, one query() over the store (the
                fused kernel at D=3840); then [decode] as above on 4
@@ -241,12 +242,13 @@ Phases, each of which exits non-zero when it fails:
                loop, ms a batch and peak memory;
  20. moe     — every earlier model's weights freed (the memory still
                held logged), the offline path over qwen3-moe-30b-a3b at
-               full width (48 layers, 128 experts top 8, d_ff 768, 61.06
-               GB of bf16 weights drawn on the card, the router in f32)
+               full width and half depth (MOE_DEPTH: 24 of its 48 layers,
+               128 experts top 8, d_ff 768, ~30.5 GB of bf16 weights
+               drawn on the card, the router in f32)
                into a store of 256 documents of 512 tokens, batch 8: 4,096
                tokens a batch in four dispatch chunks of 1,024 with 80
                slots an expert, so pairs are dropped (gate: > 0 in batch
-               0); 256 finite rows of width 2048, flash 48 times a batch,
+               0); 256 finite rows of width 2048, flash 24 times a batch,
                the per-row cosine against attn_impl="blocked" (>= COS_MIN;
                the (token, layer, k) pairs routed to another expert than
                on the blocked path logged first), the kill/resume drill,
@@ -350,7 +352,14 @@ Phases, each of which exits non-zero when it fails:
                4,096 with default_microbatches (2) and with 1 from one
                state and batch (loss, per-leaf update cosine, flash 128
                and 64 launches, ms and peak memory); launch.serve.main
-               at smollm-360m's full width over 64 documents.
+               at smollm-360m's full width over 64 documents; then (g),
+               the dry run held against the card: the llama3-8b prefill
+               step and both smollm-360m train steps counted by
+               launch.hlo_analysis on the plans' meta arguments and on
+               the card (operators, FLOPs, bytes, transcendentals equal),
+               their roofline time (launch.roofline's H100 constants) at
+               or below the measured step, and arguments plus the meta
+               peak within DRYRUN_MEM_REL of max_memory_allocated.
 
 It prints a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
@@ -446,8 +455,9 @@ JUDGE_AGREE_MIN = 0.98     # decisions of the kernel path = the plain path's
 DECODE_STEPS = 32
 DECODE_PRE, DECODE_TOTAL = 12, 16
 DECODE_REL = 5e-4
-# [gemma3]: gemma3-12b FULL (48 layers, 5 of window 1024 a global one,
-# head_dim 240) over documents longer than its window, or its local
+# [gemma3]: gemma3-12b at full width (48 layers cut to GEMMA_DEPTH, 5 of
+# window 1024 a global one, head_dim 240) over documents longer than its
+# window, or its local
 # layers would see every key as global ones do: 512 documents of 2048
 # tokens (the llama3-8b phase's 1,048,576 tokens), batch 4; a shorter
 # kill/resume drill (64 documents, killed after 32: one commit group of 8
@@ -456,6 +466,11 @@ DECODE_REL = 5e-4
 # context past the window
 GEMMA_ARCH = "gemma3-12b"
 GEMMA_DOCS, GEMMA_DOC_LEN, GEMMA_BATCH = 512, 2048, 4
+# depth cut from 48 to 24 layers (four whole pattern periods; width,
+# window and heads kept): the weight draw, the params digest (71.5 s at
+# full depth) and the corpus pass halve, so the run keeps a margin
+# inside its time limit on a slower host
+GEMMA_DEPTH = 24
 GEMMA_RESUME = (64, 32)
 GEMMA_PERIOD_PRE, GEMMA_PERIOD_TOTAL = 1100, 1104
 GEMMA_FLASH_SHAPE = (4, 2048, 16, 8, 240)   # b, s, heads, KV heads, hd
@@ -466,8 +481,9 @@ GEMMA_FLASH_SHAPE = (4, 2048, 16, 8, 240)   # b, s, heads, KV heads, hd
 # CONFIGS_STEPS tokens
 CONFIGS_ARCHS = ("codeqwen1.5-7b", "internvl2-1b")
 CONFIGS_BATCH, CONFIGS_PATCHES, CONFIGS_STEPS = 8, 256, 8
-# [moe]: qwen3-moe-30b-a3b FULL (48 layers, d 2048, 32 heads over 4, 128
-# experts top 8 of d_ff 768; 61.06 GB bf16) over MOE_DOCS documents of
+# [moe]: qwen3-moe-30b-a3b at full width (48 layers cut to MOE_DEPTH, d
+# 2048, 32 heads over 4, 128 experts top 8 of d_ff 768; 61.06 GB bf16 at
+# full depth) over MOE_DOCS documents of
 # OFF_DOC_LEN tokens, batch 8: 4,096 tokens a batch, four dispatch chunks
 # of 1,024 with 80 slots an expert each, so capacity drops happen. The
 # kill/resume drill is llama3-8b's (128 documents, killed after 64, one
@@ -480,6 +496,10 @@ CONFIGS_BATCH, CONFIGS_PATCHES, CONFIGS_STEPS = 8, 256, 8
 # forward dropped nothing stays
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_DOCS, MOE_BATCH = 256, 8
+# depth cut from 48 to 24 layers (width, experts and routing kept): the
+# weight draw and the params digest, 157.5 s of the phase at full depth,
+# halve, so the run stays inside its time limit beside [launch]'s (g)
+MOE_DEPTH = 24
 MOE_FLASH_SHAPE = (8, 512, 32, 4, 128)   # b, s, heads, KV heads, hd
 # onehot against sort on one layer's input in bf16: the same drops, sums
 # rounded at other places (of max |y|; flash's bf16 bar)
@@ -570,6 +590,13 @@ LONG_FLASH_SHAPE = (1, 32768, 32, 8, 128)   # b, s, heads, KV heads, hd
 # K/V tile moves an output by a sizeable share of it
 LONG_FLASH_TOL = dict(rtol=FLASH_BF16_PLAIN_TOL, row_atol=8e-3)
 LAUNCH_SERVE_ARGS = ["--arch", "smollm-360m", "--docs", "64"]
+# (g), the dry run on the card: the already-timed steps of (a) and (d)
+# counted by the cost counter on the plans' meta arguments and on the
+# card. The gates: the two counts equal; the step's roofline time
+# max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s) at or below its measured
+# time; the arguments plus the meta peak of live bytes within this share
+# of torch.cuda.max_memory_allocated over the timed run
+DRYRUN_MEM_REL = 0.15
 # the compound phase's cross-session CSE arms run on this many of the
 # main path's documents, to bound the phase's time
 CSE_DOCS = 32_768
@@ -932,7 +959,7 @@ def rwkv_checks(cfg, params, tokens, pooled) -> dict:
 def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
                   tag: str, cos_min: float, after=(), n_docs: int = OFF_DOCS,
                   doc_len: int = OFF_DOC_LEN, batch_size: int = OFF_BATCH,
-                  resume=(RESUME_DOCS, RESUME_CUT)) -> tuple:
+                  resume=(RESUME_DOCS, RESUME_CUT), depth: int = 0) -> tuple:
     """ScaleDocEngine.from_corpus over ``arch`` into a store of
     ``n_docs`` documents of ``doc_len`` tokens, ``batch_size`` a batch,
     then its checks: ``kernel`` is the kernel each of its attention (or
@@ -941,8 +968,10 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
     ``resume`` the kill/resume drill's documents and the row it is killed
     at. Each phase ``fn(dev, service, engine, docs)`` of ``after`` runs in
     turn over the same weights, engine and corpus before the store is
-    deleted; its report goes under the key ``fn.__name__``. Returns the
-    report, the service and its first batch of tokens."""
+    deleted; its report goes under the key ``fn.__name__``. ``depth``
+    cuts the model to that many layers (0: all). Returns the report, the
+    service and its first batch of tokens."""
+    import dataclasses
     import shutil
 
     import numpy as np
@@ -959,6 +988,8 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
     from repro_torch.runtime.serve_loop import EmbeddingService
 
     cfg = get_arch(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
     torch.cuda.reset_peak_memory_stats(dev)
     t_phase = t0 = time.perf_counter()
     params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
@@ -1621,9 +1652,8 @@ def fused_times(dev, n: int, d: int) -> dict:
            - s_ref.ref_scores_multi(docs, *w, zq)).abs().max().item()
     ms = cuda_ms(lambda: s_ops.fused_scores_multi(docs, *w, zq), 20)
     plain_ms = cuda_ms(lambda: s_ref.ref_scores_multi(docs, *w, zq), 20)
-    h, lat = 512, 128
-    flops = 2 * n * (d * h + h * h + h * lat + lat)
-    nbytes = 4 * (n * d + d * h + h * h + h * lat + 2 * h + lat + lat + n)
+    work = s_ops.fused_work(docs, *w, zq)
+    flops, nbytes = work.flops, work.bytes
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return {"n": n, "d": d, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -1736,36 +1766,19 @@ def wkv6_times(dev) -> dict:
     seq = [x.reshape(b, nc * q, h, k) for x in (args[0], args[1], args[2],
                                                   args[4])]
     op_ms = cuda_ms(lambda: w_ops.wkv6(*seq, args[5]), 20)
-    blocks = b * nc * h
-    pairs = q * (q - 1) // 2
-    # The least exponentials that keep every exponent <= 0 (the sub-chunk
-    # form of chunked GLA/RWKV6 kernels): the rows cut into sub-chunks of
-    # sub; a pair inside one sub-chunk takes one exp per channel; a pair
-    # (t, j) across sub-chunks factors through the last row e of j's
-    # sub-chunk, exp(cum_{t-1}[t] - cum[e]) * exp(cum[e] - cum[j]), one exp
-    # per (t, earlier sub-chunk, channel) and one per (j, channel); then
-    # r_dec and dec_end, one per element, and a_end, one per channel.
-    # The kernel takes that form, so exps_kernel counts the same; its warps
-    # also evaluate the terms of their own sub-chunk that lie on or above
-    # the diagonal (up to the warp's last row), which a select drops:
-    # exps_evaluated counts those too.
-    sizes = [min(sub, q - i) for i in range(0, q, sub)]
-    inner = sum(m * (m - 1) // 2 for m in sizes)
-    t_side = sum(i * m for i, m in enumerate(sizes))
-    exps = blocks * k * (inner + t_side + q + 2 * q + 1)
+    # the sub-chunk form's least exponentials, FLOPs and bytes
+    # (ops.wkv6_work); the kernel takes that form, so exps_kernel counts
+    # the same. Its warps also evaluate the terms of their own sub-chunk
+    # that lie on or above the diagonal (up to the warp's last row), which
+    # a select drops: exps_evaluated counts those too
+    work = w_ops.wkv6_work(*args)
+    exps, flops, nbytes = work.transcendental, work.flops, work.bytes
     exps_kernel = exps
+    sizes = [min(sub, q - i) for i in range(0, q, sub)]
+    t_side = sum(i * m for i, m in enumerate(sizes))
     walked = sum(min(8, q - w) * (min(w + 8, q) - 1 - w // sub * sub)
                  for w in range(0, q, 8))
-    exps_evaluated = blocks * k * (walked + t_side + q + 2 * q + 1)
-    # FLOP of that form: per channel, 4 per inner pair (the difference,
-    # r * exp, * k, the sum), 2 per crossing pair (a dot product) and 2
-    # per factor (its difference and scale); A v, 2 per pair and channel;
-    # r.u.k and its v term, cum - lw, r_dec, dec_end and k * dec_end, 9
-    # per element; the (K, Q) x (Q, K) s_inj product
-    flops = blocks * (4 * inner * k + 2 * (pairs - inner) * k
-                      + 2 * (t_side + q) * k + 2 * pairs * k + 9 * q * k
-                      + 2 * q * k * k)
-    nbytes = 4 * (blocks * (7 * q * k + k * k + k) + h * k)
+    exps_evaluated = b * nc * h * k * (walked + t_side + q + 2 * q + 1)
     terms = {"operations": max(exps / PEAK_EXP, flops / PEAK_FP32_FLOPS),
              "bytes": nbytes / PEAK_BYTES}
     bound_by = max(terms, key=terms.get)
@@ -1831,16 +1844,16 @@ def contrastive_times(args) -> dict:
     """The contrastive kernel on ``args`` (z_q, z_d, y): its device time
     per call from a replayed graph and per kernel from the profiler, the
     time of one ops.contrastive_losses call with the host's work in it,
-    its plain version's, and its bound."""
+    the same call through the wrapper's torch.library operator (the cost
+    counter's route, host included), its plain version's, and its
+    bound."""
     from repro_torch.kernels.contrastive import ops as c_ops
     from repro_torch.kernels.contrastive import ref as c_ref
-    q, n, p = args[1].shape
     call = lambda: c_ops.contrastive_losses(*args, 0.07, 0.2)
     prof = profiler_ms(call, ("contrastive_rows_kernel",
                               "contrastive_finish_kernel"))
-    # pairwise and query dots, row norms and divides, and the online LSEs
-    flops = q * (2 * n * n * p + 2 * n * p + 3 * n * p + 4 * n * n)
-    nbytes = 4 * (q * n * p + q * p + q * n + q * 4)
+    work = c_ops.contrastive_work(*args, 0.07, 0.2)
+    flops, nbytes = work.flops, work.bytes
     terms = {"operations": flops / PEAK_FP32_FLOPS,
              "bytes": nbytes / PEAK_BYTES}
     bound_by = max(terms, key=terms.get)
@@ -1849,6 +1862,8 @@ def contrastive_times(args) -> dict:
             "profiler_rows_ms": prof["contrastive_rows_kernel"],
             "profiler_finish_ms": prof["contrastive_finish_kernel"],
             "call_ms": cuda_ms(call, 200),
+            "op_call_ms": cuda_ms(
+                lambda: c_ops._contrastive_op(*args, 0.07, 0.2), 200),
             "plain_ms": cuda_ms(lambda: c_ref.ref_losses(*args, 0.07, 0.2),
                                 50),
             "bound_ms": terms[bound_by] * 1e3, "bound_by": bound_by,
@@ -3983,7 +3998,7 @@ def train_phase(dev, kernels: list) -> dict:
     digest_s = time.perf_counter() - t0
     init_params = tr.init_state()[0]
     init_digest = params_digest(init_params)
-    batch0 = device_batch(tr.loader.batch(0), dev)
+    batch0 = device_batch(tr.loader.batch(0), device=dev)
     with torch.no_grad():
         fall = {"init": tr.model.loss_fn(init_params, batch0).item(),
                 "final": tr.model.loss_fn(state[0], batch0).item()}
@@ -4186,6 +4201,56 @@ def _synced_s(fn):
     return out, time.perf_counter() - t0
 
 
+def dryrun_check(dev, plan, args, step_s: float, peak_gb: float) -> dict:
+    """(g) on one timed step: the plan's step counted by the cost counter
+    on the plan's meta arguments and again, run on the card, on ``args``
+    (the timed run's own); its roofline time from the meta count against
+    ``step_s``; the arguments plus the meta peak of live bytes against
+    ``peak_gb``, the timed run's torch.cuda.max_memory_allocated."""
+    import torch
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    t0 = time.perf_counter()
+    meta = hlo_analysis.analyze_step(plan.step_fn, *plan.arg_sds)
+    meta_s = time.perf_counter() - t0
+    with hlo_analysis.CostCounter(args) as counter:
+        plan.step_fn(*args)
+    torch.cuda.synchronize(dev)
+    card = counter.report()
+    fields = ("ops", "flops", "product_flops", "bytes", "transcendental")
+    t_compute, t_memory = meta.flops / PEAK_FLOPS, meta.bytes / HBM_BW
+    est_gb = (meta.argument_bytes + meta.peak_bytes) / 1e9
+    return {"meta": meta.to_dict(), "card": card.to_dict(),
+            "counts_equal": all(getattr(meta, f) == getattr(card, f)
+                                for f in fields),
+            "trace_seconds": meta_s, "t_compute_s": t_compute,
+            "t_memory_s": t_memory,
+            "dominant": "compute" if t_compute >= t_memory else "memory",
+            "step_s": step_s,
+            "roofline_fraction": max(t_compute, t_memory) / step_s,
+            "estimate_gb": est_gb, "peak_gb": peak_gb,
+            "memory_rel_err": abs(est_gb - peak_gb) / peak_gb}
+
+
+def dryrun_log(tag: str, g: dict) -> str:
+    m, c = g["meta"], g["card"]
+    return (f"[launch] (g) {tag}: meta {m['ops']} ops, {m['flops']:.6g} "
+            f"FLOP ({m['product_flops']:.6g} in products), "
+            f"{m['bytes']:.6g} B, {m['transcendental']:.6g} "
+            f"transcendentals (traced in {g['trace_seconds']:.1f} s); card "
+            f"{c['ops']} ops, {c['flops']:.6g} FLOP, {c['bytes']:.6g} B, "
+            f"{c['transcendental']:.6g} transcendentals: equal "
+            f"{g['counts_equal']}; roofline t_compute "
+            f"{g['t_compute_s']:.4f} s, t_memory {g['t_memory_s']:.4f} s "
+            f"({g['dominant']}) against the measured {g['step_s']:.4f} s: "
+            f"fraction {g['roofline_fraction']:.4f}; arguments "
+            f"{m['argument_bytes'] / 1e9:.3f} GB + meta peak "
+            f"{m['peak_bytes'] / 1e9:.3f} GB = {g['estimate_gb']:.3f} GB "
+            f"against max_memory_allocated {g['peak_gb']:.3f} GB "
+            f"({100 * g['memory_rel_err']:.2f}% off; gate "
+            f"{100 * DRYRUN_MEM_REL:.0f}%)")
+
+
 def launch_llama(dev, mesh) -> dict:
     """(a) the prefill plan over LAUNCH_SEQ random tokens, last_logit;
     (b) the prefill of the first LAUNCH_SEQ - 1 with cache_len LAUNCH_SEQ,
@@ -4219,6 +4284,8 @@ def launch_llama(dev, mesh) -> dict:
            "last_logits_shape": list(last.shape),
            "last_logits_finite": bool(torch.isfinite(last[:, :v]).all())}
     del cache
+    out["dryrun"] = dryrun_check(dev, plan, (params, {"tokens": tokens}),
+                                 prefill_s, prefill_peak)
     dshape = InputShape("decode_32k_b1", LAUNCH_SEQ, 1, "decode")
     dplan = steps.make_plan(cfg, dshape, mesh)
     model = steps.build_model_for_scale(cfg)
@@ -4283,7 +4350,7 @@ def launch_train(dev, mesh) -> dict:
     # sequences of TRAIN_SEQ + 1 tokens: inputs and labels TRAIN_SEQ each
     loader = SyntheticLMLoader(BatchSpec(TRAIN_BATCH, TRAIN_SEQ + 1,
                                          cfg.vocab_size))
-    batch = device_batch(loader.batch(0), dev)
+    batch = device_batch(loader.batch(0), device=dev)
     opt = OptimizerConfig(**LAUNCH_OPT)
     before = {p: t.float() for p, t in flatten_with_paths(params)}
     runs, updates = {}, {}
@@ -4293,7 +4360,7 @@ def launch_train(dev, mesh) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         kern = zero_counts()
         ((new, state), metrics), step_s = _synced_s(
-            lambda: plan.step_fn((params, adamw.init(params)), batch))
+            lambda: plan.step_fn((params, adamw.init(opt, params)), batch))
         runs[k] = {"description": plan.description,
                    "loss": metrics["loss"].item(),
                    "grad_norm": metrics["grad_norm"].item(),
@@ -4303,6 +4370,10 @@ def launch_train(dev, mesh) -> dict:
         updates[k] = {p: t.float() - before[p]
                       for p, t in flatten_with_paths(new)}
         del new, state, metrics
+        # (g) on this step; the optimizer state is an argument there
+        runs[k]["dryrun"] = dryrun_check(
+            dev, plan, ((params, adamw.init(opt, params)), batch), step_s,
+            runs[k]["peak_gb"])
     cos = {p: _cosine(updates[nmicro][p], updates[1][p])
            for p in updates[1]}
     worst = min(cos, key=cos.get)
@@ -4434,7 +4505,7 @@ def launch_rwkv(dev, mesh) -> dict:
 
 
 def launch_phase(dev, kernels: list) -> dict:
-    """[launch]: the launch layer's cell plans on one card, (a) to (f)
+    """[launch]: the launch layer's cell plans on one card, (a) to (g)
     above; the flash kernel's entry at the prefill's call appended to
     ``kernels``. Every gate is checked and logged; the phase fails after
     the last."""
@@ -4584,6 +4655,19 @@ def launch_phase(dev, kernels: list) -> dict:
          "(d) flash launches")
     gate(tr["loss_rel_diff"] <= LAUNCH_LOSS_REL, "(d) losses differ")
     gate(tr["update_min_cosine"] >= LAUNCH_UPDATE_COS, "(d) updates differ")
+
+    # (g) the dry run's count held against the card on (a) and (d)
+    checks = {"(a) prefill": ll["dryrun"]}
+    checks.update({f"(d) {k} microbatch{'es' if k != '1' else ''}":
+                   r["dryrun"] for k, r in tr["runs"].items()})
+    for tag, g in checks.items():
+        log(dryrun_log(tag, g))
+        gate(g["counts_equal"], f"(g) {tag}: the meta count differs from "
+             f"the card's")
+        gate(g["roofline_fraction"] <= 1.0, f"(g) {tag}: the roofline time "
+             f"exceeds the measured step")
+        gate(g["memory_rel_err"] <= DRYRUN_MEM_REL, f"(g) {tag}: the memory "
+             f"estimate is {100 * g['memory_rel_err']:.1f}% off")
 
     # (f) the serving CLI
     kern = zero_counts()
@@ -4891,7 +4975,8 @@ def main() -> None:
             f"{c['graph_calls']} back-to-back calls); torch.profiler, per "
             f"call: rows kernel {c['profiler_rows_ms']} ms, finish kernel "
             f"{c['profiler_finish_ms']} ms; one ops.contrastive_losses call "
-            f"(host included, CUDA events over 200) {c['call_ms']:.5f} ms; "
+            f"(host included, CUDA events over 200) {c['call_ms']:.5f} ms, "
+            f"through its torch.library operator {c['op_call_ms']:.5f} ms; "
             f"plain {c['plain_ms']:.4f} ms; bound {c['bound_ms']:.6f} ms "
             f"({c['bound_by']})")
     con = ct["Q=4 n=128 p=64"]
@@ -5128,7 +5213,8 @@ def main() -> None:
     gemma, service, _ = offline_phase(
         dev, GEMMA_ARCH, "flash_attention", dict(attn_impl="blocked"),
         "gemma3", COS_MIN, after=(decode,), n_docs=GEMMA_DOCS,
-        doc_len=GEMMA_DOC_LEN, batch_size=GEMMA_BATCH, resume=GEMMA_RESUME)
+        doc_len=GEMMA_DOC_LEN, batch_size=GEMMA_BATCH, resume=GEMMA_RESUME,
+        depth=GEMMA_DEPTH)
     window = service.cfg.sliding_window
     del service
     report["gemma3"] = gemma
@@ -5182,7 +5268,7 @@ def main() -> None:
     moe, service, _ = offline_phase(
         dev, MOE_ARCH, "flash_attention", dict(attn_impl="blocked"), "moe",
         COS_MIN, after=(decode, moe_layer), n_docs=MOE_DOCS,
-        batch_size=MOE_BATCH)
+        batch_size=MOE_BATCH, depth=MOE_DEPTH)
     moe_cfg = service.cfg
     del service
     gc.collect()

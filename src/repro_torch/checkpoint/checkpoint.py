@@ -31,6 +31,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import check_one_device
+
 _STORED = (np.float64, np.float32, np.float16, np.int64, np.int32,
            np.int16, np.int8, np.uint8, np.bool_)
 
@@ -207,12 +209,16 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int,
-            target_tree: Any) -> Tuple[Any, Dict]:
+def restore(directory: str, step: int, target_tree: Any,
+            shardings: Any = None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``target_tree`` (shapes validated);
     returns (tree, manifest). A tensor leaf of the target comes back as
     a tensor of its dtype on its device, any other leaf as a numpy array
-    of its dtype."""
+    of its dtype. ``shardings`` (the JAX package's placement onto the
+    current mesh) may name one device only: the target's leaves say
+    where; more raises ``NotImplementedError`` until the multi-card
+    port."""
+    check_one_device("restore", shardings=shardings)
     path = Path(directory) / f"step_{step:09d}"
     manifest = json.loads((path / "manifest.json").read_text())
     with np.load(path / "arrays.npz") as data:

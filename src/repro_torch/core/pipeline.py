@@ -52,18 +52,20 @@ class ScaleDocPipeline:
     """Compatibility shim — NOT the primary API.
 
     Constructs a private ScaleDocEngine per instance (on ``device``,
-    ``"cuda"`` by default) and forwards ``query``; it shares no caches
-    across instances.
+    ``"cuda"`` by default; ``use_kernel`` as the engine takes it) and
+    forwards ``query``; it shares no caches across instances.
     """
 
     def __init__(self, embeds: np.ndarray, proxy_cfg: ProxyConfig,
-                 cascade_cfg: CascadeConfig, *, device="cuda"):
+                 cascade_cfg: CascadeConfig, use_kernel: bool = True, *,
+                 device="cuda"):
         from repro_torch.engine import ScaleDocEngine
         self.embeds = np.asarray(embeds, np.float32)
         self._engine = ScaleDocEngine(self.embeds, proxy_cfg, cascade_cfg,
-                                      device=device)
+                                      use_kernel=use_kernel, device=device)
         self.proxy_cfg = self._engine.proxy_cfg
         self.cascade_cfg = cascade_cfg
+        self.use_kernel = use_kernel
 
     def query(self, e_q: np.ndarray, oracle, *,
               accuracy_target: Optional[float] = None,

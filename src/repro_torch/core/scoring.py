@@ -48,10 +48,18 @@ def _raw_chunk_scores(block, zq_t):
     return (1.0 + l2_normalize(block) @ zq_t) * 0.5
 
 
-def score_collection(params: Dict, e_q, embeds, chunk: int = 8192, *,
+def score_collection(params: Dict, e_q, embeds, chunk: int = 8192,
+                     use_kernel: bool = False, *,
                      device="cuda") -> np.ndarray:
     """Scores for all docs. embeds: (N, D) array or DocumentStore ->
-    (N,) float32 in [0, 1]."""
+    (N,) float32 in [0, 1]. ``use_kernel`` sends an in-memory array
+    through the fused kernel (``kernels.fused_scoring.ops
+    .score_collection``), as in the JAX package; a store always takes
+    this plain path."""
+    if use_kernel and not hasattr(embeds, "iter_chunks"):
+        from repro_torch.kernels.fused_scoring import ops as scoring_ops
+        return scoring_ops.score_collection(params, e_q, embeds,
+                                            device=device)
     dev = resolve_device(device)
     z_q = l2_normalize(encoder_apply(params, _tensor(e_q, dev)))
     outs = [_proxy_chunk_scores(params, _tensor(block, dev),

@@ -281,7 +281,7 @@ def _fit(params0: Params, e_qs: torch.Tensor, embeds_d: torch.Tensor,
         np.asarray(p, np.float32) if not isinstance(p, torch.Tensor)
         else p.detach().cpu().numpy(), device=dev).requires_grad_(True),
         params0)
-    opt_state = adamw.init(params)
+    opt_state = adamw.init(opt_cfg, params)
     lanes = torch.arange(q, device=dev).unsqueeze(1)
     trace = []
     for t in range(cfg.phase1_steps + cfg.phase2_steps):

@@ -19,7 +19,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, check_one_device, resolve_device
 
 
 def hash_tokenize(text: str, vocab_size: int, length: int) -> np.ndarray:
@@ -87,9 +87,13 @@ class SyntheticLMLoader:
             step += 1
 
 
-def device_batch(batch: Dict[str, np.ndarray],
+def device_batch(batch: Dict[str, np.ndarray], shardings=None, *,
                  device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """A host batch -> tensors on ``device`` (int32 stays int32)."""
+    """A host batch -> tensors on ``device`` (int32 stays int32).
+    ``shardings`` (the JAX package's second argument: a NamedSharding a
+    key) may place over one device only, which ``device`` names; more
+    raises ``NotImplementedError`` until the multi-card port."""
+    check_one_device("device_batch", shardings=shardings)
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
             for k, v in batch.items()}

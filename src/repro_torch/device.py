@@ -9,10 +9,16 @@ On the card float32 matrix products run in full float32: TF32 is off for
 both matmuls and cuDNN, set here explicitly, because the reference
 tolerance of the scoring and loss kernels (1e-5) is below TF32's three
 decimal digits.
+
+``check_one_device`` is how entry points that take the JAX package's
+``mesh`` or ``shardings`` treat them: a mesh of one device is accepted
+(the entry point runs on its ``device``), a mesh of more raises
+``NotImplementedError`` until the multi-card port.
 """
 from __future__ import annotations
 
-from typing import Union
+import math
+from typing import Any, Union
 
 import torch
 
@@ -33,3 +39,27 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def check_one_device(what: str, mesh: Any = None,
+                     shardings: Any = None) -> None:
+    """Raise ``NotImplementedError`` when ``mesh``, or the mesh of any
+    sharding in the ``shardings`` tree (a dict, list or tuple of
+    ``NamedSharding``s), spans more than one device; an object without a
+    mesh's ``shape`` counts as more."""
+    meshes = [] if mesh is None else [mesh]
+    stack = [shardings]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif node is not None:
+            meshes.append(node.mesh)
+    for m in meshes:
+        shape = dict(getattr(m, "shape", {"?": 2}))
+        if math.prod(shape.values()) > 1:
+            raise NotImplementedError(
+                f"{what}: a mesh of more than one device ({shape}) waits "
+                f"for the multi-card port")

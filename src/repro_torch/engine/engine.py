@@ -212,11 +212,17 @@ class RepairTicket:
 
 class ScaleDocEngine:
     """Persistent engine over one document collection, on ``device``
-    (``"cuda"`` by default; it raises when no card is present)."""
+    (``"cuda"`` by default; it raises when no card is present).
+    ``use_kernel`` picks the fused scoring kernel (True, the port's
+    default) or its plain version on the device (False, the JAX
+    package's default, whose kernel runs only on a TPU); ``mesh`` may be
+    None or a mesh of one device, and more raises
+    ``NotImplementedError`` (``ScoringExecutor``)."""
 
     def __init__(self, store, proxy_cfg: Optional[ProxyConfig] = None,
                  cascade_cfg: Optional[CascadeConfig] = None, *,
-                 strategy: str = "scaledoc", chunk: int = 8192,
+                 strategy: str = "scaledoc", use_kernel: bool = True,
+                 chunk: int = 8192, mesh=None,
                  executor: Optional[ScoringExecutor] = None,
                  batch_training: bool = True,
                  degrade: str = "fail",
@@ -240,9 +246,12 @@ class ScaleDocEngine:
         # untrained leaves; False: one leaf a run (the same params, more
         # runs; kept for parity testing)
         self.batch_training = batch_training
-        # a caller-built executor wins over chunk / device
-        self.executor = executor or ScoringExecutor(chunk=chunk,
-                                                    device=self.device)
+        self.use_kernel = use_kernel
+        # a caller-built executor wins over chunk / use_kernel / mesh /
+        # device
+        self.executor = executor or ScoringExecutor(
+            chunk=chunk, use_kernel=use_kernel, mesh=mesh,
+            device=self.device)
         self._oracles: Dict[int, CachedOracle] = {}
         self._proxies: Dict[str, Dict] = {}          # leaf.key -> params
         # cross-query optimizer (shared caches + single-flight): None =

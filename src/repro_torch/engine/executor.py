@@ -24,10 +24,13 @@ Proxy groups always go through the fused multi-query kernel
 of a proxy's pending query latents; raw-cosine jobs (``params=None``)
 are one plain matmul, as in the JAX package. On a CPU device the same
 pipeline runs without streams and the kernel wrapper computes its plain
-version. One device only: the ``shard_map`` mesh path (``mesh``,
-``_sharded_fn``) waits for the multi-card slice. ``use_kernel`` and
-``interpret`` have no torch meaning: proxy groups always take the
-kernel wrapper, which computes its plain version on the CPU.
+version. ``use_kernel=False`` scores proxy groups with the plain
+version on the device instead (path "plain"); the JAX package defaults
+to False because its Pallas kernel runs only on a TPU, the port to True.
+``interpret=True`` (Pallas interpret mode) has no counterpart and
+raises. One device only: a ``mesh`` of one device is accepted, and the
+``shard_map`` path for more (``_sharded_fn``) waits for the multi-card
+slice (``NotImplementedError``).
 
 Every pass returns a ``ScoringStats`` record with the JAX package's
 fields (bytes streamed, tiles scored, per-stage wall clock).
@@ -44,7 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.scoring import _iter_chunks, _num_docs, group_jobs
-from repro_torch.device import resolve_device
+from repro_torch.device import check_one_device, resolve_device
+from repro_torch.kernels import INTERPRET
 from repro_torch.kernels.fused_scoring.ops import score_tile_multi
 from repro_torch.runtime import trace as trace_mod
 
@@ -64,7 +68,7 @@ class ScoringStats:
     stall_seconds: float = 0.0      # consumer: waiting on an empty queue
     wall_seconds: float = 0.0
     devices: int = 1
-    paths: Tuple[str, ...] = ()     # compute paths used ("fused"|"matmul")
+    paths: Tuple[str, ...] = ()     # compute paths ("fused"|"plain"|"matmul")
 
     def merge(self, other: "ScoringStats") -> "ScoringStats":
         """Accumulate another pass into this record (in place)."""
@@ -241,6 +245,10 @@ class ScoringExecutor:
     """Streams a document collection through proxy scoring.
 
     chunk:          documents per streamed tile.
+    use_kernel:     proxy groups through the fused kernel (True) or its
+                    plain version on the device (False).
+    interpret:      refused: Pallas interpret mode has no counterpart.
+    mesh:           None or a mesh of one device.
     device:         where scoring runs; ``"cuda"`` by default, and it
                     raises when no card is present.
     prefetch_depth: chunks the background thread may run ahead
@@ -248,9 +256,15 @@ class ScoringExecutor:
                     changes when tiles are read, never their values.
     """
 
-    def __init__(self, *, chunk: int = 8192, device="cuda",
+    def __init__(self, *, chunk: int = 8192, use_kernel: bool = True,
+                 interpret: bool = False, mesh=None, device="cuda",
                  prefetch_depth: int = DEFAULT_PREFETCH_DEPTH):
+        if interpret:
+            raise ValueError(INTERPRET)
+        check_one_device("ScoringExecutor", mesh)
         self.device = resolve_device(device)
+        self.use_kernel = use_kernel
+        self.mesh = mesh
         self.chunk = chunk
         self.prefetch_depth = prefetch_depth
         # idle stagers; a pass owns the one it checked out
@@ -295,8 +309,10 @@ class ScoringExecutor:
                 tc = time.perf_counter()
                 stager.wait(tile, event)
                 for (params, cols), zq in zip(groups, zq_stacks):
-                    s = score_tile_multi(params, zq, tile)
-                    paths.add("matmul" if params is None else "fused")
+                    s = score_tile_multi(params, zq, tile,
+                                         force_ref=not self.use_kernel)
+                    paths.add("matmul" if params is None else
+                              "fused" if self.use_kernel else "plain")
                     out[start:start + rows, np.asarray(cols)] = \
                         s.cpu().numpy()
                 compute_s += time.perf_counter() - tc

@@ -14,7 +14,11 @@ Its ``force_ref``/``interpret`` switches and ``phase2_loss``'s ``impl``
 have no torch meaning: the tensors' device picks the kernel or the
 plain version (``ProxyConfig.contrastive_impl`` takes the same names).
 The JAX package's ``custom_vjp`` pieces (``_phase2_kernel``,
-``_phase2_fwd``, ``_phase2_bwd``) are ``_Phase2`` here.
+``_phase2_fwd``, ``_phase2_bwd``) are ``_Phase2`` here. A call is one
+operator, ``repro_torch::contrastive_losses`` (``kernels._cost``), on
+meta tensors and under the cost counter: meta tensors get an empty
+output and the counter charges ``contrastive_work``. A CUDA call whose
+inputs require grad raises: training goes through ``phase2_loss``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import _cost
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.contrastive import ref
 
@@ -63,8 +68,17 @@ def contrastive_losses(z_q: torch.Tensor, z_d: torch.Tensor,
     if z_d.dim() == 2:
         return contrastive_losses(z_q[None], z_d[None], y[None], tau,
                                   lam)[0]
-    if not z_d.is_cuda:
+    if _cost.plain_for_grad("contrastive_losses", z_q, z_d, y,
+                            hint="; train through phase2_loss"):
         return ref.ref_losses(z_q, z_d, y, tau, lam)
+    run = _contrastive_op if _cost.through_op(z_d) else _contrastive_run
+    return run(z_q, z_d, y, float(tau), float(lam))
+
+
+def _contrastive_run(z_q: torch.Tensor, z_d: torch.Tensor, y: torch.Tensor,
+                     tau: float, lam: float) -> torch.Tensor:
+    if not z_d.is_cuda:
+        return ref.ref_losses(z_q, z_d, y, tau, lam).contiguous()
     _check(z_q, z_d, y)
     q, n, p = z_d.shape
     out = torch.empty((q, 4), dtype=torch.float32, device=z_d.device)
@@ -75,6 +89,30 @@ def contrastive_losses(z_q: torch.Tensor, z_d: torch.Tensor,
     KERNEL.launch(z_d.device, z_q, z_d, y, part, out, q, n, p,
                   float(tau), float(lam))
     return out
+
+
+_contrastive_op = torch.library.custom_op(
+    "repro_torch::contrastive_losses", _contrastive_run, mutates_args=())
+
+
+@_contrastive_op.register_fake
+def _(z_q, z_d, y, tau, lam):
+    return z_d.new_empty((z_d.shape[0], 4), dtype=torch.float32)
+
+
+def contrastive_work(z_q, z_d, y, tau, lam) -> _cost.KernelWork:
+    """The kernel's work a call: the (n, n) and query dot products, row
+    norms and divides and the online LSEs (an exponential a pair and a
+    row); z_q, z_d and y read once, the (Q, 4) output written once."""
+    q, n, p = z_d.shape
+    products = q * (2 * n * n * p + 2 * n * p)
+    return _cost.KernelWork(
+        flops=float(products + q * (3 * n * p + 4 * n * n)),
+        products=float(products), transcendental=float(q * (n * n + n)),
+        bytes=_cost.nbytes(z_q, z_d, y) + 16.0 * q)
+
+
+_cost.register_cost(_contrastive_op, contrastive_work)
 
 
 def losses(z_q: torch.Tensor, z_d: torch.Tensor, y: torch.Tensor,

@@ -13,13 +13,26 @@ instantiations on the card, ``attention_blocked(..., return_lse=True)``
 on the CPU), the residual of the attention layer's autograd Function
 (``models.attention.flash_attention``). ``attention`` is the entry the
 model's attention layer calls when no gradient is wanted.
+
+On meta tensors and under the cost counter (``launch.hlo_analysis``) a
+call is one operator, ``repro_torch::flash_attention_fwd``
+(``kernels._cost``): meta tensors get empty outputs, and the counter
+charges the kernel's own work, ``flash_work``, on every device. A CUDA
+call whose inputs require grad raises: the gradient goes through the
+attention layer's autograd Function, whose forward runs with grad off.
+``attention`` takes the JAX package's switches: ``force_ref=True``
+computes the plain version on any device; ``interpret=True`` (Pallas
+interpret mode) has no counterpart and raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import INTERPRET, _cost
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.flash_attention import ref
 
@@ -90,19 +103,49 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
                          f"the last query rows see none of the {skv} keys")
 
 
+def _plain(q, k, v, scale, causal, window, q_offset, return_lse,
+           q_block=512, kv_block=512):
+    groups = q.shape[2] // k.shape[2]
+    return ref.attention_blocked(
+        q, ref.expand_kv(k, groups), ref.expand_kv(v, groups), scale,
+        causal=causal, window=window, q_offset=q_offset, q_block=q_block,
+        kv_block=kv_block, return_lse=return_lse)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool = True,
                         window: int = 0, q_offset: int = 0,
-                        return_lse: bool = False):
+                        return_lse: bool = False, q_block: int = 512,
+                        kv_block: int = 512):
     """q: (b, sq, h, hd); k, v: (b, skv, kv_heads, hd) -> (b, sq, h, hd)
     in ``q.dtype``: masked online softmax, f32 inside; with
-    ``return_lse``, (out, lse (b, h, sq) float32)."""
+    ``return_lse``, (out, lse (b, h, sq) float32). ``q_block`` and
+    ``kv_block`` are the plain version's tiles (the kernel's are its
+    own)."""
+    if _cost.plain_for_grad(
+            "flash_attention_fwd", q, k, v,
+            hint="; train through models.attention.flash_attention"):
+        return _plain(q, k, v, scale, causal, window, q_offset, return_lse,
+                      q_block, kv_block)
+    run = _flash_op if _cost.through_op(q) else _flash_run
+    out, lse = run(q, k, v, float(scale), bool(causal), int(window),
+                   int(q_offset), bool(return_lse), int(q_block),
+                   int(kv_block))
+    return (out, lse) if return_lse else out
+
+
+def _flash_run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float, causal: bool, window: int, q_offset: int,
+               return_lse: bool, q_block: int, kv_block: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): lse is (0,) without ``return_lse``. Both are
+    contiguous, as the kernel writes them, so what runs after the call is
+    the same on every device."""
     if not q.is_cuda:
-        groups = q.shape[2] // k.shape[2]
-        return ref.attention_blocked(
-            q, ref.expand_kv(k, groups), ref.expand_kv(v, groups), scale,
-            causal=causal, window=window, q_offset=q_offset,
-            return_lse=return_lse)
+        res = _plain(q, k, v, scale, causal, window, q_offset, return_lse,
+                     q_block, kv_block)
+        out, lse = res if return_lse else (res, _no_lse(q))
+        return out.contiguous(), lse.contiguous()
     _check(q, k, v, window, q_offset)
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
@@ -113,12 +156,74 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       k.shape[2], hd, int(causal), int(window),
                       int(q_offset), int(q.dtype == torch.bfloat16),
                       float(scale))
-    return (out, lse) if return_lse else out
+    return out, (lse if return_lse else _no_lse(q))
 
 
-def attention(q, k, v, *, scale, causal=True, window=0, q_offset=0):
+def _no_lse(q):
+    return torch.empty((0,), dtype=torch.float32, device=q.device)
+
+
+_flash_op = torch.library.custom_op("repro_torch::flash_attention_fwd",
+                                    _flash_run, mutates_args=())
+
+
+@_flash_op.register_fake
+def _(q, k, v, scale, causal, window, q_offset, return_lse, q_block,
+      kv_block):
+    b, sq, h, _ = q.shape
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else _no_lse(q))
+    return torch.empty_like(q), lse
+
+
+def key_tile(hd: int, dtype: torch.dtype) -> int:
+    """Keys of a K/V tile of the kernel that takes ``dtype``."""
+    return bf16_tile_keys(hd) if dtype == torch.bfloat16 else BLOCK_Q
+
+
+def visited_pairs(sq: int, skv: int, *, causal: bool, window: int,
+                  q_offset: int, tile: int) -> int:
+    """(query, key) pairs a (batch, head) computes: each 64-row query
+    tile runs every key of the K/V tiles that hold a key one of its rows
+    sees (the tiles wholly masked are skipped, as the kernel does)."""
+    q0 = np.arange(0, sq, BLOCK_Q, dtype=np.int64)
+    nq = np.minimum(BLOCK_Q, sq - q0)
+    p_lo, p_hi = q_offset + q0, q_offset + q0 + nq - 1
+    kv_hi = np.minimum(skv, p_hi + 1) if causal else np.full_like(q0, skv)
+    kv_lo = (np.maximum(0, p_lo - window + 1) if window > 0
+             else np.zeros_like(q0))
+    t_lo, t_hi = kv_lo // tile, -(-kv_hi // tile)
+    keys = np.where(t_lo < t_hi,
+                    np.minimum(t_hi * tile, skv) - t_lo * tile, 0)
+    return int((nq * keys).sum())
+
+
+def flash_work(q, k, v, scale, causal, window, q_offset, return_lse,
+               q_block=512, kv_block=512) -> _cost.KernelWork:
+    """The kernel's work: 4 hd FLOP (Q K^T and P V) and one exponential a
+    visited pair; Q, K and V read once, out (and lse) written once."""
+    b, sq, h, hd = q.shape
+    pairs = b * h * visited_pairs(sq, k.shape[1], causal=causal,
+                                  window=window, q_offset=q_offset,
+                                  tile=key_tile(hd, q.dtype))
+    products = 4.0 * hd * pairs
+    lse = 4.0 * b * h * sq if return_lse else 0.0
+    return _cost.KernelWork(
+        flops=products + pairs, products=products, transcendental=pairs,
+        bytes=2 * _cost.nbytes(q) + _cost.nbytes(k, v) + lse)
+
+
+_cost.register_cost(_flash_op, flash_work)
+
+
+def attention(q, k, v, *, scale, causal=True, window=0, q_offset=0,
+              force_ref: bool = False, interpret: bool = False):
     """The attention layer's entry (``repro.kernels.flash_attention.ops
-    .attention``): the kernel on the card, the plain version on the
-    CPU."""
+    .attention``): the kernel on the card, the plain version on the CPU
+    or with ``force_ref``."""
+    if interpret:
+        raise ValueError(INTERPRET)
+    if force_ref:
+        return _plain(q, k, v, scale, causal, window, q_offset, False)
     return flash_attention_fwd(q, k, v, scale=scale, causal=causal,
                                window=window, q_offset=q_offset)

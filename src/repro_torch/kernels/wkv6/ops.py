@@ -14,15 +14,27 @@ kernel's launch and ``y`` are the same either way.
 
 The kernel has no backward (nor has the Pallas kernel it replaces): a
 CUDA input that requires grad, with grad mode on, raises rather than
-leave the inputs with no gradient. RWKV training on the card waits for
-a WKV6 backward; on the CPU the plain version is differentiable.
+leave the inputs with no gradient. RWKV training on the card runs the
+time-mix's ``"direct"`` mode (``runtime.train_loop.Trainer``), the JAX
+package's default, which launches no kernel; on the CPU the plain
+version is differentiable.
+
+On meta tensors and under the cost counter a call is one operator,
+``repro_torch::wkv6_intra_chunk`` (``kernels._cost``): meta tensors get
+empty outputs and the counter charges ``wkv6_work``. ``wkv6`` takes
+the JAX package's switches: ``force_ref=True`` runs the plain chunked
+recurrence (``ref.wkv6_chunked``, the pairwise form: the time-mix's
+``"direct"`` mode) on any device; ``interpret=True`` (Pallas interpret
+mode) has no counterpart and raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import INTERPRET, _cost
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.wkv6 import ref
 
@@ -63,13 +75,22 @@ def wkv6_intra_chunk(r, k, v, cum, lw, u):
     """r, k, v, cum, lw: (b, nc, Q, H, K); u: (H, K) -> (y_intra (b, nc,
     Q, H, K), s_inj (b, nc, H, K, K), a_end (b, nc, H, K), r_dec (b, nc,
     Q, H, K)), all float32 (see ``ref.wkv6_intra_chunk``)."""
-    if not r.is_cuda:
+    if _cost.plain_for_grad(
+            "wkv6_intra_chunk", r, k, v, cum, lw, u,
+            hint="; with no WKV6 backward, train RWKV6 in the time-mix's "
+                 "\"direct\" mode"):
         return ref.wkv6_intra_chunk(r, k, v, cum, lw, u, sub=ref.SUB)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r, k, v, cum, lw, u)):
-        raise NotImplementedError(
-            "wkv6_intra_chunk: the CUDA kernel has no backward; RWKV "
-            "training waits for a WKV6 backward (its inputs require grad)")
+    run = _wkv6_op if _cost.through_op(r) else _wkv6_run
+    return tuple(run(r, k, v, cum, lw, u))
+
+
+def _wkv6_run(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              cum: torch.Tensor, lw: torch.Tensor, u: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    if not r.is_cuda:
+        return tuple(t.contiguous() for t in ref.wkv6_intra_chunk(
+            r, k, v, cum, lw, u, sub=ref.SUB))
     _check(r, k, v, cum, lw, u)
     b, nc, Q, H, K = r.shape
     y = torch.empty_like(r)
@@ -83,6 +104,48 @@ def wkv6_intra_chunk(r, k, v, cum, lw, u):
     return y, s_inj, a_end, r_dec
 
 
+_wkv6_op = torch.library.custom_op("repro_torch::wkv6_intra_chunk",
+                                   _wkv6_run, mutates_args=())
+
+
+@_wkv6_op.register_fake
+def _(r, k, v, cum, lw, u):
+    b, nc, Q, H, K = r.shape
+    return (torch.empty_like(r), r.new_empty((b, nc, H, K, K)),
+            r.new_empty((b, nc, H, K)), torch.empty_like(r))
+
+
+def wkv6_work(r, k, v, cum, lw, u) -> _cost.KernelWork:
+    """The kernel's work in the sub-chunk form (``ref.SUB``-row
+    sub-chunks). The least exponentials that keep every exponent <= 0:
+    one a channel for a pair inside a sub-chunk; a pair (t, j) across
+    sub-chunks factors through the last row e of j's sub-chunk,
+    exp(cum_{t-1}[t] - cum[e]) * exp(cum[e] - cum[j]), one a (t, earlier
+    sub-chunk, channel) and one a (j, channel); then r_dec and dec_end,
+    one an element, and a_end, one a channel. FLOPs, a channel: 4 an
+    inner pair (the difference, r * exp, * k, the sum), 2 a crossing pair
+    (a dot product) and 2 a factor (its difference and scale); A v, 2 a
+    pair and channel; r.u.k and its v term, cum - lw, r_dec, dec_end and
+    k * dec_end, 9 an element; the (K, Q) x (Q, K) s_inj product. Bytes:
+    each input read once, each output written once."""
+    b, nc, q, h, kd = r.shape
+    blocks, sub = b * nc * h, ref.SUB
+    pairs = q * (q - 1) // 2
+    sizes = [min(sub, q - i) for i in range(0, q, sub)]
+    inner = sum(m * (m - 1) // 2 for m in sizes)
+    t_side = sum(i * m for i, m in enumerate(sizes))
+    products = blocks * (2 * pairs * kd + 2 * q * kd * kd)
+    flops = blocks * (4 * inner * kd + 2 * (pairs - inner) * kd
+                      + 2 * (t_side + q) * kd + 9 * q * kd) + products
+    return _cost.KernelWork(
+        flops=float(flops), products=float(products),
+        transcendental=float(blocks * kd * (inner + t_side + 3 * q + 1)),
+        bytes=4.0 * (blocks * (7 * q * kd + kd * kd + kd) + h * kd))
+
+
+_cost.register_cost(_wkv6_op, wkv6_work)
+
+
 def wkv6_chunked(r, k, v, cum, lw, u, return_state: bool = False):
     """The full recurrence over chunked inputs (b, nc, Q, H, K): the
     kernel, then the inter-chunk combine. Returns y (b, nc, Q, H, K), or
@@ -91,11 +154,14 @@ def wkv6_chunked(r, k, v, cum, lw, u, return_state: bool = False):
                              return_state=return_state)
 
 
-def wkv6(r, k, v, lw, u, *, chunk: int = 128, return_state: bool = False):
+def wkv6(r, k, v, lw, u, *, chunk: int = 128, return_state: bool = False,
+         force_ref: bool = False, interpret: bool = False):
     """r, k, v, lw: (b, s, H, K) float32; u: (H, K) -> y (b, s, H, K)
     float32: S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T, y_t = r_t^T
-    S_{t-1} + (r_t . u . k_t) v_t, through the kernel; (y, S_s) with
-    ``return_state``."""
-    return ref.wkv6_by_chunks(r, k, v, lw, u, chunk=chunk,
-                              chunked=wkv6_chunked,
+    S_{t-1} + (r_t . u . k_t) v_t, through the kernel (the plain
+    recurrence with ``force_ref``); (y, S_s) with ``return_state``."""
+    if interpret:
+        raise ValueError(INTERPRET)
+    chunked = ref.wkv6_chunked if force_ref else wkv6_chunked
+    return ref.wkv6_by_chunks(r, k, v, lw, u, chunk=chunk, chunked=chunked,
                               return_state=return_state)

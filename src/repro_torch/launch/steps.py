@@ -20,8 +20,14 @@ duration of each step, the blocks' ``common.constrain`` hook resolving
 the rules (recording divisibility fallbacks in the plan's ``ruleset``).
 A step runs on its mesh's one device; a mesh of more than one device
 (the production meshes of ``launch.mesh``) gives the plan's specs and
-shardings, and its step raises ``NotImplementedError``: running it
-waits for the multi-card port. The train step accumulates the gradient
+shardings, and its step on real tensors raises ``NotImplementedError``:
+running it waits for the multi-card port. On meta tensors (the plan's
+own ``arg_sds``) a step traces over any mesh, abstract ones included,
+resolving every constraint (recording its fallbacks) and placing
+nothing: the dry run (``launch.dryrun``) counts it so. A meta AdamW
+step has no value to read on the host; the update's host arithmetic
+(learning rate, bias corrections) then takes step 0, which changes no
+operation the step runs. The train step accumulates the gradient
 over ``microbatches`` contiguous row blocks of the batch in float32, in
 block order, as the JAX package's scan does, then applies AdamW
 (``optimizer.adamw.apply_updates``).
@@ -35,6 +41,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.config.base import InputShape, ModelConfig, OptimizerConfig
+from repro_torch.launch import hlo_analysis
 from repro_torch.launch.mesh import MULTI_CARD
 from repro_torch.models import build_model, input_axes, input_specs
 from repro_torch.models.common import (constrainer, param_specs,
@@ -104,7 +111,7 @@ def _resolver(ruleset: RuleSet) -> Callable:
     (recording fallbacks) and return ``x`` as it is on one device."""
     def constrain(x, logical_axes):
         ruleset.sharding(logical_axes, x.shape)
-        if _mesh_size(ruleset.mesh) > 1:
+        if _mesh_size(ruleset.mesh) > 1 and not x.is_meta:
             raise NotImplementedError(f"{dict(ruleset.mesh.shape)}: "
                                       f"{MULTI_CARD}")
         return x
@@ -147,9 +154,12 @@ def default_microbatches(shape: InputShape, mesh,
 
 
 def _device(mesh, params) -> torch.device:
-    """The mesh's one device, which must hold the params."""
-    dev = mesh.device
+    """The mesh's one device, which must hold the params; the meta
+    device for meta params, on any mesh."""
     table = params["embed"]["table"]
+    if table.is_meta:
+        return table.device
+    dev = mesh.device
     if table.device.type != dev.type:
         raise ValueError(f"params are on {table.device}, the mesh on {dev}")
     return dev
@@ -195,6 +205,8 @@ def make_train_plan(cfg: ModelConfig, shape: InputShape, mesh,
     def train_step(state, batch):
         params, opt_state = state
         dev = _device(mesh, params)
+        if isinstance(opt_state.step, torch.Tensor) and opt_state.step.is_meta:
+            opt_state = opt_state._replace(step=0)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         with constrainer(resolve):
             if nmicro <= 1:
@@ -211,13 +223,15 @@ def make_train_plan(cfg: ModelConfig, shape: InputShape, mesh,
                 loss = torch.zeros((), dtype=torch.float32, device=dev)
                 grads = tree_map(lambda p: torch.zeros(
                     p.shape, dtype=torch.float32, device=p.device), params)
-                for i in range(nmicro):
+                # identical trips, in live memory too (nothing of one
+                # is held into the next): the dry run counts one, scaled
+                for i in hlo_analysis.trips(nmicro):
                     mb = {k: v[i] for k, v in micro.items()}
                     l_i, g_i = _value_and_grad(model.loss_fn, params, mb)
                     grads = adamw.zip_map(
                         lambda a, g: a + g.float() / nmicro, grads, g_i)
                     loss = loss + l_i / nmicro
-                    del g_i
+                    del l_i, g_i
         params, opt_state, metrics = adamw.apply_updates(
             opt_cfg, params, grads, opt_state)
         metrics["loss"] = loss

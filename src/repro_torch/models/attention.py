@@ -164,21 +164,17 @@ def flash_backward(q, k, v, out, lse, dout, scale: float, *, causal: bool,
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel with its LSE (card) or the plain blocked online
-    softmax (CPU); backward: ``flash_backward``."""
+    softmax over ``q_block`` x ``kv_block`` tiles (CPU), one
+    ``flash_ops.flash_attention_fwd`` call either way; backward:
+    ``flash_backward``."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, q_offset, q_block,
                 kv_block):
-        if q.is_cuda:
-            out, lse = flash_ops.flash_attention_fwd(
-                q, k, v, scale=scale, causal=causal, window=window,
-                q_offset=q_offset, return_lse=True)
-        else:
-            groups = q.shape[2] // k.shape[2]
-            out, lse = attention_blocked(
-                q, _expand_kv(k, groups), _expand_kv(v, groups), scale,
-                causal=causal, window=window, q_offset=q_offset,
-                q_block=q_block, kv_block=kv_block, return_lse=True)
+        out, lse = flash_ops.flash_attention_fwd(
+            q, k, v, scale=scale, causal=causal, window=window,
+            q_offset=q_offset, return_lse=True, q_block=q_block,
+            kv_block=kv_block)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
                         q_block=q_block, kv_block=kv_block)

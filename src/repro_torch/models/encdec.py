@@ -60,9 +60,14 @@ class EncDecLM:
     """Encoder-decoder LM over stubbed frame embeddings. ``attn_impl``
     picks the encoder's and the decoder's self-attention path
     (``models.attention.IMPLS``; "flash", the hand-written kernel, by
-    default). Every method runs where the params lie."""
+    default). Every other option ``build_model`` passes (``rwkv_mode``,
+    ``causal_skip``, ``moe_dispatch``) is accepted and ignored, as in the
+    JAX package: the family has no RWKV6 or MoE block, and the flash
+    kernel skips masked tiles itself. Every method runs where the params
+    lie."""
 
-    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "flash"):
+    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "flash",
+                 **_unused):
         if not cfg.is_encdec:
             raise ValueError(f"{cfg.name} has no encoder layers")
         self.cfg = cfg

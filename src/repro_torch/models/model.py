@@ -23,10 +23,11 @@ from repro_torch.models.transformer import TransformerLM
 
 def build_model(cfg: ModelConfig, **opts) -> Union[TransformerLM, EncDecLM]:
     """The model of ``cfg``: an ``EncDecLM`` for an encoder-decoder
-    config (``opts`` may carry only ``attn_impl``), else a
+    config (it reads ``attn_impl`` and ignores the other options), else a
     ``TransformerLM`` with ``opts`` (``attn_impl``, ``rwkv_mode``,
-    ``moe_dispatch``) passed through; it raises for what it does not
-    run."""
+    ``causal_skip``, ``moe_dispatch``) passed through; it raises for what
+    it does not run. ``causal_skip`` is ignored in both: the flash kernel
+    skips masked tiles itself."""
     if cfg.is_encdec:
         return EncDecLM(cfg, **opts)
     return TransformerLM(cfg, **opts)

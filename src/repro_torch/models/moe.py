@@ -38,7 +38,6 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.common import Params, activation, dense_init
@@ -96,7 +95,10 @@ def _route(params: Params, x: torch.Tensor, cfg: ModelConfig):
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     # Switch aux loss: E * sum_e f_e * p_e
-    sel = F.one_hot(experts, E).float()                       # (T, K, E)
+    # the one-hot as a compare: F.one_hot validates its indices with a
+    # host sync on the CPU only, so its operators differ by device
+    sel = (experts[..., None] == torch.arange(
+        E, device=experts.device)).float()                    # (T, K, E)
     frac_tokens = sel.sum(1).mean(0)
     aux = E * torch.sum(frac_tokens * probs.mean(0))
 

@@ -205,11 +205,13 @@ def remat_wrap(enabled: bool):
     """``jax.checkpoint`` for a block: with ``enabled`` and grad mode on,
     the block's activations are not kept but recomputed in the backward
     (non-reentrant ``torch.utils.checkpoint``); else the block as it
-    is."""
+    is. The blocks draw no random numbers, so no RNG state is stashed
+    for the recompute (the stash would be device-specific work)."""
     if not (enabled and torch.is_grad_enabled()):
         return lambda f: f
     return lambda f: (lambda *args: checkpoint(f, *args,
-                                               use_reentrant=False))
+                                               use_reentrant=False,
+                                               preserve_rng_state=False))
 
 
 def group_params(params: Params, g: int) -> Params:
@@ -235,10 +237,15 @@ class TransformerLM:
     are the hand-written kernels. ``moe_dispatch`` picks an MoE model's
     dispatch (``models.moe.DISPATCH_IMPLS``; "onehot", the JAX package's
     default). Decode steps run in plain PyTorch (no kernel), as in the
-    JAX package. Every method runs where the params lie."""
+    JAX package. ``causal_skip`` is accepted, as the JAX package's
+    constructor takes it, and ignored: it selects static triangular KV
+    extents for XLA's blocked attention, and the flash kernel skips the
+    masked tiles itself. Every method runs where the params lie."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "flash",
-                 rwkv_mode: str = "kernel", moe_dispatch: str = "onehot"):
+                 rwkv_mode: str = "kernel", causal_skip: bool = False,
+                 moe_dispatch: str = "onehot"):
+        del causal_skip
         check_supported(cfg)
         rwkv_mod.check_mode(rwkv_mode)
         moe_mod.check_dispatch(moe_dispatch)

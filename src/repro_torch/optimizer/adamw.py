@@ -50,7 +50,10 @@ def schedule(cfg: OptimizerConfig, step: int) -> float:
     return float(f32(cfg.lr) * warm * decay)
 
 
-def init(params: Any) -> AdamWState:
+def init(cfg: OptimizerConfig, params: Any) -> AdamWState:
+    """Step 0 and float32 zero moments shaped as ``params``; ``cfg`` is
+    taken, as in the JAX package, and not read."""
+    del cfg
     zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(step=0, mu=tree_map(zeros, params),
                       nu=tree_map(zeros, params))

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.checkpoint import flatten_with_paths
 from repro_torch.config import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import check_one_device, resolve_device
 from repro_torch.models import EncDecLM, build_model
 
 # elements hashed per host copy when digesting the params
@@ -68,11 +68,16 @@ class EmbeddingService:
     ``attn_impl="einsum"`` or ``"blocked"`` runs a plain attention path
     in place of the flash kernel, and ``rwkv_mode="direct"`` the plain
     chunked WKV6 scan in place of the WKV6 kernel, for comparison.
+    ``mesh`` (the JAX package's data-parallel placement) may be None or
+    a mesh of one device; more raises ``NotImplementedError`` until the
+    multi-card port.
     """
 
     def __init__(self, cfg: ModelConfig, params, batch_size: int = 8,
-                 device="cuda", attn_impl: str = "flash",
+                 mesh=None, device="cuda", attn_impl: str = "flash",
                  rwkv_mode: str = "kernel"):
+        check_one_device("EmbeddingService", mesh)
+        self.mesh = mesh
         self.device = resolve_device(device)
         if cfg.is_encdec:
             raise TypeError(f"{cfg.name} is an encoder-decoder model; the "

@@ -18,12 +18,14 @@ after a restart are the ones the first pass computed; any other is
 raised. Step times (host clock, after the device has finished the step)
 feed ``StragglerMonitor`` and the metrics JSONL.
 
-What differs from the JAX package: there is no mesh (a mesh given
-raises ``NotImplementedError``: the multi-card slice brings it), the
-device is explicit (``device``, "cuda" by default) and params come from
-``model.init`` on a ``torch.Generator`` of that device seeded with
-``train_cfg.seed``. An RWKV6 model does not train on the card: the WKV6
-kernel has no backward (``kernels.wkv6.ops`` raises).
+What differs from the JAX package: the mesh may be None or span one
+device (a mesh of more raises ``NotImplementedError``: the multi-card
+slice brings it), the device is explicit (``device``, "cuda" by
+default) and params come from ``model.init`` on a ``torch.Generator``
+of that device seeded with ``train_cfg.seed``. The model is built as
+the JAX package builds it, with the RWKV6 time-mix in its ``"direct"``
+mode (the chunked scan in plain PyTorch, which autograd differentiates;
+the WKV6 kernel has no backward).
 """
 from __future__ import annotations
 
@@ -34,11 +36,10 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import checkpoint as ckpt
-from repro_torch.config import (BLOCK_RWKV6, InputShape, ModelConfig,
-                                TrainConfig)
+from repro_torch.config import InputShape, ModelConfig, TrainConfig
 from repro_torch.data.loader import (BatchSpec, SyntheticLMLoader,
                                      device_batch)
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, check_one_device, resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.common import tree_map
 from repro_torch.optimizer import adamw, compression
@@ -72,19 +73,17 @@ class Trainer:
                  attn_impl: str = "flash",
                  fail_injector: Optional[Callable[[int], None]] = None,
                  device: DeviceLike = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port's Trainer runs on one device; a mesh waits for "
-                "the multi-card slice")
+        check_one_device("Trainer", mesh)
+        self.mesh = mesh
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and BLOCK_RWKV6 in cfg.block_pattern:
-            raise NotImplementedError(
-                f"{cfg.name}: RWKV training on the card waits for a WKV6 "
-                f"backward (the kernel has none)")
         self.cfg = cfg
         self.train_cfg = train_cfg
         self.shape = shape or train_cfg.shape
-        self.model = build_model(cfg, attn_impl=attn_impl)
+        # RWKV6 time-mix in "direct" mode, the JAX package's default: the
+        # chunked scan in plain PyTorch, which has a backward (the WKV6
+        # kernel has none)
+        self.model = build_model(cfg, attn_impl=attn_impl,
+                                 rwkv_mode="direct")
         self.metrics = Metrics(metrics_path)
         self.detector = FailureDetector()
         self.stragglers = StragglerMonitor()
@@ -119,7 +118,8 @@ class Trainer:
         params = self.model.init(gen)
         residual = (compression.init_residual(params) if self.compress
                     else {})
-        return (params, adamw.init(params), residual)
+        return (params, adamw.init(self.train_cfg.optimizer, params),
+                residual)
 
     def restore_latest(self):
         """(the latest checkpoint's state, its step), or (None, 0)."""
@@ -174,7 +174,8 @@ class Trainer:
                 t0 = time.time()
                 if self.fail_injector is not None:
                     self.fail_injector(step)
-                batch = device_batch(self.loader.batch(step), self.device)
+                batch = device_batch(self.loader.batch(step),
+                                     device=self.device)
                 state, metrics = self._step(state, batch)
                 loss = float(metrics["loss"])
                 if self.device.type == "cuda":

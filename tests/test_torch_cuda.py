@@ -1118,7 +1118,9 @@ def test_loss_gradient_on_card_matches_cpu(cuda, arch):
 @pytest.mark.cuda
 def test_rwkv_does_not_train_on_the_card(cuda, tmp_path):
     """The WKV6 kernel has no backward: a CUDA input that requires grad
-    raises, and so does a Trainer over an RWKV6 model on the card."""
+    raises. The Trainer builds RWKV6 in the time-mix's "direct" mode
+    instead, as the JAX package does, and launches no WKV6 kernel
+    (``test_rwkv_trainer_step_on_card_matches_cpu``)."""
     from repro_torch.config import TrainConfig, get_smoke_arch
     from repro_torch.runtime.train_loop import Trainer
     r, k, v, cum, lw, u = (torch.tensor(x, device=cuda)
@@ -1127,9 +1129,51 @@ def test_rwkv_does_not_train_on_the_card(cuda, tmp_path):
         w_ops.wkv6_intra_chunk(r.requires_grad_(), k, v, cum, lw, u)
     with torch.no_grad():
         w_ops.wkv6_intra_chunk(r, k, v, cum, lw, u)
-    with pytest.raises(NotImplementedError, match="WKV6 backward"):
-        Trainer(get_smoke_arch("rwkv6-7b"),
-                TrainConfig(checkpoint_dir=str(tmp_path)), device=cuda)
+    with Trainer(get_smoke_arch("rwkv6-7b"),
+                 TrainConfig(checkpoint_dir=str(tmp_path)),
+                 device=cuda) as tr:
+        assert tr.model.rwkv_mode == "direct"
+
+
+@pytest.mark.cuda
+def test_rwkv_trainer_step_on_card_matches_cpu(cuda, tmp_path):
+    """One SMOKE rwkv6-7b Trainer step (direct mode, float32) on the card
+    against the CPU from the same params and batch: the loss rtol 1e-5,
+    each gradient leaf 1e-4 of its max |g|, params as ``_same_step``."""
+    import dataclasses
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.config import (InputShape, OptimizerConfig,
+                                    TrainConfig, get_smoke_arch)
+    from repro_torch.data.loader import device_batch
+    from repro_torch.device import resolve_device
+    from repro_torch.models.common import tree_map
+    from repro_torch.optimizer import adamw
+    from repro_torch.runtime.train_loop import Trainer
+    resolve_device(cuda)                     # TF32 off
+    cfg = dataclasses.replace(get_smoke_arch("rwkv6-7b"), dtype="float32")
+    opt = OptimizerConfig(lr=1e-2, warmup_steps=0, total_steps=10,
+                          schedule="constant", grad_clip=0.0,
+                          weight_decay=0.0)
+    tc = TrainConfig(shape=InputShape("t", 32, 4, "train"), optimizer=opt,
+                     checkpoint_dir=str(tmp_path))
+    steps = {}
+    with Trainer(cfg, tc, device="cpu") as cpu:
+        params = cpu.init_state()[0]
+        host_batch = cpu.loader.batch(0)
+    for dev in ("cpu", cuda):
+        with Trainer(cfg, tc, device=dev) as tr:
+            p = tree_map(lambda t: t.to(dev), params)
+            before = w_ops.KERNEL.launches
+            (new, state, _), metrics = tr._step(
+                (p, adamw.init(opt, p), {}),
+                device_batch(host_batch, device=dev))
+            assert w_ops.KERNEL.launches == before
+            steps[str(dev)] = (
+                metrics["loss"].item(),
+                {k: t.cpu() for k, t in flatten_with_paths(new)},
+                {k: (t / (1 - opt.b1)).cpu()
+                 for k, t in flatten_with_paths(state.mu)}, opt.lr)
+    _same_step(steps[str(cuda)], steps["cpu"])
 
 
 # the launch layer's prefill cell (llama3-8b PREFILL_32K at batch 1): one
@@ -1198,7 +1242,7 @@ def _train_plan_step(arch, dev, microbatches):
     rng = np.random.default_rng(7)
     batch = {n: rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
              for n in ("tokens", "labels")}
-    (new, state), metrics = plan.step_fn((params, adamw.init(params)),
+    (new, state), metrics = plan.step_fn((params, adamw.init(opt, params)),
                                          batch)
     grads = {p: (t / (1 - opt.b1)).cpu()
              for p, t in flatten_with_paths(state.mu)}
@@ -1246,3 +1290,95 @@ def test_microbatches_agree_on_card(cuda):
     two = _train_plan_step("smollm-360m", cuda, 2)
     assert mid > before and f_ops.KERNEL.launches - mid == 2 * (mid - before)
     _same_step(two, one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-7b",
+                                  "qwen3-moe-30b-a3b", "zamba2-2.7b"])
+def test_cost_counter_counts_the_card_as_meta(cuda, arch):
+    """A SMOKE train-plan step (2 microbatches) counts the same operators,
+    FLOPs, bytes and transcendentals on the card as on meta tensors:
+    the traced program is the card's. The flash kernel is one operator
+    on both."""
+    from repro_torch.config import get_smoke_arch
+    _counts_equal_on_meta_and_card(cuda, get_smoke_arch(arch))
+
+
+@pytest.mark.cuda
+def test_cost_counter_counts_a_remat_backward_on_the_card(cuda):
+    """With remat "full" the backward recomputes each block's forward,
+    flash calls included, on the autograd engine's thread for the card:
+    the counter still sees every flash call there as one operator."""
+    import dataclasses
+    from repro_torch.config import get_smoke_arch
+    _counts_equal_on_meta_and_card(cuda, dataclasses.replace(
+        get_smoke_arch("smollm-360m"), remat="full"))
+
+
+def _counts_equal_on_meta_and_card(cuda, cfg):
+    from repro_torch.config import InputShape, OptimizerConfig
+    from repro_torch.launch import mesh, steps
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.optimizer import adamw
+    plan = steps.make_train_plan(cfg, InputShape("t", 64, 4, "train"),
+                                 mesh.make_test_mesh(1, 1, device=cuda),
+                                 microbatches=2)
+    meta = analyze_step(plan.step_fn, *plan.arg_sds)
+    params = tree_map(lambda t: t.to(cuda), build_model(cfg).init(
+        torch.Generator().manual_seed(0)))
+    batch = {k: torch.randint(0, cfg.vocab_size, v.shape, dtype=v.dtype,
+                              device=cuda)
+             for k, v in plan.arg_sds[1].items()}
+    card = analyze_step(plan.step_fn,
+                        (params, adamw.init(OptimizerConfig(), params)),
+                        batch)
+    fields = ("ops", "flops", "product_flops", "bytes", "transcendental")
+    assert {f: getattr(meta, f) for f in fields} == \
+        {f: getattr(card, f) for f in fields}
+
+
+def _card_kernel_calls(cuda):
+    """name -> (the wrapper's module, a call of it on small CUDA inputs,
+    the float input that is made to require grad)."""
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g).to(cuda)
+    q, k = r(2, 128, 4, 16), r(2, 128, 2, 16)
+    lw = -torch.rand((1, 2, 16, 2, 8), generator=g).to(cuda)
+    wkv = [r(1, 2, 16, 2, 8) for _ in range(3)] + [lw.cumsum(2), lw, r(2, 8)]
+    con = [r(3, 16), r(3, 32, 16), (r(3, 32) > 0).float()]
+    mlp = [r(50, 32), r(32, 128), r(128), r(128, 128), r(128), r(128, 64),
+           r(64), torch.nn.functional.normalize(r(3, 64), dim=1)]
+    return {
+        "flash": (f_ops, lambda: f_ops.flash_attention_fwd(
+            q, k, k, scale=0.25, causal=True), q),
+        "wkv6": (w_ops, lambda: w_ops.wkv6_intra_chunk(*wkv), wkv[0]),
+        "contrastive": (c_ops, lambda: c_ops.contrastive_losses(
+            *con, 0.07, 0.2), con[1]),
+        "fused": (s_ops, lambda: s_ops.fused_scores_multi(*mlp), mlp[0]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash", "wkv6", "contrastive", "fused"])
+def test_a_kernel_call_that_needs_a_gradient_raises_on_the_card(cuda, name):
+    """No wrapper falls back to its plain version on the card: a call on
+    CUDA inputs that require grad, with grad mode on, raises and launches
+    nothing (the kernels have no backward); the same call with grad off
+    launches once, and once more under the cost counter."""
+    from repro_torch.launch.hlo_analysis import CostCounter
+    mod, call, leaf = _card_kernel_calls(cuda)[name]
+    before = mod.KERNEL.launches
+    leaf.requires_grad_(True)
+    with torch.enable_grad(), pytest.raises(NotImplementedError,
+                                            match="no backward"):
+        call()
+    assert mod.KERNEL.launches == before
+    with torch.no_grad():
+        call()
+        with CostCounter() as counter:
+            call()
+    torch.cuda.synchronize(cuda)
+    assert mod.KERNEL.launches == before + 2
+    assert counter.report().ops == 1

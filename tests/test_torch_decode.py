@@ -37,6 +37,7 @@ from repro_torch.models import attention as t_attn
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import rwkv as t_rwkv
 from repro_torch.runtime.serve_loop import generate
+from torch_jax_state import no_jax_constrainer  # noqa: F401
 
 ARCHS = ("llama3-8b", "rwkv6-7b", "smollm-360m")
 REL = 1e-5

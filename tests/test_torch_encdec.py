@@ -39,6 +39,7 @@ from repro_torch.models import attention as t_attn
 from repro_torch.models import common as t_common
 from repro_torch.models.common import tree_map
 from repro_torch.runtime.serve_loop import EmbeddingService, generate
+from torch_jax_state import no_jax_constrainer  # noqa: F401
 
 ARCH = "whisper-base"
 REL = 1e-5
@@ -298,8 +299,9 @@ def test_build_model_returns_an_encdec_lm(pair):
     with pytest.raises(ValueError, match="attention impl"):
         build_model(cfg, attn_impl="dense").encode(
             pair[4], np.zeros((1, 3, cfg.d_model), np.float32))
-    with pytest.raises(TypeError):
-        build_model(cfg, rwkv_mode="direct")
+    # the JAX EncDecLM takes and ignores the decoder-only options
+    assert isinstance(build_model(cfg, rwkv_mode="direct", causal_skip=True,
+                                  moe_dispatch="sort"), EncDecLM)
     from repro_torch.models.transformer import TransformerLM
     with pytest.raises(NotImplementedError, match="build_model"):
         TransformerLM(cfg)

@@ -27,6 +27,7 @@ from repro_torch.models import attention as t_attn
 from repro_torch.models import params_from_jax
 from torch_kernel_inputs import (FLASH, _attention_inputs,
                                  assert_flash_long_close)
+from torch_jax_state import no_jax_constrainer  # noqa: F401
 
 F32 = FLASH[torch.float32]
 

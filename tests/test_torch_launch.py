@@ -44,6 +44,7 @@ from repro_torch.models import build_model, input_axes, input_specs
 from repro_torch.models import common, params_from_jax
 from repro_torch.optimizer import adamw
 from repro_torch.sharding import rules
+from torch_jax_state import no_jax_constrainer  # noqa: F401
 
 MESHES = {"1x1": {"data": 1, "model": 1},
           "16x16": {"data": 16, "model": 16},
@@ -225,7 +226,8 @@ def test_meshes():
 
 def test_plans_on_a_production_mesh_resolve_and_refuse_to_run():
     """A plan over the production mesh gives its specs (JAX's rules at
-    FULL shapes) and meta arguments; its step raises."""
+    FULL shapes) and meta arguments; its step traces those meta
+    arguments (the dry run's use) and raises on real tensors."""
     cfg = get_arch("llama3-8b")
     pm = t_mesh.make_production_mesh()
     for shape in ALL_SHAPES:
@@ -247,7 +249,12 @@ def test_plans_on_a_production_mesh_resolve_and_refuse_to_run():
     assert opt_sds.mu["embed"]["table"].dtype == torch.float32
     assert sum(t.numel() for _, t in _leaves(params_sds)) == 8030261248
     with pytest.raises(NotImplementedError, match="more than one"):
-        train.step_fn((params_sds, opt_sds), {})
+        train.step_fn(({"embed": {"table": torch.zeros(1)}}, opt_sds), {})
+    prefill = steps.make_plan(cfg, ALL_SHAPES[1], pm, last_logit=True)
+    last, _ = prefill.step_fn(*prefill.arg_sds)
+    assert last.device.type == "meta"
+    assert tuple(last.shape) == (ALL_SHAPES[1].global_batch,
+                                 cfg.padded_vocab_size)
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b", "whisper-base",

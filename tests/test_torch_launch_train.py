@@ -33,6 +33,7 @@ from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch import steps
 from repro_torch.models import build_model, common, params_from_jax
 from repro_torch.optimizer import adamw
+from torch_jax_state import no_jax_constrainer  # noqa: F401
 
 
 def _carry(tree):
@@ -135,7 +136,8 @@ def _t_result(arch, k):
     plan.ruleset.sharding = lambda a, s=None: (seen.append(a),
                                                inner(a, s))[1]
     params = _carry(jp)
-    (new, state), metrics = plan.step_fn((params, adamw.init(params)),
+    (new, state), metrics = plan.step_fn(
+        (params, adamw.init(OptimizerConfig(**_opt()), params)),
                                          batch)
     return plan, new, state, metrics, seen
 
@@ -236,13 +238,13 @@ def test_train_plan_splits_rows_in_jax_order():
         return inner(self, p, b)
     type(model).loss_fn = recording
     try:
-        plan.step_fn((params, adamw.init(params)), batch)
+        plan.step_fn((params, adamw.init(OptimizerConfig(), params)), batch)
     finally:
         type(model).loss_fn = inner
     assert [t.tolist() for t in seen] == \
         [batch["tokens"][2 * i:2 * i + 2].tolist() for i in range(3)]
     bad = steps.make_train_plan(cfg, shape, mesh, microbatches=4)
     with pytest.raises(ValueError, match="microbatches"):
-        bad.step_fn((params, adamw.init(params)), batch)
+        bad.step_fn((params, adamw.init(OptimizerConfig(), params)), batch)
     assert "(microbatches=1)" in steps.make_train_plan(
         cfg, shape, mesh).description

@@ -43,6 +43,7 @@ from repro_torch.models import build_model
 from repro_torch.models import common as t_common
 from repro_torch.models import params_from_jax
 from repro_torch.runtime.serve_loop import EmbeddingService
+from torch_jax_state import no_jax_constrainer  # noqa: F401
 
 N_DOCS, DOC_LEN, BATCH = 96, 12, 8
 # tests/test_ingest.py's service config

@@ -184,7 +184,7 @@ def test_adamw_step_matches_jax(clip):
     grads = jax.tree.map(
         lambda p: rng.normal(size=p.shape).astype(np.float32), params)
     st_j = jadamw.init(JOptCfg(**cfg), params)
-    st_t = tadamw.init(tenc.params_from_jax(params))
+    st_t = tadamw.init(OptimizerConfig(**cfg), tenc.params_from_jax(params))
     p_t, g_t = tenc.params_from_jax(params), tenc.params_from_jax(grads)
     p_j = params
     for _ in range(2):
@@ -207,11 +207,11 @@ def test_adamw_lanes_clip_each_lane_alone():
     g = {"w": _t(rng.normal(size=(3, 4, 5)) * np.array([1, 10, 100])[:, None,
                                                                       None]),
          "b": _t(rng.normal(size=(3, 5)))}
-    stacked, _ = tadamw.update(cfg, p, g, tadamw.init(p), lanes=True)
+    stacked, _ = tadamw.update(cfg, p, g, tadamw.init(cfg, p), lanes=True)
     for i in range(3):
         pi = {k: v[i] for k, v in p.items()}
         gi = {k: v[i] for k, v in g.items()}
-        one, _ = tadamw.update(cfg, pi, gi, tadamw.init(pi))
+        one, _ = tadamw.update(cfg, pi, gi, tadamw.init(cfg, pi))
         for k in p:
             np.testing.assert_allclose(stacked[k][i].numpy(),
                                        one[k].numpy(), **TOL)

@@ -50,6 +50,7 @@ from repro_torch.optimizer import adamw as t_adamw
 from repro_torch.optimizer import compression as t_comp
 from repro_torch.runtime import fault as t_fault
 from repro_torch.runtime.train_loop import Trainer
+from torch_jax_state import no_jax_constrainer  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-5
@@ -134,7 +135,7 @@ def test_apply_updates_matches_jax_over_three_steps(clip):
               "b": {"s": rng.normal(size=(4,)).astype(np.float32)}}
     jp, tp = jax.tree.map(jnp.asarray, params), tree_map(torch.tensor,
                                                          params)
-    js, ts = j_adamw.init(jcfg, jp), t_adamw.init(tp)
+    js, ts = j_adamw.init(jcfg, jp), t_adamw.init(tcfg, tp)
     for step in range(3):
         grads = {"w": rng.normal(size=(6, 4)).astype(np.float32) * 3,
                  "b": {"s": rng.normal(size=(4,)).astype(np.float32)}}
@@ -200,7 +201,7 @@ def test_loader_batches_are_the_jax_loaders_bitwise(index, count):
         for key in want:
             assert got[key].dtype == want[key].dtype == np.int32
             np.testing.assert_array_equal(got[key], want[key])
-    on = t_loader.device_batch(tl.batch(0), "cpu")
+    on = t_loader.device_batch(tl.batch(0), device="cpu")
     assert on["tokens"].dtype == torch.int32
     assert np.array_equal(on["labels"].numpy(), tl.batch(0)["labels"])
     for text in ("", "hello world", "x" * 40):
