@@ -158,6 +158,28 @@ Phases, each of which exits non-zero when it fails:
                qsim and mlp and 60 times for the others; each variant's
                unfiltered fraction under the brute-force optimal cascade
                on the true labels at F1 0.9 (the paper's Fig. 9) logged;
+ 12b. mesh  — the data axis on a ("data",) mesh of two entries: two
+               distinct cards when the process has them, else cuda:0
+               twice (the line says which): (a) one scoring pass of
+               query 0's trained proxy over the main corpus on the
+               executor's shard path (use_kernel=False) against the
+               single-device plain pass (rtol = atol = 1e-6; devices,
+               paths, the max abs difference and whether bitwise
+               logged), then use_kernel=True on the same mesh (paths
+               ("fused",), devices 1, a fused launch a tile); (b) one
+               query() of ScaleDocEngine(mesh=, use_kernel=False)
+               against the single-device engine: equal oracle calls,
+               every differing decision's score within 1e-6 of l or r
+               (their count logged); (c), inside phases 13 and 15, the
+               first 256 documents of the offline corpus through
+               build_index on the mesh by EmbeddingService(mesh=) over
+               the llama3-8b and then the rwkv6-7b weights (nothing
+               drawn, the digest already taken): per-row cosine >=
+               COS_MIN against the single-device store's rows (bitwise
+               logged), IngestStats.devices 2, flash (WKV6) launched
+               once a layer a shard a batch; after phase 16 both
+               kernels' times at a shard's batch of 4 (the
+               flash_attention_mesh and wkv6_intra_chunk_mesh entries);
  13. offline — the offline path: ScaleDocEngine.from_corpus with an
                EmbeddingService over llama3-8b at full width (32 layers,
                bf16, weights drawn on the card from a seed) into a store of
@@ -614,6 +636,11 @@ LIVE_CALIB = 65_536
 LIVE_GROUPS = (1, 3, 37, 8191, 8193)
 LIVE_TAIL_GROUP = 16_384
 LIVE_DIR = ROOT / "build" / "chip_smoke_stores" / "live"
+# the [mesh] phase: a 2-entry ("data",) mesh (two cards, or cuda:0 twice)
+MESH_ENTRIES = 2
+MESH_DOCS = 256            # the sharded ingest's share of the offline corpus
+# a sharded pass against the single-device one: the JAX tests' bar
+MESH_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
 def fail(msg: str) -> None:
@@ -645,8 +672,11 @@ _gb, _gs, _gh, _gkv, _ghd = GEMMA_FLASH_SHAPE
 # name, (b, sq, skv, h, kv, hd), causal, window, q_offset
 _mb, _ms, _mh, _mkv, _mhd = MOE_FLASH_SHAPE
 _zb, _zs, _zh, _zkv, _zhd = ZAMBA_FLASH_SHAPE
+# the sharded ingest's shape: a shard's rows of one batch
+MESH_SHARD_B = OFF_BATCH // MESH_ENTRIES
 FLASH_CASES = [
     ("path shape causal", (_b, _s, _s, _h, _kv, _hd), True, 0, 0),
+    ("mesh shard causal", (MESH_SHARD_B, _s, _s, _h, _kv, _hd), True, 0, 0),
     ("qwen3 path shape causal GQA 8:1", (_mb, _ms, _ms, _mh, _mkv, _mhd),
      True, 0, 0),
     ("zamba2 path shape causal hd80", (_zb, _zs, _zs, _zh, _zkv, _zhd),
@@ -763,6 +793,7 @@ def wkv6_checks(dev, rng) -> dict:
     from repro_torch.kernels.wkv6 import ref as w_ref
     cases = [  # name, (b, nc, Q, H, K), lw = -200
         ("path shape", WKV6_SHAPE, False),
+        ("mesh shard", (MESH_SHARD_B,) + WKV6_SHAPE[1:], False),
         ("ragged chunk Q=100", (2, 2, 100, 4, 64), False),
         ("K=16", (2, 4, 64, 8, 16), False),
         ("Q=1", (1, 37, 1, 4, 64), False),
@@ -1176,6 +1207,221 @@ def offline_phase(dev, arch: str, kernel: str, plain_opts: dict,
                       "oracle_calls": qs.oracle_calls_total,
                       "wall_seconds": q_wall, "launches": q_counts},
             "embed_batch_ms": batch_ms}, service, batch
+
+
+def scoring_mesh(dev) -> tuple:
+    """The [mesh] phase's ("data",) mesh of MESH_ENTRIES entries: that
+    many distinct cards when the process has them, else ``dev`` repeated
+    (its row shards share the card); and which of the two it is."""
+    import torch
+    from collections import OrderedDict
+    from repro_torch.launch.mesh import Mesh, make_scoring_mesh
+    if torch.cuda.device_count() >= MESH_ENTRIES:
+        mesh = make_scoring_mesh(MESH_ENTRIES)
+        return mesh, "distinct cards " + ", ".join(map(str, mesh.devices))
+    return (Mesh(OrderedDict(data=MESH_ENTRIES), (dev,) * MESH_ENTRIES),
+            f"{dev} x{MESH_ENTRIES} (one card: the shards share it)")
+
+
+def mesh_phase(dev, embeds, query, params) -> dict:
+    """[mesh] (a) and (b) over the main path's corpus on the 2-entry
+    mesh: (a) one scoring pass of ``params`` (a trained leaf's proxy) on
+    the shard path (use_kernel=False) against the single-device plain
+    pass (MESH_TOL), then use_kernel=True on the same mesh (the fused
+    kernel on one device, as the JAX executor routes it); (b) one
+    query() of ScaleDocEngine(mesh=, use_kernel=False) against the
+    single-device engine: equal oracle calls, and every decision that
+    differs from a score within 1e-6 of l or r."""
+    import numpy as np
+    import torch
+    from repro_torch.config import CascadeConfig, ProxyConfig
+    from repro_torch.core.oracle import SimulatedOracle
+    from repro_torch.engine import (InMemoryStore, ScaleDocEngine,
+                                    ScoringExecutor)
+    t_phase = time.perf_counter()
+    mesh, kind = scoring_mesh(dev)
+    store = InMemoryStore(embeds)
+    n = len(store)
+    runs = {}
+    # the shard path twice: its first pass is a second card's first use
+    # (context, cuBLAS handle), the second the steady state
+    for name, kw in (("single", dict(use_kernel=False)),
+                     ("shard_first", dict(use_kernel=False, mesh=mesh)),
+                     ("shard", dict(use_kernel=False, mesh=mesh)),
+                     ("fused", dict(use_kernel=True, mesh=mesh))):
+        ex = ScoringExecutor(device=dev, **kw)
+        kernels = zero_counts()
+        torch.cuda.synchronize()
+        scores, stats = ex.score(params, query.embed, store)
+        runs[name] = (scores, stats, read_counts(kernels))
+    (single, st1, _), (shard, sts, c_shard), (fused, stf, c_fused) = (
+        runs["single"], runs["shard"], runs["fused"])
+    first, st_first, c_first = runs["shard_first"]
+    diff = float(np.abs(shard - single).max())
+    bitwise = bool(np.array_equal(shard, single))
+    f_diff = float(np.abs(fused - single).max())
+    log(f"[mesh] (a) scoring pass over {n} documents on {kind}: shard path "
+        f"devices {sts.devices}, paths {sts.paths}, {sts.tiles_scored} "
+        f"tiles, wall {sts.wall_seconds:.4f} s (the first pass "
+        f"{st_first.wall_seconds:.4f} s; single device "
+        f"{st1.wall_seconds:.4f} s); max abs diff against the single-device "
+        f"plain pass {diff:.3e} (rtol = atol = 1e-6), bitwise {bitwise}; "
+        f"use_kernel=True on the mesh: devices {stf.devices}, paths "
+        f"{stf.paths}, fused launches {c_fused['fused_scoring']}, max abs "
+        f"diff {f_diff:.3e} (tol {F32_TOL:g}), wall {stf.wall_seconds:.4f} s")
+    for st, got, counts in ((sts, shard, c_shard),
+                            (st_first, first, c_first)):
+        if st.devices != MESH_ENTRIES or st.paths != ("shard",) or \
+                sum(counts.values()):
+            fail(f"the shard path reported devices {st.devices}, paths "
+                 f"{st.paths}, launches {counts}")
+        if not np.allclose(got, single, **MESH_TOL):
+            fail(f"the shard path's scores differ from the single-device "
+                 f"pass by {float(np.abs(got - single).max())}")
+    if stf.devices != 1 or stf.paths != ("fused",) or \
+            c_fused["fused_scoring"] != stf.tiles_scored or \
+            not f_diff <= F32_TOL:
+        fail(f"use_kernel=True on the mesh: devices {stf.devices}, paths "
+             f"{stf.paths}, launches {c_fused}, diff {f_diff}")
+
+    # (b) one query() on the mesh engine against the single-device one
+    q = query
+    out = {}
+    for name, m in (("single", None), ("mesh", mesh)):
+        eng = ScaleDocEngine(store, ProxyConfig(),
+                             CascadeConfig(accuracy_target=0.9), mesh=m,
+                             use_kernel=False, device=dev)
+        oracle = SimulatedOracle(q.truth)
+        tq = time.perf_counter()
+        st = eng.query(q.embed, oracle, ground_truth=q.truth, seed=0)
+        out[name] = (st, oracle.calls, time.perf_counter() - tq)
+    (one, one_calls, one_s), (sh, sh_calls, sh_s) = out["single"], \
+        out["mesh"]
+    differ = np.nonzero(sh.cascade.labels != one.cascade.labels)[0]
+    near = np.minimum(np.abs(one.scores[differ] - one.cascade.l),
+                      np.abs(one.scores[differ] - one.cascade.r))
+    q_diff = float(np.abs(sh.scores - one.scores).max())
+    log(f"[mesh] (b) query() (sel {q.selectivity:.2f}) on the mesh engine "
+        f"(use_kernel=False): F1 {sh.cascade.achieved_f1:.4f} against "
+        f"{one.cascade.achieved_f1:.4f} single-device; oracle calls "
+        f"{sh.oracle_calls_total} against {one.oracle_calls_total} (oracle "
+        f"{sh_calls} against {one_calls}); {len(differ)} decisions differ "
+        f"(all within 1e-6 of l or r: {bool((near <= 1e-6).all())}); "
+        f"scores max abs diff {q_diff:.3e}; l {sh.cascade.l:.6f} r "
+        f"{sh.cascade.r:.6f}; {sh_s:.2f} s against {one_s:.2f} s")
+    if not (near <= 1e-6).all() or sh_calls != one_calls or \
+            sh.oracle_calls_total != one.oracle_calls_total:
+        fail("the mesh engine's query() differs from the single-device one")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[mesh] (a) and (b) took {phase_s:.1f} s")
+    return {"mesh": kind, "n_docs": n,
+            "scoring": {"devices": sts.devices, "paths": list(sts.paths),
+                        "max_abs_diff": diff, "bitwise": bitwise,
+                        "shard_wall_seconds": sts.wall_seconds,
+                        "shard_first_wall_seconds": st_first.wall_seconds,
+                        "single_wall_seconds": st1.wall_seconds,
+                        "fused_devices": stf.devices,
+                        "fused_paths": list(stf.paths),
+                        "fused_launches": c_fused["fused_scoring"],
+                        "fused_max_abs_diff": f_diff,
+                        "fused_wall_seconds": stf.wall_seconds},
+            "query": {"decisions_differ": int(len(differ)),
+                      "oracle_calls": sh.oracle_calls_total,
+                      "single_oracle_calls": one.oracle_calls_total,
+                      "scores_max_abs_diff": q_diff,
+                      "f1": sh.cascade.achieved_f1,
+                      "wall_seconds": sh_s, "single_wall_seconds": one_s},
+            "phase_seconds": phase_s}
+
+
+def mesh_ingest(dev, service, engine, docs) -> dict:
+    """[mesh] (c): the first MESH_DOCS documents of the offline corpus
+    through build_index on the 2-entry mesh, by a service over the same
+    weights (``EmbeddingService(mesh=)``; nothing drawn, and its digest
+    the one the offline service already computed), against the rows the
+    single-device from_corpus stored for them: per-row cosine >= COS_MIN,
+    whether bitwise, and the path's kernel launched once a layer a
+    shard a batch."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.config import BLOCK_RWKV6
+    from repro_torch.engine import build_index
+    from repro_torch.models.transformer import kernel_layers
+    from repro_torch.runtime.serve_loop import EmbeddingService
+    from repro_torch.sharding.rules import shard_rows
+    mesh, kind = scoring_mesh(dev)
+    cfg = service.cfg
+    kernel = ("wkv6" if BLOCK_RWKV6 in cfg.layer_kinds()
+              else "flash_attention")
+    t0 = time.perf_counter()
+    svc = EmbeddingService(cfg, service.params, service.batch_size,
+                           mesh=mesh, device=dev)
+    # the weights' digest was taken once, by the offline service
+    svc._digest = service.params_digest()
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    work = ROOT / "build" / "chip_smoke_stores" / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        kernels = zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = build_index(svc, docs[:MESH_DOCS], work, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(kernels)
+        rows = np.arange(MESH_DOCS)
+        got = res.store.get(rows)
+        want = engine.store.get(rows)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # one launch a layer for each entry's shard, a repeated card's too
+    expect = kernel_layers(cfg) * res.stats.batches * MESH_ENTRIES
+    # one shard's forward: the host's time to issue it (no sync) against
+    # the card's time to run it, which bounds what one controller thread
+    # can keep busy
+    shard = torch.as_tensor(shard_rows(mesh, np.stack(
+        docs[:service.batch_size]).astype(np.int32))[0],
+        device=mesh.devices[0])
+    svc.embed_batch([shard])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.embed_batch([shard])
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    shard_ms = cuda_ms(lambda: svc.embed_batch([shard]), 3, warmup=1)
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)
+                                 * np.linalg.norm(want, axis=1))
+    bitwise = bool(np.array_equal(got, want))
+    err = float(np.abs(got - want).max())
+    log(f"[mesh] (c) {cfg.name}: {MESH_DOCS} docs through build_index on "
+        f"{kind} in {wall:.2f} s ({res.stats.batches} batches of "
+        f"{service.batch_size}, {service.batch_size // MESH_ENTRIES} rows a "
+        f"shard; {MESH_DOCS / wall:.1f} docs/s; params placed in "
+        f"{place_s:.2f} s), IngestStats.devices {res.stats.devices}; "
+        f"launches {json.dumps(counts)} ({kernel}: {expect} expected); "
+        f"min per-row cosine against the single-device rows "
+        f"{cos.min():.7f} (>= {COS_MIN}), max abs err {err:.3e}, bitwise "
+        f"{bitwise}; one shard's forward: issued in {issue_ms:.2f} ms of "
+        f"host time, {shard_ms:.2f} ms on the card (CUDA events)")
+    if got.shape != want.shape or not np.isfinite(got).all() or \
+            res.stats.devices != MESH_ENTRIES:
+        fail(f"the sharded ingest of {cfg.name} gave {got.shape} rows on "
+             f"{res.stats.devices} devices")
+    if counts[kernel] != expect or counts[kernel] <= 0:
+        fail(f"{kernel} launched {counts[kernel]} times on the mesh; "
+             f"expected {expect}")
+    if not cos.min() >= COS_MIN:
+        fail(f"the sharded ingest of {cfg.name} disagrees with the "
+             f"single-device rows: cosine {cos.min()}")
+    return {"mesh": kind, "docs": MESH_DOCS, "batches": res.stats.batches,
+            "wall_seconds": wall, "place_seconds": place_s,
+            "kernel": kernel, "launches": counts[kernel],
+            "launch_counts": counts, "min_cosine": float(cos.min()),
+            "max_abs_err": err, "bitwise": bitwise,
+            "shard_issue_ms": issue_ms, "shard_ms": shard_ms}
 
 
 class AttentionCalls:
@@ -1744,9 +1990,10 @@ def flash_times(dev, shape=FLASH_SHAPE, window: int = 0, *,
             "fp32_fma_bound_ms": flops / PEAK_FP32_FLOPS * 1e3}
 
 
-def wkv6_times(dev) -> dict:
-    """The WKV6 kernel, its plain version and the whole ops.wkv6 at the
-    rwkv6-7b path's shape, and the kernel's bound: the largest of the
+def wkv6_times(dev, shape=WKV6_SHAPE) -> dict:
+    """The WKV6 kernel, its plain version and the whole ops.wkv6 at
+    ``shape`` (b, chunks, Q, heads, head_dim; the rwkv6-7b path's by
+    default), and the kernel's bound: the largest of the
     function's exponentials over the MUFU rate and its FP32 operations
     over the FP32 peak, both as the sub-chunk form needs them, and its
     bytes over the memory rate."""
@@ -1754,7 +2001,7 @@ def wkv6_times(dev) -> dict:
     import torch
     from repro_torch.kernels.wkv6 import ops as w_ops
     from repro_torch.kernels.wkv6 import ref as w_ref
-    b, nc, q, h, k = WKV6_SHAPE
+    b, nc, q, h, k = shape
     args = [torch.tensor(x, device=dev) for x in
             wkv6_inputs(np.random.default_rng(1), b, nc, q, h, k)]
     ms = cuda_ms(lambda: w_ops.wkv6_intra_chunk(*args), 20)
@@ -5092,12 +5339,16 @@ def main() -> None:
     report["ablation"] = ablation_phase(dev, corpus.embeds, queries[0],
                                         n_tiles)
 
+    # -- 12b. the data axis: the scoring pass and query() on a mesh ------
+    report["mesh"] = mesh_phase(dev, corpus.embeds, queries[0], leaf_params)
+
     # -- 13. offline path: from_corpus over llama3-8b ---------------------
     del engine, store, corpus, docs
     torch.cuda.empty_cache()
     offline, service, _ = offline_phase(dev, OFF_ARCH, "flash_attention",
                                         dict(attn_impl="einsum"), "offline",
-                                        COS_MIN, after=(judge, decode))
+                                        COS_MIN,
+                                        after=(judge, decode, mesh_ingest))
     del service
     report["offline"] = offline
 
@@ -5141,7 +5392,8 @@ def main() -> None:
         fail(f"{held:.2f} GB still allocated after the llama3-8b phase")
     rwkv, service, batch = offline_phase(dev, RWKV_ARCH, "wkv6",
                                          dict(rwkv_mode="direct"), "rwkv",
-                                         RWKV_COS_MIN, after=(decode,))
+                                         RWKV_COS_MIN,
+                                         after=(decode, mesh_ingest))
     tokens = torch.as_tensor(batch, device=dev)
     rc = rwkv_checks(service.cfg, service.params, tokens,
                      service.embed_batch(tokens))
@@ -5201,6 +5453,46 @@ def main() -> None:
         f"kernel {100 * wt['share_of_embed_batch']:.1f}% and ops.wkv6 "
         f"{100 * wt['wkv6_op_share_of_embed_batch']:.1f}%")
     report["times"]["wkv6"] = wt
+
+    # -- 16b. [mesh]: the sharded ingests' kernels at a shard's shape -----
+    report["mesh"]["ingest"] = {"llama3-8b": offline["mesh_ingest"],
+                                "rwkv6-7b": rwkv["mesh_ingest"]}
+    mesh_ft = flash_times(dev, (MESH_SHARD_B,) + FLASH_SHAPE[1:])
+    mesh_wt = wkv6_times(dev, (MESH_SHARD_B,) + WKV6_SHAPE[1:])
+    by_name = {k["name"]: k for k in kernels}
+    # each entry's error is its own shape's check only (FLASH_CASES'
+    # "mesh shard causal", wkv6_checks' "mesh shard")
+    for name, base, t, part, errs in (
+            ("flash_attention_mesh", by_name["flash_attention"], mesh_ft,
+             offline["mesh_ingest"],
+             [e for k, e in f_errs.items() if "mesh shard" in k]),
+            ("wkv6_intra_chunk_mesh", by_name["wkv6_intra_chunk"], mesh_wt,
+             rwkv["mesh_ingest"],
+             [e for k, e in w_errs.items() if "mesh shard" in k])):
+        if not errs:
+            fail(f"{name}: no check at a shard's shape")
+        kernels.append(
+            {"name": name, "route": "cuda", "source": base["source"],
+             "replaces": base["replaces"], "launches": part["launches"],
+             "max_abs_err": max(errs), "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t.get("library_ms")})
+        log(f"[times] {name} at a shard's batch of {MESH_SHARD_B}: {t['ms']:.4f} "
+            f"ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}), library {t.get('library_ms')}; "
+            f"{part['launches']} launches on the mesh")
+    report["times"]["mesh"] = {"flash": mesh_ft, "wkv6": mesh_wt}
+    mesh_s = report["mesh"]["phase_seconds"] + sum(
+        part["wall_seconds"] + part["place_seconds"]
+        for part in report["mesh"]["ingest"].values())
+    mr = report["mesh"]
+    log(f"[mesh] {mr['mesh']}: (a) {mr['scoring']['max_abs_diff']:.3e} max "
+        f"abs diff, (b) {mr['query']['decisions_differ']} decisions "
+        f"differ, (c) min cosine " + ", ".join(
+            f"{a} {part['min_cosine']:.7f} (bitwise {part['bitwise']})"
+            for a, part in mr["ingest"].items())
+        + f"; {mesh_s:.1f} s in all")
+    mr["seconds"] = mesh_s
 
     # -- 17. gemma3-12b: the offline path and decode past the window ------
     gc.collect()

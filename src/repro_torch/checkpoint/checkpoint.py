@@ -216,8 +216,8 @@ def restore(directory: str, step: int, target_tree: Any,
     a tensor of its dtype on its device, any other leaf as a numpy array
     of its dtype. ``shardings`` (the JAX package's placement onto the
     current mesh) may name one device only: the target's leaves say
-    where; more raises ``NotImplementedError`` until the multi-card
-    port."""
+    where; more raises ``NotImplementedError`` until the model-axis
+    slice."""
     check_one_device("restore", shardings=shardings)
     path = Path(directory) / f"step_{step:09d}"
     manifest = json.loads((path / "manifest.json").read_text())

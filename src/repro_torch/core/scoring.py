@@ -38,6 +38,14 @@ def _tensor(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
 
 
+# The chunk programs (``_proxy_chunk_scores_impl`` and
+# ``_raw_chunk_scores_impl`` in the JAX package; its
+# ``_single_chunk_scores_impl`` is the proxy program at Q = 1, as
+# ``score_collection`` below runs it): plain arithmetic on tensors of one
+# device, wherever they lie. The executor's shard path runs them on each
+# row shard, on that shard's device, as the JAX package's ``shard_map``
+# body does.
+
 def _proxy_chunk_scores(params, block, zq_t):
     """block: (B, D); zq_t: (latent, Q) of unit query latents."""
     z = l2_normalize(encoder_apply(params, block))

@@ -126,6 +126,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int BQ = 64;          // query rows per block
@@ -319,14 +321,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// cudaFuncSetAttribute once per kernel and process: the dynamic shared
-// memory a block asks for beyond the default 48 KB
+// The devices on which a kernel's dynamic shared memory limit is set, a
+// bit each (devices 0-63; a device past them sets it at every launch).
+struct DeviceFlags {
+  std::atomic<unsigned long long> bits{0};
+};
+
+// cudaFuncSetAttribute once per kernel and device: the dynamic shared
+// memory a block asks for beyond the default 48 KB. The attribute is
+// per device, so a launch on a device not yet configured sets it there;
+// the current device is the launch's (the wrapper makes the tensors'
+// device current).
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+cudaError_t allow_smem(Kernel kernel, int bytes, DeviceFlags& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (configured.bits.load(std::memory_order_acquire) & bit)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) configured = true;
+  if (err == cudaSuccess)
+    configured.bits.fetch_or(bit, std::memory_order_release);
   return err;
 }
 
@@ -336,7 +353,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
            int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
-  static bool configured = false, configured_lse = false;
+  static DeviceFlags configured, configured_lse;
   const dim3 grid((sq + BQ - 1) / BQ, b * h);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -708,7 +725,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int causal, int window, int q_offset, float scale,
                 cudaStream_t stream) {
   constexpr int bytes = bf16_smem_bytes<HD>();
-  static bool configured = false, configured_lse = false;
+  static DeviceFlags configured, configured_lse;
   const dim3 grid(b * h, (sq + BQ - 1) / BQ);
   const bf16* qt = static_cast<const bf16*>(q);
   const bf16* kt = static_cast<const bf16*>(k);

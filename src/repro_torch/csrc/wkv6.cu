@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int LANES = 4;                  // threads per row
@@ -204,13 +206,21 @@ int launch(const float* r, const float* k, const float* v, const float* cum,
            const float* lw, const float* u, float* y, float* s_inj,
            float* a_end, float* r_dec, int blocks, int Q, int H, int K,
            cudaStream_t stream) {
-  static bool configured = false;   // once per instantiation and process
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // the shared memory limit once per instantiation and device, a bit a
+  // device (0-63; past them at every launch): the attribute is per
+  // device, and the current device is the launch's (the wrapper makes
+  // the tensors' device current)
+  static std::atomic<unsigned long long> configured{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(configured.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(
         wkv6_intra_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes<KP>(MAX_Q));
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured.fetch_or(bit, std::memory_order_release);
   }
   const int rows = (Q + ROWS_PER_WARP - 1) / ROWS_PER_WARP * ROWS_PER_WARP;
   wkv6_intra_kernel<KP><<<blocks, rows * LANES, smem_bytes<KP>(Q), stream>>>(

@@ -92,7 +92,7 @@ def device_batch(batch: Dict[str, np.ndarray], shardings=None, *,
     """A host batch -> tensors on ``device`` (int32 stays int32).
     ``shardings`` (the JAX package's second argument: a NamedSharding a
     key) may place over one device only, which ``device`` names; more
-    raises ``NotImplementedError`` until the multi-card port."""
+    raises ``NotImplementedError`` until the model-axis slice."""
     check_one_device("device_batch", shardings=shardings)
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)

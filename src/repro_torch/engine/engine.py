@@ -215,9 +215,13 @@ class ScaleDocEngine:
     (``"cuda"`` by default; it raises when no card is present).
     ``use_kernel`` picks the fused scoring kernel (True, the port's
     default) or its plain version on the device (False, the JAX
-    package's default, whose kernel runs only on a TPU); ``mesh`` may be
-    None or a mesh of one device, and more raises
-    ``NotImplementedError`` (``ScoringExecutor``)."""
+    package's default, whose kernel runs only on a TPU); ``mesh`` (a
+    ``launch.mesh.Mesh`` over the ("pod", "data") axes) row-shards the
+    scoring passes over its devices, as the JAX package's does: every
+    pass of every path (single, compound, top-k, live, sessions) goes
+    through the one ``ScoringExecutor``, which picks its shard path as
+    the JAX executor picks it (``use_kernel`` wins for a proxy's
+    passes)."""
 
     def __init__(self, store, proxy_cfg: Optional[ProxyConfig] = None,
                  cascade_cfg: Optional[CascadeConfig] = None, *,
@@ -295,7 +299,9 @@ class ScaleDocEngine:
         from the last durable row afterwards; a completed store skips
         embedding entirely). ``ingest_kwargs`` reach the ``Ingestor``
         (``commit_every_batches``, ``prefetch_depth``, ...);
-        ``ingest_mesh`` must be None (multi-card ingest is not ported).
+        ``ingest_mesh`` data-parallel-shards the embedding batches over
+        its devices (``Ingestor(mesh=)``; the service's batch size must
+        divide over it).
         The engine runs on ``device`` over the ``MemmapStore`` and keeps
         the offline accounting as ``engine.ingest_result``.
         """

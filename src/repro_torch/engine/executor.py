@@ -28,9 +28,26 @@ version. ``use_kernel=False`` scores proxy groups with the plain
 version on the device instead (path "plain"); the JAX package defaults
 to False because its Pallas kernel runs only on a TPU, the port to True.
 ``interpret=True`` (Pallas interpret mode) has no counterpart and
-raises. One device only: a ``mesh`` of one device is accepted, and the
-``shard_map`` path for more (``_sharded_fn``) waits for the multi-card
-slice (``NotImplementedError``).
+raises.
+
+A ``mesh`` of more than one device over the ``("pod", "data")`` axes
+(``launch.mesh``) takes the shard path, as the JAX package's
+``shard_map`` does: each tile is padded to divide the mesh, cut into the
+row shards of the logical ``"batch"`` rule (``sharding.rules
+.shard_rows``) and each shard copied to its device through that
+device's own ``HostStager``; every shard runs the plain chunk programs
+(``core.scoring``: ``_proxy_chunk_scores``, also for one query, as
+``score_collection`` runs it, and ``_raw_chunk_scores``) on its
+device's current stream, under that device, with the proxy params and
+query latents copied to each distinct device once a pass; the scores
+come back to the host in row order, the padding dropped. No
+collective: the shards are independent. A device the mesh repeats
+shares its stager, stream and params copy. The path is chosen as in
+the JAX package: ``score`` shards whenever the mesh has more than one
+device, unless ``use_kernel`` and a proxy (then the fused kernel runs
+on ``device`` alone); ``score_multi`` shards only with ``use_kernel``
+off. A mesh of one device is the single-device path. Both paths share
+one pass loop (``_pass``) and differ in their put and tile program.
 
 Every pass returns a ``ScoringStats`` record with the JAX package's
 fields (bytes streamed, tiles scored, per-stage wall clock).
@@ -46,11 +63,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.scoring import _iter_chunks, _num_docs, group_jobs
-from repro_torch.device import check_one_device, resolve_device
+from repro_torch.core.scoring import (_iter_chunks, _num_docs,
+                                      _proxy_chunk_scores, _raw_chunk_scores,
+                                      group_jobs)
+from repro_torch.device import data_mesh_devices, on_device, resolve_device
 from repro_torch.kernels import INTERPRET
 from repro_torch.kernels.fused_scoring.ops import score_tile_multi
+from repro_torch.models.common import tree_map
 from repro_torch.runtime import trace as trace_mod
+from repro_torch.sharding.rules import row_shard_ids, shard_rows
 
 DEFAULT_PREFETCH_DEPTH = 2   # chunks the prefetch thread may run ahead
 STAGING_SLOTS = 2
@@ -68,7 +89,7 @@ class ScoringStats:
     stall_seconds: float = 0.0      # consumer: waiting on an empty queue
     wall_seconds: float = 0.0
     devices: int = 1
-    paths: Tuple[str, ...] = ()     # compute paths ("fused"|"plain"|"matmul")
+    paths: Tuple[str, ...] = ()     # "fused"|"plain"|"matmul"|"shard"
 
     def merge(self, other: "ScoringStats") -> "ScoringStats":
         """Accumulate another pass into this record (in place)."""
@@ -173,10 +194,10 @@ class _Prefetcher(PrefetchThread):
             if self._stop.is_set():
                 return
             t0 = time.perf_counter()
-            dev, event = put_fn(block)
+            staged = put_fn(block)
             self.io_seconds += time.perf_counter() - t0
             nbytes = block.shape[0] * block.shape[1] * 4
-            if not self._put((start, block.shape[0], nbytes, dev, event)):
+            if not self._put((start, block.shape[0], nbytes, staged)):
                 return
 
 
@@ -224,7 +245,7 @@ class HostStager:
         slot, buf = self._acquire(rows * cols)
         host = buf[:rows * cols].view(rows, cols)
         np.copyto(host.numpy(), block, casting="same_kind")
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             dev = torch.empty((rows, cols), dtype=self.dtype,
                               device=self.device)
             dev.copy_(host, non_blocking=True)
@@ -241,6 +262,21 @@ class HostStager:
             tensor.record_stream(compute)
 
 
+def stage_row_shards(mesh, devices, stagers: Dict[torch.device, HostStager],
+                     block: np.ndarray) -> list:
+    """A host block whose rows divide ``mesh`` -> ``[(device, shard,
+    event)]`` in row order: the row shards of the logical "batch" rule's
+    spec (``sharding.rules.row_shard_ids``), each distinct one staged
+    once, through the stager of the first of ``devices`` (the mesh's, in
+    its order) that holds it."""
+    ids, _ = row_shard_ids(mesh, block.shape)
+    staged = {}
+    for dev, idx, part in zip(devices, ids, shard_rows(mesh, block)):
+        if idx not in staged:
+            staged[idx] = (dev,) + stagers[dev](part)
+    return [staged[i] for i in sorted(staged)]
+
+
 class ScoringExecutor:
     """Streams a document collection through proxy scoring.
 
@@ -248,9 +284,11 @@ class ScoringExecutor:
     use_kernel:     proxy groups through the fused kernel (True) or its
                     plain version on the device (False).
     interpret:      refused: Pallas interpret mode has no counterpart.
-    mesh:           None or a mesh of one device.
-    device:         where scoring runs; ``"cuda"`` by default, and it
-                    raises when no card is present.
+    mesh:           None, or a ``launch.mesh.Mesh`` over the ("pod",
+                    "data") axes whose devices are of ``device``'s kind:
+                    tiles are row-sharded over it (the shard path).
+    device:         where scoring runs off the shard path; ``"cuda"`` by
+                    default, and it raises when no card is present.
     prefetch_depth: chunks the background thread may run ahead
                     (2 = double buffering; 0/1 = no lookahead). It
                     changes when tiles are read, never their values.
@@ -261,19 +299,145 @@ class ScoringExecutor:
                  prefetch_depth: int = DEFAULT_PREFETCH_DEPTH):
         if interpret:
             raise ValueError(INTERPRET)
-        check_one_device("ScoringExecutor", mesh)
         self.device = resolve_device(device)
+        # the shard path's devices in mesh order; () off the mesh
+        self._devices = data_mesh_devices("ScoringExecutor", mesh,
+                                          self.device)
         self.use_kernel = use_kernel
         self.mesh = mesh
         self.chunk = chunk
         self.prefetch_depth = prefetch_depth
-        # idle stagers; a pass owns the one it checked out
-        self._stagers: List[HostStager] = []
+        # idle stagers by device; a pass owns the ones it checked out
+        self._stagers: Dict[torch.device, List[HostStager]] = {}
         self._stager_lock = threading.Lock()
+
+    @property
+    def _mesh_size(self) -> int:
+        return len(self._devices) or 1
+
+    # -- stagers ----------------------------------------------------------
+
+    def _checkout(self, devices) -> Dict[torch.device, HostStager]:
+        """One idle stager a distinct device, for one pass."""
+        with self._stager_lock:
+            out = {}
+            for dev in dict.fromkeys(devices):
+                idle = self._stagers.get(dev)
+                out[dev] = idle.pop() if idle else HostStager(dev)
+            return out
+
+    def _checkin(self, stagers: Dict[torch.device, HostStager],
+                 pre: PrefetchThread) -> None:
+        # a producer still running (a consumer that died mid-pass) may
+        # yet write into the stagers: they are dropped, not returned
+        if pre._thread.is_alive():
+            return
+        with self._stager_lock:
+            for dev, stager in stagers.items():
+                self._stagers.setdefault(dev, []).append(stager)
+
+    # -- the shard path ---------------------------------------------------
+
+    def _put(self, stagers: Dict[torch.device, HostStager]):
+        """The prefetcher's put for the shard path: a tile padded to
+        divide the mesh, then ``stage_row_shards``."""
+        mesh, devices = self.mesh, self._devices
+
+        def put(block):
+            pad = (-block.shape[0]) % len(devices)
+            if pad:
+                block = np.pad(block, ((0, pad), (0, 0)))
+            return stage_row_shards(mesh, devices, stagers, block)
+        return put
+
+    def _sharded_fn(self, groups, zq_stacks,
+                    stagers: Dict[torch.device, HostStager]):
+        """The shard path's tile program: each row shard runs the plain
+        chunk programs under its device, with the proxies and query
+        latents copied once a pass to each distinct device; every shard
+        is launched before any is read, and each group's rows come back
+        to the host in order."""
+        placed = {dev: [(None if params is None else
+                         tree_map(lambda t, d=dev: t.to(d), params),
+                         zq.T.to(dev))
+                        for (params, _), zq in zip(groups, zq_stacks)]
+                  for dev in dict.fromkeys(self._devices)}
+
+        def run(shards):
+            parts = []
+            for dev, tile, event in shards:
+                with on_device(dev):
+                    stagers[dev].wait(tile, event)
+                    parts.append([
+                        _raw_chunk_scores(tile, zq_t) if params is None
+                        else _proxy_chunk_scores(params, tile, zq_t)
+                        for params, zq_t in placed[dev]])
+            return [torch.cat([part[g].cpu() for part in parts])
+                    for g in range(len(groups))]
+        return run
+
+    def _device_fn(self, groups, zq_stacks, stager: HostStager):
+        """The single-device tile program: each group through the fused
+        kernel, or its plain version with ``use_kernel`` off."""
+        def run(staged):
+            tile, event = staged
+            stager.wait(tile, event)
+            return [score_tile_multi(params, zq, tile,
+                                     force_ref=not self.use_kernel).cpu()
+                    for (params, _), zq in zip(groups, zq_stacks)]
+        return run
+
+    def _pass(self, jobs, store, sharded: bool
+              ) -> Tuple[np.ndarray, ScoringStats]:
+        """One streaming pass of ``jobs`` over ``store``, on the shard
+        path or on ``device``: the two differ in their put and their
+        tile program only."""
+        n = _num_docs(store)
+        t0 = time.perf_counter()
+        groups, zq_stacks = group_jobs(jobs, self.device)
+        stagers = self._checkout(self._devices if sharded
+                                 else (self.device,))
+        if sharded:
+            put = self._put(stagers)
+            run = self._sharded_fn(groups, zq_stacks, stagers)
+            paths = ("shard",)
+        else:
+            put = stagers[self.device]
+            run = self._device_fn(groups, zq_stacks, put)
+            paths = tuple(sorted({"matmul" if params is None else
+                                  "fused" if self.use_kernel else "plain"
+                                  for params, _ in groups}))
+        pre = _Prefetcher(store, self.chunk, self.prefetch_depth, put)
+        out = np.empty((n, len(jobs)), np.float32)
+        tiles = nbytes = 0
+        compute_s = 0.0
+        try:
+            for start, rows, tile_bytes, staged in pre:
+                tc = time.perf_counter()
+                for (_, cols), s in zip(groups, run(staged)):
+                    out[start:start + rows, np.asarray(cols)] = \
+                        s[:rows].numpy()
+                compute_s += time.perf_counter() - tc
+                tiles += 1
+                nbytes += tile_bytes
+        finally:
+            self._checkin(stagers, pre)
+        stats = ScoringStats(
+            docs_scored=n, queries_scored=len(jobs), tiles_scored=tiles,
+            bytes_streamed=nbytes, host_io_seconds=pre.io_seconds,
+            compute_seconds=compute_s, stall_seconds=pre.stall_seconds,
+            wall_seconds=time.perf_counter() - t0,
+            devices=self._mesh_size if sharded else 1,
+            paths=paths if tiles else ())
+        return out, stats
+
+    # -- public API -------------------------------------------------------
 
     def score(self, params, e_q, store) -> Tuple[np.ndarray, ScoringStats]:
         """One predicate over the collection -> ((N,) scores, stats)."""
-        scores, stats = self.score_multi([(params, e_q)], store)
+        scores, stats = self._pass(
+            [(params, e_q)], store, self._mesh_size > 1 and (
+                params is None or not self.use_kernel))
         # ambient annotation: lands on the enclosing "score" span (the
         # engine opens one per scoring pass); no-op outside a trace
         trace_mod.annotate(tiles=stats.tiles_scored,
@@ -294,40 +458,5 @@ class ScoringExecutor:
         if not jobs:
             return (np.zeros((n, 0), np.float32),
                     ScoringStats(docs_scored=n))
-        t0 = time.perf_counter()
-        groups, zq_stacks = group_jobs(jobs, self.device)
-        with self._stager_lock:
-            stager = (self._stagers.pop() if self._stagers
-                      else HostStager(self.device))
-        pre = _Prefetcher(store, self.chunk, self.prefetch_depth, stager)
-        out = np.empty((n, len(jobs)), np.float32)
-        tiles = nbytes = 0
-        compute_s = 0.0
-        paths = set()
-        try:
-            for start, rows, tile_bytes, tile, event in pre:
-                tc = time.perf_counter()
-                stager.wait(tile, event)
-                for (params, cols), zq in zip(groups, zq_stacks):
-                    s = score_tile_multi(params, zq, tile,
-                                         force_ref=not self.use_kernel)
-                    paths.add("matmul" if params is None else
-                              "fused" if self.use_kernel else "plain")
-                    out[start:start + rows, np.asarray(cols)] = \
-                        s.cpu().numpy()
-                compute_s += time.perf_counter() - tc
-                tiles += 1
-                nbytes += tile_bytes
-        finally:
-            # a producer still running (a consumer that died mid-pass)
-            # may yet write into the stager: it is dropped, not returned
-            if not pre._thread.is_alive():
-                with self._stager_lock:
-                    self._stagers.append(stager)
-        stats = ScoringStats(
-            docs_scored=n, queries_scored=len(jobs), tiles_scored=tiles,
-            bytes_streamed=nbytes, host_io_seconds=pre.io_seconds,
-            compute_seconds=compute_s, stall_seconds=pre.stall_seconds,
-            wall_seconds=time.perf_counter() - t0, devices=1,
-            paths=tuple(sorted(paths)))
-        return out, stats
+        return self._pass(jobs, store,
+                          self._mesh_size > 1 and not self.use_kernel)

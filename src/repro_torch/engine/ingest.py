@@ -17,8 +17,15 @@ restartable batch job writing a manifest-backed store directory
 The loop mirrors the ``ScoringExecutor``: a background feeder pads
 batch *k+1* into a pinned host buffer and copies it to the card on a
 side stream while batch *k* embeds (``HostStager``), so host work hides
-behind compute (``IngestStats.overlap_fraction`` reports how well). One
-card only: a ``mesh`` raises ``NotImplementedError``.
+behind compute (``IngestStats.overlap_fraction`` reports how well).
+With a ``("data",)`` mesh (``repro_torch.launch.mesh.make_scoring_mesh``)
+the feeder cuts each batch into the row shards of the logical "batch"
+rule (``sharding.rules.shard_rows``), as the executor does, and stages
+each on its device through that device's own stager; the service runs
+each shard on its device (``EmbeddingService(mesh=)``). Purely
+data-parallel, no collectives, one controller. ``batch_size`` must
+divide over the mesh, and the fingerprint records the mesh size as
+``data_shards``, so a store is resumed only under a mesh of its size.
 
 Durability & resume
 -------------------
@@ -52,6 +59,7 @@ instead of mixing rows of different arithmetic.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -63,8 +71,10 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
-from repro_torch.engine.executor import HostStager, PrefetchThread
+from repro_torch.engine.executor import (HostStager, PrefetchThread,
+                                         stage_row_shards)
 from repro_torch.config import BLOCK_RWKV6
+from repro_torch.device import data_mesh_devices
 from repro_torch.engine.store import (MANIFEST_NAME, MemmapStore,
                                       StoreFingerprintError, StoreWriter,
                                       load_manifest)
@@ -270,10 +280,9 @@ class _BatchFeeder(PrefetchThread):
             for i, d in enumerate(docs):
                 batch[i, :len(d)] = d
             pad = bs * width - sum(len(d) for d in docs)
-            dev, event = put_fn(batch)
+            staged = put_fn(batch)
             self.io_seconds += time.perf_counter() - t0
-            if not self._put((b_idx, len(docs), pad, bs * width, dev,
-                              event)):
+            if not self._put((b_idx, len(docs), pad, bs * width, staged)):
                 return
 
 
@@ -289,7 +298,8 @@ class Ingestor:
     service:              the ``EmbeddingService`` producing embeddings.
     commit_every_batches: batches per durable commit group. Smaller =
                           finer resume granularity, more fsyncs.
-    mesh:                 must be None: multi-card ingest is not ported.
+    mesh:                 optional ``("data",)`` mesh; batch rows shard
+                          over it (``batch_size`` must divide evenly).
     prefetch_depth:       batches the feeder thread may run ahead
                           (2 = double buffering).
     pad_width_to:         bucket batch pad widths to this multiple, so
@@ -307,21 +317,50 @@ class Ingestor:
                  checkpoint_keep: int = 3):
         if commit_every_batches < 1:
             raise ValueError("commit_every_batches must be >= 1")
-        if mesh is not None:
-            raise NotImplementedError("multi-card ingest (a mesh) is not "
-                                      "ported yet")
+        self._devices = data_mesh_devices("Ingestor", mesh, service.device)
         self.service = service
         self.commit_every_batches = commit_every_batches
+        self.mesh = mesh
         self.prefetch_depth = prefetch_depth
         self.pad_width_to = pad_width_to
         self.checkpoint_every_commits = checkpoint_every_commits
         self.checkpoint_keep = checkpoint_keep
-        self._stager = HostStager(service.device, torch.int32)
+        if self._mesh_size > 1 and service.batch_size % self._mesh_size:
+            raise ValueError(
+                f"batch_size={service.batch_size} must divide evenly over "
+                f"the {self._mesh_size}-device mesh")
+        # one stager a distinct device
+        self._stagers = {dev: HostStager(dev, torch.int32) for dev in
+                         dict.fromkeys(self._devices or (service.device,))}
+
+    @property
+    def _mesh_size(self) -> int:
+        return len(self._devices) or 1
 
     def fingerprint(self) -> Dict:
         return ingest_fingerprint(
             self.service, commit_every_batches=self.commit_every_batches,
-            pad_width_to=self.pad_width_to, data_shards=1)
+            pad_width_to=self.pad_width_to, data_shards=self._mesh_size)
+
+    def _put_fn(self):
+        """The feeder's put: a padded (B, W) batch -> ``(tensor, event)``
+        on the service's device, or on a mesh its staged row shards
+        (``executor.stage_row_shards``; the batch divides the mesh)."""
+        if self._mesh_size <= 1:
+            return self._stagers[self.service.device]
+        return functools.partial(stage_row_shards, self.mesh, self._devices,
+                                 self._stagers)
+
+    def _embed(self, staged) -> np.ndarray:
+        """Wait for a staged batch's copies and embed it -> host rows."""
+        if self._mesh_size <= 1:
+            dev, event = staged
+            self._stagers[self.service.device].wait(dev, event)
+            return self.service.embed_batch(dev).cpu().numpy()
+        for dev, shard, event in staged:
+            self._stagers[dev].wait(shard, event)
+        return self.service.embed_batch(
+            [shard for _, shard, _ in staged]).cpu().numpy()
 
     # -- checkpoint markers -------------------------------------------------
 
@@ -389,7 +428,8 @@ class Ingestor:
         prior.docs = max(prior.docs, writer.rows)
         prior.bytes_written = max(prior.bytes_written,
                                   writer.rows * row_bytes)
-        stats = IngestStats(resumed_rows=writer.rows, devices=1)
+        stats = IngestStats(resumed_rows=writer.rows,
+                            devices=self._mesh_size)
         start = writer.rows
 
         if start >= n:                      # store already complete
@@ -407,13 +447,12 @@ class Ingestor:
         cap = n - start if max_docs is None else min(max_docs, n - start)
         feeder = _BatchFeeder(docs_tokens, start // bs, n, bs,
                               self.pad_width_to, self.prefetch_depth,
-                              self._stager)
+                              self._put_fn())
         appended = 0
         try:
-            for b_idx, n_valid, pad, toks, dev, event in feeder:
+            for b_idx, n_valid, pad, toks, staged in feeder:
                 tc = time.perf_counter()
-                self._stager.wait(dev, event)
-                emb = self.service.embed_batch(dev).cpu().numpy()
+                emb = self._embed(staged)
                 stats.compute_seconds += time.perf_counter() - tc
                 take = min(n_valid, cap - appended)
                 tw = time.perf_counter()

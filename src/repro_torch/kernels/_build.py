@@ -112,9 +112,12 @@ class CudaKernel:
     """One C entry point of a built library, with a count of launches.
 
     ``launch`` passes tensors as device pointers, appends the current
-    stream of ``device``, raises on a non-zero CUDA error code, and only
-    then adds one to ``launches``, under a lock, so that a count taken
-    while several threads launch is exact.
+    stream of ``device`` and calls the entry point with ``device`` the
+    current device (a stream of one card used while another is current
+    is an invalid handle, and the kernels' shared-memory attribute is
+    set on the current device), raises on a non-zero CUDA error code,
+    and only then adds one to ``launches``, under a lock, so that a
+    count taken while several threads launch is exact.
     """
 
     def __init__(self, library: str, symbol: str,
@@ -138,8 +141,9 @@ class CudaKernel:
         fn = self._entry()
         conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*conv, stream)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(*conv, stream)
         if err != 0:
             msg = load(self.library).kernel_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {err} "

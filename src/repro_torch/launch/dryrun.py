@@ -16,8 +16,8 @@ result has the JAX module's keys:
   * ``argument_bytes_per_device`` and ``output_bytes_per_device`` are
     exact: each leaf's shard shape under its ``NamedSharding``;
   * the FLOPs, bytes and temporary bytes per device are the global
-    counts divided by the chips, an even split until the multi-card port
-    shards the step (``"per_device"`` says so);
+    counts divided by the chips, an even split until the model-axis
+    slice shards the step (``"per_device"`` says so);
   * ``xla_cost_analysis_flops_per_device``, ``code_bytes`` and
     ``hlo_text_bytes`` are None (no compiler); ``timings.lower_s`` is
     the trace's seconds and ``compile_s`` 0.

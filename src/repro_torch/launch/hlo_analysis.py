@@ -29,7 +29,7 @@ as one kernel, which is what eager execution launches:
 A hand-written kernel is one operator (``kernels._cost``): it is charged
 once, at the kernel's own work, on every device, and the ops of its
 plain version are never counted. ``collective_bytes`` stays 0 until the
-multi-card port, and ``unknown_trip_whiles`` is always 0, because eager
+model-axis slice, and ``unknown_trip_whiles`` is always 0, because eager
 execution runs every loop trip. The same step counts the same on meta
 tensors, on the CPU and on the card: what is dispatched does not depend
 on the device. Use ``analyze_step(fn, *args)``.

@@ -1,16 +1,28 @@
 """Meshes (``repro.launch.mesh``).
 
 A ``Mesh`` is a plain record: ``shape``, an ordered mapping of axis name
--> size, and ``devices``, the devices it spans (None for an abstract
-mesh). It does not use ``torch.distributed``; the multi-card port backs
-it with a ``DeviceMesh``. The sharding rules (``sharding.rules``) read
-only ``shape``, so ``make_production_mesh`` gives the production layouts
+-> size, and ``devices``, the devices it spans in row-major order over
+``shape`` (None for an abstract mesh). It does not use
+``torch.distributed``. The sharding rules (``sharding.rules``) read only
+``shape``, so ``make_production_mesh`` gives the production layouts
 (16 x 16 over data and model, or 2 x 16 x 16 with pods) as abstract
 meshes with no devices, for the rules and the launch plans
-(``launch.steps``). A mesh that would place tensors over more than one
-device raises ``NotImplementedError``: that waits for the multi-card
-port. The others span one device, the card by default (``device``;
-"cpu" only when asked, as every entry point of the port).
+(``launch.steps``).
+
+A mesh over the ``("pod", "data")`` axes may span several devices of one
+process: the streaming data loops (``engine.executor``,
+``engine.ingest``, ``runtime.serve_loop``) run a row shard on each from
+one controller, as the JAX package's ``shard_map`` and ``device_put``
+do. The constructors take distinct devices of ``device``'s kind
+(``cuda:0`` .. ``cuda:n-1``) and raise ``ValueError`` when the process
+has fewer; they never repeat a device. A mesh that repeats one (the
+counterpart of JAX's ``--xla_force_host_platform_device_count``, as the
+CPU tests use it) is built directly, ``Mesh(OrderedDict(data=4),
+(cpu,) * 4)``. A mesh with a model axis over 1 raises
+``NotImplementedError``, and so does ``Mesh.device`` on a mesh of more
+than one device (a launch plan runs on one device): both wait for the
+model-axis slice (``torch.distributed``'s ``DeviceMesh``). The CPU runs
+only when asked (``device="cpu"``), as in every entry point of the port.
 """
 from __future__ import annotations
 
@@ -22,10 +34,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.config.base import MULTI_POD, SINGLE_POD, MeshConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import (DATA_AXES, MODEL_AXIS_SLICE, DeviceLike,
+                                resolve_device)
 
-MULTI_CARD = ("a mesh of more than one device: placing tensors over "
-              "several devices waits for the multi-card port")
+MULTI_CARD = ("a mesh of more than one device: a step runs on one device; "
+              "placing its tensors over several " + MODEL_AXIS_SLICE)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -52,14 +65,31 @@ class Mesh:
         return self.devices[0]
 
 
+def _devices(n: int, device: DeviceLike) -> Tuple[torch.device, ...]:
+    """``n`` distinct devices of ``device``'s kind, from index 0 (the one
+    CPU device for ``n = 1``)."""
+    dev = resolve_device(device)
+    if n == 1:
+        return (dev,)
+    have = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n > have:
+        raise ValueError(f"a mesh of {n} {dev.type} devices: the process "
+                         f"has {have}")
+    return tuple(torch.device(dev.type, i) for i in range(n))
+
+
 def _mesh(shape: Sequence[int], axes: Sequence[str],
           device: DeviceLike) -> Mesh:
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} and axes {tuple(axes)} "
                          f"differ in length")
-    if math.prod(shape) > 1:
-        raise NotImplementedError(f"{dict(zip(axes, shape))}: {MULTI_CARD}")
-    return Mesh(OrderedDict(zip(axes, shape)), (resolve_device(device),))
+    model = {a: n for a, n in zip(axes, shape)
+             if a not in DATA_AXES and n > 1}
+    if model:
+        raise NotImplementedError(f"{dict(zip(axes, shape))}: the axes "
+                                  f"{model} {MODEL_AXIS_SLICE}")
+    return Mesh(OrderedDict(zip(axes, shape)),
+                _devices(math.prod(shape), device))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -74,16 +104,17 @@ def make_mesh(cfg: MeshConfig, device: DeviceLike = "cuda") -> Mesh:
 
 def make_test_mesh(data: int = 1, model: int = 1,
                    device: DeviceLike = "cuda") -> Mesh:
-    """A (data, model) mesh over ``device``: 1 x 1 on one device."""
+    """A (data, model) mesh over ``data`` devices of ``device``'s kind;
+    ``model`` over 1 raises."""
     return _mesh((data, model), ("data", "model"), device)
 
 
 def make_scoring_mesh(num_devices: Optional[int] = None,
                       device: DeviceLike = "cuda") -> Mesh:
     """The 1-D ("data",) mesh of the streaming data-parallel loops (the
-    scoring executor, the offline indexer): every device the process
-    owns, ``None`` = all local devices of ``device``'s kind. One device
-    is the single-device path; more raise."""
+    scoring executor, the offline indexer): ``num_devices`` distinct
+    devices of ``device``'s kind, ``None`` = every one the process owns
+    (the one CPU device). One device is the loops' single-device path."""
     dev = resolve_device(device)
     n = num_devices or (torch.cuda.device_count() if dev.type == "cuda"
                         else 1)

@@ -21,7 +21,7 @@ the rules (recording divisibility fallbacks in the plan's ``ruleset``).
 A step runs on its mesh's one device; a mesh of more than one device
 (the production meshes of ``launch.mesh``) gives the plan's specs and
 shardings, and its step on real tensors raises ``NotImplementedError``:
-running it waits for the multi-card port. On meta tensors (the plan's
+running it waits for the model-axis slice. On meta tensors (the plan's
 own ``arg_sds``) a step traces over any mesh, abstract ones included,
 resolving every constraint (recording its fallbacks) and placing
 nothing: the dry run (``launch.dryrun``) counts it so. A meta AdamW

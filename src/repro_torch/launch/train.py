@@ -7,7 +7,7 @@ With ``--smoke`` the arch's reduced config at ``--seq`` x ``--batch``,
 else its full config at ``--shape`` (``train_4k`` by default: 256 x
 4,096). The port trains on one
 device, the card unless ``--device cpu``; the JAX CLI's production mesh
-waits for the multi-card slice. Checkpoints and the metrics JSONL go
+waits for the model-axis slice. Checkpoints and the metrics JSONL go
 under ``--ckpt-dir`` (by default a directory under the system's
 temporary directory).
 """

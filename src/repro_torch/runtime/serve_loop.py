@@ -14,21 +14,26 @@ autoregressive decode driver: a prefill through those kernels, then
 plain-PyTorch decode steps over its caches. Both drive decoder-only
 models, as in the JAX package: an encoder-decoder model raises
 ``TypeError`` (its prefill takes frames and has no ``cache_len``).
+With a ``mesh`` over the ``("pod", "data")`` axes, ``embed_batch`` takes
+a row-sharded batch (one token tensor a shard, each on its device, as
+``engine.ingest`` stages them) and runs each shard on its own device,
+under that device, against a copy of the params there.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import time
-from typing import Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import flatten_with_paths
 from repro_torch.config import ModelConfig
-from repro_torch.device import check_one_device, resolve_device
+from repro_torch.device import data_mesh_devices, on_device, resolve_device
 from repro_torch.models import EncDecLM, build_model
+from repro_torch.models.common import tree_map
 
 # elements hashed per host copy when digesting the params
 _DIGEST_CHUNK = 1 << 26
@@ -68,17 +73,22 @@ class EmbeddingService:
     ``attn_impl="einsum"`` or ``"blocked"`` runs a plain attention path
     in place of the flash kernel, and ``rwkv_mode="direct"`` the plain
     chunked WKV6 scan in place of the WKV6 kernel, for comparison.
-    ``mesh`` (the JAX package's data-parallel placement) may be None or
-    a mesh of one device; more raises ``NotImplementedError`` until the
-    multi-card port.
+    ``mesh`` (the JAX package's data-parallel placement) is None, a mesh
+    of one device, or a ``launch.mesh.Mesh`` over the ("pod", "data")
+    axes whose devices are of ``device``'s kind: the service keeps one
+    copy of the params on each distinct device of it (the caller's
+    tensors where the device is ``device``; a repeated device shares
+    its copy), and its digest is of the caller's params.
+    ``embed_documents`` stays on ``device``, as in the JAX package.
     """
 
     def __init__(self, cfg: ModelConfig, params, batch_size: int = 8,
                  mesh=None, device="cuda", attn_impl: str = "flash",
                  rwkv_mode: str = "kernel"):
-        check_one_device("EmbeddingService", mesh)
         self.mesh = mesh
         self.device = resolve_device(device)
+        self.mesh_devices = data_mesh_devices("EmbeddingService", mesh,
+                                              self.device)
         if cfg.is_encdec:
             raise TypeError(f"{cfg.name} is an encoder-decoder model; the "
                             f"embedding service runs decoder-only blocks, "
@@ -93,6 +103,21 @@ class EmbeddingService:
         self.params = params
         self.batch_size = batch_size
         self._digest: Optional[str] = None
+        # the params by device: the caller's on the service's device, one
+        # copy on each other distinct device of the mesh
+        self._params_on: Dict[torch.device, object] = {self.device: params}
+        for dev in self.mesh_devices:
+            if dev not in self._params_on:
+                self._params_on[dev] = tree_map(lambda t: t.to(dev), params)
+
+    def params_on(self, dev: torch.device):
+        """The params on ``dev``, the service's device or one of its
+        mesh's; ``ValueError`` for any other device."""
+        params = self._params_on.get(dev)
+        if params is None:
+            raise ValueError(f"a shard on {dev}; the service holds its "
+                             f"params on {tuple(self._params_on)}")
+        return params
 
     def params_digest(self) -> str:
         if self._digest is None:
@@ -100,13 +125,28 @@ class EmbeddingService:
         return self._digest
 
     @torch.inference_mode()
-    def embed_batch(self, batch) -> torch.Tensor:
+    def embed_batch(self, batch: Union[np.ndarray, torch.Tensor,
+                                       Sequence[torch.Tensor]]
+                    ) -> torch.Tensor:
         """One already-padded (B, W) int token batch (array or tensor) ->
         (B, d_model) float32 pooled embeddings, on the service's device.
         Rows of all-zero (pad) tokens pool to zero vectors; callers slice
-        them off."""
-        tokens = torch.as_tensor(batch, device=self.device)
-        x = self.model.hidden(self.params, tokens)
+        them off. A list or tuple of tensors is a row-sharded batch, in
+        row order, each shard on a device of the mesh: every shard is
+        launched on its device before any is gathered, and the pooled
+        rows come back in order on the service's device."""
+        if isinstance(batch, (list, tuple)):
+            pooled = []
+            for shard in batch:
+                with on_device(shard.device):
+                    pooled.append(self._pool(self.params_on(shard.device),
+                                             shard))
+            return torch.cat([p.to(self.device) for p in pooled])
+        return self._pool(self.params,
+                          torch.as_tensor(batch, device=self.device))
+
+    def _pool(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.model.hidden(params, tokens)
         mask = (tokens > 0).to(x.dtype)[..., None]
         pooled = torch.sum(x * mask, dim=1) / torch.clamp(
             torch.sum(mask, dim=1), min=1.0)

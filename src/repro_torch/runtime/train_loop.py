@@ -19,7 +19,7 @@ raised. Step times (host clock, after the device has finished the step)
 feed ``StragglerMonitor`` and the metrics JSONL.
 
 What differs from the JAX package: the mesh may be None or span one
-device (a mesh of more raises ``NotImplementedError``: the multi-card
+device (a mesh of more raises ``NotImplementedError``: the model-axis
 slice brings it), the device is explicit (``device``, "cuda" by
 default) and params come from ``model.init`` on a ``torch.Generator``
 of that device seeded with ``train_cfg.seed``. The model is built as

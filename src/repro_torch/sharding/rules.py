@@ -12,13 +12,17 @@ resolves them. A ``RuleSet`` reads only ``mesh.shape`` (an ordered
 mapping of axis -> size), so it resolves an abstract production mesh
 with no devices (``launch.mesh.make_production_mesh``) as well as the
 one-device mesh a plan runs on. ``P`` and ``NamedSharding`` are the
-port's own records of JAX's ``PartitionSpec`` and ``NamedSharding``;
-placing a tensor on a mesh of more than one device waits for the
-multi-card port (``launch.mesh``).
+port's own records of JAX's ``PartitionSpec`` and ``NamedSharding``.
+``shard_rows`` cuts a host array into the row shards of the logical
+``("batch", None)`` spec, one a mesh device, which the streaming data
+loops place each on its device (``jax.device_put`` of a
+``NamedSharding`` in the JAX package); placing a launch plan's tensors
+over a model axis waits for the model-axis slice (``launch.mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 AxisAssignment = Union[str, Tuple[str, ...], None]
@@ -150,6 +154,41 @@ class RuleSet:
                 f"replicated {ev.logical}(dim={ev.dim}) over mesh axis "
                 f"{ev.axis!r}(size={ev.axis_size}): not divisible")
         return out
+
+
+def row_shard_ids(mesh, shape: Sequence[int]) -> Tuple[List[int], int]:
+    """Where the rows of an array of ``shape`` lie on ``mesh`` under the
+    logical ``("batch", None, ...)`` spec: each mesh device's row-shard
+    index, in the mesh's device order (row-major over ``mesh.shape``),
+    and the number of shards. The spec's mesh axes split the rows with
+    the first one major, as a ``PartitionSpec`` entry of several axes
+    does (a pod x data mesh over both), and every device of an axis the
+    spec leaves out holds the same shard; where the rule falls back to
+    replication there is one shard, on every device."""
+    spec = RuleSet(mesh).spec(("batch",) + (None,) * (len(shape) - 1),
+                              shape)
+    row = spec[0] if len(spec) else None
+    axes = () if row is None else ((row,) if isinstance(row, str)
+                                   else tuple(row))
+    names, sizes = list(mesh.shape), list(mesh.shape.values())
+    ids = []
+    for flat in range(math.prod(sizes)):
+        coords = {}
+        for name, size in zip(reversed(names), reversed(sizes)):
+            flat, coords[name] = divmod(flat, size)
+        idx = 0
+        for ax in axes:
+            idx = idx * mesh.shape[ax] + coords[ax]
+        ids.append(idx)
+    return ids, math.prod(mesh.shape[ax] for ax in axes)
+
+
+def shard_rows(mesh, arr) -> list:
+    """A host array (rows first) -> one row slice a mesh device, in the
+    mesh's device order (``row_shard_ids``): views, no copies."""
+    ids, n = row_shard_ids(mesh, arr.shape)
+    per = arr.shape[0] // n
+    return [arr[i * per:(i + 1) * per] for i in ids]
 
 
 def is_axes(x) -> bool:

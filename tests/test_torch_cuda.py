@@ -1382,3 +1382,141 @@ def test_a_kernel_call_that_needs_a_gradient_raises_on_the_card(cuda, name):
     torch.cuda.synchronize(cuda)
     assert mod.KERNEL.launches == before + 2
     assert counter.report().ops == 1
+
+
+# -- the data axis: a mesh of two entries ------------------------------------
+
+def _card_mesh(kind):
+    """A ("data",) mesh of two entries: cuda:0 twice, or two distinct
+    cards (skipped where the process has one)."""
+    from collections import OrderedDict
+    from repro_torch.launch.mesh import Mesh, make_scoring_mesh
+    if kind == "distinct":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards: the distinct-device mesh runs a "
+                        "row shard on cuda:1")
+        return make_scoring_mesh(2)
+    return Mesh(OrderedDict(data=2), (torch.device("cuda", 0),) * 2)
+
+
+MESH_KINDS = ["repeated", "distinct"]
+MESH_TOL = dict(rtol=1e-6, atol=1e-6)    # a sharded run against one device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MESH_KINDS)
+def test_shard_path_on_a_card_mesh(cuda, kind):
+    """The executor's shard path (use_kernel=False) against the
+    single-device plain pass, and use_kernel=True on the same mesh
+    running the fused kernel on one device."""
+    from repro_torch.config import ProxyConfig
+    from repro_torch.core.encoder import encoder_init
+    from repro_torch.engine import InMemoryStore, ScoringExecutor
+    from repro_torch.models.common import tree_map
+    mesh = _card_mesh(kind)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    store = InMemoryStore(rng.normal(size=(1999, 256)).astype(np.float32))
+    params = tree_map(lambda t: t.to(dev), encoder_init(
+        torch.Generator().manual_seed(0), ProxyConfig(embed_dim=256)))
+    e = rng.normal(size=(2, 256)).astype(np.float32)
+    jobs = [(params, e[0]), (None, e[1]), (params, e[1])]
+    single, _ = ScoringExecutor(chunk=700, use_kernel=False,
+                                device=dev).score_multi(jobs, store)
+    ex = ScoringExecutor(chunk=700, use_kernel=False, mesh=mesh, device=dev)
+    got, st = ex.score_multi(jobs, store)
+    assert st.devices == 2 and st.paths == ("shard",)
+    np.testing.assert_allclose(got, single, **MESH_TOL)
+    one, st1 = ex.score(params, e[0], store)
+    assert st1.devices == 2 and st1.paths == ("shard",)
+    np.testing.assert_allclose(one, single[:, 0], **MESH_TOL)
+    before = s_ops.KERNEL.launches
+    fused, stf = ScoringExecutor(chunk=700, mesh=mesh, device=dev).score(
+        params, e[0], store)
+    assert stf.devices == 1 and stf.paths == ("fused",)
+    assert s_ops.KERNEL.launches == before + stf.tiles_scored
+    np.testing.assert_allclose(fused, single[:, 0], **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MESH_KINDS)
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b"])
+def test_sharded_ingest_on_a_card_mesh(cuda, tmp_path, kind, arch):
+    """build_index on the mesh gives the single-device store's rows, the
+    path's kernel launched once a layer a shard a batch, and the
+    service's params copied once a distinct card."""
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.data import make_corpus
+    from repro_torch.engine import build_index
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import EmbeddingService
+    mesh = _card_mesh(kind)
+    dev = torch.device("cuda", 0)
+    cfg = get_smoke_arch(arch)
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
+    corpus = make_corpus(0, n_docs=32, dim=16, with_tokens=True,
+                         vocab=cfg.vocab_size, doc_len=40)
+    docs = [corpus.tokens[i][:12 + i % 28] for i in range(32)]
+    single = build_index(EmbeddingService(cfg, params, 8, device=dev), docs,
+                         tmp_path / "one")
+    svc = EmbeddingService(cfg, params, 8, mesh=mesh, device=dev)
+    assert svc.params_on(dev) is params
+    kern = w_ops.KERNEL if arch == "rwkv6-7b" else f_ops.KERNEL
+    before = kern.launches
+    got = build_index(svc, docs, tmp_path / "mesh", mesh=mesh)
+    torch.cuda.synchronize()
+    assert got.stats.devices == 2 and got.stats.batches == 4
+    assert kern.launches == before + kernel_layers(cfg) * 4 * 2
+    rows = np.arange(32)
+    np.testing.assert_allclose(got.store.get(rows), single.store.get(rows),
+                               **F32)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_a_second_card(cuda):
+    """Each kernel on cuda:1 while cuda:0 is current, at the path's
+    shapes, whose shared memory needs the per-device attribute: the
+    wrapper launches under the tensors' device, and the attribute is set
+    there too."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the kernels run on cuda:1")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    # flash, bf16 and f32, at the offline path's shape on cuda:0 first
+    for card in (torch.device("cuda", 0), dev):
+        q, k, v = (_t(x, card) for x in _attention_inputs(8, 512, 512, 32,
+                                                          8, 128))
+        for dtype in (torch.bfloat16, torch.float32):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            scale = 128 ** -0.5
+            got = f_ops.flash_attention_fwd(qd, kd, vd, scale=scale,
+                                            causal=True)
+            kx, vx = f_ref.expand_kv(kd, 4), f_ref.expand_kv(vd, 4)
+            if dtype == torch.bfloat16:
+                want = f_ref.attention_blocked(
+                    qd, kx, vx, scale, causal=True, q_block=64,
+                    kv_block=f_ops.bf16_tile_keys(128), round_p=True)
+                tol = FLASH_BF16_PLAIN
+            else:
+                want = f_ref.ref_attention(qd, kx, vx, scale=scale,
+                                           causal=True)
+                tol = FLASH[dtype]
+            torch.cuda.synchronize(card)
+            assert got.device == card and torch.cuda.current_device() == 0
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(), **tol)
+    args = [_t(x, dev) for x in wkv6_inputs(*WKV6_CASES[0][:5])]
+    got = w_ops.wkv6_intra_chunk(*args)
+    want = w_ref.wkv6_intra_chunk(*args, sub=w_ref.SUB)
+    torch.cuda.synchronize(dev)
+    for g, w in zip(got, want):
+        assert ((g - w).abs().max() / (w.abs().max() + 1e-9)).item() < 1e-5
+    docs, w, zq = _scoring_inputs(8192, 4096, 512, 128, 4)
+    sargs = [_t(x, dev) for x in [docs] + w + [zq]]
+    np.testing.assert_allclose(
+        s_ops.fused_scores_multi(*sargs).cpu().numpy(),
+        s_ref.ref_scores_multi(*sargs).cpu().numpy(), **F32)
+    cargs = [_t(x, dev) for x in _contrastive_inputs(128, 64, 0.3, q=4)]
+    np.testing.assert_allclose(
+        c_ops.contrastive_losses(*cargs, 0.07, 0.2).cpu().numpy(),
+        c_ref.ref_losses(*cargs, 0.07, 0.2).cpu().numpy(), **LOSS)

@@ -16,6 +16,7 @@ plans' logits 1e-5 of max |ref|; the rules, axes, specs and counts
 exactly.
 """
 import dataclasses
+from collections import OrderedDict
 from types import SimpleNamespace
 
 import jax
@@ -202,18 +203,29 @@ def test_input_specs_and_axes_match_jax(arch):
 
 
 def test_meshes():
-    """Production meshes are abstract; a mesh over more than one device
-    raises; a one-device mesh has its device."""
+    """Production meshes are abstract; a mesh of more than one device has
+    no one device to run a step on; a model axis over 1 waits for its
+    slice; a data mesh takes distinct devices and the process has one
+    CPU device; a mesh built directly may repeat one; a one-device mesh
+    has its device."""
     pm = t_mesh.make_production_mesh()
     assert dict(pm.shape) == {"data": 16, "model": 16} and pm.size == 256
     assert pm.devices is None
     mp = t_mesh.make_production_mesh(multi_pod=True)
     assert mp.axes == ("pod", "data", "model") and mp.size == 512
-    for call in (lambda: pm.device,
-                 lambda: t_mesh.make_test_mesh(2, 1, device="cpu"),
-                 lambda: t_mesh.make_scoring_mesh(4, device="cpu"),
-                 lambda: t_mesh.make_mesh(SINGLE_POD, device="cpu")):
+    cpu = torch.device("cpu")
+    repeated = t_mesh.Mesh(OrderedDict(data=4), (cpu,) * 4)
+    assert repeated.size == 4 and repeated.devices == (cpu,) * 4
+    for call in (lambda: pm.device, lambda: repeated.device):
         with pytest.raises(NotImplementedError, match="more than one"):
+            call()
+    for call in (lambda: t_mesh.make_test_mesh(1, 2, device="cpu"),
+                 lambda: t_mesh.make_mesh(SINGLE_POD, device="cpu")):
+        with pytest.raises(NotImplementedError, match="model-axis slice"):
+            call()
+    for call in (lambda: t_mesh.make_test_mesh(2, 1, device="cpu"),
+                 lambda: t_mesh.make_scoring_mesh(4, device="cpu")):
+        with pytest.raises(ValueError, match="the process has 1"):
             call()
     one = t_mesh.make_test_mesh(1, 1, device="cpu")
     assert one.device == torch.device("cpu") and one.axes == ("data", "model")

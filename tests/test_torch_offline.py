@@ -10,6 +10,7 @@ own init carried across with ``params_from_jax``; inputs are numpy.
 import dataclasses
 import json
 import pathlib
+from collections import OrderedDict
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,7 @@ from repro_torch.engine import (Ingestor, MemmapStore, ScaleDocEngine,
                                 load_manifest)
 from repro_torch.engine.ingest import PRODUCER_NOTE, producer_note
 from repro_torch.engine.store import DATA_NAME
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import build_model
 from repro_torch.models import common as t_common
 from repro_torch.models import params_from_jax
@@ -51,6 +53,8 @@ INGEST_CFG = dict(name="ingest-test", num_layers=2, d_model=32, num_heads=2,
                   num_kv_heads=2, d_ff=64, vocab_size=64, dtype="float32",
                   remat="none")
 F32 = dict(rtol=1e-5, atol=1e-5)
+# four entries of the one CPU device (the JAX tests' forced host devices)
+DATA_MESH = Mesh(OrderedDict(data=4), (torch.device("cpu"),) * 4)
 
 
 def _services(jcfg, tcfg, batch_size=BATCH):
@@ -272,6 +276,10 @@ def test_ingest_guards_producer_and_corpus(services, docs, tmp_path):
         ing.ingest(other, tmp_path)
     with pytest.raises(NotImplementedError):
         Ingestor(t_svc, mesh=object())
+    # a data mesh is taken, and the store is resumed only under its size
+    with pytest.raises(StoreFingerprintError):
+        Ingestor(t_svc, commit_every_batches=2, mesh=DATA_MESH).ingest(
+            docs, tmp_path)
 
 
 def _smoke_service(arch, **modes):
@@ -415,3 +423,10 @@ def test_from_corpus_then_query_on_cpu(services, tmp_path):
     with pytest.raises(NotImplementedError):
         ScaleDocEngine.from_corpus(t_svc, tokens, tmp_path / "m",
                                    ingest_mesh=object(), device="cpu")
+    sharded = ScaleDocEngine.from_corpus(
+        t_svc, tokens, tmp_path / "d", proxy_cfg=pcfg, device="cpu",
+        ingest_mesh=DATA_MESH, ingest_kwargs=dict(commit_every_batches=2))
+    assert sharded.ingest_result.stats.devices == 4
+    np.testing.assert_allclose(sharded.store.get(np.arange(N_DOCS)),
+                               engine.store.get(np.arange(N_DOCS)),
+                               rtol=1e-6, atol=1e-6)

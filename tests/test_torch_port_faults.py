@@ -14,6 +14,7 @@ more for each):
    ``mesh``/``shardings`` (one device accepted, more refused).
 """
 import dataclasses
+from collections import OrderedDict
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +42,8 @@ from repro_torch.kernels.fused_scoring import ops as s_ops
 from repro_torch.kernels.wkv6 import ops as w_ops
 from repro_torch.kernels.wkv6 import ref as w_ref
 from repro_torch.launch.hlo_analysis import CostCounter
-from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+from repro_torch.launch.mesh import (Mesh, make_production_mesh,
+                                     make_test_mesh)
 from repro_torch.models import EncDecLM, TransformerLM, build_model
 from repro_torch.models import params_from_jax
 from repro_torch.models.common import tree_map
@@ -54,6 +56,7 @@ from torch_jax_state import no_jax_constrainer  # noqa: F401
 TINY = InputShape("tiny", seq_len=32, global_batch=4, kind="train")
 MANY = make_production_mesh()                 # 16 x 16, abstract
 ONE = make_test_mesh(1, 1, device="cpu")
+DATA = Mesh(OrderedDict(data=4), (torch.device("cpu"),) * 4)
 
 
 def _rng_tensor(rng, *shape):
@@ -240,21 +243,31 @@ def test_use_kernel_false_scores_with_the_plain_path():
 
 
 def test_a_mesh_of_one_device_is_taken_and_more_refused(tmp_path):
+    """The data loops take a mesh of one device and a data mesh of more
+    (the engine's executor, the embedding service); a model axis over 1
+    stays refused there, and every mesh of more than one device stays
+    refused by the Trainer, device_batch and restore(shardings=)."""
     corpus = make_corpus(0, n_docs=64, dim=16)
     ScaleDocEngine(corpus.embeds, mesh=ONE, device="cpu")
+    assert ScaleDocEngine(corpus.embeds, mesh=DATA, device="cpu"
+                          ).executor._mesh_size == 4
     with pytest.raises(NotImplementedError, match="more than one device"):
         ScaleDocEngine(corpus.embeds, mesh=MANY, device="cpu")
 
     cfg = get_smoke_arch("smollm-360m")
     params = build_model(cfg).init(torch.Generator().manual_seed(0))
     assert EmbeddingService(cfg, params, 4, ONE, device="cpu").mesh is ONE
+    svc = EmbeddingService(cfg, params, 4, DATA, device="cpu")
+    assert svc.mesh_devices == DATA.devices and svc.params_on(
+        torch.device("cpu")) is params
     with pytest.raises(NotImplementedError, match="more than one device"):
         EmbeddingService(cfg, params, 4, MANY, device="cpu")
 
     tc = TrainConfig(shape=TINY, checkpoint_dir=str(tmp_path / "t"))
     Trainer(cfg, tc, ONE, device="cpu").close()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(cfg, tc, MANY, device="cpu")
+    for mesh in (MANY, DATA):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            Trainer(cfg, tc, mesh, device="cpu")
 
     batch = {"tokens": np.ones((2, 4), np.int32)}
     one = {"tokens": NamedSharding(ONE, P("data"))}
