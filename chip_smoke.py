@@ -348,6 +348,31 @@ Phases, each of which exits non-zero when it fails:
                the form without it, the plain forward and backward and
                SDPA at that shape as in 14, with the bound and the
                shares of a step;
+ 24b. model_axis — two SPMD ranks (launch.dist.init_spmd; each a
+               subprocess, `chip_smoke.py --model-axis-rank R JOB`) on a
+               (1, 2) mesh (launch.mesh.make_test_mesh): cuda:0 twice
+               over the port's repro_gloo backend, or cuda:0 and cuda:1
+               over NCCL where there are two cards. (a) smollm-360m FULL
+               (attention replicated: 15 and 5 heads do not split 2; the
+               MLP and the vocabulary sharded; the ruleset's fallbacks
+               logged), 3 Trainer steps at 2 x 4,096 (the batch cut from
+               [train]'s 8: two ranks share one card), against the same
+               steps of the single-device Trainer: each loss within
+               AXIS_LOSS_REL, the ranks' losses equal, the step-3 params
+               per leaf cosine >= AXIS_PARAM_COS; ms a step, the
+               collectives' share (repro_gloo's host seconds; over NCCL,
+               one more step under torch.profiler: NCCL's kernels'
+               device time), peak memory a rank;
+               (b) llama3-8b at full width on 2 layers, one step at
+               1 x 2,048 against one device, flash's LSE form launched
+               on 16 query heads and 4 KV heads a rank; (c) (a)'s step-3
+               checkpoint (rank 0's async write of the gathered state,
+               signature "data=1xmodel=2") restored onto a one-device
+               mesh, each leaf bitwise the ranks' gathered live state;
+               then the LSE form at a rank's share of (b)'s call
+               (1, 2048, 16, 4, 128) against its plain version with
+               [train]'s bars, its time, bound and SDPA's (a
+               flash_attention_model_axis kernels entry);
  25. launch  — the launch layer's cell plans (launch.steps.make_plan on
                launch.mesh.make_test_mesh(1, 1)) on the card: the flash
                kernel at (1, 32768, 32, 8, 128) causal, three 64-row
@@ -578,6 +603,31 @@ TRAIN_FLASH_SHAPE = (8, 4096, 15, 5, 64)   # b, s, heads, KV heads, hd
 # the kernel's LSE against the plain version's (tests/test_torch_cuda.py)
 LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+# the [model_axis] phase: two SPMD ranks (launch.dist.init_spmd) on a
+# (1, 2) mesh (launch.mesh.make_test_mesh): cuda:0 twice over the port's
+# repro_gloo backend (NCCL refuses two ranks on one card), or two cards
+# over NCCL. (a) smollm-360m FULL, AXIS_STEPS Trainer steps at
+# AXIS_BATCH x TRAIN_SEQ (the batch cut from [train]'s 8 to 2: the two
+# ranks share one card's 80 GB), against the same steps of the
+# single-device Trainer: each loss within AXIS_LOSS_REL["a"], the step-3
+# params per leaf cosine >= AXIS_PARAM_COS; the ruleset's fallbacks
+# logged (15 and 5 heads do not split 2: attention replicated; the MLP
+# and the vocabulary sharded). (b) llama3-8b at full width cut to
+# AXIS_LLAMA_LAYERS layers, one step at AXIS_LLAMA_SHAPE (b, s) against
+# one device (AXIS_LOSS_REL["b"]): flash's LSE form on 16 query heads and 4
+# KV heads a rank. (c) (a)'s last checkpoint (written by rank 0 from the
+# async thread) restored onto a one-device mesh: each leaf bitwise the
+# ranks' gathered live state.
+AXIS_MESH = (1, 2)
+AXIS_STEPS, AXIS_BATCH = 3, 2
+AXIS_LLAMA_LAYERS, AXIS_LLAMA_SHAPE = 2, (1, 2048)
+# each step's loss against one device: 4x the |rel| first measured on
+# one H100 ((a) 1.033e-05, (b) 3.164e-05), inside the 1e-3 asked for
+AXIS_LOSS_REL = {"a": 4e-5, "b": 1.2e-4}
+AXIS_PARAM_COS = 0.999
+AXIS_FLASH_SHAPE = (1, 2048, 16, 4, 128)   # (b)'s flash call on a rank
+AXIS_DIR = ROOT / "build" / "chip_smoke_model_axis"
+AXIS_RANK_TIMEOUT = 900
 # the [launch] phase: the launch layer's cell plans (launch.steps.make_plan
 # over launch.mesh.make_test_mesh(1, 1)) at their cells' widths on one
 # card. llama3-8b FULL at PREFILL_32K (a) and DECODE_32K (b), each global
@@ -4051,8 +4101,9 @@ def train_grad_check(dev, cfg, dtype: str) -> dict:
             "min_cos": min(v["cos"] for v in leaves.values())}
 
 
-def train_flash_checks(dev) -> dict:
-    """The flash kernel's LSE form at the training shape, for the bf16
+def train_flash_checks(dev, shape=TRAIN_FLASH_SHAPE) -> dict:
+    """The flash kernel's LSE form at the training shape (or ``shape``:
+    b, s, heads, KV heads, head_dim), for the bf16
     kernel (the path's) and the FP32 one: out bitwise the form without
     LSE, and out and lse against the plain version's (the bf16 kernel's
     on its own tiles with P rounded, gated at FLASH_BF16_PLAIN_TOL; the
@@ -4060,7 +4111,7 @@ def train_flash_checks(dev) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.flash_attention import ref as f_ref
-    b, s, h, kv, hd = TRAIN_FLASH_SHAPE
+    b, s, h, kv, hd = shape
     gen = torch.Generator(dev).manual_seed(5)
     base = [torch.randn((b, s, n, hd), generator=gen, device=dev)
             for n in (h, kv, kv)]
@@ -4095,17 +4146,17 @@ def train_flash_checks(dev) -> dict:
     return out
 
 
-def train_flash_times(dev) -> dict:
-    """At the training shape: the kernel's LSE form (what the train step
-    launches), the plain forward with its LSE, the plain backward
-    (``models.attention.flash_backward``) and, through ``flash_times``,
-    the form without LSE and SDPA's backends."""
+def train_flash_times(dev, shape=TRAIN_FLASH_SHAPE) -> dict:
+    """At the training shape (or ``shape``): the kernel's LSE form (what
+    the train step launches), the plain forward with its LSE, the plain
+    backward (``models.attention.flash_backward``) and, through
+    ``flash_times``, the form without LSE and SDPA's backends."""
     import torch
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.flash_attention import ref as f_ref
     from repro_torch.models.attention import flash_backward
-    ft = flash_times(dev, TRAIN_FLASH_SHAPE)
-    b, s, h, kv, hd = TRAIN_FLASH_SHAPE
+    ft = flash_times(dev, shape)
+    b, s, h, kv, hd = shape
     gen = torch.Generator(dev).manual_seed(6)
     q = torch.randn((b, s, h, hd), generator=gen, device=dev,
                     dtype=torch.bfloat16)
@@ -4960,6 +5011,409 @@ def launch_phase(dev, kernels: list) -> dict:
             "flash_share_of_prefill": share, "phase_seconds": phase_s}
 
 
+def _leaf_digest(t) -> str:
+    """Two position-weighted sums of a leaf's bits widened to float32
+    (exact for bf16), on its device: any changed bit changes them."""
+    import torch
+    x = t.detach().float().contiguous().view(torch.int32).flatten().long()
+    w = torch.arange(x.numel(), device=x.device) % 65521 + 1
+    return f"{int(x.sum())}:{int((x * w).sum())}:{x.numel()}"
+
+
+def _keep_states(trainer) -> list:
+    """The state after the last of ``trainer``'s steps, kept as its step
+    returns it (the live state: DTensors on a mesh)."""
+    kept = []
+    inner = trainer._step
+
+    def step(state, batch):
+        state, metrics = inner(state, batch)
+        kept[:] = [state]
+        return state, metrics
+    trainer._step = step
+    return kept
+
+
+def _axis_configs(job: dict):
+    """(a)'s and (b)'s configs and train configs for a [model_axis] job."""
+    import dataclasses
+    from repro_torch.config import (InputShape, OptimizerConfig,
+                                    TrainConfig, get_arch, get_smoke_arch)
+    get = get_smoke_arch if job["smoke"] else get_arch
+    work = Path(job["dir"])
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=job["steps"])
+    a = get(TRAIN_ARCH)
+    # the mesh checkpoints at its last step, for (c); one device does not
+    tc_a = TrainConfig(
+        shape=InputShape("axis_a", job["seq"], job["batch"], "train"),
+        optimizer=opt, keep_checkpoints=1,
+        checkpoint_every=(job["steps"] if job["tag"] == "mesh"
+                          else 1_000_000),
+        checkpoint_dir=str(work / job["tag"] / "a"))
+    b = dataclasses.replace(get(OFF_ARCH), num_layers=job["llama_layers"])
+    bb, bs = job["llama_shape"]
+    tc_b = TrainConfig(shape=InputShape("axis_b", bs, bb, "train"),
+                       optimizer=opt, checkpoint_every=1_000_000,
+                       checkpoint_dir=str(work / job["tag"] / "b"))
+    return a, tc_a, b, tc_b
+
+
+def axis_run(job: dict, mesh, device) -> dict:
+    """(a) and (b) of [model_axis] on ``mesh`` (None: one device) in this
+    process: losses, step times and their communication, peak memory,
+    flash launches and the heads each launch saw; (a)'s live state at its
+    last step, digested (gathered first on a mesh)."""
+    import torch
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.launch.dist import COMM
+    from repro_torch.runtime.train_loop import Trainer
+    cfg_a, tc_a, cfg_b, tc_b = _axis_configs(job)
+    cuda = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize()) if cuda else (lambda: None)
+    out = {}
+    heads = set()
+    inner_run = f_ops._flash_run
+
+    def seeing(q, k, *rest):
+        heads.add((int(q.shape[2]), int(k.shape[2])))
+        return inner_run(q, k, *rest)
+    f_ops._flash_run = seeing
+    try:
+        for tag, cfg, tc, steps in (("a", cfg_a, tc_a, job["steps"]),
+                                    ("b", cfg_b, tc_b, 1)):
+            heads.clear()
+            marks = []
+            prof = {}
+
+            def mark(step):
+                sync()
+                marks.append((step, time.perf_counter(), COMM.seconds,
+                              COMM.calls, COMM.bytes))
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            kern = zero_counts()
+            with Trainer(cfg, tc, mesh, fail_injector=mark,
+                         device=device) as tr:
+                kept = _keep_states(tr)
+                t0 = time.perf_counter()
+                rep = tr.run(steps, resume=False)
+                mark(steps)          # the last step's end (after its save)
+                wall = time.perf_counter() - t0
+                counts = read_counts(kern)
+                fallbacks = (tr.ruleset.fallback_report()
+                             if tr.ruleset is not None else [])
+                digests = {}
+                if tag == "a" and mesh is not None:
+                    # every rank gathers (a collective), rank 0 digests
+                    first = mesh.device_mesh.get_rank() == 0
+                    for key, t in flatten_with_paths(
+                            tr._checkpoint_tree(kept[-1])):
+                        if hasattr(t, "full_tensor"):
+                            t = t.full_tensor()
+                        if isinstance(t, torch.Tensor) and first:
+                            digests[key] = _leaf_digest(t)
+                        del t
+                elif tag == "a":
+                    out["a_params"] = dict(flatten_with_paths(kept[-1][0]))
+                if tag == "a" and mesh is not None and job.get("profile"):
+                    prof = _profiled_step(tr, kept[-1], steps, device)
+                del kept
+            steps_s = [b[1] - a[1] for a, b in zip(marks, marks[1:])]
+            comm_s = [b[2] - a[2] for a, b in zip(marks, marks[1:])]
+            out[tag] = {
+                "arch": cfg.name, "layers": cfg.num_layers,
+                "shape": [tc.shape.global_batch, tc.shape.seq_len],
+                "losses": rep.losses, "wall_seconds": wall,
+                "step_seconds": steps_s, "comm_seconds": comm_s,
+                "comm_calls": [b[3] - a[3] for a, b in zip(marks, marks[1:])],
+                "comm_bytes": [b[4] - a[4] for a, b in zip(marks, marks[1:])],
+                "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                   if cuda else None),
+                "launches": counts, "flash_heads": sorted(heads),
+                "fallbacks": fallbacks, "digests": digests,
+                "profile": prof}
+    finally:
+        f_ops._flash_run = inner_run
+    return out
+
+
+def _profiled_step(tr, state, step: int, device) -> dict:
+    """One more step of ``tr`` from ``state`` on step ``step``'s batch
+    under torch.profiler, after the timed ones: its ms (the profiler's
+    cost included) and the device time of NCCL's kernels against all
+    kernels'. An NCCL kernel runs from its launch until its peers join,
+    so a rank that waits shows the wait too."""
+    import torch
+    from repro_torch.data.loader import device_batch
+    batch = device_batch(tr.loader.batch(step), tr.batch_shardings,
+                         device=device)
+    torch.cuda.synchronize()
+    p = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with p:
+        tr._step(state, batch)
+        torch.cuda.synchronize()
+    out = {"step_ms": 1e3 * (time.perf_counter() - t0)}
+    total, comm = 0.0, 0.0
+    for e in p.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0.0) if t is None else t
+        total += t
+        if "nccl" in e.key.lower():
+            comm += t
+    out["nccl_device_ms"] = comm / 1e3
+    out["device_ms"] = total / 1e3
+    return out
+
+
+def model_axis_rank(job_path: str, rank: int) -> None:
+    """One rank of [model_axis] (``python3 chip_smoke.py --model-axis-rank
+    R JOB``): its process group, the (1, 2) mesh, ``axis_run``; writes
+    ``rank{R}.json`` beside the job."""
+    sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+    from repro_torch.launch.dist import init_spmd
+    from repro_torch.launch.mesh import make_test_mesh
+    job = json.loads(Path(job_path).read_text())
+    device = init_spmd(job["device"], rank=rank, world_size=job["world"],
+                       init_method=f"tcp://localhost:{job['port']}")
+    mesh = make_test_mesh(*job["mesh"], device=job["device"])
+    out = {"rank": rank, "device": str(device),
+           "backend": dist.get_backend(),
+           "coordinate": list(mesh.device_mesh.get_coordinate())}
+    out.update(axis_run(job, mesh, device))
+    dist.barrier()
+    dist.destroy_process_group()
+    (Path(job_path).parent / f"rank{rank}.json").write_text(
+        json.dumps(out, default=str))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(job: dict) -> list:
+    """Start ``job["world"]`` ranks of this script on ``job`` and wait for
+    them; any rank that fails or outlives AXIS_RANK_TIMEOUT fails the
+    phase (all are stopped). Their results, in rank order."""
+    import os
+    work = Path(job["dir"]) / job["tag"]
+    work.mkdir(parents=True, exist_ok=True)
+    job = dict(job, port=_free_port())
+    path = work / "job.json"
+    path.write_text(json.dumps(job))
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--model-axis-rank",
+         str(r), str(path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(job["world"])]
+    logs, deadline = [], time.monotonic() + AXIS_RANK_TIMEOUT
+    try:
+        for p in procs:
+            left = max(1.0, deadline - time.monotonic())
+            logs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        fail(f"[model_axis] a rank outlived {AXIS_RANK_TIMEOUT} s")
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            fail(f"[model_axis] rank {r} exited {p.returncode}:\n"
+                 + text[-4000:])
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(job["world"])]
+
+
+def _leaf_cosine(a, b) -> float:
+    a, b = a.detach().double().flatten(), b.detach().double().flatten()
+    den = (a.norm() * b.norm()).item()
+    return (a @ b).item() / den if den else float(a.equal(b))
+
+
+def model_axis_phase(dev, kernels: list, smoke: bool = False) -> dict:
+    """[model_axis]: (a), (b) and (c) above, on two SPMD ranks against
+    one device, and the ``flash_attention_model_axis`` entry of
+    ``kernels`` (the LSE form at a rank's shard of (b)'s call)."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch import checkpoint as t_ckpt
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.launch import mesh as t_mesh
+    from repro_torch.runtime.train_loop import Trainer
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(AXIS_DIR, ignore_errors=True)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    world = AXIS_MESH[0] * AXIS_MESH[1]
+    job = {"world": world, "mesh": list(AXIS_MESH), "device": dev.type,
+           "smoke": smoke, "steps": AXIS_STEPS, "batch": AXIS_BATCH,
+           "seq": TRAIN_SEQ, "llama_layers": AXIS_LLAMA_LAYERS,
+           "llama_shape": list(AXIS_LLAMA_SHAPE), "dir": str(AXIS_DIR),
+           "profile": cards >= world}
+    where = (f"{world} cards" if cards >= world else
+             f"{dev.type}:0 x{world}" if dev.type == "cuda" else
+             f"the CPU x{world}")
+    single = axis_run(dict(job, tag="single"), None, dev)
+    a_params = single.pop("a_params")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dict(job, tag="mesh"))
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    log(f"[model_axis] mesh {tuple(AXIS_MESH)} over {where}: backend "
+        f"{r0['backend']}, ranks on "
+        + ", ".join(r["device"] for r in ranks)
+        + f"; {ranks_s:.1f} s for the ranks (start-up included)")
+    log(f"[model_axis] (a) {r0['a']['arch']} fallbacks: "
+        + "; ".join(r0["a"]["fallbacks"]))
+    report = {"mesh": list(AXIS_MESH), "where": where,
+              "backend": r0["backend"], "single": single, "ranks": ranks,
+              "ranks_seconds": ranks_s}
+    for tag in ("a", "b"):
+        one = single[tag]
+        rel = [abs(x - y) / abs(y) for x, y in zip(r0[tag]["losses"],
+                                                   one["losses"])]
+        agree = all(r[tag]["losses"] == r0[tag]["losses"] for r in ranks)
+        report[tag] = {"loss_rel": rel, "ranks_agree": agree}
+        per_rank = "; ".join(
+            f"rank {r['rank']}: steps "
+            + ", ".join(f"{1e3 * t:.1f}" for t in r[tag]["step_seconds"])
+            + " ms, comm " + ", ".join(f"{1e3 * t:.1f}"
+                                       for t in r[tag]["comm_seconds"])
+            + f" ms ({', '.join(str(n) for n in r[tag]['comm_calls'])} "
+            f"calls), peak {r[tag]['peak_memory_gb']} GB, flash "
+            f"{r[tag]['launches']['flash_attention']} launches on "
+            f"(heads, KV heads) {r[tag]['flash_heads']}"
+            + (f"; one more step under torch.profiler "
+               f"{r[tag]['profile']['step_ms']:.1f} ms, NCCL kernels "
+               f"{r[tag]['profile']['nccl_device_ms']:.1f} of "
+               f"{r[tag]['profile']['device_ms']:.1f} device ms"
+               if r[tag]["profile"] else "")
+            for r in ranks)
+        log(f"[model_axis] ({tag}) {one['arch']} ({one['layers']} layers) "
+            f"at {one['shape'][0]} x {one['shape'][1]}: losses mesh "
+            + ", ".join(repr(x) for x in r0[tag]["losses"]) + "; one device "
+            + ", ".join(repr(x) for x in one["losses"])
+            + f"; |rel| max {max(rel):.3e} (bar {AXIS_LOSS_REL[tag]:g}); "
+            f"ranks "
+            f"agree {agree}. One device: steps "
+            + ", ".join(f"{1e3 * t:.1f}" for t in one["step_seconds"])
+            + f" ms, peak {one['peak_memory_gb']} GB, flash "
+            f"{one['launches']['flash_attention']} launches on "
+            f"{one['flash_heads']}. Mesh: {per_rank}")
+        if not agree or not max(rel) <= AXIS_LOSS_REL[tag]:
+            fail(f"[model_axis] ({tag}) losses {r0[tag]['losses']} against "
+                 f"{one['losses']}")
+        for r in ranks if dev.type == "cuda" else ():
+            other = {n: c for n, c in r[tag]["launches"].items()
+                     if n != "flash_attention" and c}
+            if not r[tag]["launches"]["flash_attention"] or other:
+                fail(f"[model_axis] ({tag}) rank {r['rank']} launched "
+                     f"{r[tag]['launches']}")
+    # a rank's heads of (b): its query heads with its KV heads when those
+    # split the model axis, else the KV heads of its own query groups
+    # (kernels.flash_attention.ops.HeadShards)
+    cfg_b = _axis_configs(dict(job, tag="x"))[2]
+    hl = cfg_b.num_heads // AXIS_MESH[1]
+    groups = cfg_b.num_heads // cfg_b.num_kv_heads
+    want_heads = [[hl, cfg_b.num_kv_heads // AXIS_MESH[1]
+                   if cfg_b.num_kv_heads % AXIS_MESH[1] == 0
+                   else 1 if groups % hl == 0 else hl]]
+    if any(r["b"]["flash_heads"] != want_heads for r in ranks):
+        fail(f"[model_axis] (b) flash ran on "
+             f"{[r['b']['flash_heads'] for r in ranks]}, not {want_heads}")
+
+    # (c) the mesh's last checkpoint onto a one-device mesh, bitwise
+    cfg_a, tc_a = _axis_configs(dict(job, tag="mesh"))[:2]
+    one_mesh = t_mesh.make_test_mesh(1, 1, device=dev)
+    t0 = time.perf_counter()
+    with Trainer(cfg_a, tc_a, one_mesh, device=dev) as tr:
+        state, step = tr.restore_latest()
+        tree = tr._checkpoint_tree(state)
+    restore_s = time.perf_counter() - t0
+    manifest = json.loads((Path(tc_a.checkpoint_dir) / f"step_{step:09d}"
+                           / "manifest.json").read_text())
+    got = {k: _leaf_digest(t) for k, t in flatten_with_paths(tree)
+           if isinstance(t, torch.Tensor)}
+    want = r0["a"]["digests"]
+    differ = sorted(k for k in want if got.get(k) != want[k])
+    log(f"[model_axis] (c) the step-{step} checkpoint of the mesh "
+        f"(signature {manifest['mesh_signature']!r}) restored on a "
+        f"one-device mesh in {restore_s:.2f} s: {len(want)} leaves, "
+        f"{len(differ)} differ from the ranks' gathered state")
+    signature = "data={}xmodel={}".format(*AXIS_MESH)
+    if step != AXIS_STEPS or differ or set(got) != set(want) or \
+            manifest["mesh_signature"] != signature:
+        fail(f"[model_axis] (c) step {step}, signature "
+             f"{manifest['mesh_signature']!r}, differing leaves {differ}")
+    cos = {k: _leaf_cosine(t, a_params[k])
+           for k, t in flatten_with_paths(state[0])}
+    worst = min(cos, key=cos.get)
+    log(f"[model_axis] (a) step-{step} params, mesh against one device: "
+        f"per-leaf cosine >= {cos[worst]:.7f} ({worst}; bar "
+        f"{AXIS_PARAM_COS})")
+    if not cos[worst] >= AXIS_PARAM_COS:
+        fail(f"[model_axis] (a) params cosine {cos[worst]} at {worst}")
+    report["c"] = {"step": step, "leaves": len(want), "differ": differ,
+                   "restore_seconds": restore_s,
+                   "signature": manifest["mesh_signature"]}
+    report["a"]["param_cosine_min"] = cos[worst]
+    del state, tree, a_params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the flash entry at a rank's share of (b)'s call
+    checks = train_flash_checks(dev, AXIS_FLASH_SHAPE)
+    for name, c in checks.items():
+        if not (c["out_bitwise"] and c["out_ok"] and c["lse_ok"]
+                and c["lse_finite"]):
+            fail(f"[model_axis] flash LSE form ({name}) at "
+                 f"{AXIS_FLASH_SHAPE} fails: {c}")
+    ft = train_flash_times(dev, AXIS_FLASH_SHAPE)
+    launches = sum(r["b"]["launches"]["flash_attention"] for r in ranks)
+    kernels.append(
+        {"name": "flash_attention_model_axis", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+         "launches": launches,
+         "max_abs_err": max(max(c["out_max_abs_err"], c["lse_max_abs_err"])
+                            for c in checks.values()),
+         "ms": ft["lse_ms"], "plain_ms": ft["plain_lse_ms"],
+         "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+         "library_ms": ft["library_ms"]})
+    log(f"[times] flash_attention_model_axis at {tuple(AXIS_FLASH_SHAPE)} "
+        f"causal (a rank's heads of (b)): the LSE form {ft['lse_ms']:.4f} "
+        f"ms, plain {ft['plain_lse_ms']:.4f} ms, bound "
+        f"{ft['bound_ms']:.5f} ms ({ft['bound_by']}), library "
+        f"{ft['library_ms']} ({ft['library_backend']}); max abs err "
+        + ", ".join(f"{n} out {c['out_max_abs_err']:.3e} lse "
+                    f"{c['lse_max_abs_err']:.3e}" for n, c in checks.items())
+        + f"; {launches} launches over the ranks in (b)")
+    report["flash"] = {"checks": checks, "times": ft}
+    shutil.rmtree(AXIS_DIR, ignore_errors=True)
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[model_axis] phase {report['phase_seconds']:.1f} s")
+    return report
+
+
 def main() -> None:
     t_main = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").exists():
@@ -5638,6 +6092,9 @@ def main() -> None:
     # -- 24. smollm-360m: LM training --------------------------------------
     report["train"] = train_phase(dev, kernels)
 
+    # -- 24b. the model axis: smollm-360m and llama3-8b over SPMD ranks ---
+    report["model_axis"] = model_axis_phase(dev, kernels)
+
     # -- 25. the launch layer's cell plans ---------------------------------
     report["launch"] = launch_phase(dev, kernels)
 
@@ -5655,4 +6112,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--model-axis-rank"]:
+        model_axis_rank(sys.argv[3], int(sys.argv[2]))
+    else:
+        main()

@@ -1,6 +1,5 @@
 """Checkpointing: atomic tree save/restore, an async writer and step GC
-(``repro.checkpoint.checkpoint`` without its re-sharding onto a mesh,
-which waits for the mesh scaffolding).
+(``repro.checkpoint.checkpoint``).
 
 Layout (one directory per step), the JAX package's own, so either
 package reads the other's checkpoints:
@@ -18,6 +17,18 @@ so the round trip is bitwise. Paths follow
 tuple's items by index, and a NamedTuple's fields as ".<name>" (JAX's
 ``GetAttrKey``), so an ``AdamWState`` reads "1/.mu/..." in a trainer's
 (params, opt_state, residual) in both packages.
+
+Under SPMD processes (an initialised process group; DTensor leaves
+over ``launch.mesh``'s ``DeviceMesh``) every rank calls ``save``,
+``AsyncCheckpointer.save``, ``AsyncCheckpointer.wait`` and
+``latest_step`` in the same order: a save gathers each DTensor leaf to
+the host on the calling thread (a collective, in the tree's order on
+every rank; none runs on the writer thread, where it could deadlock
+against the next step's), and rank 0 alone writes. ``wait`` and
+``latest_step`` end at a barrier, so no rank reads the directory before
+rank 0's write is in it. ``restore(..., shardings=)`` places each leaf
+on the current mesh (each rank keeps its slice), whatever mesh wrote
+it: a checkpoint of a (1, 2) mesh restores on (1, 1) or (2, 1).
 """
 from __future__ import annotations
 
@@ -31,7 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import check_one_device
+from repro_torch.device import spmd_mesh
 
 _STORED = (np.float64, np.float32, np.float16, np.int64, np.int32,
            np.int16, np.int8, np.uint8, np.bool_)
@@ -85,6 +96,8 @@ def to_host(leaf) -> Tuple[np.ndarray, str]:
     widened to float32."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         name = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -98,6 +111,23 @@ def to_host(leaf) -> Tuple[np.ndarray, str]:
     return arr, name
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _spmd_rank() -> Optional[int]:
+    """This process's rank in the initialised process group, or None."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else None
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _host_leaves(tree) -> List[Tuple[str, np.ndarray, str]]:
     """(path, stored array, dtype name) of every leaf, on the host."""
     return [(key, *to_host(leaf)) for key, leaf in flatten_with_paths(tree)]
@@ -106,9 +136,14 @@ def _host_leaves(tree) -> List[Tuple[str, np.ndarray, str]]:
 def save(directory: str, step: int, tree: Any,
          metadata: Optional[Dict] = None, mesh_signature: str = "") -> Path:
     """Synchronous atomic save of a tree of numpy arrays, scalars or
-    tensors. One card: ``mesh_signature`` is "" unless given."""
-    return _save_host(directory, step, _host_leaves(tree), metadata,
-                      mesh_signature)
+    tensors (DTensor leaves gathered; rank 0 writes, then every rank
+    waits at a barrier). ``mesh_signature`` is "" unless given."""
+    leaves = _host_leaves(tree)
+    path = Path(directory) / f"step_{step:09d}"
+    if _spmd_rank() in (None, 0):
+        path = _save_host(directory, step, leaves, metadata, mesh_signature)
+    _barrier()
+    return path
 
 
 def _save_host(directory: str, step: int, leaves: List,
@@ -162,6 +197,10 @@ class AsyncCheckpointer:
         leaves = _host_leaves(tree)
         self.host_seconds = time.perf_counter() - t0
 
+        if _spmd_rank() not in (None, 0):
+            self.last_saved = step
+            return
+
         def work():
             try:
                 t1 = time.perf_counter()
@@ -178,10 +217,12 @@ class AsyncCheckpointer:
 
     def wait(self) -> None:
         """Block until the pending write, if any, is on disk; re-raise an
-        error the write met."""
+        error the write met. Under SPMD processes every rank then waits
+        at a barrier (rank 0's write is on disk for all)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -205,6 +246,9 @@ def gc_old_steps(directory: str, keep: int) -> None:
 
 
 def latest_step(directory: str) -> Optional[int]:
+    """The newest complete step, or None. Under SPMD processes every
+    rank calls it: it reads after a barrier."""
+    _barrier()
     steps = list_steps(directory)
     return steps[-1] if steps else None
 
@@ -214,11 +258,16 @@ def restore(directory: str, step: int, target_tree: Any,
     """Restore into the structure of ``target_tree`` (shapes validated);
     returns (tree, manifest). A tensor leaf of the target comes back as
     a tensor of its dtype on its device, any other leaf as a numpy array
-    of its dtype. ``shardings`` (the JAX package's placement onto the
-    current mesh) may name one device only: the target's leaves say
-    where; more raises ``NotImplementedError`` until the model-axis
-    slice."""
-    check_one_device("restore", shardings=shardings)
+    of its dtype. ``shardings`` (a matching tree of ``NamedSharding``s,
+    the JAX package's placement onto the current mesh) over a mesh of
+    SPMD processes places each tensor leaf there as a DTensor (each rank
+    keeps its slice); a DTensor leaf of the target without a sharding
+    keeps the target's placement. Shardings over one device change
+    nothing; over more from one controller they raise
+    ``NotImplementedError``."""
+    spmd_mesh("restore", shardings=shardings)
+    flat_sh = (None if shardings is None else
+               dict(flatten_with_paths(shardings)))
     path = Path(directory) / f"step_{step:09d}"
     manifest = json.loads((path / "manifest.json").read_text())
     with np.load(path / "arrays.npz") as data:
@@ -231,10 +280,21 @@ def restore(directory: str, step: int, target_tree: Any,
             if tuple(arr.shape) != expect:
                 raise ValueError(
                     f"leaf {key!r} shape {arr.shape} != expected {expect}")
-            if isinstance(leaf, torch.Tensor):
-                return torch.from_numpy(arr).to(device=leaf.device,
-                                                dtype=leaf.dtype)
-            dtype = np.asarray(leaf).dtype
-            return arr.astype(dtype) if arr.dtype != dtype else arr
+            if not isinstance(leaf, torch.Tensor):
+                dtype = np.asarray(leaf).dtype
+                return arr.astype(dtype) if arr.dtype != dtype else arr
+            where = leaf.to_local() if _is_dtensor(leaf) else leaf
+            t = torch.from_numpy(arr).to(device=where.device,
+                                         dtype=leaf.dtype)
+            sh = None if flat_sh is None else flat_sh.get(key)
+            if sh is not None and getattr(sh.mesh, "device_mesh",
+                                          None) is not None:
+                from repro_torch.sharding.rules import place
+                return place(t, sh)
+            if _is_dtensor(leaf):
+                from torch.distributed.tensor import distribute_tensor
+                return distribute_tensor(t, leaf.device_mesh,
+                                         leaf.placements, src_data_rank=None)
+            return t
         tree = _map_with_paths(load, target_tree)
     return tree, manifest

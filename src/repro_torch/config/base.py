@@ -272,9 +272,13 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
+    """A serving cell: its shape and largest batch. ``decode_attention``
+    ("gspmd" | "flash_shmap": the JAX package's decode strategies, the
+    latter sequence-sharded flash-decoding) is accepted, so that the JAX
+    package's configs construct, and ignored: no caller of the port
+    reads it, whose decode attention is its one plain path
+    (``models.attention.attn_decode``)."""
     shape: InputShape = DECODE_32K
-    # decode attention strategy: "gspmd" (baseline) | "flash_shmap"
-    # (sequence-sharded flash-decoding; the JAX package's names, kept)
     decode_attention: str = "gspmd"
     max_batch: int = 128
 

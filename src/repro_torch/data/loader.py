@@ -6,7 +6,8 @@ already has it). Each process materializes only its slice of the global
 batch (``process_index`` of ``process_count``, explicit here and 0 of 1
 by default: the port runs on one card). The batches are numpy arrays
 drawn exactly as the JAX package draws them, so the two loaders give the
-same bits; ``device_batch`` moves one onto a device.
+same bits; ``device_batch`` moves one onto a device or, under SPMD
+processes, places it over a mesh (each rank keeps its rows).
 
 Sources: synthetic token corpora with planted bigram structure, or an
 on-the-fly hash tokenizer over text.
@@ -19,7 +20,8 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, check_one_device, resolve_device
+from repro_torch.device import (DeviceLike, rank_device, resolve_device,
+                                spmd_mesh)
 
 
 def hash_tokenize(text: str, vocab_size: int, length: int) -> np.ndarray:
@@ -91,9 +93,17 @@ def device_batch(batch: Dict[str, np.ndarray], shardings=None, *,
                  device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
     """A host batch -> tensors on ``device`` (int32 stays int32).
     ``shardings`` (the JAX package's second argument: a NamedSharding a
-    key) may place over one device only, which ``device`` names; more
-    raises ``NotImplementedError`` until the model-axis slice."""
-    check_one_device("device_batch", shardings=shardings)
-    dev = resolve_device(device)
-    return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
-            for k, v in batch.items()}
+    key) over a mesh of SPMD processes (``launch.mesh``) places each key
+    as ``jax.device_put`` does: rows over ("pod", "data") by its spec,
+    each rank keeping its slice on its own device, as a DTensor. Over
+    one device they change nothing (``device`` names it); a mesh of more
+    than one device from one controller raises
+    ``NotImplementedError``."""
+    if spmd_mesh("device_batch", shardings=shardings) is None:
+        dev = resolve_device(device)
+        return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+                for k, v in batch.items()}
+    from repro_torch.sharding.rules import place
+    dev = rank_device(device)
+    return {k: place(torch.as_tensor(np.ascontiguousarray(v), device=dev),
+                     shardings[k]) for k, v in batch.items()}

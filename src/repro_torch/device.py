@@ -10,22 +10,27 @@ both matmuls and cuDNN, set here explicitly, because the reference
 tolerance of the scoring and loss kernels (1e-5) is below TF32's three
 decimal digits.
 
-``check_one_device`` is how the entry points that place tensors over
-a mesh's model axis treat the JAX package's ``mesh`` or ``shardings``
-(the ``Trainer``, ``device_batch``, ``restore(shardings=)`` and the
-launch plans): a mesh of one device is accepted (the entry point runs
-on its ``device``), a mesh of more raises ``NotImplementedError``; they
-wait for the model-axis slice (``torch.distributed``'s ``DeviceMesh``
-under SPMD processes). The streaming data loops (the scoring executor,
-the embedding service and the offline indexer) accept a mesh of any
-size over the ``("pod", "data")`` axes: ``data_mesh_devices`` checks it
-and lists the devices they run row shards on, from one process.
+Meshes. A mesh backed by a ``torch.distributed`` ``DeviceMesh`` (SPMD
+processes, one a mesh position: ``launch.mesh``) is taken by the
+``Trainer``, the train plan, ``device_batch`` and
+``restore(shardings=)``, which place every tensor's shard on its rank's
+device (``rank_device``); ``spmd_mesh`` finds it in a mesh or a tree of
+shardings, and refuses a mesh of more than one device from one
+controller there. ``check_one_device`` is how the entry points the
+model axis does not reach yet treat a mesh: the prefill and decode
+plans (``PREFILL_DECODE_SLICE``) and the non-dense families
+(``FAMILY_SLICE``): a mesh of one device is accepted, a mesh of more
+raises ``NotImplementedError`` naming the slice that will take it. The
+streaming data loops (the scoring executor, the embedding service and
+the offline indexer) accept a mesh of any size over the ``("pod",
+"data")`` axes from one controller: ``data_mesh_devices`` checks it and
+lists the devices they run row shards on.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -34,8 +39,16 @@ DeviceLike = Union[str, torch.device]
 # mesh axes a data-parallel loop shards rows over (the logical "batch"
 # rule's axes, ``sharding.rules.DEFAULT_RULES``)
 DATA_AXES = ("pod", "data")
-MODEL_AXIS_SLICE = ("waits for the model-axis slice (torch.distributed's "
-                    "DeviceMesh under SPMD processes)")
+MODEL_AXIS_SLICE = ("needs SPMD processes, one a mesh position "
+                    "(launch.dist.init_spmd, or torchrun), and a mesh over "
+                    "their world (launch.mesh.make_test_mesh or make_mesh)")
+PREFILL_DECODE_SLICE = (
+    "waits for the next model-axis slice: the prefill and decode plans "
+    "on a model axis, with the KV cache's kv_seq sharding")
+FAMILY_SLICE = (
+    "waits for the model-axis slice after the prefill and decode plans: "
+    "the MoE, RWKV6, Mamba2/zamba2 and encoder-decoder families under a "
+    "model axis")
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
@@ -54,6 +67,24 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
+def rank_device(device: DeviceLike = "cuda",
+                rank: Optional[int] = None) -> torch.device:
+    """An SPMD rank's own device: ``cuda:{rank % device_count}`` (ranks
+    share the cards in turn when there are more ranks than cards), or
+    the CPU when ``device`` names it. ``rank`` defaults to this
+    process's rank in the initialised process group (0 without one)."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return resolve_device(dev)
+    if rank is None:
+        import torch.distributed as dist
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    resolve_device("cuda")
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def on_device(dev: torch.device):
     """A context in which ``dev`` is the current CUDA device (nothing
     for the CPU): the kernels launch on the current device's stream, so
@@ -63,12 +94,9 @@ def on_device(dev: torch.device):
     return contextlib.nullcontext()
 
 
-def check_one_device(what: str, mesh: Any = None,
-                     shardings: Any = None) -> None:
-    """Raise ``NotImplementedError`` when ``mesh``, or the mesh of any
-    sharding in the ``shardings`` tree (a dict, list or tuple of
-    ``NamedSharding``s), spans more than one device; an object without a
-    mesh's ``shape`` counts as more."""
+def _meshes(mesh: Any, shardings: Any) -> list:
+    """``mesh`` and the mesh of every sharding in the ``shardings`` tree
+    (a dict, list or tuple of ``NamedSharding``s)."""
     meshes = [] if mesh is None else [mesh]
     stack = [shardings]
     while stack:
@@ -79,12 +107,43 @@ def check_one_device(what: str, mesh: Any = None,
             stack.extend(node)
         elif node is not None:
             meshes.append(node.mesh)
-    for m in meshes:
-        shape = dict(getattr(m, "shape", {"?": 2}))
-        if math.prod(shape.values()) > 1:
+    return meshes
+
+
+def _size(m: Any) -> int:
+    """A mesh's device count; an object without a mesh's ``shape``
+    counts as more than one."""
+    return math.prod(dict(getattr(m, "shape", {"?": 2})).values())
+
+
+def check_one_device(what: str, mesh: Any = None, shardings: Any = None,
+                     waits_for: str = MODEL_AXIS_SLICE) -> None:
+    """Raise ``NotImplementedError`` (``what`` ``waits_for`` ...) when
+    ``mesh``, or the mesh of any sharding in ``shardings``, spans more
+    than one device."""
+    for m in _meshes(mesh, shardings):
+        if _size(m) > 1:
             raise NotImplementedError(
-                f"{what}: a mesh of more than one device ({shape}) "
-                f"{MODEL_AXIS_SLICE}")
+                f"{what}: a mesh of more than one device "
+                f"({dict(getattr(m, 'shape', {'?': 2}))}) {waits_for}")
+
+
+def spmd_mesh(what: str, mesh: Any = None, shardings: Any = None):
+    """The ``DeviceMesh`` that ``mesh`` and ``shardings`` place over (SPMD
+    processes), or None for no mesh or a mesh of one device. A mesh of
+    more than one device without a ``DeviceMesh`` (one controller, or not
+    a mesh) raises ``NotImplementedError``; meshes of two worlds raise
+    ``ValueError``."""
+    found = None
+    for m in _meshes(mesh, shardings):
+        dm = getattr(m, "device_mesh", None)
+        if dm is None:
+            check_one_device(what, m)
+            continue
+        if found is not None and dm is not found:
+            raise ValueError(f"{what}: shardings over two device meshes")
+        found = dm
+    return found
 
 
 def data_mesh_devices(what: str, mesh: Any,
@@ -111,7 +170,10 @@ def data_mesh_devices(what: str, mesh: Any,
     if model:
         raise NotImplementedError(
             f"{what}: a mesh of more than one device over the axes "
-            f"{model} {MODEL_AXIS_SLICE}")
+            f"{model}: a streaming data loop runs row shards over "
+            f"(\"pod\", \"data\") from one controller; the model-axis "
+            f"path (the Trainer, the train plan) runs under SPMD "
+            f"processes (launch.dist)")
     devices = tuple(getattr(mesh, "devices", None) or ())
     if len(devices) != size:
         raise ValueError(f"{what}: the mesh {dict(shape)} has "

@@ -23,10 +23,29 @@ attention layer's autograd Function, whose forward runs with grad off.
 ``attention`` takes the JAX package's switches: ``force_ref=True``
 computes the plain version on any device; ``interpret=True`` (Pallas
 interpret mode) has no counterpart and raises.
+
+On DTensors (SPMD ranks over a mesh, ``launch.mesh``) the sharding rule
+is ``HeadShards``: each rank launches the kernel on its own query
+heads, batch rows and the whole sequence, with the KV heads of its own
+query groups. Query heads sharded over a model axis of n ways keep
+their layout; K and V follow them when their heads split n ways too
+(rank c's KV heads c kvh/n .. are then exactly its query groups', the
+kernel's ``j / (h / kv_heads)`` read locally). When the KV heads do not
+split (llama3-8b SMOKE's 4 query heads over 1 on 2 ranks), K and V are
+replicated and each rank takes the KV heads of its own query heads:
+one when its heads lie in one group, else one a query head; the
+kernel's in-place grouping would otherwise pair a rank's query heads
+with the wrong KV heads. Every other placement (sequence or head_dim
+sharded, partial sums) is redistributed to that layout first. Both the
+no-grad entry (``flash_attention_fwd``) and the attention layer's
+autograd Function (``models.attention.flash_attention``, whose
+backward scatters a replicated K's gradient back to its heads as a
+partial sum) take it.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import numpy as np
@@ -112,6 +131,84 @@ def _plain(q, k, v, scale, causal, window, q_offset, return_lse,
         kv_block=kv_block, return_lse=return_lse)
 
 
+class HeadShards:
+    """Where each rank's share of a DTensor attention lies (see the
+    module's docstring): ``local(q, k, v)`` gives the rank's q, k and v
+    as plain tensors, ``out``/``lse`` wrap its results, ``grads`` its
+    dq, dk, dv."""
+
+    def __init__(self, q, k):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh = q.device_mesh
+        h, kvh = q.shape[2], k.shape[2]
+        self.q_pl = [p if (p.is_shard(0) or p.is_shard(2)) else Replicate()
+                     for p in q.placements]
+        hdims = [i for i, p in enumerate(self.q_pl) if p.is_shard(2)]
+        ways = math.prod(self.mesh.size(d) for d in hdims)
+        if h % ways:
+            # uneven head shards: the query heads are gathered instead
+            self.q_pl = [Replicate() if p.is_shard(2) else p
+                         for p in self.q_pl]
+            hdims, ways = [], 1
+        self.kv_split = kvh % ways == 0
+        self.kv_pl = (list(self.q_pl) if self.kv_split else
+                      [Replicate() if p.is_shard(2) else p
+                       for p in self.q_pl])
+        self.kv_index = None
+        if not self.kv_split:
+            from repro_torch.sharding.rules import block_index
+            hl, groups = h // ways, h // kvh
+            c = block_index(self.mesh, hdims)
+            heads = (c * hl + torch.arange(hl)) // groups
+            # one KV head when the rank's heads lie in one group
+            self.kv_index = heads[:1] if groups % hl == 0 else heads
+        self.lse_pl = [Shard(1) if p.is_shard(2) else p for p in self.q_pl]
+        self.kvh = kvh
+
+    def local(self, q, k, v):
+        ql = q.redistribute(self.mesh, self.q_pl).to_local().contiguous()
+        kl, vl = (t.redistribute(self.mesh, self.kv_pl).to_local()
+                  for t in (k, v))
+        if self.kv_index is not None:
+            idx = self.kv_index.to(kl.device)
+            kl, vl = (t.index_select(2, idx) for t in (kl, vl))
+        return ql, kl.contiguous(), vl.contiguous()
+
+    def out(self, out, lse=None):
+        from torch.distributed.tensor import DTensor
+        o = DTensor.from_local(out, self.mesh, self.q_pl, run_check=False)
+        if lse is None:
+            return o
+        return o, DTensor.from_local(lse, self.mesh, self.lse_pl,
+                                     run_check=False)
+
+    def dout(self, g):
+        return g.redistribute(self.mesh, self.q_pl).to_local().contiguous()
+
+    def grads(self, dq, dk, dv):
+        """DTensors of the full q, k and v's gradients: a replicated
+        K's (and V's) a partial sum of each rank's heads."""
+        from torch.distributed.tensor import DTensor, Partial
+        wrap = lambda t, pl: DTensor.from_local(t, self.mesh, pl,
+                                                run_check=False)
+        if self.kv_index is None:
+            return (wrap(dq, self.q_pl), wrap(dk, self.kv_pl),
+                    wrap(dv, self.kv_pl))
+        idx = self.kv_index.to(dk.device)
+        partial = [Partial() if p.is_shard(2) else p for p in self.q_pl]
+
+        def full(t):
+            z = torch.zeros(t.shape[:2] + (self.kvh,) + t.shape[3:],
+                            dtype=t.dtype, device=t.device)
+            return wrap(z.index_add_(2, idx, t), partial)
+        return wrap(dq, self.q_pl), full(dk), full(dv)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool = True,
                         window: int = 0, q_offset: int = 0,
@@ -121,7 +218,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in ``q.dtype``: masked online softmax, f32 inside; with
     ``return_lse``, (out, lse (b, h, sq) float32). ``q_block`` and
     ``kv_block`` are the plain version's tiles (the kernel's are its
-    own)."""
+    own). DTensors go through ``HeadShards``: the kernel on each rank's
+    heads."""
+    if _is_dtensor(q):
+        shards = HeadShards(q, k)
+        res = flash_attention_fwd(*shards.local(q, k, v), scale=scale,
+                                  causal=causal, window=window,
+                                  q_offset=q_offset, return_lse=return_lse,
+                                  q_block=q_block, kv_block=kv_block)
+        return shards.out(*res) if return_lse else shards.out(res)
     if _cost.plain_for_grad(
             "flash_attention_fwd", q, k, v,
             hint="; train through models.attention.flash_attention"):

@@ -17,39 +17,53 @@ The plan's model is ``build_model_for_scale``'s: the flash attention
 (the hand-written kernel on the card) and the factored WKV6
 (``rwkv_mode="factored"``), with ``act_constraint`` and, for the
 duration of each step, the blocks' ``common.constrain`` hook resolving
-the rules (recording divisibility fallbacks in the plan's ``ruleset``).
-A step runs on its mesh's one device; a mesh of more than one device
-(the production meshes of ``launch.mesh``) gives the plan's specs and
-shardings, and its step on real tensors raises ``NotImplementedError``:
-running it waits for the model-axis slice. On meta tensors (the plan's
-own ``arg_sds``) a step traces over any mesh, abstract ones included,
-resolving every constraint (recording its fallbacks) and placing
-nothing: the dry run (``launch.dryrun``) counts it so. A meta AdamW
+the rules (recording divisibility fallbacks in the plan's ``ruleset``)
+and redistributing a DTensor to the resolved placements (a plain
+tensor passes through). A step runs on its mesh's one device, or on a
+mesh of SPMD processes (``launch.mesh``: a ``DeviceMesh`` over the
+world, any (data, model) shape): there the train step places the
+params and AdamW state by its ``arg_shardings`` and the batch by the
+input shardings, and runs on DTensors (each rank its shards), for the
+dense family; the prefill and decode steps and the other families on
+such a mesh raise ``NotImplementedError`` naming the slice that will
+take them (``device.PREFILL_DECODE_SLICE``, ``FAMILY_SLICE``). A mesh of
+more than one device from one controller (the production meshes are
+abstract) gives the plan's specs and shardings, and its step on real
+tensors raises. On meta tensors (the plan's own ``arg_sds``) a step
+traces over any mesh, abstract ones included, resolving every
+constraint (recording its fallbacks) and placing nothing: the dry run
+(``launch.dryrun``) counts it so. A meta AdamW
 step has no value to read on the host; the update's host arithmetic
 (learning rate, bias corrections) then takes step 0, which changes no
 operation the step runs. The train step accumulates the gradient
 over ``microbatches`` contiguous row blocks of the batch in float32, in
-block order, as the JAX package's scan does, then applies AdamW
+block order, as the JAX package's scan does (each block placed by the
+input shardings of its own shape), then applies AdamW
 (``optimizer.adamw.apply_updates``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config.base import InputShape, ModelConfig, OptimizerConfig
+from repro_torch.device import (FAMILY_SLICE, PREFILL_DECODE_SLICE,
+                                check_one_device)
 from repro_torch.launch import hlo_analysis
 from repro_torch.launch.mesh import MULTI_CARD
 from repro_torch.models import build_model, input_axes, input_specs
-from repro_torch.models.common import (constrainer, param_specs,
-                                       tree_map)
+from repro_torch.models.common import (constrainer, full_value,
+                                       param_specs, tree_map)
 from repro_torch.optimizer import adamw
 from repro_torch.runtime.train_loop import grad_tree
 from repro_torch.sharding.rules import (DEFAULT_RULES, NamedSharding, P,
-                                        RuleSet, tree_shardings)
+                                        RuleSet, place, placements,
+                                        tree_shardings)
 
 # archs whose weights + optimizer state need ZeRO/FSDP sharding over `data`
 FSDP_PARAM_THRESHOLD = 3e9
@@ -108,14 +122,50 @@ def _mesh_size(mesh) -> int:
 
 def _resolver(ruleset: RuleSet) -> Callable:
     """The plan's constraint: resolve ``logical_axes`` against the mesh
-    (recording fallbacks) and return ``x`` as it is on one device."""
+    (recording fallbacks) and redistribute a DTensor there; a plain
+    tensor is returned as it is (on one device; on a mesh of more from
+    one controller a real one raises)."""
     def constrain(x, logical_axes):
-        ruleset.sharding(logical_axes, x.shape)
-        if _mesh_size(ruleset.mesh) > 1 and not x.is_meta:
+        sh = ruleset.sharding(logical_axes, x.shape)
+        if isinstance(x, DTensor):
+            return x.redistribute(x.device_mesh, placements(sh, x.shape))
+        if (_mesh_size(ruleset.mesh) > 1 and not x.is_meta
+                and getattr(ruleset.mesh, "device_mesh", None) is None):
             raise NotImplementedError(f"{dict(ruleset.mesh.shape)}: "
                                       f"{MULTI_CARD}")
         return x
     return constrain
+
+
+def spmd_context(mesh, resolve: Callable):
+    """The context a step runs in: the blocks' constraints resolved and,
+    on a mesh of SPMD processes, plain tensors (positions, masks,
+    scalars) taken as replicated beside DTensors."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(constrainer(resolve))
+    if getattr(mesh, "device_mesh", None) is not None:
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        stack.enter_context(implicit_replication())
+    return stack
+
+
+def _refuse_spmd(what: str, cfg: ModelConfig, mesh, params) -> None:
+    """The steps this slice leaves to later ones, on a mesh of SPMD
+    processes of more than one device: the prefill and decode plans, and
+    the non-dense families."""
+    if getattr(mesh, "device_mesh", None) is None or _is_meta(params):
+        return
+    if what != "train":
+        check_one_device(f"the {what} plan", mesh,
+                         waits_for=PREFILL_DECODE_SLICE)
+    elif cfg.family != "dense":
+        check_one_device(f"the train plan of {cfg.name} (family "
+                         f"{cfg.family!r})", mesh, waits_for=FAMILY_SLICE)
+
+
+def _is_meta(params) -> bool:
+    return params["embed"]["table"].is_meta
 
 
 def build_model_for_scale(cfg: ModelConfig, causal_skip: bool = False,
@@ -154,12 +204,15 @@ def default_microbatches(shape: InputShape, mesh,
 
 
 def _device(mesh, params) -> torch.device:
-    """The mesh's one device, which must hold the params; the meta
-    device for meta params, on any mesh."""
+    """The mesh's one device (a rank's own on a mesh of SPMD processes),
+    which must hold the params; the meta device for meta params, on any
+    mesh."""
     table = params["embed"]["table"]
     if table.is_meta:
         return table.device
     dev = mesh.device
+    if isinstance(table, DTensor):
+        table = table.to_local()
     if table.device.type != dev.type:
         raise ValueError(f"params are on {table.device}, the mesh on {dev}")
     return dev
@@ -172,6 +225,18 @@ def _value_and_grad(loss_fn, params, batch):
     loss = loss_fn(live, batch)
     grads = grad_tree(loss, live)
     return loss.detach(), grads
+
+
+def _place_batch(batch, cfg: ModelConfig, shape: InputShape,
+                 rs: RuleSet):
+    """A batch (or a microbatch: its own row count) placed by the input
+    shardings of its shape."""
+    rows = next(iter(batch.values())).shape[0]
+    sub = dataclasses.replace(shape, global_batch=rows)
+    sds = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+           for k, v in batch.items()}
+    sh = shardings_for_tree(rs, input_axes(cfg, sub), sds)
+    return {k: place(v, sh[k]) for k, v in batch.items()}
 
 
 def make_train_plan(cfg: ModelConfig, shape: InputShape, mesh,
@@ -204,12 +269,22 @@ def make_train_plan(cfg: ModelConfig, shape: InputShape, mesh,
 
     def train_step(state, batch):
         params, opt_state = state
+        _refuse_spmd("train", cfg, mesh, params)
         dev = _device(mesh, params)
+        spmd = getattr(mesh, "device_mesh", None) is not None
         if isinstance(opt_state.step, torch.Tensor) and opt_state.step.is_meta:
             opt_state = opt_state._replace(step=0)
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        with constrainer(resolve):
+        if spmd:
+            params = adamw.zip_map(place, params, param_sh)
+            opt_state = opt_state._replace(
+                mu=adamw.zip_map(place, opt_state.mu, param_sh),
+                nu=adamw.zip_map(place, opt_state.nu, param_sh))
+        batch = {k: v if isinstance(v, DTensor) else
+                 torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with spmd_context(mesh, resolve):
             if nmicro <= 1:
+                if spmd:
+                    batch = _place_batch(batch, cfg, shape, rs)
                 loss, grads = _value_and_grad(model.loss_fn, params, batch)
             else:
                 # gradient accumulation over contiguous row blocks; the
@@ -218,23 +293,34 @@ def make_train_plan(cfg: ModelConfig, shape: InputShape, mesh,
                 if rows % nmicro:
                     raise ValueError(f"a batch of {rows} rows does not "
                                      f"split into {nmicro} microbatches")
-                micro = {k: v.reshape((nmicro, rows // nmicro) + v.shape[1:])
-                         for k, v in batch.items()}
+                per = rows // nmicro
+                if not spmd:
+                    batch = {k: v.reshape((nmicro, per) + v.shape[1:])
+                             for k, v in batch.items()}
                 loss = torch.zeros((), dtype=torch.float32, device=dev)
-                grads = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params)
+                grads = tree_map(lambda p: (
+                    torch.zeros_like(p, dtype=torch.float32) if spmd else
+                    torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device)), params)
                 # identical trips, in live memory too (nothing of one
                 # is held into the next): the dry run counts one, scaled
                 for i in hlo_analysis.trips(nmicro):
-                    mb = {k: v[i] for k, v in micro.items()}
+                    if spmd:
+                        # the global rows of block i, placed by its shape
+                        mb = _place_batch({k: v[i * per:(i + 1) * per]
+                                           for k, v in batch.items()},
+                                          cfg, shape, rs)
+                    else:
+                        mb = {k: v[i] for k, v in batch.items()}
                     l_i, g_i = _value_and_grad(model.loss_fn, params, mb)
                     grads = adamw.zip_map(
                         lambda a, g: a + g.float() / nmicro, grads, g_i)
                     loss = loss + l_i / nmicro
                     del l_i, g_i
-        params, opt_state, metrics = adamw.apply_updates(
-            opt_cfg, params, grads, opt_state)
-        metrics["loss"] = loss
+            params, opt_state, metrics = adamw.apply_updates(
+                opt_cfg, params, grads, opt_state)
+        metrics["loss"] = full_value(loss)
+        metrics["grad_norm"] = full_value(metrics["grad_norm"])
         return (params, opt_state), metrics
 
     metrics_sh = {"loss": replicated(mesh), "grad_norm": replicated(mesh),
@@ -266,6 +352,7 @@ def make_prefill_plan(cfg: ModelConfig, shape: InputShape, mesh,
     key = "embeds" if model.takes_embeds else "tokens"
 
     def prefill_step(params, batch):
+        _refuse_spmd("prefill", cfg, mesh, params)
         _device(mesh, params)
         with constrainer(resolve):
             if cfg.is_encdec:
@@ -302,6 +389,7 @@ def make_decode_plan(cfg: ModelConfig, shape: InputShape, mesh,
     resolve = _resolver(rs)
 
     def decode_step(params, batch):
+        _refuse_spmd("decode", cfg, mesh, params)
         _device(mesh, params)
         with constrainer(resolve):
             logits, cache = model.decode_step(params, batch["tokens"],

@@ -41,6 +41,7 @@ from __future__ import annotations
 from typing import Dict, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -166,11 +167,16 @@ class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel with its LSE (card) or the plain blocked online
     softmax over ``q_block`` x ``kv_block`` tiles (CPU), one
     ``flash_ops.flash_attention_fwd`` call either way; backward:
-    ``flash_backward``."""
+    ``flash_backward``. On DTensors both run on each rank's heads
+    (``flash_ops.HeadShards``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, q_offset, q_block,
                 kv_block):
+        shards = None
+        if isinstance(q, DTensor):
+            shards = flash_ops.HeadShards(q, k)
+            q, k, v = shards.local(q, k, v)
         out, lse = flash_ops.flash_attention_fwd(
             q, k, v, scale=scale, causal=causal, window=window,
             q_offset=q_offset, return_lse=True, q_block=q_block,
@@ -179,13 +185,19 @@ class _FlashAttention(torch.autograd.Function):
         ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
                         q_block=q_block, kv_block=kv_block)
         ctx.scale = scale
-        return out
+        ctx.shards = shards
+        return out if shards is None else shards.out(out)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        shards = ctx.shards
+        if shards is not None:
+            dout = shards.dout(dout)
         dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ctx.scale,
                                     **ctx.opts)
+        if shards is not None:
+            dq, dk, dv = shards.grads(dq, dk, dv)
         return dq, dk, dv, None, None, None, None, None, None
 
 

@@ -53,6 +53,27 @@ def constrain(x, logical_axes):
     return x if fn is None else fn(x, logical_axes)
 
 
+def resolve_partial(x):
+    """A DTensor with partial sums (a lookup into a sharded table, a
+    product over a sharded dimension) reduced to replicated on those
+    mesh dimensions, its other placements kept; anything else as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
+def full_value(x):
+    """A DTensor's value as a plain tensor, the same on every rank (its
+    partial sums reduced, its shards gathered); anything else as it
+    is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def tree_map(fn, tree):
     """Apply ``fn`` to every non-dict leaf of a nested dictionary."""
     if isinstance(tree, dict):
@@ -187,12 +208,96 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask=None) -> torch.Tensor:
     """Softmax cross-entropy: logits (..., V) taken in float32, labels
     int (...). The mean over every position, or with ``mask`` (...) the
-    masked sum over ``max(sum(mask), 1)``."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    masked sum over ``max(sum(mask), 1)``. Logits that are a DTensor
+    (sharded over the vocabulary by the ``"vocab": "model"`` rule, or
+    not) go through ``vocab_nll``: they never come together on one rank,
+    each position's loss taken from per-shard maxima, sums and the
+    label's owner."""
+    if _is_dtensor(logits):
+        nll = vocab_nll(logits, labels)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
     if mask is not None:
         mask = torch.as_tensor(mask, device=nll.device).to(torch.float32)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Per-position negative log-likelihood of vocabulary-sharded
+    logits. Forward: each rank's max over its vocabulary slice, the
+    maxima all-gathered (the global max M), sum exp(l - M) all-reduced,
+    and the label's logit taken by the rank that owns it and
+    all-reduced: every message is one float a position. Backward:
+    softmax - one-hot on each rank's own slice."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from repro_torch.sharding.rules import block_index
+        mesh = logits.device_mesh
+        last = logits.dim() - 1
+        vdims = [i for i, p in enumerate(logits.placements)
+                 if p.is_shard(last)]
+        out_pl = [Replicate() if p.is_shard(last) else p
+                  for p in logits.placements]
+        if any(not (p.is_shard() or p.is_replicate()) for p in out_pl):
+            raise ValueError(f"vocab_nll: logits placed {logits.placements}")
+        if isinstance(labels, DTensor):
+            labels = labels.redistribute(mesh, out_pl).to_local()
+        else:
+            labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim
+                                        ).redistribute(mesh, out_pl).to_local()
+        local = logits.to_local().float()
+        vl = local.shape[-1]
+        offset = vl * block_index(mesh, vdims)
+        groups = [mesh.get_group(d) for d in vdims]
+        m = local.max(dim=-1).values
+        for g in groups:
+            gathered = [torch.empty_like(m) for _ in range(dist.get_world_size(g))]
+            dist.all_gather(gathered, m.contiguous(), group=g)
+            m = torch.stack(gathered).max(dim=0).values
+        lab = labels.long()
+        own = (lab >= offset) & (lab < offset + vl)
+        idx = (lab - offset).clamp(0, vl - 1)
+        picked = torch.where(own, torch.gather(local, -1, idx[..., None])[..., 0],
+                             torch.zeros_like(m))
+        sums = torch.exp(local - m[..., None]).sum(-1)
+        both = torch.stack([sums, picked])
+        for g in groups:
+            dist.all_reduce(both, group=g)
+        lse = m + torch.log(both[0])
+        ctx.save_for_backward(local, lse, idx, own)
+        ctx.placements = (logits.placements, out_pl)
+        ctx.mesh = mesh
+        ctx.dtype = logits.dtype
+        return DTensor.from_local(lse - both[1], mesh, out_pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        local, lse, idx, own = ctx.saved_tensors
+        in_pl, out_pl = ctx.placements
+        g = g.redistribute(ctx.mesh, out_pl).to_local()
+        grad = torch.exp(local - lse[..., None])
+        grad.scatter_add_(-1, idx[..., None], -own.to(grad.dtype)[..., None])
+        grad = (grad * g[..., None]).to(ctx.dtype)
+        return DTensor.from_local(grad, ctx.mesh, in_pl), None
+
+
+def vocab_nll(logits, labels) -> torch.Tensor:
+    """(...,) float32 negative log-likelihoods of a DTensor of logits
+    (..., V), sharded over V or not, as a DTensor placed as the logits
+    without the vocabulary's sharding; ``labels`` (...) int, plain (the
+    same on every rank) or a DTensor."""
+    return _VocabNLL.apply(logits, labels)

@@ -52,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_MAMBA2,
@@ -63,8 +64,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Params, cross_entropy, dtype_of,
-                                       embed_init, rmsnorm_apply,
-                                       rmsnorm_axes, rmsnorm_init, tree_map)
+                                       embed_init, resolve_partial,
+                                       rmsnorm_apply, rmsnorm_axes,
+                                       rmsnorm_init, tree_map)
 
 ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_SHARED_ATTN)
 BLOCK_KINDS = ATTN_KINDS + (BLOCK_MAMBA2, BLOCK_RWKV6)
@@ -311,15 +313,23 @@ class TransformerLM:
     def embed_inputs(self, params: Params,
                      inputs: torch.Tensor) -> torch.Tensor:
         """Token ids -> embeddings; float inputs (precomputed frontend
-        embeddings) are cast to the model's type."""
+        embeddings) are cast to the model's type. From a DTensor table
+        sharded over the vocabulary the lookup's partial sums are
+        reduced at once, keeping the rows' placement."""
         if not inputs.is_floating_point():
-            return F.embedding(inputs, params["embed"]["table"])
+            return resolve_partial(F.embedding(inputs,
+                                               params["embed"]["table"]))
         return inputs.to(dtype_of(self.cfg.dtype))
 
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """``lm_logits`` with the tied or separate head."""
+        """``lm_logits`` with the tied or separate head; a DTensor
+        hidden state goes through ``act_constraint`` first."""
         table = (params["embed"]["table"] if self.cfg.tie_embeddings
                  else params["lm_head"]["w"])
+        if isinstance(x, DTensor):
+            # pinned as at a group's start, so that the head's product
+            # gives logits sharded over the vocabulary, not partial sums
+            x = self._constrained(x)
         return lm_logits(self.cfg, params["final_norm"], table, x)
 
     def _group_fullseq(self, x: torch.Tensor, group_params: Params,

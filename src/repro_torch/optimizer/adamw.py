@@ -13,7 +13,12 @@ the LM training loop logs (``grad_norm`` before clipping, and ``lr``);
 ``lanes=True`` treats the leading axis of every leaf as independent
 lanes (``train_proxy_multi``'s Q proxies): each lane is clipped by its
 own global norm and a leaf's ``ndim`` is counted without that axis,
-which is what ``jax.vmap`` of the reference update does.
+which is what ``jax.vmap`` of the reference update does. On DTensor
+params and gradients (SPMD ranks, ``launch.mesh``) every step is
+DTensor's: the global norm sums each leaf's squares over the whole
+tensor (the shards' partial sums reduced) and comes out replicated, so
+the clip, and every rank's update of its own shard, are the single
+device's.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.config import OptimizerConfig
 from repro_torch.core.encoder import tree_leaves, tree_map
+from repro_torch.models.common import full_value
 
 
 class AdamWState(NamedTuple):
@@ -64,7 +70,7 @@ def global_norm(tree: Any, lanes: bool = False) -> torch.Tensor:
     if lanes:
         sq = [x.float().square().flatten(1).sum(1) for x in tree_leaves(tree)]
     else:
-        sq = [x.float().square().sum() for x in tree_leaves(tree)]
+        sq = [full_value(x.float().square().sum()) for x in tree_leaves(tree)]
     return torch.sqrt(torch.stack(sq).sum(0))
 
 

@@ -8,7 +8,12 @@ the scheme stays unbiased in the long run. In the JAX package the
 data-parallel all-reduce then moves the int8 tensors; on one card the
 round trip is what the optimizer sees, as it is there. ``torch.round``
 rounds half to even, as ``jnp.round`` does, so q and the residual are
-the JAX package's bits.
+the JAX package's bits. On DTensor gradients (SPMD ranks,
+``launch.mesh``) the scale is that of the global gradient, as in the
+JAX package on a global array: ``max|x|`` of a sharded leaf is reduced
+over the ranks (DTensor's partial max), so a shard's q and residual are
+the single-device result's own slice; ``init_residual`` places each
+residual as its param.
 
 Usage inside a train step:
     grads_q, new_residual = compress_decompress(grads, residual)
@@ -20,13 +25,13 @@ from typing import Any, Tuple
 
 import torch
 
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import resolve_partial, tree_map
 from repro_torch.optimizer.adamw import zip_map
 
 
 def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     xf = x.float()
-    scale = torch.clamp(xf.abs().max(), min=1e-12) / 127.0
+    scale = torch.clamp(resolve_partial(xf.abs().max()), min=1e-12) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -36,8 +41,9 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def init_residual(params: Any) -> Any:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """float32 zeros shaped, and on a mesh placed, as each param."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 @torch.no_grad()

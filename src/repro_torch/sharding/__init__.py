@@ -8,5 +8,7 @@ from repro_torch.sharding.rules import (  # noqa: F401
     RuleSet,
     is_axes,
     map_axes,
+    place,
+    placements,
     tree_shardings,
 )

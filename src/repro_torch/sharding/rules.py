@@ -16,8 +16,11 @@ port's own records of JAX's ``PartitionSpec`` and ``NamedSharding``.
 ``shard_rows`` cuts a host array into the row shards of the logical
 ``("batch", None)`` spec, one a mesh device, which the streaming data
 loops place each on its device (``jax.device_put`` of a
-``NamedSharding`` in the JAX package); placing a launch plan's tensors
-over a model axis waits for the model-axis slice (``launch.mesh``).
+``NamedSharding`` in the JAX package). Under SPMD processes
+(``launch.mesh.Mesh`` backed by a ``DeviceMesh``) ``placements`` turns
+a ``NamedSharding`` into DTensor placements, one a mesh dimension, and
+``place`` puts a full tensor there (each rank keeps its own shard:
+``jax.device_put`` of the sharding).
 """
 from __future__ import annotations
 
@@ -154,6 +157,61 @@ class RuleSet:
                 f"replicated {ev.logical}(dim={ev.dim}) over mesh axis "
                 f"{ev.axis!r}(size={ev.axis_size}): not divisible")
         return out
+
+
+def placements(sharding: NamedSharding, shape: Sequence[int]) -> list:
+    """DTensor placements of ``sharding`` for a tensor of ``shape``, one
+    a mesh dimension in the mesh's axis order: ``Shard(i)`` where tensor
+    dimension ``i``'s spec entry names the axis, ``Replicate()`` where
+    none does or the axis has one device (its one shard is the whole
+    dimension). An entry of several axes (``("pod", "data")``) shards its
+    dimension over them major to minor, which DTensor does in mesh
+    order, so the entry must list them in mesh order; each sharded
+    dimension must split evenly (``RuleSet`` drops an axis that does
+    not divide, so a resolved spec always does)."""
+    from torch.distributed.tensor import Replicate, Shard
+    axes = list(sharding.mesh.shape)
+    out = [Replicate() for _ in axes]
+    for i, entry in enumerate(sharding.spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [axes.index(n) for n in names]
+        if idx != sorted(idx):
+            raise NotImplementedError(
+                f"{sharding.spec}: dimension {i} lists the axes {names} out "
+                f"of the mesh's order {tuple(axes)}")
+        ways = math.prod(sharding.mesh.shape[n] for n in names)
+        if shape[i] % ways:
+            raise ValueError(f"{sharding.spec}: dimension {i} of "
+                             f"{tuple(shape)} does not split {ways} ways")
+        for j in idx:
+            if sharding.mesh.shape[axes[j]] > 1:
+                out[j] = Shard(i)
+    return out
+
+
+def place(t, sharding: NamedSharding):
+    """A full tensor (the same on every rank) as a DTensor laid out by
+    ``sharding`` on its mesh's ``device_mesh``: each rank keeps its
+    slice, nothing is sent. A DTensor is redistributed there."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    mesh = sharding.mesh
+    pl = placements(sharding, t.shape)
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh.device_mesh, pl)
+    return distribute_tensor(t, mesh.device_mesh, pl, src_data_rank=None)
+
+
+def block_index(device_mesh, dims) -> int:
+    """This rank's block of a tensor dimension sharded over the
+    ``DeviceMesh`` dimensions ``dims``, major to minor (DTensor's order
+    of the shards of one dimension)."""
+    coord = device_mesh.get_coordinate()
+    idx = 0
+    for d in dims:
+        idx = idx * device_mesh.size(d) + coord[d]
+    return idx
 
 
 def row_shard_ids(mesh, shape: Sequence[int]) -> Tuple[List[int], int]:

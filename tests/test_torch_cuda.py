@@ -1520,3 +1520,76 @@ def test_kernels_launch_on_a_second_card(cuda):
     np.testing.assert_allclose(
         c_ops.contrastive_losses(*cargs, 0.07, 0.2).cpu().numpy(),
         c_ref.ref_losses(*cargs, 0.07, 0.2).cpu().numpy(), **LOSS)
+
+
+# -- the model axis: SPMD ranks of the Trainer --------------------------------
+
+
+def _model_axis_ranks(tmp_path, env: dict) -> list:
+    """Two ranks of tests/torch_model_axis_ranks.py on a (1, 2) mesh of
+    the card(s) ``env`` shows, training smollm-360m and llama3-8b SMOKE;
+    their results, in rank order."""
+    import os
+    import socket
+    import subprocess
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    full_env = dict(os.environ, **env, PYTHONPATH=str(here.parent / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_model_axis_ranks.py"), "--rank",
+         str(r), "--world", "2", "--port", str(port), "--device", "cuda",
+         "--out", str(tmp_path), "--jobs", "trainer", "--archs",
+         "smollm-360m,llama3-8b"], env=full_env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(
+        t[-3000:] for t in logs)
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["cuda:0 twice", "two cards"])
+def test_model_axis_trainer_against_one_device(cuda, tmp_path, where):
+    """The (1, 2) Trainer's step on SPMD ranks (cuda:0 twice over the
+    port's repro_gloo backend, or cuda:0 and cuda:1 over NCCL) against
+    the single-device Trainer on the card: step 0's loss (rtol 1e-5),
+    five steps' losses (rtol 1e-4), the params after one step (within lr;
+    rtol = atol = 2e-4 where |g| >= 1e-5), flash launched on each rank."""
+    import torch_model_axis_ranks as R
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.data.loader import device_batch
+    from repro_torch.runtime.train_loop import Trainer
+    if where == "two cards":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards: the ranks take cuda:0 and "
+                        "cuda:1")
+        env, want = {}, ["cuda:0", "cuda:1"]
+    else:
+        env, want = {"CUDA_VISIBLE_DEVICES": "0"}, ["cuda:0", "cuda:0"]
+    ranks = _model_axis_ranks(tmp_path, env)
+    assert [r["device"] for r in ranks] == want
+    b1 = 0.9
+    for arch in ("smollm-360m", "llama3-8b"):
+        cfg = get_smoke_arch(arch)
+        with Trainer(cfg, R.train_config(tmp_path / "one" / arch),
+                     device=cuda) as tr:
+            s0 = tr.init_state()
+            s1, m = tr._step(s0, device_batch(tr.loader.batch(0),
+                                              device=cuda))
+            losses = tr.run(R.STEPS, resume=False).losses
+        got = ranks[0][arch]
+        assert all(r[arch]["flash_launches"] > 0 for r in ranks)
+        np.testing.assert_allclose(got["loss0"], float(m["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-4)
+        mu = dict(R.leaves(s1[1].mu))
+        for path, t in R.leaves(s1[0]):
+            want_p, g = R.full(t), R.full(mu[path]) / (1 - b1)
+            diff = np.abs(got["params1"][path] - want_p)
+            assert diff.max() <= R.OPT["lr"] * (1 + 1e-3)
+            cond = np.abs(g) >= 1e-5
+            np.testing.assert_allclose(got["params1"][path][cond],
+                                       want_p[cond], rtol=2e-4, atol=2e-4)

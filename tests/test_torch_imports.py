@@ -47,6 +47,7 @@ def test_import_loads_no_jax_and_no_repro():
                                      "repro_torch.launch.train",
                                      "repro_torch.launch.steps",
                                      "repro_torch.launch.mesh",
+                                     "repro_torch.launch.dist",
                                      "repro_torch.launch.serve",
                                      "repro_torch.launch.hlo_analysis",
                                      "repro_torch.launch.roofline",
@@ -60,9 +61,10 @@ def test_package_alone_loads_no_jax_and_no_repro(package):
     observability modules, the live plane and the gateway (copies of
     ``repro.engine.live`` and ``repro.gateway``), the judge
     (``repro_torch.core``), ``serve_loop.generate``, the trainer and the launch
-    layer (the cell plans, meshes, the serving CLI, the cost counter,
-    the roofline, the dry run, the sharding rules and the cells), each
-    in a fresh interpreter."""
+    layer (the cell plans, meshes, the SPMD process group and its
+    backend, the serving CLI, the cost counter, the roofline, the dry
+    run, the sharding rules and the cells), each in a fresh
+    interpreter."""
     code = (f"import {package}, sys\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"

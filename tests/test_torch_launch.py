@@ -203,11 +203,12 @@ def test_input_specs_and_axes_match_jax(arch):
 
 
 def test_meshes():
-    """Production meshes are abstract; a mesh of more than one device has
-    no one device to run a step on; a model axis over 1 waits for its
-    slice; a data mesh takes distinct devices and the process has one
-    CPU device; a mesh built directly may repeat one; a one-device mesh
-    has its device."""
+    """Production meshes are abstract; a mesh of more than one device from
+    one controller has no one device to run a step on; a model axis over
+    1 needs SPMD processes (none is started here:
+    ``tests/test_torch_model_axis.py`` runs them); a data mesh takes
+    distinct devices and the process has one CPU device; a mesh built
+    directly may repeat one; a one-device mesh has its device."""
     pm = t_mesh.make_production_mesh()
     assert dict(pm.shape) == {"data": 16, "model": 16} and pm.size == 256
     assert pm.devices is None
@@ -221,7 +222,7 @@ def test_meshes():
             call()
     for call in (lambda: t_mesh.make_test_mesh(1, 2, device="cpu"),
                  lambda: t_mesh.make_mesh(SINGLE_POD, device="cpu")):
-        with pytest.raises(NotImplementedError, match="model-axis slice"):
+        with pytest.raises(NotImplementedError, match="SPMD processes"):
             call()
     for call in (lambda: t_mesh.make_test_mesh(2, 1, device="cpu"),
                  lambda: t_mesh.make_scoring_mesh(4, device="cpu")):

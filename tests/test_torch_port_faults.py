@@ -245,8 +245,11 @@ def test_use_kernel_false_scores_with_the_plain_path():
 def test_a_mesh_of_one_device_is_taken_and_more_refused(tmp_path):
     """The data loops take a mesh of one device and a data mesh of more
     (the engine's executor, the embedding service); a model axis over 1
-    stays refused there, and every mesh of more than one device stays
-    refused by the Trainer, device_batch and restore(shardings=)."""
+    stays refused there. The Trainer, device_batch and
+    restore(shardings=) take a mesh of one device and, under SPMD
+    processes, a DeviceMesh-backed mesh of any shape
+    (tests/test_torch_model_axis.py); a mesh of more than one device
+    from one controller, as here, stays refused by them."""
     corpus = make_corpus(0, n_docs=64, dim=16)
     ScaleDocEngine(corpus.embeds, mesh=ONE, device="cpu")
     assert ScaleDocEngine(corpus.embeds, mesh=DATA, device="cpu"
