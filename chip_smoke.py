@@ -238,13 +238,13 @@ Phases, each of which exits non-zero when it fails:
                (exponentials in the sub-chunk form, FP32 operations and
                bytes), and its share of one embedding batch;
  17. gemma3  — the rwkv6-7b weights freed, the offline path over
-               gemma3-12b at full width and half depth (GEMMA_DEPTH: 24
-               of its 48 layers, five of window 1024 a global one,
-               head_dim 240, bf16, ~12.4 GB of weights drawn on the card)
-               into a store of 512 documents of 2048 tokens (longer than
-               the window), batch 4: 512 finite rows of width 3840, flash
-               launched 24 times a batch, 20 of those calls with the
-               window, the kernel path's pooled embeddings
+               gemma3-12b at full width and a quarter of its depth
+               (GEMMA_DEPTH: 12 of its 48 layers, five of window 1024 a
+               global one, head_dim 240, bf16, ~6.2 GB of weights drawn
+               on the card) into a store of 512 documents of 2048 tokens
+               (longer than the window), batch 4: 512 finite rows of
+               width 3840, flash launched 12 times a batch, 10 of those
+               calls with the window, the kernel path's pooled embeddings
                against attn_impl="blocked" (per-row cosine >= COS_MIN),
                the kill/resume drill, one query() over the store (the
                fused kernel at D=3840); then [decode] as above on 4
@@ -264,13 +264,13 @@ Phases, each of which exits non-zero when it fails:
                loop, ms a batch and peak memory;
  20. moe     — every earlier model's weights freed (the memory still
                held logged), the offline path over qwen3-moe-30b-a3b at
-               full width and half depth (MOE_DEPTH: 24 of its 48 layers,
-               128 experts top 8, d_ff 768, ~30.5 GB of bf16 weights
-               drawn on the card, the router in f32)
+               full width and a quarter of its depth (MOE_DEPTH: 12 of
+               its 48 layers, 128 experts top 8, d_ff 768, ~15.3 GB of
+               bf16 weights drawn on the card, the router in f32)
                into a store of 256 documents of 512 tokens, batch 8: 4,096
                tokens a batch in four dispatch chunks of 1,024 with 80
                slots an expert, so pairs are dropped (gate: > 0 in batch
-               0); 256 finite rows of width 2048, flash 24 times a batch,
+               0); 256 finite rows of width 2048, flash 12 times a batch,
                the per-row cosine against attn_impl="blocked" (>= COS_MIN;
                the (token, layer, k) pairs routed to another expert than
                on the blocked path logged first), the kill/resume drill,
@@ -373,6 +373,23 @@ Phases, each of which exits non-zero when it fails:
                (1, 2048, 16, 4, 128) against its plain version with
                [train]'s bars, its time, bound and SDPA's (a
                flash_attention_model_axis kernels entry);
+ 24c. decode_axis — [model_axis]'s two ranks through the prefill and
+               decode plans and generate (launch.steps, the dense
+               family), each against one device: (a) llama3-8b at full
+               width on DAX_LLAMA_LAYERS layers, PREFILL_32K at batch 1
+               (last_logit; flash on 16 query heads over 4 KV heads a
+               rank), then the model's prefill of 32,767 tokens into
+               32,768 slots and DECODE_32K's step (a head-sharded
+               cache); (b) smollm-360m FULL, a 20,480-token prompt in
+               32,768 slots, 16 decode plan steps (the cache's sequence
+               over "model", the softmax combined across the ranks;
+               every step's cache Shard(1) a layer, each rank half the
+               one device's bytes) and generate on the mesh; logits
+               cosine >= LAUNCH_DECODE_COS, top-1 among one device's
+               ties; then flash at a rank's share of (a)'s call
+               (1, 32768, 16, 4, 128) against its plain version, its
+               time, bound and SDPA's (a flash_attention_decode_axis
+               kernels entry);
  25. launch  — the launch layer's cell plans (launch.steps.make_plan on
                launch.mesh.make_test_mesh(1, 1)) on the card: the flash
                kernel at (1, 32768, 32, 8, 128) causal, three 64-row
@@ -513,11 +530,11 @@ DECODE_REL = 5e-4
 # context past the window
 GEMMA_ARCH = "gemma3-12b"
 GEMMA_DOCS, GEMMA_DOC_LEN, GEMMA_BATCH = 512, 2048, 4
-# depth cut from 48 to 24 layers (four whole pattern periods; width,
+# depth cut from 48 to 12 layers (two whole pattern periods; width,
 # window and heads kept): the weight draw, the params digest (71.5 s at
-# full depth) and the corpus pass halve, so the run keeps a margin
-# inside its time limit on a slower host
-GEMMA_DEPTH = 24
+# full depth) and the corpus pass shrink with it, so the run keeps a
+# margin inside its time limit beside [decode_axis]
+GEMMA_DEPTH = 12
 GEMMA_RESUME = (64, 32)
 GEMMA_PERIOD_PRE, GEMMA_PERIOD_TOTAL = 1100, 1104
 GEMMA_FLASH_SHAPE = (4, 2048, 16, 8, 240)   # b, s, heads, KV heads, hd
@@ -543,10 +560,11 @@ CONFIGS_BATCH, CONFIGS_PATCHES, CONFIGS_STEPS = 8, 256, 8
 # forward dropped nothing stays
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_DOCS, MOE_BATCH = 256, 8
-# depth cut from 48 to 24 layers (width, experts and routing kept): the
+# depth cut from 48 to 12 layers (width, experts and routing kept): the
 # weight draw and the params digest, 157.5 s of the phase at full depth,
-# halve, so the run stays inside its time limit beside [launch]'s (g)
-MOE_DEPTH = 24
+# shrink with it, so the run stays inside its time limit beside
+# [launch]'s (g) and [decode_axis]
+MOE_DEPTH = 12
 MOE_FLASH_SHAPE = (8, 512, 32, 4, 128)   # b, s, heads, KV heads, hd
 # onehot against sort on one layer's input in bf16: the same drops, sums
 # rounded at other places (of max |y|; flash's bf16 bar)
@@ -628,6 +646,39 @@ AXIS_PARAM_COS = 0.999
 AXIS_FLASH_SHAPE = (1, 2048, 16, 4, 128)   # (b)'s flash call on a rank
 AXIS_DIR = ROOT / "build" / "chip_smoke_model_axis"
 AXIS_RANK_TIMEOUT = 900
+# the [decode_axis] phase: the prefill and decode plans and generate on a
+# (1, 2) mesh of two SPMD ranks ([model_axis]'s launcher: cuda:0 twice
+# over repro_gloo, or two cards over NCCL), each against the same plans
+# on one device with the same params (placed by each plan once, before
+# its timed calls). (a) llama3-8b at full width cut to
+# DAX_LLAMA_LAYERS of its 32 layers: the prefill plan at PREFILL_32K cut
+# to batch 1 with last_logit (flash on 16 query heads over 4 KV heads a
+# rank, at LAUNCH_SEQ keys), then the model's prefill of LAUNCH_SEQ - 1
+# tokens into a LAUNCH_SEQ-slot cache (as generate fills its cache) and
+# DECODE_32K's step at batch 1 (8 KV
+# heads split the model axis: a head-sharded cache), each logits'
+# cosine >= LAUNCH_DECODE_COS against one device and its top-1 one of
+# the one device's tied top tokens. (b) smollm-360m FULL (15 heads over
+# 5, which do not split 2: the decode cache's sequence over "model"): a
+# prompt of DAX_PROMPT tokens into a LAUNCH_SEQ-slot cache (the model's
+# prefill, as generate's), then
+# DAX_STEPS decode plan steps fed the one-device generate's tokens
+# (logits as in (a); every step's cache Shard(1) a layer on both ranks,
+# each rank's local cache half the one device's bytes; each layer's
+# gathered cache against one device's, cosine >= DAX_CACHE_COS), then
+# generate on the mesh, its tokens beside one device's: equal up to the
+# first step whose one-device top-2 gap is under DAX_TIE_REL of its
+# top logit. The flash call of (a) is timed alone (DAX_FLASH_SHAPE)
+DAX_LLAMA_LAYERS = 4
+DAX_PROMPT, DAX_STEPS = 20480, 16
+DAX_DECODE_REPS = 5
+# each layer's gathered cache against one device: 4x the drift first
+# measured on one H100 (1 - 0.9998848: bf16 partial sums of the prefill
+# taken in another order)
+DAX_CACHE_COS = 1 - 4 * 1.152e-4
+DAX_TIE_REL = 2.0 ** -6      # two bf16 ulps of the top logit
+DAX_FLASH_SHAPE = (1, 32768, 16, 4, 128)   # (a)'s flash call on a rank
+DAX_DIR = ROOT / "build" / "chip_smoke_decode_axis"
 # the [launch] phase: the launch layer's cell plans (launch.steps.make_plan
 # over launch.mesh.make_test_mesh(1, 1)) at their cells' widths on one
 # card. llama3-8b FULL at PREFILL_32K (a) and DECODE_32K (b), each global
@@ -4421,8 +4472,8 @@ def long_close(got, want) -> dict:
             "ok": bool((diff <= bar).all())}
 
 
-def long_flash(dev) -> dict:
-    """The bf16 flash kernel at LONG_FLASH_SHAPE (causal): its time (CUDA
+def long_flash(dev, shape=LONG_FLASH_SHAPE) -> dict:
+    """The bf16 flash kernel at ``shape`` (causal): its time (CUDA
     events over 10 calls); three 64-row query blocks (first, middle,
     last) against its plain version on its own tiles (P rounded; each
     block over the keys it sees) and every row against the plain
@@ -4433,7 +4484,7 @@ def long_flash(dev) -> dict:
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.flash_attention import ref as f_ref
-    b, s, h, kv, hd = LONG_FLASH_SHAPE
+    b, s, h, kv, hd = shape
     gen = torch.Generator(dev).manual_seed(32)
     q = torch.randn((b, s, h, hd), generator=gen, device=dev,
                     dtype=torch.bfloat16)
@@ -4479,7 +4530,7 @@ def long_flash(dev) -> dict:
     flops = 4 * b * h * hd * pairs
     nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"shape": list(LONG_FLASH_SHAPE), "ms": ms, "plain_ms": plain_ms,
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_refused": why,
             "blocks_vs_plain": errs, "all_rows_vs_plain": whole,
             "finite": finite, "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -5141,40 +5192,21 @@ def axis_run(job: dict, mesh, device) -> dict:
 
 def _profiled_step(tr, state, step: int, device) -> dict:
     """One more step of ``tr`` from ``state`` on step ``step``'s batch
-    under torch.profiler, after the timed ones: its ms (the profiler's
-    cost included) and the device time of NCCL's kernels against all
-    kernels'. An NCCL kernel runs from its launch until its peers join,
-    so a rank that waits shows the wait too."""
-    import torch
+    under torch.profiler, after the timed ones (``_profiled``). An NCCL
+    kernel runs from its launch until its peers join, so a rank that
+    waits shows the wait too."""
     from repro_torch.data.loader import device_batch
     batch = device_batch(tr.loader.batch(step), tr.batch_shardings,
                          device=device)
-    torch.cuda.synchronize()
-    p = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
-    t0 = time.perf_counter()
-    with p:
-        tr._step(state, batch)
-        torch.cuda.synchronize()
-    out = {"step_ms": 1e3 * (time.perf_counter() - t0)}
-    total, comm = 0.0, 0.0
-    for e in p.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(e, "device_time_total", None)
-        t = getattr(e, "cuda_time_total", 0.0) if t is None else t
-        total += t
-        if "nccl" in e.key.lower():
-            comm += t
-    out["nccl_device_ms"] = comm / 1e3
-    out["device_ms"] = total / 1e3
-    return out
+    return _profiled(lambda: tr._step(state, batch))
 
 
 def model_axis_rank(job_path: str, rank: int) -> None:
-    """One rank of [model_axis] (``python3 chip_smoke.py --model-axis-rank
-    R JOB``): its process group, the (1, 2) mesh, ``axis_run``; writes
-    ``rank{R}.json`` beside the job."""
+    """One rank of [model_axis] or [decode_axis] (``python3 chip_smoke.py
+    --model-axis-rank R JOB``): its process group, the (1, 2) mesh,
+    ``axis_run`` or ``dax_run`` (by the job's "phase"); writes
+    ``rank{R}.json`` (and ``dax_run``'s tensors, ``tensors{R}.pt``) beside
+    the job."""
     sys.path.insert(0, str(SRC))
     import torch.distributed as dist
     from repro_torch.launch.dist import init_spmd
@@ -5186,7 +5218,13 @@ def model_axis_rank(job_path: str, rank: int) -> None:
     out = {"rank": rank, "device": str(device),
            "backend": dist.get_backend(),
            "coordinate": list(mesh.device_mesh.get_coordinate())}
-    out.update(axis_run(job, mesh, device))
+    if job.get("phase") == "decode_axis":
+        import torch
+        res, tensors = dax_run(job, mesh, device)
+        torch.save(tensors, Path(job_path).parent / f"tensors{rank}.pt")
+        out.update(res)
+    else:
+        out.update(axis_run(job, mesh, device))
     dist.barrier()
     dist.destroy_process_group()
     (Path(job_path).parent / f"rank{rank}.json").write_text(
@@ -5205,6 +5243,7 @@ def spawn_ranks(job: dict) -> list:
     them; any rank that fails or outlives AXIS_RANK_TIMEOUT fails the
     phase (all are stopped). Their results, in rank order."""
     import os
+    phase = job.get("phase", "model_axis")
     work = Path(job["dir"]) / job["tag"]
     work.mkdir(parents=True, exist_ok=True)
     job = dict(job, port=_free_port())
@@ -5225,10 +5264,10 @@ def spawn_ranks(job: dict) -> list:
         for p in procs:
             p.kill()
             p.wait()
-        fail(f"[model_axis] a rank outlived {AXIS_RANK_TIMEOUT} s")
+        fail(f"[{phase}] a rank outlived {AXIS_RANK_TIMEOUT} s")
     for r, (p, text) in enumerate(zip(procs, logs)):
         if p.returncode:
-            fail(f"[model_axis] rank {r} exited {p.returncode}:\n"
+            fail(f"[{phase}] rank {r} exited {p.returncode}:\n"
                  + text[-4000:])
     return [json.loads((work / f"rank{r}.json").read_text())
             for r in range(job["world"])]
@@ -5411,6 +5450,516 @@ def model_axis_phase(dev, kernels: list, smoke: bool = False) -> dict:
     shutil.rmtree(AXIS_DIR, ignore_errors=True)
     report["phase_seconds"] = time.perf_counter() - t_phase
     log(f"[model_axis] phase {report['phase_seconds']:.1f} s")
+    return report
+
+
+def _dax_configs(job: dict):
+    """(a)'s and (b)'s configs for a [decode_axis] job."""
+    import dataclasses
+    from repro_torch.config import get_arch, get_smoke_arch
+    get = get_smoke_arch if job["smoke"] else get_arch
+    return (dataclasses.replace(get(job["archs"][0]),
+                                num_layers=job["llama_layers"]),
+            get(job["archs"][1]))
+
+
+def _cache_layout(cache, shardings=None) -> dict:
+    """Every cache leaf's placements (one device: "one device"), the
+    plan's placements for it, and its local shape and bytes."""
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.sharding.rules import placements
+    want = dict(flatten_with_paths(shardings)) if shardings else {}
+    out = {}
+    for key, t in flatten_with_paths(cache):
+        loc = t.to_local() if hasattr(t, "to_local") else t
+        out[key] = {
+            "placements": (str(list(t.placements)) if hasattr(t, "placements")
+                           else "one device"),
+            "plan": (str(placements(want[key], t.shape)) if key in want
+                     else None),
+            "local_shape": list(loc.shape),
+            "local_bytes": loc.numel() * loc.element_size()}
+    return out
+
+
+def dax_run(job: dict, mesh, device) -> tuple:
+    """(a) and (b) of [decode_axis] on ``mesh`` (a (1, 2) mesh of SPMD
+    ranks, or a 1 x 1 mesh: one device) in this process: (the scalars,
+    the tensors: (a)'s two logits, (b)'s prefill and per-step logits, the
+    one device's (b) cache or a rank's own shard of it). On one device
+    (b) first runs ``generate``, whose tokens the decode steps take; on
+    the mesh they come from ``job["tokens"]`` and ``generate`` runs
+    after the steps."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.config import InputShape
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.dist import COMM
+    from repro_torch.models import build_model
+    from repro_torch.models.common import full_value
+    from repro_torch.optimizer.adamw import zip_map
+    from repro_torch.runtime.serve_loop import generate
+    from repro_torch.sharding.rules import place
+    cfg_a, cfg_b = _dax_configs(job)
+    cuda = torch.device(device).type == "cuda"
+    spmd = getattr(mesh, "device_mesh", None) is not None
+    seq = job["seq"]
+
+    def timed(fn):
+        """(fn(), host seconds between two synchronizes, the collectives
+        and their host seconds in between)."""
+        if cuda:
+            torch.cuda.synchronize()
+        t0, c0, s0 = time.perf_counter(), COMM.calls, COMM.seconds
+        res = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, COMM.calls - c0,
+                COMM.seconds - s0)
+
+    def fresh():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    def draw(cfg, seed, n):
+        gen = torch.Generator(device).manual_seed(seed)
+        return torch.randint(1, cfg.vocab_size, (1, n), generator=gen,
+                             device=device, dtype=torch.int32)
+
+    def flat(x):
+        return full_value(x)[0].float().cpu()
+
+    def placed_by(plan):
+        """The params placed by ``plan``'s shardings, once, before its
+        timed calls (its step's own placement is then a no-op)."""
+        return (zip_map(place, params, plan.arg_shardings[0]) if spmd
+                else params)
+
+    heads = set()
+    inner = f_ops._flash_run
+
+    def seeing(q, k, *rest):
+        heads.add((int(q.shape[2]), int(k.shape[2])))
+        return inner(q, k, *rest)
+    f_ops._flash_run = seeing
+    out, tensors = {}, {}
+    try:
+        # (a) llama3-8b cut to DAX_LLAMA_LAYERS: PREFILL_32K, then a
+        # LAUNCH_SEQ-slot cache and DECODE_32K's step
+        fresh()
+        params = build_model(cfg_a).init(
+            torch.Generator(device).manual_seed(0))
+        tokens = draw(cfg_a, 30, seq)
+        plan = steps.make_prefill_plan(
+            cfg_a, InputShape("prefill_32k_b1", seq, 1, "prefill"), mesh,
+            last_logit=True)
+        placed, place_s, _, _ = timed(lambda: placed_by(plan))
+        kern = zero_counts()
+        (last, cache), t, calls, comm = timed(
+            lambda: plan.step_fn(placed, {"tokens": tokens}))
+        a = {"layers": cfg_a.num_layers, "place_ms": [1e3 * place_s],
+             "prefill_ms": 1e3 * t,
+             "prefill_comm_calls": calls, "prefill_comm_s": comm,
+             "launches": read_counts(kern), "flash_heads": sorted(heads),
+             "fallbacks": plan.ruleset.fallback_report()}
+        tensors["a_last"] = flat(last)
+        del last, cache, placed
+        # as [launch] (b) and generate: the model's prefill of seq - 1
+        # tokens into seq slots, on the params placed by the decode plan
+        dplan = steps.make_plan(
+            cfg_a, InputShape("decode_32k_b1", seq, 1, "decode"), mesh)
+        model = steps.build_model_for_scale(cfg_a, ruleset=dplan.ruleset)
+        model.prefill_last_only = True
+        placed, place_s, _, _ = timed(lambda: placed_by(dplan))
+        a["place_ms"].append(1e3 * place_s)
+        kern = zero_counts()
+        (_, cache), t, calls, comm = timed(
+            lambda: model.prefill(placed, tokens[:, :-1], cache_len=seq))
+        a.update(cache_prefill_ms=1e3 * t, cache_prefill_comm_calls=calls,
+                 cache_prefill_comm_s=comm,
+                 cache_prefill_launches=read_counts(kern))
+        batch = {"tokens": tokens[:, -1:], "pos": seq - 1, "cache": cache}
+        kern = zero_counts()
+        reps = []
+        for _ in range(job["decode_reps"] + 1):
+            (dec, new), t, calls, comm = timed(
+                lambda: dplan.step_fn(placed, batch))
+            reps.append((1e3 * t, calls, comm))
+            a["decode_cache"] = _cache_layout(new, dplan.out_shardings[1])
+            del new
+        a.update(decode_launches=read_counts(kern),
+                 decode_first_ms=reps[0][0],
+                 decode_ms=[r[0] for r in reps[1:]],
+                 decode_comm_calls=reps[-1][1],
+                 decode_comm_s=[r[2] for r in reps[1:]], peak_gb=peak())
+        tensors["a_decode"] = flat(dec)
+        out["a"] = a
+        del params, placed, cache, batch, dec, tokens, plan, dplan, model
+
+        # (b) smollm-360m FULL: a DAX_PROMPT-token prompt into a
+        # LAUNCH_SEQ-slot cache, DAX_STEPS decode plan steps, generate
+        fresh()
+        params = build_model(cfg_b).init(
+            torch.Generator(device).manual_seed(0))
+        prompt = draw(cfg_b, 31, job["prompt"])
+        dshape = InputShape("decode_32k_b1", seq, 1, "decode")
+        b = {}
+        n_tok = job["steps"] + 1
+
+        dplan = steps.make_plan(cfg_b, dshape, mesh)
+        b["fallbacks"] = dplan.ruleset.fallback_report()
+        # the model generate drives, on the params placed by the plan
+        model = steps.build_model_for_scale(cfg_b, ruleset=dplan.ruleset)
+        placed, place_s, _, _ = timed(lambda: placed_by(dplan))
+        b["place_ms"] = 1e3 * place_s
+
+        def run_generate():
+            toks, t, calls, comm = timed(lambda: generate(
+                model, placed, prompt, n_tok, cache_len=seq))
+            b.update(generate_tokens=toks[0].tolist(),
+                     generate_ms=1e3 * t, generate_comm_calls=calls,
+                     generate_comm_s=comm)
+            return toks
+        toks = (np.asarray([job["tokens"]], np.int32) if spmd
+                else run_generate())
+        # the prompt into seq slots, as generate fills its cache (only the
+        # last position's logits)
+        pmodel = steps.build_model_for_scale(cfg_b, ruleset=dplan.ruleset)
+        pmodel.prefill_last_only = True
+        heads.clear()
+        kern = zero_counts()
+        (last, cache), t, calls, comm = timed(
+            lambda: pmodel.prefill(placed, prompt, cache_len=seq))
+        b.update(prefill_ms=1e3 * t, prefill_comm_calls=calls,
+                 prefill_comm_s=comm, prefill_launches=read_counts(kern),
+                 prefill_heads=sorted(heads),
+                 prefill_cache=_cache_layout(cache))
+        tensors["b_last"] = flat(last[:, -1])
+        tok = torch.as_tensor(toks, device=device)
+        logits, b["steps"] = [], []
+        kern = zero_counts()
+        for i in range(job["steps"]):
+            (lg, cache), t, calls, comm = timed(lambda: dplan.step_fn(
+                placed, {"tokens": tok[:, i:i + 1], "pos": job["prompt"] + i,
+                         "cache": cache}))
+            layout = _cache_layout(cache, dplan.out_shardings[1])
+            b["steps"].append({
+                "ms": 1e3 * t, "comm_calls": calls, "comm_s": comm,
+                "placements": sorted({v["placements"]
+                                      for v in layout.values()}),
+                "plan_placements": sorted({v["plan"]
+                                           for v in layout.values()}),
+                "local_bytes": sum(v["local_bytes"]
+                                   for v in layout.values())})
+            logits.append(flat(lg))
+        b["decode_launches"] = read_counts(kern)
+        b["layer_shape"] = layout["p0/k"]["local_shape"]
+        tensors["b_steps"] = torch.stack(logits)
+        tensors["b_cache"] = {k: (t.to_local() if spmd else t)
+                              for k, t in flatten_with_paths(cache)}
+        # the dimension the model axis splits (None: replicated)
+        tensors["b_cache_dim"] = next(
+            (p.dim for p in getattr(cache["p0"]["k"], "placements", ())
+             if p.is_shard()), None)
+        if spmd and job.get("profile"):
+            b["profile"] = _profiled(lambda: dplan.step_fn(placed, {
+                "tokens": tok[:, -1:], "pos": job["prompt"] + job["steps"],
+                "cache": cache}))
+        del cache, lg, last
+        b["peak_gb"] = peak()
+        if spmd:
+            run_generate()
+        out["b"] = b
+    finally:
+        f_ops._flash_run = inner
+    return out, tensors
+
+
+def _profiled(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its ms (the profiler's
+    cost included) and the device time of NCCL's kernels against all
+    kernels'."""
+    import torch
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"step_ms": 1e3 * (time.perf_counter() - t0)}
+    total = comm = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0.0) if t is None else t
+        total += t
+        if "nccl" in e.key.lower():
+            comm += t
+    out.update(nccl_device_ms=comm / 1e3, device_ms=total / 1e3)
+    return out
+
+
+def _gb(x) -> str:
+    return "not measured" if x is None else f"{x:.2f}"
+
+
+def _top1_in_ties(got, want) -> bool:
+    """Whether ``got``'s top-1 token is one of ``want``'s tied top ones
+    (bf16 products cast to f32 tie often; argmax takes the first)."""
+    return bool(want[int(got.argmax())] == want.max())
+
+
+def _gap(x) -> float:
+    """The top-2 gap of a logits vector over its top logit's size."""
+    import torch
+    top = torch.topk(x, 2).values
+    return ((top[0] - top[1]) / top[0].abs().clamp(min=1e-30)).item()
+
+
+def decode_axis_phase(dev, kernels: list, smoke: bool = False) -> dict:
+    """[decode_axis]: (a) and (b) above, on two SPMD ranks against one
+    device, and the ``flash_attention_decode_axis`` entry of ``kernels``
+    (the kernel at a rank's share of (a)'s prefill)."""
+    import gc
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(DAX_DIR, ignore_errors=True)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    world = AXIS_MESH[0] * AXIS_MESH[1]
+    job = {"phase": "decode_axis", "world": world, "mesh": list(AXIS_MESH),
+           "device": dev.type, "smoke": smoke, "seq": LAUNCH_SEQ,
+           "archs": [LAUNCH_ARCH, TRAIN_ARCH],
+           "llama_layers": DAX_LLAMA_LAYERS, "prompt": DAX_PROMPT,
+           "steps": DAX_STEPS, "decode_reps": DAX_DECODE_REPS,
+           "dir": str(DAX_DIR), "profile": cards >= world}
+    where = (f"{world} cards" if cards >= world else
+             f"{dev.type}:0 x{world}" if dev.type == "cuda" else
+             f"the CPU x{world}")
+    errors = []
+
+    def gate(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+            log(f"[decode_axis] GATE FAILED: {msg}")
+
+    from repro_torch.launch import mesh as t_mesh
+    one, one_t = dax_run(dict(job, tag="single"),
+                         t_mesh.make_test_mesh(1, 1, device=dev), dev)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dict(job, tag="mesh",
+                             tokens=one["b"]["generate_tokens"]))
+    ranks_s = time.perf_counter() - t0
+    rt = [torch.load(DAX_DIR / "mesh" / f"tensors{r['rank']}.pt",
+                     map_location="cpu", weights_only=False) for r in ranks]
+    r0 = ranks[0]
+    log(f"[decode_axis] mesh {tuple(AXIS_MESH)} over {where}: backend "
+        f"{r0['backend']}, ranks on " + ", ".join(r["device"] for r in ranks)
+        + f"; {ranks_s:.1f} s for the ranks (start-up included)")
+    report = {"mesh": list(AXIS_MESH), "where": where,
+              "backend": r0["backend"], "single": one, "ranks": ranks,
+              "ranks_seconds": ranks_s}
+
+    # (a)
+    a1 = one["a"]
+    cos = {n: _cosine(rt[0][n], one_t[n]) for n in ("a_last", "a_decode")}
+    top = {n: _top1_in_ties(rt[0][n], one_t[n]) for n in cos}
+    per_rank = "; ".join(
+        f"rank {r['rank']}: prefill {r['a']['prefill_ms']:.1f} ms "
+        f"({r['a']['prefill_comm_calls']} collectives, "
+        f"{1e3 * r['a']['prefill_comm_s']:.1f} ms), flash "
+        f"{r['a']['launches']['flash_attention']} launches on (heads, KV "
+        f"heads) {r['a']['flash_heads']}; the params placed by each plan "
+        "once, outside the timed calls, in "
+        + ", ".join(f"{t:.1f}" for t in r["a"]["place_ms"])
+        + f" ms; cache prefill "
+        f"{r['a']['cache_prefill_ms']:.1f} ms; decode step "
+        + ", ".join(f"{t:.1f}" for t in r["a"]["decode_ms"])
+        + f" ms (first {r['a']['decode_first_ms']:.1f}; "
+        f"{r['a']['decode_comm_calls']} collectives, "
+        + ", ".join(f"{1e3 * t:.1f}" for t in r["a"]["decode_comm_s"])
+        + f" ms of them), cache {r['a']['decode_cache']['p0/k']}; peak "
+        f"{_gb(r['a']['peak_gb'])} GB" for r in ranks)
+    log(f"[decode_axis] (a) {job['archs'][0]} ({a1['layers']} layers) at "
+        f"{LAUNCH_SEQ} tokens, batch 1: one device prefill "
+        f"{a1['prefill_ms']:.1f} ms, flash "
+        f"{a1['launches']['flash_attention']} launches on "
+        f"{a1['flash_heads']}, cache prefill {a1['cache_prefill_ms']:.1f} "
+        f"ms, decode step " + ", ".join(f"{t:.1f}" for t in a1["decode_ms"])
+        + f" ms, peak {_gb(a1['peak_gb'])} GB. Mesh: {per_rank}. Against one "
+        f"device: last logits cosine {cos['a_last']:.7f}, the decode step's "
+        f"{cos['a_decode']:.7f} (gate >= {LAUNCH_DECODE_COS}); top-1 among "
+        f"one device's ties: {top['a_last']}, {top['a_decode']}; rule "
+        f"fallbacks " + "; ".join(r0["a"]["fallbacks"]))
+    cfg_a = _dax_configs(job)[0]
+    hl = cfg_a.num_heads // AXIS_MESH[1]
+    groups = cfg_a.num_heads // cfg_a.num_kv_heads
+    want_heads = [[hl, cfg_a.num_kv_heads // AXIS_MESH[1]
+                   if cfg_a.num_kv_heads % AXIS_MESH[1] == 0
+                   else 1 if groups % hl == 0 else hl]]
+    for n in cos:
+        gate(cos[n] >= LAUNCH_DECODE_COS and top[n],
+             f"(a) {n}: cosine {cos[n]}, top-1 among ties {top[n]}")
+    for r in ranks:
+        launches = r["a"]["launches"]
+        gate(launches["flash_attention"] == cfg_a.num_layers and not any(
+            c for k, c in launches.items() if k != "flash_attention"),
+            f"(a) rank {r['rank']} launched {launches}")
+        gate(r["a"]["flash_heads"] == want_heads,
+             f"(a) rank {r['rank']} flash on {r['a']['flash_heads']}, not "
+             f"{want_heads}")
+        layout = r["a"]["decode_cache"]
+        gate(all(v["placements"] == v["plan"] for v in layout.values()),
+             f"(a) rank {r['rank']} decode cache {layout['p0/k']}")
+
+    # (b)
+    b1 = one["b"]
+    steps_cos = [_cosine(g, w) for g, w in zip(rt[0]["b_steps"],
+                                               one_t["b_steps"])]
+    steps_top = [_top1_in_ties(g, w) for g, w in zip(rt[0]["b_steps"],
+                                                     one_t["b_steps"])]
+    last_cos = _cosine(rt[0]["b_last"], one_t["b_last"])
+    one_bytes = sum(t.numel() * t.element_size()
+                    for t in one_t["b_cache"].values())
+    # each layer's cache gathered from the ranks' shards, in rank order
+    # along the sequence (the (1, 2) mesh's model coordinate)
+    order = sorted(range(len(ranks)), key=lambda i: ranks[i]["coordinate"])
+    dim = rt[0]["b_cache_dim"]
+    layer_cos = {}
+    for key, want in one_t["b_cache"].items():
+        got = (rt[0]["b_cache"][key] if dim is None else torch.cat(
+            [rt[i]["b_cache"][key] for i in order], dim=dim)).to(want.device)
+        layer_cos[key] = [_cosine(got[g], want[g])
+                          for g in range(want.shape[0])]
+    worst = min(min(v) for v in layer_cos.values())
+    cfg_b = _dax_configs(job)[1]
+    for r in ranks:
+        for i, st in enumerate(r["b"]["steps"]):
+            gate(st["placements"] == st["plan_placements"] == [
+                "[Replicate(), Shard(dim=2)]"],
+                f"(b) rank {r['rank']} step {i} cache placed "
+                f"{st['placements']}, the plan {st['plan_placements']}")
+            gate(2 * st["local_bytes"] == one_bytes,
+                 f"(b) rank {r['rank']} step {i}: {st['local_bytes']} local "
+                 f"bytes against {one_bytes} on one device")
+    gate(last_cos >= LAUNCH_DECODE_COS and _top1_in_ties(rt[0]["b_last"],
+                                                         one_t["b_last"]),
+         f"(b) prefill last logits cosine {last_cos}")
+    gate(all(c >= LAUNCH_DECODE_COS for c in steps_cos) and all(steps_top),
+         f"(b) step logits cosine {steps_cos}, top-1 among ties {steps_top}")
+    gate(worst >= DAX_CACHE_COS,
+         f"(b) a layer's cache cosine {worst} < {DAX_CACHE_COS}")
+    # generate: equal up to the first one-device near-tie
+    gaps = [_gap(one_t["b_last"])] + [_gap(x) for x in one_t["b_steps"]]
+    mesh_tok = [r["b"]["generate_tokens"] for r in ranks]
+    want_tok = b1["generate_tokens"]
+    first = next((i for i, (x, y) in enumerate(zip(mesh_tok[0], want_tok))
+                  if x != y), None)
+    gate(all(t == mesh_tok[0] for t in mesh_tok),
+         f"(b) the ranks' generate tokens differ: {mesh_tok}")
+    gate(first is None or gaps[first] < DAX_TIE_REL,
+         f"(b) generate differs at token {first} where the one-device top-2 "
+         f"gap is {gaps[first] if first is not None else None}")
+    comm_b = [st["comm_calls"] for st in r0["b"]["steps"]]
+    log(f"[decode_axis] (b) {cfg_b.name} ({cfg_b.num_layers} layers, "
+        f"{cfg_b.num_heads} heads over {cfg_b.num_kv_heads}): prompt "
+        f"{DAX_PROMPT} into {LAUNCH_SEQ} slots; one device: generate of "
+        f"{DAX_STEPS + 1} tokens {b1['generate_ms']:.1f} ms, prefill "
+        f"{b1['prefill_ms']:.1f} ms, steps "
+        + ", ".join(f"{st['ms']:.1f}" for st in b1["steps"])
+        + f" ms, peak {_gb(b1['peak_gb'])} GB, cache {one_bytes} bytes. "
+        + "; ".join(
+            f"rank {r['rank']}: params placed once in "
+            f"{r['b']['place_ms']:.1f} ms; prefill "
+            f"{r['b']['prefill_ms']:.1f} ms "
+            f"({r['b']['prefill_comm_calls']} collectives, "
+            f"{1e3 * r['b']['prefill_comm_s']:.1f} ms; flash "
+            f"{r['b']['prefill_launches']['flash_attention']} launches on "
+            f"{r['b']['prefill_heads']}), prefill cache "
+            f"{r['b']['prefill_cache']['p0/k']['placements']}, steps "
+            + ", ".join(f"{st['ms']:.1f}" for st in r["b"]["steps"])
+            + f" ms ({r['b']['steps'][-1]['comm_calls']} collectives a step, "
+            + ", ".join(f"{1e3 * st['comm_s']:.1f}" for st in r["b"]["steps"])
+            + f" ms of them), cache {r['b']['steps'][-1]['placements']}, "
+            f"{r['b']['steps'][-1]['local_bytes']} local bytes (a layer's "
+            f"shard {r['b']['layer_shape']}), peak {_gb(r['b']['peak_gb'])} GB"
+            + (f"; one more step under torch.profiler "
+               f"{r['b']['profile']['step_ms']:.1f} ms, NCCL kernels "
+               f"{r['b']['profile']['nccl_device_ms']:.2f} of "
+               f"{r['b']['profile']['device_ms']:.2f} device ms"
+               if r["b"].get("profile") else "")
+            for r in ranks)
+        + f". Against one device: prefill last logits cosine {last_cos:.7f};"
+        f" steps " + ", ".join(f"{c:.7f}" for c in steps_cos)
+        + f" (gate >= {LAUNCH_DECODE_COS}), top-1 among ties {all(steps_top)};"
+        f" each layer's gathered cache cosine >= {worst:.7f} (gate >= "
+        f"{DAX_CACHE_COS}); the decode fallbacks "
+        + "; ".join(r0["b"]["fallbacks"]))
+    log(f"[decode_axis] (b) generate on the mesh {r0['b']['generate_ms']:.1f}"
+        f" ms ({r0['b']['generate_comm_calls']} collectives): "
+        f"{mesh_tok[0]}; one device {b1['generate_ms']:.1f} ms: {want_tok}; "
+        f"first difference at {first} (the one-device top-2 gaps over the "
+        f"top logit: " + ", ".join(f"{g:.2e}" for g in gaps) + ")")
+    report["a"] = {"cosine": cos, "top1": top}
+    report["b"] = {"prefill_cosine": last_cos, "step_cosine": steps_cos,
+                   "step_top1": steps_top, "layer_cosine": layer_cos,
+                   "layer_cosine_min": worst, "one_device_bytes": one_bytes,
+                   "generate_first_difference": first, "gaps": gaps,
+                   "comm_calls_a_step": comm_b}
+    del rt, one_t
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the flash kernel at a rank's share of (a)'s prefill
+    lf = long_flash(dev, DAX_FLASH_SHAPE)
+    for start, e in lf["blocks_vs_plain"].items():
+        gate(e["ok"], f"flash at {DAX_FLASH_SHAPE}, rows {start}: disagrees "
+             f"with its plain version ({e})")
+    gate(lf["all_rows_vs_plain"]["ok"] and lf["finite"],
+         f"flash at {DAX_FLASH_SHAPE}: {lf['all_rows_vs_plain']}")
+    launches = sum(r["a"]["launches"]["flash_attention"] for r in ranks)
+    err = max([e["max_abs_err"] for e in lf["blocks_vs_plain"].values()]
+              + [lf["all_rows_vs_plain"]["max_abs_err"]])
+    kernels.append(
+        {"name": "flash_attention_decode_axis", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+         "launches": launches, "max_abs_err": err, "ms": lf["ms"],
+         "plain_ms": lf["plain_ms"], "bound_ms": lf["bound_ms"],
+         "bound_by": lf["bound_by"], "library_ms": lf["library_ms"]})
+    log(f"[times] flash_attention_decode_axis at {tuple(DAX_FLASH_SHAPE)} "
+        f"causal (a rank's heads of (a)'s prefill): {lf['ms']:.4f} ms, plain "
+        f"{lf['plain_ms']:.4f} ms, bound {lf['bound_ms']:.4f} ms "
+        f"({lf['bound_by']}, exact pairs; exponentials "
+        f"{lf['exp_bound_ms']:.4f} ms), SDPA (cuDNN) {lf['library_ms']}; "
+        f"max abs "
+        f"err {err:.3e} (every row within LONG_FLASH_TOL: "
+        f"{lf['all_rows_vs_plain']['ok']}, "
+        f"{lf['all_rows_vs_plain']['max_share_of_bar']:.3f} of the bar); "
+        f"{launches} launches over the ranks in (a)'s PREFILL_32K step")
+    report["flash"] = lf
+    shutil.rmtree(DAX_DIR, ignore_errors=True)
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[decode_axis] phase {report['phase_seconds']:.1f} s")
+    if errors:
+        fail("[decode_axis] " + "; ".join(errors))
     return report
 
 
@@ -6094,6 +6643,9 @@ def main() -> None:
 
     # -- 24b. the model axis: smollm-360m and llama3-8b over SPMD ranks ---
     report["model_axis"] = model_axis_phase(dev, kernels)
+
+    # -- 24c. the prefill and decode plans and generate on a model axis ----
+    report["decode_axis"] = decode_axis_phase(dev, kernels)
 
     # -- 25. the launch layer's cell plans ---------------------------------
     report["launch"] = launch_phase(dev, kernels)

@@ -12,19 +12,19 @@ decimal digits.
 
 Meshes. A mesh backed by a ``torch.distributed`` ``DeviceMesh`` (SPMD
 processes, one a mesh position: ``launch.mesh``) is taken by the
-``Trainer``, the train plan, ``device_batch`` and
-``restore(shardings=)``, which place every tensor's shard on its rank's
-device (``rank_device``); ``spmd_mesh`` finds it in a mesh or a tree of
-shardings, and refuses a mesh of more than one device from one
-controller there. ``check_one_device`` is how the entry points the
-model axis does not reach yet treat a mesh: the prefill and decode
-plans (``PREFILL_DECODE_SLICE``) and the non-dense families
-(``FAMILY_SLICE``): a mesh of one device is accepted, a mesh of more
-raises ``NotImplementedError`` naming the slice that will take it. The
-streaming data loops (the scoring executor, the embedding service and
-the offline indexer) accept a mesh of any size over the ``("pod",
-"data")`` axes from one controller: ``data_mesh_devices`` checks it and
-lists the devices they run row shards on.
+``Trainer``, the train, prefill and decode plans, ``generate`` (through
+its params), ``device_batch`` and ``restore(shardings=)``, which place
+every tensor's shard on its rank's device (``rank_device``);
+``spmd_mesh`` finds it in a mesh or a tree of shardings, and refuses a
+mesh of more than one device from one controller there. On such a mesh
+the dense family runs; a non-dense family's ``Trainer`` and plans raise
+``NotImplementedError`` naming the slice that will take them
+(``FAMILY_SLICE``), through ``check_one_device``, which accepts a mesh
+of one device. The streaming data loops (the scoring executor, the
+embedding service and the offline indexer) accept a mesh of any size
+over the ``("pod", "data")`` axes from one controller:
+``data_mesh_devices`` checks it and lists the devices they run row
+shards on.
 """
 from __future__ import annotations
 
@@ -42,13 +42,9 @@ DATA_AXES = ("pod", "data")
 MODEL_AXIS_SLICE = ("needs SPMD processes, one a mesh position "
                     "(launch.dist.init_spmd, or torchrun), and a mesh over "
                     "their world (launch.mesh.make_test_mesh or make_mesh)")
-PREFILL_DECODE_SLICE = (
-    "waits for the next model-axis slice: the prefill and decode plans "
-    "on a model axis, with the KV cache's kv_seq sharding")
 FAMILY_SLICE = (
-    "waits for the model-axis slice after the prefill and decode plans: "
-    "the MoE, RWKV6, Mamba2/zamba2 and encoder-decoder families under a "
-    "model axis")
+    "waits for the next model-axis slice: the MoE, RWKV6, Mamba2/zamba2, "
+    "encoder-decoder and vlm families under a model axis")
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:

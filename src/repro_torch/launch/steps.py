@@ -21,18 +21,24 @@ the rules (recording divisibility fallbacks in the plan's ``ruleset``)
 and redistributing a DTensor to the resolved placements (a plain
 tensor passes through). A step runs on its mesh's one device, or on a
 mesh of SPMD processes (``launch.mesh``: a ``DeviceMesh`` over the
-world, any (data, model) shape): there the train step places the
-params and AdamW state by its ``arg_shardings`` and the batch by the
-input shardings, and runs on DTensors (each rank its shards), for the
-dense family; the prefill and decode steps and the other families on
-such a mesh raise ``NotImplementedError`` naming the slice that will
-take them (``device.PREFILL_DECODE_SLICE``, ``FAMILY_SLICE``). A mesh of
-more than one device from one controller (the production meshes are
-abstract) gives the plan's specs and shardings, and its step on real
-tensors raises. On meta tensors (the plan's own ``arg_sds``) a step
-traces over any mesh, abstract ones included, resolving every
-constraint (recording its fallbacks) and placing nothing: the dry run
-(``launch.dryrun``) counts it so. A meta AdamW
+world, any (data, model) shape), for the dense family: there each step
+places the params by its ``arg_shardings`` and runs on DTensors (each
+rank its shards) inside ``spmd_context``. The train step places the
+AdamW state as its params and the batch by the input shardings; the
+prefill step places the tokens by the input shardings and returns the
+last logits (sharded over the vocabulary) and the cache placed by its
+``out_shardings``; the decode step takes replicated tokens and position
+and moves the cache into its ``kv_seq`` layout on entry (one
+redistribute from the prefill plan's, which has no ``kv_seq`` rule), and
+returns the logits and the cache in that layout. The other families'
+steps on such a mesh raise ``NotImplementedError`` naming the slice that
+will take them (``device.FAMILY_SLICE``). A mesh of more than one device
+from one controller (the production meshes are abstract) gives the
+plan's specs and shardings, and its step on real tensors raises. On meta
+tensors (the plan's own ``arg_sds``) a step traces over any mesh,
+abstract ones included, resolving every constraint (recording its
+fallbacks) and placing nothing: the dry run (``launch.dryrun``) counts
+it so. A meta AdamW
 step has no value to read on the host; the update's host arithmetic
 (learning rate, bias corrections) then takes step 0, which changes no
 operation the step runs. The train step accumulates the gradient
@@ -52,8 +58,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.config.base import InputShape, ModelConfig, OptimizerConfig
-from repro_torch.device import (FAMILY_SLICE, PREFILL_DECODE_SLICE,
-                                check_one_device)
+from repro_torch.device import FAMILY_SLICE, check_one_device
 from repro_torch.launch import hlo_analysis
 from repro_torch.launch.mesh import MULTI_CARD
 from repro_torch.models import build_model, input_axes, input_specs
@@ -152,16 +157,20 @@ def spmd_context(mesh, resolve: Callable):
 
 def _refuse_spmd(what: str, cfg: ModelConfig, mesh, params) -> None:
     """The steps this slice leaves to later ones, on a mesh of SPMD
-    processes of more than one device: the prefill and decode plans, and
-    the non-dense families."""
-    if getattr(mesh, "device_mesh", None) is None or _is_meta(params):
+    processes of more than one device: every plan of a non-dense
+    family."""
+    if not _spmd(mesh, params):
         return
-    if what != "train":
-        check_one_device(f"the {what} plan", mesh,
-                         waits_for=PREFILL_DECODE_SLICE)
-    elif cfg.family != "dense":
-        check_one_device(f"the train plan of {cfg.name} (family "
+    if cfg.family != "dense":
+        check_one_device(f"the {what} plan of {cfg.name} (family "
                          f"{cfg.family!r})", mesh, waits_for=FAMILY_SLICE)
+
+
+def _spmd(mesh, params) -> bool:
+    """Whether a step places its arguments: real params on a mesh of
+    SPMD processes (meta params, the dry run's, are counted unplaced)."""
+    return (getattr(mesh, "device_mesh", None) is not None
+            and not _is_meta(params))
 
 
 def _is_meta(params) -> bool:
@@ -271,7 +280,7 @@ def make_train_plan(cfg: ModelConfig, shape: InputShape, mesh,
         params, opt_state = state
         _refuse_spmd("train", cfg, mesh, params)
         dev = _device(mesh, params)
-        spmd = getattr(mesh, "device_mesh", None) is not None
+        spmd = _spmd(mesh, params)
         if isinstance(opt_state.step, torch.Tensor) and opt_state.step.is_meta:
             opt_state = opt_state._replace(step=0)
         if spmd:
@@ -351,23 +360,33 @@ def make_prefill_plan(cfg: ModelConfig, shape: InputShape, mesh,
     resolve = _resolver(rs)
     key = "embeds" if model.takes_embeds else "tokens"
 
-    def prefill_step(params, batch):
-        _refuse_spmd("prefill", cfg, mesh, params)
-        _device(mesh, params)
-        with constrainer(resolve):
-            if cfg.is_encdec:
-                logits, cache = model.prefill(params, batch["frames"],
-                                              batch["tokens"])
-            else:
-                logits, cache = model.prefill(params, batch[key])
-        return logits[:, -1], cache
-
     # output cache shardings via cache axes
     cache_sds, cache_axes = model.cache_spec(shape.global_batch,
                                              shape.seq_len)
     cache_sh = shardings_for_tree(rs, cache_axes, cache_sds)
     logits_sh = rs.sharding(("batch", "act_vocab"),
                             (shape.global_batch, cfg.padded_vocab_size))
+
+    def prefill_step(params, batch):
+        _refuse_spmd("prefill", cfg, mesh, params)
+        dev = _device(mesh, params)
+        spmd = _spmd(mesh, params)
+        if spmd:
+            params = adamw.zip_map(place, params, param_sh)
+            batch = _place_batch({k: v if isinstance(v, DTensor) else
+                                  torch.as_tensor(v, device=dev)
+                                  for k, v in batch.items()}, cfg, shape, rs)
+        with spmd_context(mesh, resolve):
+            if cfg.is_encdec:
+                logits, cache = model.prefill(params, batch["frames"],
+                                              batch["tokens"])
+            else:
+                logits, cache = model.prefill(params, batch[key])
+        logits = logits[:, -1]
+        if spmd:
+            logits = place(logits, logits_sh)
+            cache = adamw.zip_map(place, cache, cache_sh)
+        return logits, cache
     return CellPlan(step_fn=prefill_step,
                     arg_sds=(params_sds, batch_sds),
                     arg_shardings=(param_sh, batch_sh),
@@ -387,17 +406,28 @@ def make_decode_plan(cfg: ModelConfig, shape: InputShape, mesh,
     batch_sds = input_specs(cfg, shape)          # tokens, pos, cache
     batch_sh = shardings_for_tree(rs, input_axes(cfg, shape), batch_sds)
     resolve = _resolver(rs)
+    logits_sh = rs.sharding(("batch", "act_vocab"),
+                            (shape.global_batch, cfg.padded_vocab_size))
 
     def decode_step(params, batch):
         _refuse_spmd("decode", cfg, mesh, params)
-        _device(mesh, params)
-        with constrainer(resolve):
-            logits, cache = model.decode_step(params, batch["tokens"],
-                                              batch["pos"], batch["cache"])
-        return logits[:, -1], cache
-
-    logits_sh = rs.sharding(("batch", "act_vocab"),
-                            (shape.global_batch, cfg.padded_vocab_size))
+        dev = _device(mesh, params)
+        tokens, pos, cache = batch["tokens"], batch["pos"], batch["cache"]
+        spmd = _spmd(mesh, params)
+        if spmd:
+            # the cache into the decode layout (its kv_seq rule): one
+            # redistribute from the prefill plan's
+            params = adamw.zip_map(place, params, param_sh)
+            cache = adamw.zip_map(place, cache, batch_sh["cache"])
+            tokens = torch.as_tensor(full_value(tokens), device=dev)
+            pos = full_value(pos)
+        with spmd_context(mesh, resolve):
+            logits, cache = model.decode_step(params, tokens, pos, cache)
+        logits = logits[:, -1]
+        if spmd:
+            logits = place(logits, logits_sh)
+            cache = adamw.zip_map(place, cache, batch_sh["cache"])
+        return logits, cache
     return CellPlan(step_fn=decode_step,
                     arg_sds=(params_sds, batch_sds),
                     arg_shardings=(param_sh, batch_sh),

@@ -16,6 +16,21 @@ any Pallas kernel: f32 scores and softmax, masked by a select with
 ``NEG_INF``. ``use_rope=False`` leaves Q and K unrotated (the
 encoder-decoder models add sinusoidal positions to their inputs).
 
+On a mesh of SPMD ranks the cache is a DTensor (``launch.steps``' decode
+plan places it by its ``kv_seq`` rule: the sequence over "data" when the
+batch cannot fill that axis, over "model" when the KV heads cannot split
+it), and decode runs on each rank's shard, as GSPMD partitions the JAX
+step; DTensor's own rules would gather the cache (or, for ``index_copy``
+and ``roll`` on the card's torch, have none: ``tools/gloo_probe.py
+--ops``). ``prefill_kv_cache`` fills each rank's batch rows and KV heads;
+the new token's K/V go to slot ``min(pos, L - 1)`` (``pos % L`` for a
+ring) on the rank whose sequence range holds it, a select on the clamped
+local slot, with ``pos`` kept on the device; a head-sharded or
+replicated cache attends over the rank's own heads; a sequence-sharded
+one gives each rank the scores of its slots (global slot indices in the
+mask), combined across the shards by ``softmax_over_shards``: two
+all-reduces of (b, heads) rows, never the cache or the scores.
+
 Cross-attention (``cross_attn_{init, apply, decode}``, ``encode_kv``)
 reads K/V projected once from the encoder's output, with no RoPE and no
 mask. Its full-sequence form always goes through the flash entry,
@@ -41,7 +56,7 @@ from __future__ import annotations
 from typing import Dict, Tuple, Union
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -51,6 +66,7 @@ from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                      attention_mask)
 from repro_torch.kernels.flash_attention.ref import expand_kv as _expand_kv
 from repro_torch.models.common import Params, apply_rope, dense_init
+from repro_torch.sharding.rules import local_range
 
 IMPLS = ("flash", "blocked", "einsum")
 
@@ -325,6 +341,31 @@ def fill_kv_cache(cache: Dict[str, torch.Tensor], kv: Dict[str, torch.Tensor],
     return out
 
 
+def prefill_kv_cache(cfg: ModelConfig, kv: Dict[str, torch.Tensor],
+                     seq_len: int, window: int) -> Dict[str, torch.Tensor]:
+    """An attention layer's decode cache of ``seq_len`` positions
+    (``kv_cache_spec``) holding a prefill's K/V (``fill_kv_cache``).
+    DTensor K/V (a prefill on a mesh, its sequence whole on every rank)
+    give a DTensor cache of their placements with the sequence whole
+    (where DTensor's rules left K/V split over the sequence or as
+    partial sums, as they may inside a pattern group, they are brought
+    together first): each rank fills its own batch rows and KV heads."""
+    if not isinstance(kv["k"], DTensor):
+        empty = init_kv_cache(cfg, kv["k"].shape[0], seq_len, window,
+                              kv["k"].dtype, kv["k"].device)
+        return fill_kv_cache(empty, kv, window)
+    mesh = kv["k"].device_mesh
+    pl = [Replicate() if p.is_shard(1) or p.is_partial() else p
+          for p in kv["k"].placements]
+    local = {n: t.redistribute(mesh, pl).to_local() for n, t in kv.items()}
+    b, _, h, hd = local["k"].shape
+    length = min(window, seq_len) if window > 0 else seq_len
+    empty = {n: torch.zeros((b, length, h, hd), dtype=t.dtype,
+                            device=t.device) for n, t in local.items()}
+    return {n: DTensor.from_local(t, mesh, pl, run_check=False)
+            for n, t in fill_kv_cache(empty, local, window).items()}
+
+
 def position_on(pos: Union[int, torch.Tensor], device) -> torch.Tensor:
     """A decode position as a 0-d int64 tensor on ``device``. A Python
     int becomes one by a fill on the device, with no copy from the host,
@@ -360,17 +401,13 @@ def attn_decode(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     L = cache["k"].shape[1]
     slot = (pos % L) if window > 0 else torch.clamp(pos, max=L - 1)
+    if isinstance(cache["k"], DTensor):
+        return _decode_on_shards(params, x, cfg, q, k, v, pos, slot, cache,
+                                 window)
     ck = cache["k"].index_copy(1, slot.reshape(1), k)
     cv = cache["v"].index_copy(1, slot.reshape(1), v)
 
-    idx = torch.arange(L, device=dev)
-    if window > 0:
-        # slot j holds position p = j (mod L), p <= pos, p > pos - L
-        p_of_slot = pos - torch.remainder(pos - idx, L)
-        valid = (p_of_slot >= 0) & (p_of_slot > pos - window)
-    else:
-        valid = idx <= pos
-
+    valid = _valid_slots(torch.arange(L, device=dev), pos, L, window)
     kf = _expand_kv(ck, groups)                             # (b, L, h, hd)
     vf = _expand_kv(cv, groups)
     scale = 1.0 / (cfg.head_dim ** 0.5)
@@ -380,6 +417,94 @@ def attn_decode(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhql,blhk->bqhk", probs, vf.float())
     return _out_proj(out.to(x.dtype), params["wo"]), {"k": ck, "v": cv}
+
+
+def _valid_slots(idx: torch.Tensor, pos: torch.Tensor, L: int,
+                 window: int) -> torch.Tensor:
+    """Which of the cache slots ``idx`` (global indices) hold a position
+    the token at ``pos`` attends to, in a cache of ``L`` slots."""
+    if window > 0:
+        # slot j holds position p = j (mod L), p <= pos, p > pos - L
+        p_of_slot = pos - torch.remainder(pos - idx, L)
+        return (p_of_slot >= 0) & (p_of_slot > pos - window)
+    return idx <= pos
+
+
+def _decode_on_shards(params: Params, x, cfg: ModelConfig, q, k, v,
+                      pos: torch.Tensor, slot: torch.Tensor,
+                      cache: Dict[str, torch.Tensor], window: int):
+    """``attn_decode`` over a DTensor cache, on each rank's shard of it
+    (see the module's docstring): the new token's K/V written by the
+    rank that holds ``slot``, the scores of the rank's slots, and, over a
+    sequence-sharded cache, their softmax combined across the shards
+    (``softmax_over_shards``). The cache keeps its placements."""
+    mesh, pl = cache["k"].device_mesh, list(cache["k"].placements)
+    # the token's q, k and v laid out as the cache's batch rows and KV
+    # heads (a rank's query heads are its KV heads' groups), whole on the
+    # mesh dimensions that split the cache's sequence
+    tok_pl = [Replicate() if p.is_shard(1) else p for p in pl]
+    ql, kl, vl = (t.redistribute(mesh, tok_pl).to_local()
+                  if isinstance(t, DTensor) else t for t in (q, k, v))
+    L = cache["k"].shape[1]
+    offset, length = local_range(cache["k"], 1)
+    rel = slot - offset
+    mine = (rel >= 0) & (rel < length)
+    at = rel.clamp(0, length - 1).reshape(1)
+    new = {}
+    for n, t in (("k", kl), ("v", vl)):
+        c = cache[n].to_local()
+        # a select on the clamped local slot: only its owner writes
+        row = torch.where(mine, t, c.index_select(1, at))
+        new[n] = c.index_copy(1, at, row)
+    idx = offset + torch.arange(length, device=ql.device)
+    valid = _valid_slots(idx, pos, L, window)
+    groups = ql.shape[2] // new["k"].shape[2]
+    kf = _expand_kv(new["k"], groups)
+    vf = _expand_kv(new["v"], groups)
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    scores = torch.einsum("bqhk,blhk->bhql", ql.float(), kf.float()) * scale
+    scores = torch.where(valid[None, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    seq_dims = [i for i, p in enumerate(pl) if p.is_shard(1)]
+    if seq_dims:
+        out = softmax_over_shards(scores, vf,
+                                  [mesh.get_group(i) for i in seq_dims])
+    else:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhql,blhk->bqhk", probs, vf.float())
+    out = DTensor.from_local(out.to(x.dtype), mesh, tok_pl, run_check=False)
+    return _out_proj(out, params["wo"]), {
+        n: DTensor.from_local(t, mesh, pl, run_check=False)
+        for n, t in new.items()}
+
+
+def softmax_over_shards(scores: torch.Tensor, v: torch.Tensor,
+                        groups) -> torch.Tensor:
+    """``softmax(scores) @ v`` over a key axis split across the ranks of
+    the process ``groups`` (each a mesh dimension that splits it), from
+    each rank's keys alone: scores (b, h, 1, L_local) float32, masked by
+    a select with ``NEG_INF``; v (b, L_local, h, hd). Each rank takes its
+    max m_r, l_r = sum exp(s - m_r) and o_r = sum exp(s - m_r) v in
+    float32; the max M is all-reduced, l_r and o_r are rescaled by
+    exp(m_r - M) and all-reduced as sums, and the result is o / l (b, 1,
+    h, hd) float32, the same on every rank of the groups. A rank whose
+    keys are all masked (m_r = NEG_INF) adds exactly 0. Two all-reduces
+    over the groups (b * h maxima, then b * h * (hd + 1) sums); the
+    scores and the keys never move."""
+    import torch.distributed as dist
+    m = scores.amax(dim=-1, keepdim=True)                   # (b, h, 1, 1)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhql,blhk->bhqk", p, v.float())      # (b, h, 1, hd)
+    big = m.clone()
+    for g in groups:
+        dist.all_reduce(big, op=dist.ReduceOp.MAX, group=g)
+    w = torch.exp(m - big)
+    both = torch.cat([o * w, l * w], dim=-1)               # (b, h, 1, hd+1)
+    for g in groups:
+        dist.all_reduce(both, group=g)
+    out = both[..., :-1] / both[..., -1:]
+    return out.permute(0, 2, 1, 3)                          # (b, 1, h, hd)
 
 
 def cross_attn_decode(params: Params, x: torch.Tensor, cfg: ModelConfig, *,

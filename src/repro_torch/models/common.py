@@ -301,3 +301,40 @@ def vocab_nll(logits, labels) -> torch.Tensor:
     without the vocabulary's sharding; ``labels`` (...) int, plain (the
     same on every rank) or a DTensor."""
     return _VocabNLL.apply(logits, labels)
+
+
+def vocab_argmax(x) -> torch.Tensor:
+    """The index of each row's max over the last dimension, ties taking
+    the first, as ``torch.argmax``: a plain tensor of ``x``'s leading
+    shape. A DTensor's vocabulary shards never come together: each rank
+    takes its slice's max and the first (global) index of it, the max is
+    all-reduced over the mesh dimensions that shard the vocabulary, then
+    the least index reaching it; rows sharded over a mesh dimension are
+    gathered at the end (one index a row), so every rank holds them
+    all."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return torch.argmax(x, dim=-1)
+    import torch.distributed as dist
+
+    from repro_torch.sharding.rules import local_range
+    x = resolve_partial(x)
+    mesh, last = x.device_mesh, x.dim() - 1
+    local = x.to_local()
+    idx = torch.argmax(local, dim=-1)
+    best = torch.gather(local, -1, idx[..., None])[..., 0]
+    idx = idx + local_range(x, last)[0]
+    groups = [mesh.get_group(i) for i, p in enumerate(x.placements)
+              if p.is_shard(last)]
+    top = best.clone()
+    for g in groups:
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
+    idx = torch.where(best == top, idx,
+                      torch.full_like(idx, torch.iinfo(idx.dtype).max))
+    for g in groups:
+        dist.all_reduce(idx, op=dist.ReduceOp.MIN, group=g)
+    rows = [p if p.is_shard() and p.dim < last else Replicate()
+            for p in x.placements]
+    if all(p.is_replicate() for p in rows):
+        return idx
+    return DTensor.from_local(idx, mesh, rows, run_check=False).full_tensor()

@@ -37,7 +37,10 @@ loss) on a forward with gradients: ``forward``, ``hidden`` and
 ``prefill`` run under ``torch.inference_mode``, ``loss_fn`` does not,
 and with ``cfg.remat == "full"`` it recomputes every block in the
 backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` does), so
-only each block's input is kept. ``param_axes`` is the logical-axes
+only each block's input is kept. With DTensor params (a mesh of SPMD
+ranks) ``prefill`` and ``decode_step`` run under ``no_grad`` instead
+(``serving_context``), and their caches are DTensors
+(``attention.prefill_kv_cache``, ``attn_decode``). ``param_axes`` is the logical-axes
 tree of the params (``sharding.rules``' input: the params' layout, each
 leaf a tuple of names, a stacked leaf's first one None), and
 ``act_constraint``, None unless a launch plan sets it
@@ -48,6 +51,8 @@ the masked tiles itself).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -216,6 +221,34 @@ def remat_wrap(enabled: bool):
                                                preserve_rng_state=False))
 
 
+def serving_context(params: Params):
+    """The context a serving call runs in: ``torch.inference_mode`` for
+    params on one device. For DTensor params (a mesh of SPMD ranks)
+    ``torch.no_grad``, because under inference mode DTensor's view
+    operators (``t[g]`` of a stacked leaf, a slice, a transpose) of a
+    tensor made outside it raise ("Cannot set version_counter for
+    inference tensor": ``tools/gloo_probe.py --ops``, ``select_dim0``),
+    with plain tensors (positions, masks, tokens) taken as replicated.
+    Both modes compute the same values."""
+    if not isinstance(params["embed"]["table"], DTensor):
+        return torch.inference_mode()
+    from torch.distributed.tensor.experimental import implicit_replication
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.no_grad())
+    stack.enter_context(implicit_replication())
+    return stack
+
+
+def serving_mode(fn):
+    """A serving method (``prefill``, ``decode_step``) run in
+    ``serving_context`` of its params."""
+    @functools.wraps(fn)
+    def run(self, params, *args, **kwargs):
+        with serving_context(params):
+            return fn(self, params, *args, **kwargs)
+    return run
+
+
 def group_params(params: Params, g: int) -> Params:
     """The params of pattern group ``g``: views of the stacked leaves."""
     return tree_map(lambda t: t[g], params["blocks"])
@@ -380,10 +413,8 @@ class TransformerLM:
                 if aux is not None:
                     aux_total = aux_total + aux
                 if collect_cache:
-                    empty = attn.init_kv_cache(cfg, x.shape[0],
-                                               cache_len or x.shape[1],
-                                               window, x.dtype, x.device)
-                    caches[key] = attn.fill_kv_cache(empty, kv, window)
+                    caches[key] = attn.prefill_kv_cache(
+                        cfg, kv, cache_len or x.shape[1], window)
             elif kind == BLOCK_MAMBA2:
                 def mamba_block(x, p):
                     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
@@ -476,7 +507,7 @@ class TransformerLM:
         x, _, aux = self._run_groups(params, inputs, collect_cache=False)
         return self.logits(params, x), aux
 
-    @torch.inference_mode()
+    @serving_mode
     def prefill(self, params: Params, inputs: torch.Tensor,
                 cache_len: int = 0) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Process a prompt: (logits, cache stacked over groups).
@@ -524,7 +555,7 @@ class TransformerLM:
         return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                               device=dev), spec)
 
-    @torch.inference_mode()
+    @serving_mode
     def decode_step(self, params: Params, inputs: torch.Tensor,
                     pos: Union[int, torch.Tensor], cache: Dict[str, Any]
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:

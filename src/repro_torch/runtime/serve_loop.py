@@ -33,7 +33,8 @@ from repro_torch.checkpoint import flatten_with_paths
 from repro_torch.config import ModelConfig
 from repro_torch.device import data_mesh_devices, on_device, resolve_device
 from repro_torch.models import EncDecLM, build_model
-from repro_torch.models.common import tree_map
+from repro_torch.models.transformer import serving_context
+from repro_torch.models.common import full_value, tree_map, vocab_argmax
 
 # elements hashed per host copy when digesting the params
 _DIGEST_CHUNK = 1 << 26
@@ -180,7 +181,6 @@ class EmbeddingService:
         return out
 
 
-@torch.inference_mode()
 def generate(model, params, prompt_tokens, steps: int, cache_len: int = 0,
              greedy: bool = True,
              generator: Optional[torch.Generator] = None) -> np.ndarray:
@@ -198,27 +198,38 @@ def generate(model, params, prompt_tokens, steps: int, cache_len: int = 0,
     same. Token t (1-based) is decoded at position s + t - 1. The tokens
     stay on the device until the end: the loop makes no host sync. An
     ``EncDecLM`` raises ``TypeError``, as the JAX package's
-    ``generate`` does (it prefills with ``cache_len=``)."""
+    ``generate`` does (it prefills with ``cache_len=``).
+
+    With params placed on a mesh of SPMD ranks (DTensors: a plan's
+    ``arg_shardings``) every rank calls it alike: the prompt and each
+    token are replicated, the model runs on DTensors under ``no_grad``
+    (``models.transformer.serving_context``) with the cache kept in the
+    layout the prefill gives it, the greedy argmax is taken over the
+    logits' vocabulary shards (``common.vocab_argmax``: only each
+    shard's max and index move), and every rank returns the same array.
+    A draw gathers the last logits (b x vocab floats a step) and draws on
+    every rank alike from ``generator``'s seed."""
     if isinstance(model, EncDecLM):
         raise TypeError(f"generate drives a decoder-only model; "
                         f"{model.cfg.name} is an encoder-decoder one, whose "
                         f"prefill takes frames and no cache_len")
     dev = params["embed"]["table"].device
-    prompt = torch.as_tensor(prompt_tokens, device=dev)
-    b, s = prompt.shape
-    total = cache_len or (s + steps)
-    logits, cache = model.prefill(params, prompt, cache_len=total)
-    if generator is None and not greedy:
-        generator = torch.Generator(dev).manual_seed(0)
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    out = [tok]
-    for t in range(1, steps):
-        logits, cache = model.decode_step(params, tok, s + t - 1, cache)
-        last = logits[:, -1]
-        if greedy:
-            tok = torch.argmax(last, dim=-1)[:, None]
-        else:
-            tok = torch.multinomial(torch.softmax(last, dim=-1), 1,
-                                    generator=generator)
-        out.append(tok)
-    return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+    with serving_context(params):
+        prompt = torch.as_tensor(prompt_tokens, device=dev)
+        b, s = prompt.shape
+        total = cache_len or (s + steps)
+        logits, cache = model.prefill(params, prompt, cache_len=total)
+        if generator is None and not greedy:
+            generator = torch.Generator(dev).manual_seed(0)
+        tok = vocab_argmax(logits[:, -1])[:, None]
+        out = [tok]
+        for t in range(1, steps):
+            logits, cache = model.decode_step(params, tok, s + t - 1, cache)
+            last = logits[:, -1]
+            if greedy:
+                tok = vocab_argmax(last)[:, None]
+            else:
+                tok = torch.multinomial(torch.softmax(full_value(last), dim=-1),
+                                        1, generator=generator)
+            out.append(tok)
+        return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()

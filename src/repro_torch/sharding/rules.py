@@ -20,7 +20,9 @@ loops place each on its device (``jax.device_put`` of a
 (``launch.mesh.Mesh`` backed by a ``DeviceMesh``) ``placements`` turns
 a ``NamedSharding`` into DTensor placements, one a mesh dimension, and
 ``place`` puts a full tensor there (each rank keeps its own shard:
-``jax.device_put`` of the sharding).
+``jax.device_put`` of the sharding); ``dim_range`` and ``local_range``
+give a mesh position's (offset, length) along one dimension, the slice
+``devices_indices_map`` gives it.
 """
 from __future__ import annotations
 
@@ -212,6 +214,48 @@ def block_index(device_mesh, dims) -> int:
     for d in dims:
         idx = idx * device_mesh.size(d) + coord[d]
     return idx
+
+
+def dim_range(mesh_shape, entry: AxisAssignment, coordinate,
+              size: int) -> Tuple[int, int]:
+    """(offset, length) of the block of a tensor dimension of ``size``
+    that the mesh position ``coordinate`` (axis -> index) holds, where
+    the dimension's spec entry is ``entry`` (None, one mesh axis, or
+    several) over a mesh of ``mesh_shape`` (axis -> size, in the mesh's
+    order): the entry's axes split the dimension major to minor in the
+    mesh's order, as ``placements`` and ``block_index`` take them (an
+    entry out of that order raises ``NotImplementedError``; one that does
+    not split ``size`` evenly, ``ValueError``). A position's slice is the
+    one ``NamedSharding.devices_indices_map`` gives it."""
+    names = (() if entry is None else (entry,) if isinstance(entry, str)
+             else tuple(entry))
+    axes = list(mesh_shape)
+    idx = [axes.index(n) for n in names]
+    if idx != sorted(idx):
+        raise NotImplementedError(f"{names}: out of the mesh's order "
+                                  f"{tuple(axes)}")
+    ways = math.prod(mesh_shape[n] for n in names)
+    if size % ways:
+        raise ValueError(f"a dimension of {size} does not split {ways} ways "
+                         f"over {names}")
+    block = 0
+    for n in names:
+        block = block * mesh_shape[n] + coordinate[n]
+    length = size // ways
+    return block * length, length
+
+
+def local_range(x, dim: int) -> Tuple[int, int]:
+    """(offset, length) of this rank's block of dimension ``dim`` of the
+    DTensor ``x`` (``dim_range`` over the mesh dimensions whose
+    placement shards ``dim``)."""
+    dm = x.device_mesh
+    names = dm.mesh_dim_names or tuple(str(i) for i in range(dm.ndim))
+    coord = dm.get_coordinate()
+    entry = tuple(names[i] for i, p in enumerate(x.placements)
+                  if p.is_shard(dim))
+    return dim_range({n: dm.size(i) for i, n in enumerate(names)},
+                     entry or None, dict(zip(names, coord)), x.shape[dim])
 
 
 def row_shard_ids(mesh, shape: Sequence[int]) -> Tuple[List[int], int]:

@@ -1593,3 +1593,123 @@ def test_model_axis_trainer_against_one_device(cuda, tmp_path, where):
             cond = np.abs(g) >= 1e-5
             np.testing.assert_allclose(got["params1"][path][cond],
                                        want_p[cond], rtol=2e-4, atol=2e-4)
+
+
+# -- the model axis: SPMD ranks of the prefill and decode plans ------------
+
+DECODE_AXIS_CASES = [
+    dict(arch="llama3-8b", batch=2, prompt=12, cache_len=32, steps=8),
+    dict(arch="smollm-360m", batch=2, prompt=12, cache_len=32, steps=3)]
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["cuda:0 twice", "two cards"])
+def test_model_axis_decode_against_one_device(cuda, tmp_path, where):
+    """The prefill and decode plans and ``generate`` on a (1, 2) mesh of
+    SPMD ranks (cuda:0 twice over repro_gloo, or cuda:0 and cuda:1 over
+    NCCL; ``tests/torch_decode_axis_ranks.py``) against the one-device
+    model on the card, SMOKE in f32: llama3-8b (4 heads over 1: the
+    decode cache's sequence over "model", its softmax combined across
+    the ranks) and smollm-360m (a head-sharded cache). The prefill's last
+    logits, each step's logits and the final cache within 1e-5 of max
+    |one device| a leaf; every step's cache placed as the plan says;
+    ``generate``'s tokens the one device's (a near-tie excepted);
+    ``softmax_over_shards`` against ``torch.softmax`` at 1e-6."""
+    import json
+    import os
+    import socket
+    import subprocess
+    from pathlib import Path
+
+    import torch_decode_axis_ranks as D
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.models import build_model, params_from_jax
+    from repro_torch.runtime.serve_loop import generate
+    if where == "two cards":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards: the ranks take cuda:0 and "
+                        "cuda:1")
+        env, want_dev = {}, ["cuda:0", "cuda:1"]
+    else:
+        env, want_dev = {"CUDA_VISIBLE_DEVICES": "0"}, ["cuda:0", "cuda:0"]
+    archs = sorted({c["arch"] for c in DECODE_AXIS_CASES})
+    params_np = {a: _np_tree(build_model(get_smoke_arch(a)).init(
+        torch.Generator().manual_seed(0))) for a in archs}
+    torch.save(params_np, tmp_path / "params.pt")
+    here = Path(__file__).resolve().parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    full_env = dict(os.environ, **env, PYTHONPATH=str(here.parent / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_decode_axis_ranks.py"), "--rank",
+         str(r), "--world", "2", "--port", str(port), "--device", "cuda",
+         "--params", str(tmp_path / "params.pt"), "--cases",
+         json.dumps(DECODE_AXIS_CASES), "--out", str(tmp_path)],
+        env=full_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(
+        t[-3000:] for t in logs)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    assert [r["device"] for r in ranks] == want_dev
+
+    def rel(got, want):
+        want = want.float().cpu().numpy()
+        return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+    for case in DECODE_AXIS_CASES:
+        cfg = get_smoke_arch(case["arch"])
+        model = build_model(cfg)
+        params = params_from_jax(params_np[case["arch"]], cuda)
+        toks = D.case_tokens(cfg, case)
+        P, L = case["prompt"], case["cache_len"]
+        logits, cache = model.prefill(params, torch.as_tensor(
+            toks[:, :P], device=cuda), cache_len=L)
+        got = ranks[0][D.case_name(case)]
+        for last in (True, False):
+            assert rel(got["prefill"][last]["logits"]["full"][""],
+                       logits[:, -1]) <= 1e-5
+        for t, step in enumerate(got["decode"]):
+            logits, cache = model.decode_step(
+                params, torch.as_tensor(toks[:, P + t:P + t + 1],
+                                        device=cuda), P + t, cache)
+            assert rel(step["logits"]["full"][""], logits[:, -1]) <= 1e-5
+            for res in ranks:
+                rec = res[D.case_name(case)]["decode"][t]["cache"]
+                assert rec["placements"] == rec["plan_placements"]
+        final = dict(D.flatten_with_paths(cache))
+        for path, arr in got["decode"][-1]["cache"]["full"].items():
+            assert rel(arr, final[path]) <= 1e-5, path
+        want = generate(model, params, toks[:, :P], D.GEN_STEPS,
+                        cache_len=L)
+        for res in ranks:
+            tokens = res[D.case_name(case)]["generate"]
+            differ = np.argwhere(tokens != want)
+            if len(differ):
+                # a near-tie on one device: its top-2 margin there is
+                # under 1e-4, so either token is accepted
+                b, t = differ[0]
+                lg, c = model.prefill(params, torch.as_tensor(
+                    toks[b:b + 1, :P], device=cuda), cache_len=L)
+                for i in range(t):
+                    lg, c = model.decode_step(params, torch.as_tensor(
+                        want[b:b + 1, i:i + 1], device=cuda), P + i, c)
+                top = torch.topk(lg[0, -1], 2).values
+                assert (top[0] - top[1]) < 1e-4, (tokens, want)
+    for valid in D.COMBINE_VALID:
+        c = ranks[0]["combine"]
+        scores, v = torch.as_tensor(c["scores"]), torch.as_tensor(c["v"])
+        keep = torch.arange(scores.shape[-1]) < valid
+        s = torch.where(keep, scores, torch.full_like(scores, -1e30))
+        want = torch.einsum("bhql,blhk->bqhk", torch.softmax(s, dim=-1), v)
+        for res in ranks:
+            np.testing.assert_allclose(res["combine"][valid]["out"],
+                                       want.numpy(), rtol=1e-6, atol=1e-6)

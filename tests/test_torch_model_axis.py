@@ -21,8 +21,8 @@ package and to the port's single-device ``Trainer``.
   * ``compress_decompress`` on DTensor gradients, bitwise the single
     device's; a (1, 2) checkpoint from the async writer restored on
     (1, 1) and (2, 1) bitwise; an injected failure's replay bitwise.
-  * What stays refused: the prefill and decode plans on a model axis,
-    a non-dense family's Trainer.
+  * What stays refused: a non-dense family's Trainer and prefill and
+    decode plans (the dense family's run: ``test_torch_decode_axis.py``).
 """
 import json
 import os
@@ -42,6 +42,7 @@ from repro.models import build_model as j_build_model
 from repro_torch import checkpoint as ckpt
 from repro_torch.config import OptimizerConfig, get_smoke_arch
 from repro_torch.data.loader import device_batch
+from repro_torch.device import FAMILY_SLICE
 from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch import steps
 from repro_torch.models import build_model
@@ -386,13 +387,16 @@ def test_injected_failure_replays_bitwise(runs):
 
 def test_what_stays_refused_names_its_slice(runs):
     """On a (1, 2) mesh of SPMD ranks: the prefill and decode plans'
-    steps and a non-dense family's Trainer raise NotImplementedError
-    naming the slice that will take them."""
+    steps and the Trainer of a non-dense family raise NotImplementedError
+    naming the slice that will take them; llama3-8b's prefill and decode
+    plans run (``tests/test_torch_decode_axis.py`` holds their values)."""
     msgs = runs["ranks"][1, 2][0]["refusals"]
     for kind in ("prefill", "decode"):
-        assert "prefill and decode plans on a model axis" in msgs[kind]
+        assert msgs[f"llama3-8b/{kind}"] == "ran"
     for arch in ("qwen3-moe-30b-a3b", "rwkv6-7b"):
-        assert "families under a model axis" in msgs[arch]
+        for what in (arch, f"{arch}/prefill", f"{arch}/decode"):
+            assert "families under a model axis" in msgs[what], what
+            assert FAMILY_SLICE in msgs[what], what
 
 
 def test_train_cli_under_torchrun(runs):

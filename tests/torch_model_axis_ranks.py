@@ -257,20 +257,30 @@ def restore_job(rank, mesh, device, src: Path, res) -> None:
 
 
 def refusal_job(mesh, device, res) -> None:
-    """What this slice leaves refused, each message."""
+    """What the model axis leaves refused, each message: the prefill and
+    decode plans' steps and the Trainer of a non-dense family; and that
+    llama3-8b's prefill and decode plans run ("ran")."""
     from repro_torch.config import get_smoke_arch as smoke
     from repro_torch.models import build_model
     from repro_torch.runtime.train_loop import Trainer
-    cfg = smoke("llama3-8b")
-    params = build_model(cfg).init(torch.Generator(device).manual_seed(0))
+    shapes = (("prefill", InputShape("p", 16, 2, "prefill")),
+              ("decode", InputShape("d", 16, 2, "decode")))
     msgs = {}
-    for kind, shape in (("prefill", InputShape("p", 16, 2, "prefill")),
-                        ("decode", InputShape("d", 16, 2, "decode"))):
-        plan = steps.make_plan(cfg, shape, mesh)
-        try:
-            plan.step_fn(params, {})
-        except NotImplementedError as exc:
-            msgs[kind] = str(exc)
+    for arch in ("llama3-8b", "qwen3-moe-30b-a3b", "rwkv6-7b"):
+        cfg = smoke(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device).manual_seed(0))
+        batches = {"prefill": {"tokens": np.ones((2, 16), np.int32)},
+                   "decode": {"tokens": np.ones((2, 1), np.int32),
+                              "pos": 3,
+                              "cache": model.init_cache(2, 16, device)}}
+        for kind, shape in shapes:
+            plan = steps.make_plan(cfg, shape, mesh)
+            try:
+                plan.step_fn(params, batches[kind])
+                msgs[f"{arch}/{kind}"] = "ran"
+            except NotImplementedError as exc:
+                msgs[f"{arch}/{kind}"] = str(exc)
     for arch in ("qwen3-moe-30b-a3b", "rwkv6-7b"):
         try:
             Trainer(smoke(arch), train_config(Path("unused")), mesh,

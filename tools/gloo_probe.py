@@ -17,6 +17,23 @@ quarter of it. Rank 0 prints one JSON object and writes it to
 ``chiprun_out/gloo_probe_<backend>_all.json`` (with ``--isolate``, one
 pair of ranks a probe, ``gloo_probe_<backend>.json``); the exit code is
 0 when the ranks ran to their end, whatever the probes found.
+
+    python3 tools/gloo_probe.py --ops --backend repro_gloo
+
+runs, instead, what DTensor's own rules do with the operators of a
+cached decode step on a (1, 2) mesh (``OPS``): on a (2, 8, 2, 4) cache
+placed ``Shard(1)`` (its sequence) and ``Shard(2)`` (its heads),
+``index_copy`` along dim 1, ``torch.where`` with a plain mask, ``roll``
+along dim 1 and a slice assignment; ``softmax`` over dim -1 of a
+``Shard(3)`` score tensor; ``argmax`` over a ``Shard(-1)`` logits
+tensor; and what the model-axis prefill and decode run besides (a
+product leaving partial sums reduced to replicated, a lookup into a
+vocabulary-sharded table, ``torch.stack`` and ``t[g]`` of sharded
+layers, a process-group all-reduce of the maximum over one mesh
+dimension). Each runs under ``torch.inference_mode()`` and under
+``torch.no_grad()``, and records its output's placements (or its
+exception) and whether the gathered value equals the operator on the
+full tensors. Rank 0 writes ``gloo_probe_ops_<backend>.json``.
 """
 import argparse
 import json
@@ -201,6 +218,152 @@ def rank_main(rank: int, world: int, port: int, device: str,
     return res
 
 
+OPS = ("index_copy_dim1", "where_plain_mask", "roll_dim1",
+       "slice_assign_dim1", "softmax_shard3", "argmax_shard_last",
+       "partial_to_replicate_product", "embedding_vocab_sharded",
+       "stack_dim0", "select_dim0", "all_reduce_max_group")
+
+
+def ops_main(rank: int, world: int, port: int, device: str,
+             backend: str) -> dict:
+    """``OPS`` on DTensors under each grad mode (see the docstring)."""
+    import faulthandler
+    faulthandler.enable()
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import implicit_replication
+    sys.path.insert(0, str(ROOT / "src"))
+    if backend == "repro_gloo":
+        import repro_torch.launch.dist  # noqa: F401 — registers it
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        "cpu")
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    mesh = init_device_mesh(dev.type, (1, world),
+                            mesh_dim_names=("data", "model"))
+    res: dict = {"torch": torch.__version__, "cuda": torch.version.cuda,
+                 "device": str(dev), "backend": backend,
+                 "mesh": [1, world]}
+    if dev.type == "cuda":
+        res["card"] = torch.cuda.get_device_name(0)
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def put(t, *pl):
+        return distribute_tensor(t, mesh, list(pl), src_data_rank=None)
+
+    cache, k_new, rows = rnd(2, 8, 2, 4), rnd(2, 1, 2, 4), rnd(2, 4, 2, 4)
+    mask = torch.arange(8, device=dev) <= 5
+    scores, logits = rnd(2, 2, 1, 8), rnd(2, 16)
+    a, b = rnd(8, 6), rnd(6, 4)
+    table, ids = rnd(16, 4), torch.tensor([[1, 9, 15]], device=dev)
+    slot = torch.tensor([5], device=dev)
+
+    def assign(c, r):
+        c = c.clone()
+        c[:, :4] = r
+        return c
+
+    def cases(cache_pl):
+        """{name: (a function of DTensors, its DTensor arguments, the
+        same function's arguments as plain full tensors)}"""
+        R = Replicate()
+        c = put(cache, R, cache_pl)
+        out = {
+            "index_copy_dim1": (lambda c, k: c.index_copy(1, slot, k),
+                                (c, put(k_new, R, R)), (cache, k_new)),
+            "where_plain_mask": (
+                lambda c: torch.where(mask[None, :, None, None], c,
+                                      torch.zeros_like(c)), (c,), (cache,)),
+            "roll_dim1": (lambda c: torch.roll(c, 3, 1), (c,), (cache,)),
+            "slice_assign_dim1": (assign, (c, put(rows, R, R)),
+                                  (cache, rows)),
+            "stack_dim0": (lambda c: torch.stack([c, c + 1]), (c,),
+                           (cache,)),
+            "select_dim0": (lambda s: s[1], (put(torch.stack(
+                [cache, cache + 1]), R, Shard(cache_pl.dim + 1)),),
+                (torch.stack([cache, cache + 1]),))}
+        return out
+
+    def replicated(t):
+        return (t.redistribute(mesh, [Replicate()] * 2)
+                if isinstance(t, DTensor) else t)
+
+    def others():
+        R = Replicate()
+        return {
+            "softmax_shard3": (lambda s: torch.softmax(s, dim=-1),
+                               (put(scores, R, Shard(3)),), (scores,)),
+            "argmax_shard_last": (lambda x: torch.argmax(x, dim=-1),
+                                  (put(logits, R, Shard(1)),), (logits,)),
+            "partial_to_replicate_product": (
+                lambda x, y: replicated(x @ y),
+                (put(a, R, Shard(1)), put(b, R, Shard(0))), (a, b)),
+            "embedding_vocab_sharded": (
+                lambda t: replicated(torch.nn.functional.embedding(ids, t)),
+                (put(table, R, Shard(0)),), (table,))}
+
+    def run(name, fn, args, plain, mode):
+        entry = {}
+        try:
+            with mode(), implicit_replication():
+                got = fn(*args)
+                entry["placements"] = (str(list(got.placements))
+                                       if isinstance(got, DTensor)
+                                       else "a plain tensor")
+            with torch.no_grad(), implicit_replication():
+                full = got.full_tensor() if isinstance(got, DTensor) else got
+                want = fn(*plain)
+                if isinstance(want, DTensor):
+                    want = want.full_tensor()
+            entry["value"] = ("ok" if full.shape == want.shape and
+                              torch.allclose(full.float(), want.float(),
+                                             atol=1e-5) else "wrong")
+        except Exception as exc:  # noqa: BLE001 — a probe records it
+            entry["error"] = f"{type(exc).__name__}: {str(exc)[:240]}"
+        return entry
+
+    modes = {"inference_mode": torch.inference_mode,
+             "no_grad": torch.no_grad}
+    found: dict = {}
+    for label, pl in (("cache Shard(1)", Shard(1)),
+                      ("cache Shard(2)", Shard(2))):
+        for name, (fn, args, plain) in cases(pl).items():
+            for mname, mode in modes.items():
+                print(f"ops {name} {label} {mname}", file=sys.stderr,
+                      flush=True)
+                found.setdefault(name, {}).setdefault(label, {})[mname] = \
+                    run(name, fn, args, plain, mode)
+    for name, (fn, args, plain) in others().items():
+        for mname, mode in modes.items():
+            found.setdefault(name, {})[mname] = run(name, fn, args, plain,
+                                                    mode)
+    group = mesh.get_group(1)
+    for mname, mode in modes.items():
+        entry = {}
+        try:
+            with mode():
+                x = torch.full((3,), float(rank), device=dev)
+                dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+            entry = {"placements": "a plain tensor",
+                     "value": "ok" if torch.equal(
+                         x, torch.full((3,), float(world - 1),
+                                       device=dev)) else "wrong"}
+        except Exception as exc:  # noqa: BLE001
+            entry["error"] = f"{type(exc).__name__}: {str(exc)[:240]}"
+        found.setdefault("all_reduce_max_group", {})[mname] = entry
+    res["ops"] = found
+    dist.barrier()
+    dist.destroy_process_group()
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -218,10 +381,17 @@ def main() -> None:
                     help="each probe in a pair of ranks of its own, all "
                     "pairs at once: a probe that kills its ranks leaves "
                     "the others' answers")
+    ap.add_argument("--ops", action="store_true",
+                    help="the DTensor operators of a cached decode step "
+                    "(OPS) under inference_mode and no_grad, instead")
     args = ap.parse_args()
     if args.rank is not None:
-        res = rank_main(args.rank, args.world, args.port, args.device,
-                        args.backend, args.only)
+        if args.ops:
+            res = ops_main(args.rank, args.world, args.port, args.device,
+                           args.backend)
+        else:
+            res = rank_main(args.rank, args.world, args.port, args.device,
+                            args.backend, args.only)
         Path(args.out).write_text(json.dumps(res))
         return
     if args.device == "cuda":
@@ -233,7 +403,7 @@ def main() -> None:
             ROOT / "build" / "gloo_probe") / args.backend
     record = Path(args.work) if args.work else ROOT / "chiprun_out"
     work.mkdir(parents=True, exist_ok=True)
-    names = PROBES if args.isolate else ("",)
+    names = PROBES if args.isolate and not args.ops else ("",)
     procs = {}
     for name in names:
         port = _free_port()
@@ -243,8 +413,8 @@ def main() -> None:
                 [sys.executable, __file__, "--rank", str(r), "--world",
                  str(args.world), "--port", str(port), "--device",
                  args.device, "--backend", args.backend, "--only", name,
-                 "--out", str(work / f"{name or 'all'}_rank{r}.json")],
-                env=env)
+                 "--out", str(work / f"{name or 'all'}_rank{r}.json")]
+                + (["--ops"] if args.ops else []), env=env)
     codes = {}
     for key, p in procs.items():
         try:
@@ -252,6 +422,20 @@ def main() -> None:
         except subprocess.TimeoutExpired:
             p.kill()
             codes[key] = "timeout"
+    if args.ops:
+        if list(codes.values()) != [0] * args.world:
+            print(f"gloo_probe: ranks ended {list(codes.values())}",
+                  file=sys.stderr)
+            sys.exit(1)
+        ranks = [json.loads((work / f"all_rank{r}.json").read_text())
+                 for r in range(args.world)]
+        out = dict(ranks[0], ranks_agree=all(x["ops"] == ranks[0]["ops"]
+                                             for x in ranks))
+        print(json.dumps(out, indent=1))
+        record.mkdir(exist_ok=True)
+        (record / f"gloo_probe_ops_{args.backend}.json").write_text(
+            json.dumps(out, indent=1))
+        return
     if args.isolate:
         out = {"backend": args.backend, "exit_codes": {}}
         for name in names:
