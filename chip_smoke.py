@@ -390,6 +390,32 @@ Phases, each of which exits non-zero when it fails:
                (1, 32768, 16, 4, 128) against its plain version, its
                time, bound and SDPA's (a flash_attention_decode_axis
                kernels entry);
+ 24d. moe_axis — [model_axis]'s two ranks on qwen3-moe-30b-a3b at full
+               width (its experts over "model": 64 of 128 a rank,
+               models.moe.moe_apply_mesh), each against one device: (a)
+               MOE_AXIS_TRAIN_LAYERS layers, the Trainer for
+               MOE_AXIS_TRAIN_STEPS steps at 1 x 4,096 (four dispatch
+               chunks a layer): losses within MOE_AXIS_LOSS_REL, ms a
+               step, the collectives' calls and seconds, peak memory a
+               rank; (b) MOE_AXIS_SERVE_LAYERS layers: the prefill plan
+               at PREFILL_32K, batch 1 (32 chunks a layer), the model's
+               prefill into 32,768 slots and MOE_AXIS_DECODE_STEPS
+               DECODE_32K plan steps, and a MOE_AXIS_GEN_TOKENS-token
+               generate: logits cosine >= LAUNCH_DECODE_COS, top-1 among
+               one device's ties, generate equal up to a near-tie; the
+               routing of step 0 of (a) and of (b)'s prefill and steps
+               against one device's, pair by pair: at the first MoE layer
+               a pair differs only where one device's K-th and (K+1)-th
+               log-probabilities lie within MOE_AXIS_TIE, or its
+               expert's buffer was displaced by such a tie, and every
+               chunk's kept flags are the capacity rule on the mesh's own
+               experts; (c) layer 1's real MoE input (a batch of 8
+               x 512 through the one-device model) through the mesh form
+               with each dispatch: kept pairs bitwise one device's, y's
+               cosine >= MOE_AXIS_LAYER_COS; then flash at a rank's share
+               of (b)'s prefill (1, 32768, 16, 2, 128) against its plain
+               version, its time, bound and SDPA's (a
+               flash_attention_moe_axis kernels entry);
  25. launch  — the launch layer's cell plans (launch.steps.make_plan on
                launch.mesh.make_test_mesh(1, 1)) on the card: the flash
                kernel at (1, 32768, 32, 8, 128) causal, three 64-row
@@ -679,6 +705,55 @@ DAX_CACHE_COS = 1 - 4 * 1.152e-4
 DAX_TIE_REL = 2.0 ** -6      # two bf16 ulps of the top logit
 DAX_FLASH_SHAPE = (1, 32768, 16, 4, 128)   # (a)'s flash call on a rank
 DAX_DIR = ROOT / "build" / "chip_smoke_decode_axis"
+# the [moe_axis] phase: qwen3-moe-30b-a3b at full width on [model_axis]'s
+# (1, 2) mesh of two SPMD ranks (its 128 experts over "model", 64 a
+# rank; 32 heads over 4 KV heads: 16 over 2 a rank), each part against
+# one device with the same params. (a) MOE_AXIS_TRAIN_LAYERS of its 48
+# layers, the Trainer for MOE_AXIS_TRAIN_STEPS steps at
+# MOE_AXIS_TRAIN_SHAPE (b, s): 4,096 tokens, four dispatch chunks of
+# 1,024 a layer; each loss within MOE_AXIS_LOSS_REL of one device's.
+# (b) MOE_AXIS_SERVE_LAYERS layers: the prefill plan at PREFILL_32K cut to
+# batch 1 (32 chunks a layer), then the model's prefill of LAUNCH_SEQ -
+# 1,024 tokens (whole dispatch chunks) into LAUNCH_SEQ slots and
+# MOE_AXIS_DECODE_STEPS DECODE_32K plan steps teacher-forced on the same
+# draw, then generate of
+# MOE_AXIS_GEN_TOKENS tokens from its first MOE_AXIS_GEN_PROMPT; logits
+# as [decode_axis]'s (cosine >= LAUNCH_DECODE_COS, top-1 among one
+# device's ties), generate equal up to the first one-device top-2 gap
+# under DAX_TIE_REL. The routing of (a)'s step 0 (the same params) and of
+# (b)'s prefill and decode steps against one device's, chunk by chunk
+# (MoERoutes, route_faults): at the first MoE layer, whose input differs
+# from one device's only by the bf16 partial sums of the attention's
+# output, a token's expert set may differ only where one device's K-th
+# and (K+1)-th log-probabilities are within MOE_AXIS_TIE, and a kept
+# flag only where the pair's expert is one such a tie moved in that
+# chunk; in every chunk of every layer the mesh's kept flags must be the
+# capacity rule on its own experts. A deeper layer's input moves with
+# the pairs a tie displaced upstream (a dropped pair takes its expert's
+# share out of a token's output), so its differences are logged, not
+# gated. (c) layer 1's MoE input on a batch of MOE_AXIS_LAYER_BATCH
+# (captured from the one-device model, as [moe]'s moe_layer does) through
+# the mesh form with each dispatch: kept pairs bitwise one device's (x is
+# the same bits on every rank, so the router is), y's cosine >=
+# MOE_AXIS_LAYER_COS.
+MOE_AXIS_TRAIN_LAYERS, MOE_AXIS_TRAIN_STEPS = 2, 3
+MOE_AXIS_TRAIN_SHAPE = (1, 4096)
+MOE_AXIS_SERVE_LAYERS = 4
+MOE_AXIS_DECODE_STEPS = 8
+MOE_AXIS_GEN_PROMPT, MOE_AXIS_GEN_TOKENS = 2048, 9
+MOE_AXIS_LAYER_BATCH = (8, 512)
+MOE_AXIS_DISPATCH = "onehot"       # (a) and (b); (c) runs both
+# each loss against one device: 4x the |rel| first measured on one H100
+# (1.558e-04: the routing's near-ties drop other pairs on the mesh)
+MOE_AXIS_LOSS_REL = 4 * 1.558e-4
+# a near-tie of the first MoE layer: one device's K-th and (K+1)-th
+# log-probabilities closer than 4x the largest shift of a top log-
+# probability first measured there on one H100 (0.01126: the router's f32
+# logits move with the attention's bf16 partial sums)
+MOE_AXIS_TIE = 4 * 0.01126
+MOE_AXIS_LAYER_COS = 0.9999
+MOE_AXIS_FLASH_SHAPE = (1, 32768, 16, 2, 128)   # (b)'s flash call a rank
+MOE_AXIS_DIR = ROOT / "build" / "chip_smoke_moe_axis"
 # the [launch] phase: the launch layer's cell plans (launch.steps.make_plan
 # over launch.mesh.make_test_mesh(1, 1)) at their cells' widths on one
 # card. llama3-8b FULL at PREFILL_32K (a) and DECODE_32K (b), each global
@@ -1552,26 +1627,57 @@ class AttentionCalls:
 
 
 class MoERoutes:
-    """Within the block, every MoE chunk's routing
+    """Within the block, every MoE chunk routed alone
     (``models.moe._route``), in call order (layer by layer, chunk by
-    chunk): its experts (T, K) and which pairs fit the capacity."""
+    chunk): its experts (T, K), which pairs fit the capacity, the
+    log-probabilities of each token's top K + 1 experts (from the
+    router's ``_gate``) and its layer (the group of the router leaf
+    ``moe_apply`` was given: its offset in the stacked leaf), kept on
+    the device."""
 
     def __enter__(self):
+        import torch
         from repro_torch.models import moe
-        self.experts, self.keep = [], []
-        self._mod, self._inner = moe, moe._route
+        self.experts, self.keep, self.top, self.layers = [], [], [], []
+        self._mod = moe
+        self._inner = (moe._route, moe._gate, moe.moe_apply)
+        route_inner, gate_inner, apply_inner = self._inner
+        layer = [-1]
 
-        def recorded(*args, **kw):
-            out = self._inner(*args, **kw)
+        def apply(params, x, *args, **kw):
+            r = params["router"]
+            r = r.to_local() if hasattr(r, "to_local") else r
+            layer[0] = r.storage_offset() // r.numel()
+            return apply_inner(params, x, *args, **kw)
+
+        def gate(router, x, cfg):
+            probs, gates, experts = gate_inner(router, x, cfg)
+            self.top.append(torch.topk(probs, cfg.moe.top_k + 1,
+                                       dim=-1).values.log())
+            return probs, gates, experts
+
+        def route(*args, **kw):
+            out = route_inner(*args, **kw)
             self.experts.append(out[1])
             self.keep.append(out[3])
+            self.layers.append(layer[0])
             return out
-        moe._route = recorded
+        moe._route, moe._gate, moe.moe_apply = route, gate, apply
         return self
 
     def __exit__(self, *exc):
-        self._mod._route = self._inner
+        self._mod._route, self._mod._gate, self._mod.moe_apply = self._inner
         return False
+
+    def mark(self) -> int:
+        return len(self.experts)
+
+    def records(self, start: int = 0, stop=None) -> list:
+        """(experts, keep (T, K), top log-probabilities, layer) of the
+        calls [start, stop), on the host."""
+        return [(e.cpu(), k.reshape(e.shape).cpu(), t.cpu(), n)
+                for e, k, t, n in list(zip(self.experts, self.keep, self.top,
+                                           self.layers))[start:stop]]
 
     def dropped(self) -> tuple:
         """(pairs dropped by capacity, pairs routed)."""
@@ -5202,11 +5308,11 @@ def _profiled_step(tr, state, step: int, device) -> dict:
 
 
 def model_axis_rank(job_path: str, rank: int) -> None:
-    """One rank of [model_axis] or [decode_axis] (``python3 chip_smoke.py
-    --model-axis-rank R JOB``): its process group, the (1, 2) mesh,
-    ``axis_run`` or ``dax_run`` (by the job's "phase"); writes
-    ``rank{R}.json`` (and ``dax_run``'s tensors, ``tensors{R}.pt``) beside
-    the job."""
+    """One rank of [model_axis], [decode_axis] or [moe_axis] (``python3
+    chip_smoke.py --model-axis-rank R JOB``): its process group, the
+    (1, 2) mesh, ``axis_run``, ``dax_run`` or ``moe_axis_run`` (by the
+    job's "phase"); writes ``rank{R}.json`` (and the last two's tensors,
+    ``tensors{R}.pt``) beside the job."""
     sys.path.insert(0, str(SRC))
     import torch.distributed as dist
     from repro_torch.launch.dist import init_spmd
@@ -5218,9 +5324,10 @@ def model_axis_rank(job_path: str, rank: int) -> None:
     out = {"rank": rank, "device": str(device),
            "backend": dist.get_backend(),
            "coordinate": list(mesh.device_mesh.get_coordinate())}
-    if job.get("phase") == "decode_axis":
+    if job.get("phase") in ("decode_axis", "moe_axis"):
         import torch
-        res, tensors = dax_run(job, mesh, device)
+        run = dax_run if job["phase"] == "decode_axis" else moe_axis_run
+        res, tensors = run(job, mesh, device)
         torch.save(tensors, Path(job_path).parent / f"tensors{rank}.pt")
         out.update(res)
     else:
@@ -5496,7 +5603,6 @@ def dax_run(job: dict, mesh, device) -> tuple:
     from repro_torch.config import InputShape
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.launch import steps
-    from repro_torch.launch.dist import COMM
     from repro_torch.models import build_model
     from repro_torch.models.common import full_value
     from repro_torch.optimizer.adamw import zip_map
@@ -5508,16 +5614,7 @@ def dax_run(job: dict, mesh, device) -> tuple:
     seq = job["seq"]
 
     def timed(fn):
-        """(fn(), host seconds between two synchronizes, the collectives
-        and their host seconds in between)."""
-        if cuda:
-            torch.cuda.synchronize()
-        t0, c0, s0 = time.perf_counter(), COMM.calls, COMM.seconds
-        res = fn()
-        if cuda:
-            torch.cuda.synchronize()
-        return (res, time.perf_counter() - t0, COMM.calls - c0,
-                COMM.seconds - s0)
+        return _timed(fn, cuda)
 
     def fresh():
         if cuda:
@@ -5960,6 +6057,585 @@ def decode_axis_phase(dev, kernels: list, smoke: bool = False) -> dict:
     log(f"[decode_axis] phase {report['phase_seconds']:.1f} s")
     if errors:
         fail("[decode_axis] " + "; ".join(errors))
+    return report
+
+
+def capacity_keep(experts, capacity: int):
+    """(T, K) bool: the pairs that fit ``capacity`` when counted in
+    (t, k)-major order per expert, in numpy (the rule, apart from the
+    port's code)."""
+    import numpy as np
+    flat = experts.reshape(-1).numpy()
+    onehot = flat[:, None] == np.arange(int(flat.max()) + 1)
+    before = np.cumsum(onehot, axis=0) - onehot
+    pos = before[np.arange(flat.size), flat]
+    return (pos < capacity).reshape(experts.shape)
+
+
+def route_faults(one: list, mesh: list, tie: float, capacity) -> dict:
+    """Two runs' ``MoERoutes.records()`` compared call by call, each token's
+    pairs taken in expert order (the order within a token's K moves no
+    position). At the first MoE layer, whose input differs from one
+    device's only by the rounding of partial sums: the tokens whose
+    expert sets differ must be one-device near-ties (the K-th and
+    (K+1)-th log-probabilities within ``tie``), and a kept flag may
+    differ, where the sets agree, only on an expert a differing token of
+    the chunk moved (its buffer displaced); every other difference there
+    is a fault. In every call the second run's kept flags must be the
+    capacity rule on its own experts (``capacity_keep`` at
+    ``capacity(T)``): any other flag is a fault. Deeper layers take
+    inputs that a first layer's displaced pair moved, so their
+    differences are counted and not gated; ``shift`` is the largest
+    change of a top-(K+1) log-probability where the sets agree, at the
+    first layer and at the others."""
+    import numpy as np
+    import torch
+    keys = ("calls", "pairs", "tokens_differ", "at_ties", "kept_differ",
+            "displaced", "faults", "shift")
+    out = {"first": dict.fromkeys(keys, 0), "deeper": dict.fromkeys(keys, 0),
+           "capacity_faults": 0, "call_mismatch": len(one) != len(mesh)}
+    for (e1, k1, t1, l1), (e2, k2, t2, l2) in zip(one, mesh):
+        K = e1.shape[1]
+        s1, i1 = e1.sort(1)
+        s2, i2 = e2.sort(1)
+        kk1, kk2 = k1.gather(1, i1), k2.gather(1, i2)
+        moved = (s1 != s2).any(1)
+        tie_tok = (t1[:, K - 1] - t1[:, K]) < tie
+        kdiff = (kk1 != kk2) & ~moved[:, None]
+        touched = torch.zeros(int(max(s1.max(), s2.max())) + 1,
+                              dtype=torch.bool)
+        touched[s1[moved].flatten()] = True
+        touched[s2[moved].flatten()] = True
+        displaced = kdiff & touched[s1]
+        same = ~moved
+        part = out["first" if l1 == l2 == 0 else "deeper"]
+        part["calls"] += 1
+        part["pairs"] += e1.numel()
+        part["tokens_differ"] += int(moved.sum())
+        part["at_ties"] += int((moved & tie_tok).sum())
+        part["kept_differ"] += int(kdiff.sum())
+        part["displaced"] += int(displaced.sum())
+        part["faults"] += int((moved & ~tie_tok).sum()) + int(
+            (kdiff & ~displaced).sum())
+        if same.any():
+            part["shift"] = max(part["shift"], float(
+                (t1[same] - t2[same]).abs().max()))
+        out["capacity_faults"] += int(
+            (capacity_keep(e2, capacity(e2.shape[0])) != k2.numpy()).sum())
+        out["call_mismatch"] |= l1 != l2
+    out["faults"] = (out["first"]["faults"] + out["capacity_faults"]
+                     + int(out["call_mismatch"]) + int(
+                         out["first"]["calls"] == 0))
+    return out
+
+
+def _moe_axis_configs(job: dict):
+    """(a)'s config and train config and (b)'s config for a [moe_axis]
+    job (the SMOKE config for a rehearsal on the CPU)."""
+    import dataclasses
+    from repro_torch.config import (InputShape, OptimizerConfig,
+                                    TrainConfig, get_arch, get_smoke_arch)
+    get = get_smoke_arch if job["smoke"] else get_arch
+    base = get(job["arch"])
+    a = dataclasses.replace(base, num_layers=job["train_layers"])
+    bb, bs = job["train_shape"]
+    tc = TrainConfig(
+        shape=InputShape("moe_axis_a", bs, bb, "train"),
+        optimizer=OptimizerConfig(lr=3e-4, warmup_steps=2,
+                                  total_steps=job["train_steps"]),
+        checkpoint_every=1_000_000,
+        checkpoint_dir=str(Path(job["dir"]) / job["tag"] / "a"))
+    return a, tc, dataclasses.replace(base, num_layers=job["serve_layers"])
+
+
+def _timed(fn, cuda: bool):
+    """(fn(), host seconds between two synchronizes, the collectives and
+    their host seconds in between)."""
+    import torch
+    from repro_torch.launch.dist import COMM
+    if cuda:
+        torch.cuda.synchronize()
+    t0, c0, s0 = time.perf_counter(), COMM.calls, COMM.seconds
+    res = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, COMM.calls - c0, COMM.seconds - s0
+
+
+def moe_axis_run(job: dict, mesh, device) -> tuple:
+    """(a), (b) and (c) of [moe_axis] on ``mesh`` (the (1, 2) mesh of SPMD
+    ranks, or a 1 x 1 mesh: one device) in this process: (the scalars,
+    the tensors: (a)'s step-0 routes, (b)'s last logits, step logits and
+    routes, (c)'s outputs and kept pairs). On one device (c)'s input is
+    captured first and saved beside the job for the ranks."""
+    import torch
+    from repro_torch.config import InputShape
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.dist import COMM
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import full_value
+    from repro_torch.models.transformer import group_params
+    from repro_torch.optimizer.adamw import zip_map
+    from repro_torch.runtime.serve_loop import generate
+    from repro_torch.runtime.train_loop import Trainer
+    from repro_torch.sharding.rules import place
+    cfg_a, tc_a, cfg_b = _moe_axis_configs(job)
+    cuda = torch.device(device).type == "cuda"
+    spmd = getattr(mesh, "device_mesh", None) is not None
+    seq, dispatch = job["seq"], job["dispatch"]
+    work = Path(job["dir"])
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fresh():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    def draw(cfg, seed, n):
+        gen = torch.Generator(device).manual_seed(seed)
+        return torch.randint(1, cfg.vocab_size, (1, n), generator=gen,
+                             device=device, dtype=torch.int32)
+
+    def flat(x):
+        return full_value(x)[0].float().cpu()
+
+    heads = set()
+    inner = f_ops._flash_run
+
+    def seeing(q, k, *rest):
+        heads.add((int(q.shape[2]), int(k.shape[2])))
+        return inner(q, k, *rest)
+    f_ops._flash_run = seeing
+    out, tensors = {}, {}
+    try:
+        # (a) the Trainer, MOE_AXIS_TRAIN_STEPS steps
+        fresh()
+        marks = []
+        kern = zero_counts()
+        with MoERoutes() as routes:
+            def mark(step):
+                sync()
+                marks.append((time.perf_counter(), COMM.seconds,
+                              COMM.calls, COMM.bytes, routes.mark()))
+            with Trainer(cfg_a, tc_a, mesh, fail_injector=mark,
+                         device=device, moe_dispatch=dispatch) as tr:
+                rep = tr.run(job["train_steps"], resume=False)
+                mark(job["train_steps"])
+                fallbacks = (tr.ruleset.fallback_report()
+                             if tr.ruleset is not None else [])
+        pairs = list(zip(marks, marks[1:]))
+        out["a"] = {
+            "layers": cfg_a.num_layers, "shape": job["train_shape"],
+            "losses": rep.losses,
+            "step_ms": [1e3 * (b[0] - a[0]) for a, b in pairs],
+            "comm_s": [b[1] - a[1] for a, b in pairs],
+            "comm_calls": [b[2] - a[2] for a, b in pairs],
+            "comm_bytes": [b[3] - a[3] for a, b in pairs],
+            "routes_a_step": [b[4] - a[4] for a, b in pairs],
+            "peak_gb": peak(), "launches": read_counts(kern),
+            "flash_heads": sorted(heads), "fallbacks": fallbacks}
+        tensors["a_routes"] = routes.records(marks[0][4], marks[1][4])
+        del routes, tr, rep
+
+        # (b) the prefill plan at PREFILL_32K, decode plan steps, generate
+        fresh()
+        params = build_model(cfg_b).init(
+            torch.Generator(device).manual_seed(0))
+        tokens = draw(cfg_b, 40, seq)
+        plan = steps.make_prefill_plan(
+            cfg_b, InputShape("prefill_32k_b1", seq, 1, "prefill"), mesh,
+            last_logit=True, moe_dispatch=dispatch)
+        placed = (zip_map(place, params, plan.arg_shardings[0]) if spmd
+                  else params)
+        heads.clear()
+        kern = zero_counts()
+        with MoERoutes() as routes:
+            (last, cache), t, calls, comm = _timed(
+                lambda: plan.step_fn(placed, {"tokens": tokens}), cuda)
+        b = {"layers": cfg_b.num_layers, "prefill_ms": 1e3 * t,
+             "prefill_comm_calls": calls, "prefill_comm_s": comm,
+             "prefill_launches": read_counts(kern),
+             "prefill_heads": sorted(heads), "prefill_routes": routes.mark(),
+             "fallbacks": plan.ruleset.fallback_report()}
+        tensors["b_last"] = flat(last)
+        tensors["b_prefill_routes"] = routes.records()
+        del last, cache, placed, routes
+        # the prompt before the steps: a whole number of dispatch chunks
+        # (a count that 1,024 does not divide routes as one chunk, whose
+        # (T, E, C) tables at ~32k tokens take 40 GB)
+        n, start = job["decode_steps"], seq - moe_mod.DISPATCH_CHUNK
+        dplan = steps.make_plan(
+            cfg_b, InputShape("decode_32k_b1", seq, 1, "decode"), mesh,
+            moe_dispatch=dispatch)
+        model = steps.build_model_for_scale(cfg_b, ruleset=dplan.ruleset,
+                                            moe_dispatch=dispatch)
+        model.prefill_last_only = True
+        placed = (zip_map(place, params, dplan.arg_shardings[0]) if spmd
+                  else params)
+        kern = zero_counts()
+        (_, cache), t, calls, comm = _timed(lambda: model.prefill(
+            placed, tokens[:, :start], cache_len=seq), cuda)
+        b.update(cache_prefill_ms=1e3 * t, cache_prefill_comm_calls=calls,
+                 cache_prefill_comm_s=comm,
+                 cache_prefill_launches=read_counts(kern))
+        logits, b["steps"] = [], []
+        kern = zero_counts()
+        with MoERoutes() as routes:
+            for i in range(n):
+                pos = start + i
+                (lg, cache), t, calls, comm = _timed(
+                    lambda: dplan.step_fn(placed, {
+                        "tokens": tokens[:, pos:pos + 1], "pos": pos,
+                        "cache": cache}), cuda)
+                b["steps"].append({"ms": 1e3 * t, "comm_calls": calls,
+                                   "comm_s": comm})
+                logits.append(flat(lg))
+        b["decode_launches"] = read_counts(kern)
+        tensors["b_steps"] = torch.stack(logits)
+        tensors["b_step_routes"] = routes.records()
+        del cache, lg, routes
+        b["peak_gb"] = peak()
+        prompt = tokens[:, :job["gen_prompt"]]
+        kern = zero_counts()
+        toks, t, calls, comm = _timed(lambda: generate(
+            model, placed, prompt, job["gen_tokens"],
+            cache_len=job["gen_prompt"] + job["gen_tokens"]), cuda)
+        b.update(generate_tokens=toks[0].tolist(), generate_ms=1e3 * t,
+                 generate_comm_calls=calls, generate_comm_s=comm,
+                 generate_launches=read_counts(kern))
+        if not spmd:
+            # each generated token's one-device top-2 gap, the same steps
+            # teacher-forced on the tokens
+            gen, p0 = torch.as_tensor(toks, device=device), job["gen_prompt"]
+            with torch.inference_mode():
+                lg, c = model.prefill(placed, prompt,
+                                      cache_len=p0 + job["gen_tokens"])
+                b["generate_gaps"] = [_gap(lg[0, -1].float())]
+                for i in range(job["gen_tokens"] - 1):
+                    lg, c = model.decode_step(placed, gen[:, i:i + 1],
+                                              p0 + i, c)
+                    b["generate_gaps"].append(_gap(lg[0, -1].float()))
+            del lg, c
+        out["b"] = b
+
+        # (c) layer 1's MoE input, captured on one device
+        path = work / "layer_input.pt"
+        if not spmd:
+            bb, bs = job["layer_batch"]
+            batch = draw(cfg_b, 41, bb * bs).reshape(bb, bs)
+            inputs = []
+            moe_inner = moe_mod.moe_apply
+
+            def recorded(p, x, *args, **kw):
+                inputs.append(x)
+                return moe_inner(p, x, *args, **kw)
+            moe_mod.moe_apply = recorded
+            try:
+                model.hidden(params, batch)
+            finally:
+                moe_mod.moe_apply = moe_inner
+            torch.save(inputs[1].cpu(), path)
+            del inputs
+        x = torch.load(path).to(device)
+        p = group_params(placed, 1)["p0"]["moe"]
+        c = {}
+        with torch.no_grad():
+            if spmd:
+                from torch.distributed.tensor.experimental import (
+                    implicit_replication)
+                ctx = implicit_replication()
+                x = place(x, dplan.ruleset.sharding(("batch", "seq", None),
+                                                    x.shape))
+            else:
+                import contextlib
+                ctx = contextlib.nullcontext()
+            with ctx:
+                for d in ("onehot", "sort"):
+                    (y, aux), t, calls, comm = _timed(
+                        lambda: moe_mod.moe_apply(p, x, cfg_b, d), cuda)
+                    kept = moe_mod.kept_pairs(p, x, cfg_b, d)
+                    tensors[f"c_{d}_y"] = full_value(y).float().cpu()
+                    tensors[f"c_{d}_kept"] = kept.cpu()
+                    c[d] = {"ms": 1e3 * t, "comm_calls": calls,
+                            "comm_s": comm, "aux": float(full_value(aux)),
+                            "kept": int(kept.sum()), "pairs": kept.numel()}
+        out["c"] = c
+        del params, placed, x, p
+    finally:
+        f_ops._flash_run = inner
+    return out, tensors
+
+
+def moe_axis_phase(dev, kernels: list, smoke: bool = False) -> dict:
+    """[moe_axis]: (a), (b) and (c) above, on two SPMD ranks against one
+    device, and the ``flash_attention_moe_axis`` entry of ``kernels``
+    (the kernel at a rank's share of (b)'s prefill)."""
+    import gc
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(MOE_AXIS_DIR, ignore_errors=True)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    world = AXIS_MESH[0] * AXIS_MESH[1]
+    job = {"phase": "moe_axis", "world": world, "mesh": list(AXIS_MESH),
+           "device": dev.type, "smoke": smoke, "arch": MOE_ARCH,
+           "dispatch": MOE_AXIS_DISPATCH, "seq": LAUNCH_SEQ,
+           "train_layers": MOE_AXIS_TRAIN_LAYERS,
+           "train_steps": MOE_AXIS_TRAIN_STEPS,
+           "train_shape": list(MOE_AXIS_TRAIN_SHAPE),
+           "serve_layers": MOE_AXIS_SERVE_LAYERS,
+           "decode_steps": MOE_AXIS_DECODE_STEPS,
+           "gen_prompt": MOE_AXIS_GEN_PROMPT,
+           "gen_tokens": MOE_AXIS_GEN_TOKENS,
+           "layer_batch": list(MOE_AXIS_LAYER_BATCH),
+           "dir": str(MOE_AXIS_DIR)}
+    where = (f"{world} cards" if cards >= world else
+             f"{dev.type}:0 x{world}" if dev.type == "cuda" else
+             f"the CPU x{world}")
+    errors = []
+
+    def gate(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+            log(f"[moe_axis] GATE FAILED: {msg}")
+
+    from repro_torch.launch import mesh as t_mesh
+    MOE_AXIS_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    one, one_t = moe_axis_run(dict(job, tag="single"),
+                              t_mesh.make_test_mesh(1, 1, device=dev), dev)
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dict(job, tag="mesh"))
+    ranks_s = time.perf_counter() - t0
+    rt = [torch.load(MOE_AXIS_DIR / "mesh" / f"tensors{r['rank']}.pt",
+                     map_location="cpu", weights_only=False) for r in ranks]
+    r0 = ranks[0]
+    cfg_b = _moe_axis_configs(dict(job, tag="single"))[2]
+    K, E = cfg_b.moe.top_k, cfg_b.moe.num_experts
+    log(f"[moe_axis] {cfg_b.name}: mesh {tuple(AXIS_MESH)} over {where}: "
+        f"backend {r0['backend']}, ranks on "
+        + ", ".join(r["device"] for r in ranks)
+        + f"; one device {one_s:.1f} s, the ranks {ranks_s:.1f} s (start-up "
+        f"included); {E} experts top {K}, {E // AXIS_MESH[1]} a rank; "
+        f"dispatch {MOE_AXIS_DISPATCH} in (a) and (b)")
+    report = {"mesh": list(AXIS_MESH), "where": where,
+              "backend": r0["backend"], "single": one, "ranks": ranks,
+              "one_seconds": one_s, "ranks_seconds": ranks_s}
+
+    def launches_ok(got: dict, want: int) -> bool:
+        return got["flash_attention"] == want and not any(
+            c for k, c in got.items() if k != "flash_attention")
+
+    # a rank's heads: 32 over 4 KV heads split 2 ways
+    hl = cfg_b.num_heads // AXIS_MESH[1]
+    kvl = (cfg_b.num_kv_heads // AXIS_MESH[1]
+           if cfg_b.num_kv_heads % AXIS_MESH[1] == 0 else 1)
+    cuda = dev.type == "cuda"
+
+    # (a)
+    a1 = one["a"]
+    rel = [abs(x - y) / abs(y) for x, y in zip(r0["a"]["losses"],
+                                              a1["losses"])]
+    agree = all(r["a"]["losses"] == r0["a"]["losses"] for r in ranks)
+    from repro_torch.models import moe as moe_mod
+
+    def capacity(tokens):
+        return moe_mod._capacity(tokens, cfg_b)
+    ra = route_faults(one_t["a_routes"], rt[0]["a_routes"], MOE_AXIS_TIE,
+                      capacity)
+    a_flash = a1["launches"]["flash_attention"]
+    log(f"[moe_axis] (a) {a1['layers']} layers, Trainer at "
+        f"{a1['shape'][0]} x {a1['shape'][1]}: losses mesh "
+        + ", ".join(repr(x) for x in r0["a"]["losses"]) + "; one device "
+        + ", ".join(repr(x) for x in a1["losses"])
+        + f"; |rel| max {max(rel):.3e} (bar {MOE_AXIS_LOSS_REL:g}); ranks "
+        f"agree {agree}. One device: steps "
+        + ", ".join(f"{t:.1f}" for t in a1["step_ms"])
+        + f" ms, peak {_gb(a1['peak_gb'])} GB, flash {a_flash} launches on "
+        f"{a1['flash_heads']}. Mesh: " + "; ".join(
+            f"rank {r['rank']}: steps "
+            + ", ".join(f"{t:.1f}" for t in r["a"]["step_ms"])
+            + " ms, collectives "
+            + ", ".join(str(n) for n in r["a"]["comm_calls"]) + " calls, "
+            + ", ".join(f"{1e3 * t:.1f}" for t in r["a"]["comm_s"])
+            + " ms, " + ", ".join(f"{n / 1e6:.1f}"
+                                  for n in r["a"]["comm_bytes"])
+            + f" MB; peak {_gb(r['a']['peak_gb'])} GB; flash "
+            f"{r['a']['launches']['flash_attention']} launches on "
+            f"{r['a']['flash_heads']}; chunks routed a step "
+            f"{r['a']['routes_a_step']}" for r in ranks)
+        + f". Step 0's routing against one device: {ra}; rule fallbacks "
+        + "; ".join(r0["a"]["fallbacks"]))
+    gate(agree and max(rel) <= MOE_AXIS_LOSS_REL,
+         f"(a) losses {r0['a']['losses']} against {a1['losses']}")
+    gate(ra["faults"] == 0, f"(a) step 0's routing: {ra}")
+    for r in ranks:
+        gate(not cuda or (launches_ok(r["a"]["launches"], a_flash)
+                          and a_flash > 0),
+             f"(a) rank {r['rank']} launched {r['a']['launches']} against "
+             f"{a_flash} flash on one device")
+        gate(not cuda or r["a"]["flash_heads"] == [[hl, kvl]],
+             f"(a) rank {r['rank']} flash on {r['a']['flash_heads']}")
+
+    # (b)
+    b1 = one["b"]
+    cos = {n: _cosine(rt[0][n], one_t[n]) for n in ("b_last",)}
+    top = {n: _top1_in_ties(rt[0][n], one_t[n]) for n in cos}
+    steps_cos = [_cosine(g, w) for g, w in zip(rt[0]["b_steps"],
+                                               one_t["b_steps"])]
+    steps_top = [_top1_in_ties(g, w) for g, w in zip(rt[0]["b_steps"],
+                                                     one_t["b_steps"])]
+    rp = route_faults(one_t["b_prefill_routes"], rt[0]["b_prefill_routes"],
+                      MOE_AXIS_TIE, capacity)
+    rs = route_faults(one_t["b_step_routes"], rt[0]["b_step_routes"],
+                      MOE_AXIS_TIE, capacity)
+    mesh_tok = [r["b"]["generate_tokens"] for r in ranks]
+    want_tok = b1["generate_tokens"]
+    first = next((i for i, (x, y) in enumerate(zip(mesh_tok[0], want_tok))
+                  if x != y), None)
+    gaps = b1["generate_gaps"]
+    log(f"[moe_axis] (b) {b1['layers']} layers: one device prefill plan "
+        f"{b1['prefill_ms']:.1f} ms at {LAUNCH_SEQ} tokens (flash "
+        f"{b1['prefill_launches']['flash_attention']} launches on "
+        f"{b1['prefill_heads']}; {b1['prefill_routes']} chunks routed), "
+        f"cache prefill {b1['cache_prefill_ms']:.1f} ms, decode steps "
+        + ", ".join(f"{st['ms']:.1f}" for st in b1["steps"])
+        + f" ms, generate {b1['generate_ms']:.1f} ms, peak "
+        f"{_gb(b1['peak_gb'])} GB. Mesh: " + "; ".join(
+            f"rank {r['rank']}: prefill plan {r['b']['prefill_ms']:.1f} ms "
+            f"({r['b']['prefill_comm_calls']} collectives, "
+            f"{1e3 * r['b']['prefill_comm_s']:.1f} ms; flash "
+            f"{r['b']['prefill_launches']['flash_attention']} launches on "
+            f"{r['b']['prefill_heads']}), cache prefill "
+            f"{r['b']['cache_prefill_ms']:.1f} ms "
+            f"({r['b']['cache_prefill_comm_calls']} collectives, "
+            f"{1e3 * r['b']['cache_prefill_comm_s']:.1f} ms), decode steps "
+            + ", ".join(f"{st['ms']:.1f}" for st in r["b"]["steps"])
+            + f" ms ({r['b']['steps'][-1]['comm_calls']} collectives a step, "
+            + ", ".join(f"{1e3 * st['comm_s']:.1f}"
+                        for st in r["b"]["steps"])
+            + f" ms of them), generate {r['b']['generate_ms']:.1f} ms "
+            f"({r['b']['generate_comm_calls']} collectives, "
+            f"{1e3 * r['b']['generate_comm_s']:.1f} ms), peak "
+            f"{_gb(r['b']['peak_gb'])} GB" for r in ranks)
+        + f". Against one device: last logits cosine {cos['b_last']:.7f}, "
+        f"top-1 among ties {top['b_last']}; steps "
+        + ", ".join(f"{c:.7f}" for c in steps_cos)
+        + f" (gate >= {LAUNCH_DECODE_COS}), top-1 among ties "
+        f"{all(steps_top)}; routing: prefill {rp}; decode steps {rs}; "
+        f"generate mesh {mesh_tok[0]}, one device {want_tok}, first "
+        f"difference at {first} (top-2 gaps "
+        + ", ".join(f"{g:.2e}" for g in gaps) + ")")
+    gate(cos["b_last"] >= LAUNCH_DECODE_COS and top["b_last"],
+         f"(b) prefill last logits cosine {cos['b_last']}, top-1 "
+         f"{top['b_last']}")
+    gate(all(c >= LAUNCH_DECODE_COS for c in steps_cos) and all(steps_top),
+         f"(b) step logits cosine {steps_cos}, top-1 among ties {steps_top}")
+    gate(rp["faults"] == 0 and rs["faults"] == 0,
+         f"(b) routing: prefill {rp}, steps {rs}")
+    gate(all(t == mesh_tok[0] for t in mesh_tok),
+         f"(b) the ranks' generate tokens differ: {mesh_tok}")
+    gate(first is None or gaps[first] < DAX_TIE_REL,
+         f"(b) generate differs at token {first}")
+    for r in ranks:
+        for what, want in (("prefill_launches", b1["prefill_launches"]),
+                           ("cache_prefill_launches",
+                            b1["cache_prefill_launches"]),
+                           ("decode_launches", b1["decode_launches"]),
+                           ("generate_launches", b1["generate_launches"])):
+            gate(not cuda or (launches_ok(r["b"][what],
+                                          want["flash_attention"])
+                              and (what == "decode_launches"
+                                   or want["flash_attention"] > 0)),
+                 f"(b) rank {r['rank']} {what} {r['b'][what]} against "
+                 f"{want}")
+        gate(not cuda or r["b"]["prefill_heads"] == [[hl, kvl]],
+             f"(b) rank {r['rank']} flash on {r['b']['prefill_heads']}")
+
+    # (c)
+    c_out = {}
+    for d in ("onehot", "sort"):
+        same = bool(torch.equal(rt[0][f"c_{d}_kept"], one_t[f"c_{d}_kept"]))
+        ycos = _cosine(rt[0][f"c_{d}_y"], one_t[f"c_{d}_y"])
+        c1 = one["c"][d]
+        c_out[d] = {"kept_bitwise": same, "y_cosine": ycos}
+        log(f"[moe_axis] (c) layer 1's MoE input "
+            f"{tuple(MOE_AXIS_LAYER_BATCH)} x {cfg_b.d_model}, dispatch {d}: "
+            f"one device {c1['ms']:.1f} ms, kept {c1['kept']} of "
+            f"{c1['pairs']} pairs, aux {c1['aux']:.6f}; mesh "
+            + "; ".join(f"rank {r['rank']} {r['c'][d]['ms']:.1f} ms "
+                        f"({r['c'][d]['comm_calls']} collectives, "
+                        f"{1e3 * r['c'][d]['comm_s']:.1f} ms), aux "
+                        f"{r['c'][d]['aux']:.6f}" for r in ranks)
+            + f"; kept pairs bitwise one device's: {same}; y cosine "
+            f"{ycos:.7f} (gate >= {MOE_AXIS_LAYER_COS})")
+        gate(same and c1["kept"] < c1["pairs"],
+             f"(c) {d}: kept pairs bitwise {same}, kept {c1['kept']} of "
+             f"{c1['pairs']}")
+        gate(ycos >= MOE_AXIS_LAYER_COS, f"(c) {d}: y cosine {ycos}")
+    report["a"] = {"loss_rel": rel, "ranks_agree": agree, "routing": ra}
+    report["b"] = {"prefill_cosine": cos["b_last"], "step_cosine": steps_cos,
+                   "step_top1": steps_top, "prefill_routing": rp,
+                   "step_routing": rs, "generate_first_difference": first,
+                   "gaps": gaps}
+    report["c"] = c_out
+    del rt, one_t
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # flash at a rank's share of (b)'s prefill
+    if cuda:
+        lf = long_flash(dev, MOE_AXIS_FLASH_SHAPE)
+        for start, e in lf["blocks_vs_plain"].items():
+            gate(e["ok"], f"flash at {MOE_AXIS_FLASH_SHAPE}, rows {start}: "
+                 f"disagrees with its plain version ({e})")
+        gate(lf["all_rows_vs_plain"]["ok"] and lf["finite"],
+             f"flash at {MOE_AXIS_FLASH_SHAPE}: {lf['all_rows_vs_plain']}")
+        launches = sum(r["b"]["prefill_launches"]["flash_attention"]
+                       for r in ranks)
+        err = max([e["max_abs_err"] for e in lf["blocks_vs_plain"].values()]
+                  + [lf["all_rows_vs_plain"]["max_abs_err"]])
+        kernels.append(
+            {"name": "flash_attention_moe_axis", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/flash.py:101",
+             "launches": launches, "max_abs_err": err, "ms": lf["ms"],
+             "plain_ms": lf["plain_ms"], "bound_ms": lf["bound_ms"],
+             "bound_by": lf["bound_by"], "library_ms": lf["library_ms"]})
+        log(f"[times] flash_attention_moe_axis at "
+            f"{tuple(MOE_AXIS_FLASH_SHAPE)} causal (a rank's heads of (b)'s "
+            f"prefill): {lf['ms']:.4f} ms, plain {lf['plain_ms']:.4f} ms, "
+            f"bound {lf['bound_ms']:.4f} ms ({lf['bound_by']}, exact pairs;"
+            f" exponentials {lf['exp_bound_ms']:.4f} ms), SDPA (cuDNN) "
+            f"{lf['library_ms']}; max abs err {err:.3e} (every row within "
+            f"LONG_FLASH_TOL: {lf['all_rows_vs_plain']['ok']}, "
+            f"{lf['all_rows_vs_plain']['max_share_of_bar']:.3f} of the "
+            f"bar); {launches} launches over the ranks in (b)'s PREFILL_32K "
+            f"step")
+        report["flash"] = lf
+    shutil.rmtree(MOE_AXIS_DIR, ignore_errors=True)
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[moe_axis] phase {report['phase_seconds']:.1f} s")
+    if errors:
+        fail("[moe_axis] " + "; ".join(errors))
     return report
 
 
@@ -6646,6 +7322,9 @@ def main() -> None:
 
     # -- 24c. the prefill and decode plans and generate on a model axis ----
     report["decode_axis"] = decode_axis_phase(dev, kernels)
+
+    # -- 24d. the MoE family on a model axis: experts over "model" -------
+    report["moe_axis"] = moe_axis_phase(dev, kernels)
 
     # -- 25. the launch layer's cell plans ---------------------------------
     report["launch"] = launch_phase(dev, kernels)

@@ -21,7 +21,10 @@ the rules (recording divisibility fallbacks in the plan's ``ruleset``)
 and redistributing a DTensor to the resolved placements (a plain
 tensor passes through). A step runs on its mesh's one device, or on a
 mesh of SPMD processes (``launch.mesh``: a ``DeviceMesh`` over the
-world, any (data, model) shape), for the dense family: there each step
+world, any (data, model) shape), for the dense and MoE families (an MoE
+model's experts over the model axis, ``models.moe.moe_apply_mesh``; a
+microbatch routes its own dispatch chunks, as the JAX package's scan
+does): there each step
 places the params by its ``arg_shardings`` and runs on DTensors (each
 rank its shards) inside ``spmd_context``. The train step places the
 AdamW state as its params and the batch by the input shardings; the
@@ -31,7 +34,7 @@ last logits (sharded over the vocabulary) and the cache placed by its
 and moves the cache into its ``kv_seq`` layout on entry (one
 redistribute from the prefill plan's, which has no ``kv_seq`` rule), and
 returns the logits and the cache in that layout. The other families'
-steps on such a mesh raise ``NotImplementedError`` naming the slice that
+steps on such a mesh raise ``NotImplementedError`` naming the slices that
 will take them (``device.FAMILY_SLICE``). A mesh of more than one device
 from one controller (the production meshes are abstract) gives the
 plan's specs and shardings, and its step on real tensors raises. On meta
@@ -58,7 +61,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.config.base import InputShape, ModelConfig, OptimizerConfig
-from repro_torch.device import FAMILY_SLICE, check_one_device
+from repro_torch.device import FAMILY_SLICE, SPMD_FAMILIES, check_one_device
 from repro_torch.launch import hlo_analysis
 from repro_torch.launch.mesh import MULTI_CARD
 from repro_torch.models import build_model, input_axes, input_specs
@@ -156,12 +159,12 @@ def spmd_context(mesh, resolve: Callable):
 
 
 def _refuse_spmd(what: str, cfg: ModelConfig, mesh, params) -> None:
-    """The steps this slice leaves to later ones, on a mesh of SPMD
-    processes of more than one device: every plan of a non-dense
-    family."""
+    """The steps left to later slices, on a mesh of SPMD processes of
+    more than one device: every plan of a family outside
+    ``device.SPMD_FAMILIES``."""
     if not _spmd(mesh, params):
         return
-    if cfg.family != "dense":
+    if cfg.family not in SPMD_FAMILIES:
         check_one_device(f"the {what} plan of {cfg.name} (family "
                          f"{cfg.family!r})", mesh, waits_for=FAMILY_SLICE)
 

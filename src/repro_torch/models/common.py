@@ -66,6 +66,23 @@ def resolve_partial(x):
                                           else p for p in x.placements])
 
 
+def whole_dim(w, dim: int):
+    """A DTensor weight with its dimension ``dim`` brought together on
+    every rank (its shards all-gathered, as FSDP gathers a weight's
+    "data" shards before a product; the backward reduce-scatters the
+    gradient to them), its other placements kept; anything else as it
+    is. A lookup or product whose weight is sharded over a mesh dimension
+    that also shards the tokens' batch has no sharding rule of DTensor's
+    that keeps the batch split (an embedding lookup raises; the head's
+    product gives partial sums over the batch's axis)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(w, DTensor) or not any(p.is_shard(dim)
+                                             for p in w.placements):
+        return w
+    return w.redistribute(w.device_mesh, [Replicate() if p.is_shard(dim)
+                                          else p for p in w.placements])
+
+
 def full_value(x):
     """A DTensor's value as a plain tensor, the same on every rank (its
     partial sums reduced, its shards gathered); anything else as it

@@ -40,7 +40,10 @@ backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` does), so
 only each block's input is kept. With DTensor params (a mesh of SPMD
 ranks) ``prefill`` and ``decode_step`` run under ``no_grad`` instead
 (``serving_context``), and their caches are DTensors
-(``attention.prefill_kv_cache``, ``attn_decode``). ``param_axes`` is the logical-axes
+(``attention.prefill_kv_cache``, ``attn_decode``); an MoE block runs its
+experts over the model axis (``moe.moe_apply_mesh``), and the embedding
+table and the head are gathered over an FSDP shard of their width
+(``common.whole_dim``). ``param_axes`` is the logical-axes
 tree of the params (``sharding.rules``' input: the params' layout, each
 leaf a tuple of names, a stacked leaf's first one None), and
 ``act_constraint``, None unless a launch plan sets it
@@ -71,7 +74,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Params, cross_entropy, dtype_of,
                                        embed_init, resolve_partial,
                                        rmsnorm_apply, rmsnorm_axes,
-                                       rmsnorm_init, tree_map)
+                                       rmsnorm_init, tree_map, whole_dim)
 
 ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_SHARED_ATTN)
 BLOCK_KINDS = ATTN_KINDS + (BLOCK_MAMBA2, BLOCK_RWKV6)
@@ -348,17 +351,20 @@ class TransformerLM:
         """Token ids -> embeddings; float inputs (precomputed frontend
         embeddings) are cast to the model's type. From a DTensor table
         sharded over the vocabulary the lookup's partial sums are
-        reduced at once, keeping the rows' placement."""
+        reduced at once, keeping the rows' placement; a table sharded
+        over its width (FSDP's ``"fsdp_embed": "data"``) is gathered
+        there first."""
         if not inputs.is_floating_point():
-            return resolve_partial(F.embedding(inputs,
-                                               params["embed"]["table"]))
+            return resolve_partial(F.embedding(
+                inputs, whole_dim(params["embed"]["table"], 1)))
         return inputs.to(dtype_of(self.cfg.dtype))
 
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """``lm_logits`` with the tied or separate head; a DTensor
-        hidden state goes through ``act_constraint`` first."""
-        table = (params["embed"]["table"] if self.cfg.tie_embeddings
-                 else params["lm_head"]["w"])
+        """``lm_logits`` with the tied or separate head (gathered over its
+        width where FSDP shards it); a DTensor hidden state goes through
+        ``act_constraint`` first."""
+        table = whole_dim(params["embed"]["table"] if self.cfg.tie_embeddings
+                          else params["lm_head"]["w"], 1)
         if isinstance(x, DTensor):
             # pinned as at a group's start, so that the head's product
             # gives logits sharded over the vocabulary, not partial sums

@@ -41,9 +41,10 @@ each rank's heads, the loss from the vocabulary's shards), each
 gradient placed as its param before AdamW; the loss and grad norm are
 read replicated; checkpoints are gathered and written by rank 0 with
 the JAX Trainer's ``mesh_signature``, and a restore places them on the
-current mesh. Only the dense family runs on an SPMD mesh of more than
-one device; the others raise ``NotImplementedError`` naming their
-slice.
+current mesh. The dense and MoE families run on an SPMD mesh of more
+than one device (``device.SPMD_FAMILIES``; an MoE model with its
+experts over the model axis, its dispatch ``moe_dispatch``); the others
+raise ``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
@@ -58,8 +59,8 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.config import InputShape, ModelConfig, TrainConfig
 from repro_torch.data.loader import (BatchSpec, SyntheticLMLoader,
                                      device_batch)
-from repro_torch.device import (FAMILY_SLICE, DeviceLike, check_one_device,
-                                resolve_device, spmd_mesh)
+from repro_torch.device import (FAMILY_SLICE, SPMD_FAMILIES, DeviceLike,
+                                check_one_device, resolve_device, spmd_mesh)
 from repro_torch.models import build_model, input_axes
 from repro_torch.models.common import full_value, param_specs, tree_map
 from repro_torch.optimizer import adamw, compression
@@ -103,7 +104,7 @@ class Trainer:
                  metrics_path: Optional[str] = None,
                  attn_impl: str = "flash",
                  fail_injector: Optional[Callable[[int], None]] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", moe_dispatch: str = "onehot"):
         self.device_mesh = spmd_mesh("Trainer", mesh)
         self.mesh = mesh
         self.device = (mesh.device if self.device_mesh is not None
@@ -111,7 +112,7 @@ class Trainer:
         self.cfg = cfg
         self.train_cfg = train_cfg
         self.shape = shape or train_cfg.shape
-        if self.device_mesh is not None and cfg.family != "dense":
+        if self.device_mesh is not None and cfg.family not in SPMD_FAMILIES:
             check_one_device(f"Trainer ({cfg.name}, family "
                              f"{cfg.family!r})", mesh,
                              waits_for=FAMILY_SLICE)
@@ -119,7 +120,8 @@ class Trainer:
         # chunked scan in plain PyTorch, which has a backward (the WKV6
         # kernel has none)
         self.model = build_model(cfg, attn_impl=attn_impl,
-                                 rwkv_mode="direct")
+                                 rwkv_mode="direct",
+                                 moe_dispatch=moe_dispatch)
         self.ruleset = self.param_shardings = self.batch_shardings = None
         self._resolve = None
         if mesh is not None:

@@ -1713,3 +1713,93 @@ def test_model_axis_decode_against_one_device(cuda, tmp_path, where):
         for res in ranks:
             np.testing.assert_allclose(res["combine"][valid]["out"],
                                        want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+# -- the model axis: the MoE block with its experts over "model" -------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["cuda:0 twice", "two cards"])
+def test_model_axis_moe_block_against_one_device(cuda, tmp_path, where):
+    """The MoE block alone (``models.moe.moe_apply_mesh``) on a (1, 2)
+    mesh of SPMD ranks (cuda:0 twice over repro_gloo, or cuda:0 and
+    cuda:1 over NCCL; ``tests/torch_moe_axis_ranks.py``'s ``layer`` job),
+    each rank running half the experts, against ``moe_apply`` on one
+    card, for qwen3-moe-30b-a3b and dbrx-132b SMOKE in f32 with both
+    dispatches, on crowded inputs that drop pairs: y and the gradients
+    of x and the router within 1e-5 of max |one device|, aux within
+    1e-6, every rank's experts and kept pairs the one device's, bitwise.
+    """
+    import json
+    import os
+    import socket
+    import subprocess
+    from pathlib import Path
+
+    import torch_moe_axis_ranks as M
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.models import build_model, moe, params_from_jax
+    if where == "two cards":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards: the ranks take cuda:0 and "
+                        "cuda:1")
+        env, want_dev = {}, ["cuda:0", "cuda:1"]
+    else:
+        env, want_dev = {"CUDA_VISIBLE_DEVICES": "0"}, ["cuda:0", "cuda:0"]
+    params_np = {a: _np_tree(build_model(get_smoke_arch(a)).init(
+        torch.Generator().manual_seed(0))) for a in M.ARCHS}
+    torch.save(params_np, tmp_path / "params.pt")
+    cases = [dict(arch=a, dispatch=d, rules="default", jobs=["layer"])
+             for a in M.ARCHS for d in M.DISPATCHES]
+    here = Path(__file__).resolve().parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    full_env = dict(os.environ, **env, PYTHONPATH=str(here.parent / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_moe_axis_ranks.py"), "--rank",
+         str(r), "--world", "2", "--port", str(port), "--device", "cuda",
+         "--params", str(tmp_path / "params.pt"), "--cases",
+         json.dumps(cases), "--out", str(tmp_path)],
+        env=full_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(
+        t[-3000:] for t in logs)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    assert [r["device"] for r in ranks] == want_dev
+
+    def rel(got, want):
+        want = want.detach().float().cpu().numpy()
+        return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+    for case in cases:
+        cfg = get_smoke_arch(case["arch"])
+        tree = params_from_jax(params_np[case["arch"]], cuda)
+        p = {k: v[0].detach().requires_grad_(True)
+             for k, v in tree["blocks"]["p0"]["moe"].items()}
+        for shape in M.LAYER_SHAPES.values():
+            name = "span" if shape == M.LAYER_SHAPES["span"] else "whole"
+            x, r = M.layer_input(cfg, params_np[case["arch"]]["blocks"]
+                                 ["p0"]["moe"]["router"][0], shape)
+            xt = torch.as_tensor(x, device=cuda).requires_grad_(True)
+            y, aux = moe.moe_apply(p, xt, cfg, case["dispatch"])
+            loss = (y * torch.as_tensor(r, device=cuda)).sum() \
+                + M.AUX_W * aux
+            gx, gr = torch.autograd.grad(loss, (xt, p["router"]))
+            kept = moe.kept_pairs(p, xt.detach(), cfg, case["dispatch"])
+            assert int(kept.sum()) < kept.numel()            # drops
+            flat = xt.detach().reshape(-1, cfg.d_model)
+            experts = torch.cat([moe._route(p, flat[sl], cfg)[1]
+                                 for sl in moe._chunks(flat.shape[0])])
+            for res in ranks:
+                got = res[M.case_name(case)]["layer"][name]
+                assert rel(got["y"], y) <= 1e-5
+                assert rel(got["grad_x"], gx) <= 1e-5
+                assert rel(got["grad_router"], gr) <= 1e-5
+                assert abs(got["aux"] - float(aux)) <= 1e-6
+                np.testing.assert_array_equal(got["kept"],
+                                              kept.cpu().numpy())
+                np.testing.assert_array_equal(got["experts"],
+                                              experts.cpu().numpy())

@@ -21,8 +21,9 @@ package and to the port's single-device ``Trainer``.
   * ``compress_decompress`` on DTensor gradients, bitwise the single
     device's; a (1, 2) checkpoint from the async writer restored on
     (1, 1) and (2, 1) bitwise; an injected failure's replay bitwise.
-  * What stays refused: a non-dense family's Trainer and prefill and
-    decode plans (the dense family's run: ``test_torch_decode_axis.py``).
+  * What stays refused: the Trainer and prefill and decode plans of a
+    family outside the dense and MoE ones (those run:
+    ``test_torch_decode_axis.py``, ``test_torch_moe_axis.py``).
 """
 import json
 import os
@@ -387,13 +388,16 @@ def test_injected_failure_replays_bitwise(runs):
 
 def test_what_stays_refused_names_its_slice(runs):
     """On a (1, 2) mesh of SPMD ranks: the prefill and decode plans'
-    steps and the Trainer of a non-dense family raise NotImplementedError
-    naming the slice that will take them; llama3-8b's prefill and decode
-    plans run (``tests/test_torch_decode_axis.py`` holds their values)."""
+    steps and the Trainer of a family outside the dense and MoE ones
+    (zamba2-2.7b, rwkv6-7b) raise NotImplementedError naming the slices
+    that will take them; llama3-8b's and qwen3-moe-30b-a3b's prefill and
+    decode plans run (``tests/test_torch_decode_axis.py`` and
+    ``tests/test_torch_moe_axis.py`` hold their values)."""
     msgs = runs["ranks"][1, 2][0]["refusals"]
-    for kind in ("prefill", "decode"):
-        assert msgs[f"llama3-8b/{kind}"] == "ran"
-    for arch in ("qwen3-moe-30b-a3b", "rwkv6-7b"):
+    for arch in ("llama3-8b", "qwen3-moe-30b-a3b"):
+        for kind in ("prefill", "decode"):
+            assert msgs[f"{arch}/{kind}"] == "ran"
+    for arch in ("zamba2-2.7b", "rwkv6-7b"):
         for what in (arch, f"{arch}/prefill", f"{arch}/decode"):
             assert "families under a model axis" in msgs[what], what
             assert FAMILY_SLICE in msgs[what], what

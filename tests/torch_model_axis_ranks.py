@@ -258,15 +258,17 @@ def restore_job(rank, mesh, device, src: Path, res) -> None:
 
 def refusal_job(mesh, device, res) -> None:
     """What the model axis leaves refused, each message: the prefill and
-    decode plans' steps and the Trainer of a non-dense family; and that
-    llama3-8b's prefill and decode plans run ("ran")."""
+    decode plans' steps and the Trainer of a family outside the dense
+    and MoE ones; and that llama3-8b's and qwen3-moe-30b-a3b's prefill
+    and decode plans run ("ran")."""
     from repro_torch.config import get_smoke_arch as smoke
     from repro_torch.models import build_model
     from repro_torch.runtime.train_loop import Trainer
     shapes = (("prefill", InputShape("p", 16, 2, "prefill")),
               ("decode", InputShape("d", 16, 2, "decode")))
     msgs = {}
-    for arch in ("llama3-8b", "qwen3-moe-30b-a3b", "rwkv6-7b"):
+    for arch in ("llama3-8b", "qwen3-moe-30b-a3b", "zamba2-2.7b",
+                 "rwkv6-7b"):
         cfg = smoke(arch)
         model = build_model(cfg)
         params = model.init(torch.Generator(device).manual_seed(0))
@@ -281,7 +283,7 @@ def refusal_job(mesh, device, res) -> None:
                 msgs[f"{arch}/{kind}"] = "ran"
             except NotImplementedError as exc:
                 msgs[f"{arch}/{kind}"] = str(exc)
-    for arch in ("qwen3-moe-30b-a3b", "rwkv6-7b"):
+    for arch in ("zamba2-2.7b", "rwkv6-7b"):
         try:
             Trainer(smoke(arch), train_config(Path("unused")), mesh,
                     device=device)
