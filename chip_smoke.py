@@ -416,6 +416,31 @@ Phases, each of which exits non-zero when it fails:
                of (b)'s prefill (1, 32768, 16, 2, 128) against its plain
                version, its time, bound and SDPA's (a
                flash_attention_moe_axis kernels entry);
+ 24e. rwkv_axis — [model_axis]'s two ranks on rwkv6-7b at full width
+               (its 64 heads split over "model": 32 a rank, the
+               recurrence on a rank's heads, kernels.wkv6.ops.RankHeads),
+               each against one device: (a) RWKV_AXIS_TRAIN_LAYERS
+               layers, the Trainer ("direct" mode) for
+               RWKV_AXIS_TRAIN_STEPS steps at 1 x 4,096: losses within
+               RWKV_AXIS_LOSS_REL, the last step's params per-leaf cosine
+               >= AXIS_PARAM_COS, ms a step, the collectives' calls and
+               seconds, peak memory a rank; (b) RWKV_AXIS_SERVE_LAYERS
+               layers through the factored plans: the prefill plan at
+               PREFILL_32K, batch 1, RWKV_AXIS_DECODE_STEPS DECODE_32K
+               plan steps from its state (each step's state in the plan's
+               layout: the WKV state's heads replicated over "model"),
+               and a RWKV_AXIS_GEN_TOKENS-token generate: logits cosine
+               >= LAUNCH_DECODE_COS, top-1 among one device's ties,
+               generate equal up to a near-tie; (c) the same layers in
+               the kernel mode (build_model(cfg)): the prefill at
+               PREFILL_32K (RWKV_AXIS_SERVE_LAYERS WKV6 launches a rank)
+               and a generate, layer 1's time-mix in float32 on its real
+               input (cosine >= LAYER_COS_MIN against one device) and
+               the kernel's output on a rank's 32 heads bitwise one
+               device's rows; then the kernel at a rank's share of (c)'s
+               prefill (1, 256, 128, 32, 64) against its plain version,
+               its time and bound (a wkv6_intra_chunk_rwkv_axis kernels
+               entry);
  25. launch  — the launch layer's cell plans (launch.steps.make_plan on
                launch.mesh.make_test_mesh(1, 1)) on the card: the flash
                kernel at (1, 32768, 32, 8, 128) causal, three 64-row
@@ -754,6 +779,28 @@ MOE_AXIS_TIE = 4 * 0.01126
 MOE_AXIS_LAYER_COS = 0.9999
 MOE_AXIS_FLASH_SHAPE = (1, 32768, 16, 2, 128)   # (b)'s flash call a rank
 MOE_AXIS_DIR = ROOT / "build" / "chip_smoke_moe_axis"
+# the [rwkv_axis] phase: rwkv6-7b at full width on [model_axis]'s two
+# ranks (32 of its 64 heads a rank), each part against one device with
+# the same params. (a) RWKV_AXIS_TRAIN_LAYERS of its 32 layers, the
+# Trainer ("direct" mode: the kernel has no backward) for
+# RWKV_AXIS_TRAIN_STEPS steps at RWKV_AXIS_TRAIN_SHAPE (b, s); each loss
+# within RWKV_AXIS_LOSS_REL of one device's, the last step's params
+# per-leaf cosine >= AXIS_PARAM_COS. (b) RWKV_AXIS_SERVE_LAYERS layers
+# through the factored plans: PREFILL_32K cut to batch 1,
+# RWKV_AXIS_DECODE_STEPS DECODE_32K steps from its state, and
+# RWKV_AXIS_GEN_TOKENS tokens of generate from the first
+# RWKV_AXIS_GEN_PROMPT prompt tokens. (c) the same layers and tokens in
+# the kernel mode: the prefill, a generate, and layer 1's time-mix in
+# float32 on its real input against one device (LAYER_COS_MIN, the
+# [rwkv] bar a layer: depth amplifies last bits).
+RWKV_AXIS_TRAIN_LAYERS, RWKV_AXIS_TRAIN_STEPS = 2, 3
+RWKV_AXIS_TRAIN_SHAPE = (1, 4096)
+RWKV_AXIS_SERVE_LAYERS = 4
+RWKV_AXIS_DECODE_STEPS = 8
+RWKV_AXIS_GEN_PROMPT, RWKV_AXIS_GEN_TOKENS = 2048, 9
+# 4x the first measured drift of (a)'s losses, as MOE_AXIS_LOSS_REL
+RWKV_AXIS_LOSS_REL = 4 * 8.320e-05
+RWKV_AXIS_DIR = ROOT / "build" / "chip_smoke_rwkv_axis"
 # the [launch] phase: the launch layer's cell plans (launch.steps.make_plan
 # over launch.mesh.make_test_mesh(1, 1)) at their cells' widths on one
 # card. llama3-8b FULL at PREFILL_32K (a) and DECODE_32K (b), each global
@@ -3890,7 +3937,7 @@ def encoder_drift(kernel_model, plain_model, params, frames) -> dict:
 
     def attend(p, h, impl):
         return attn.attn_apply(p["attn"], h, cfg, positions=positions,
-                               causal=False, impl=impl, use_rope=False)
+                               causal=False, impl=impl, use_rope=False)[0]
 
     def rows_cos(a, b):
         return F.cosine_similarity(a.float().reshape(-1, a.shape[-1]),
@@ -5308,11 +5355,12 @@ def _profiled_step(tr, state, step: int, device) -> dict:
 
 
 def model_axis_rank(job_path: str, rank: int) -> None:
-    """One rank of [model_axis], [decode_axis] or [moe_axis] (``python3
-    chip_smoke.py --model-axis-rank R JOB``): its process group, the
-    (1, 2) mesh, ``axis_run``, ``dax_run`` or ``moe_axis_run`` (by the
-    job's "phase"); writes ``rank{R}.json`` (and the last two's tensors,
-    ``tensors{R}.pt``) beside the job."""
+    """One rank of [model_axis], [decode_axis], [moe_axis] or
+    [rwkv_axis] (``python3 chip_smoke.py --model-axis-rank R JOB``): its
+    process group, the (1, 2) mesh, ``axis_run``, ``dax_run``,
+    ``moe_axis_run`` or ``rwkv_axis_run`` (by the job's "phase"); writes
+    ``rank{R}.json`` (and the last three's tensors, ``tensors{R}.pt``)
+    beside the job."""
     sys.path.insert(0, str(SRC))
     import torch.distributed as dist
     from repro_torch.launch.dist import init_spmd
@@ -5324,9 +5372,10 @@ def model_axis_rank(job_path: str, rank: int) -> None:
     out = {"rank": rank, "device": str(device),
            "backend": dist.get_backend(),
            "coordinate": list(mesh.device_mesh.get_coordinate())}
-    if job.get("phase") in ("decode_axis", "moe_axis"):
+    if job.get("phase") in ("decode_axis", "moe_axis", "rwkv_axis"):
         import torch
-        run = dax_run if job["phase"] == "decode_axis" else moe_axis_run
+        run = {"decode_axis": dax_run, "moe_axis": moe_axis_run,
+               "rwkv_axis": rwkv_axis_run}[job["phase"]]
         res, tensors = run(job, mesh, device)
         torch.save(tensors, Path(job_path).parent / f"tensors{rank}.pt")
         out.update(res)
@@ -6639,6 +6688,519 @@ def moe_axis_phase(dev, kernels: list, smoke: bool = False) -> dict:
     return report
 
 
+def _rwkv_axis_configs(job: dict):
+    """(a)'s config and train config and (b)'s and (c)'s config for a
+    [rwkv_axis] job (the SMOKE config for a rehearsal on the CPU)."""
+    import dataclasses
+    from repro_torch.config import (InputShape, OptimizerConfig,
+                                    TrainConfig, get_arch, get_smoke_arch)
+    get = get_smoke_arch if job["smoke"] else get_arch
+    base = get(RWKV_ARCH)
+    a = dataclasses.replace(base, num_layers=job["train_layers"])
+    bb, bs = job["train_shape"]
+    tc = TrainConfig(
+        shape=InputShape("rwkv_axis_a", bs, bb, "train"),
+        optimizer=OptimizerConfig(lr=3e-4, warmup_steps=2,
+                                  total_steps=job["train_steps"]),
+        checkpoint_every=1_000_000,
+        checkpoint_dir=str(Path(job["dir"]) / job["tag"] / "a"))
+    return a, tc, dataclasses.replace(base, num_layers=job["serve_layers"])
+
+
+def rwkv_axis_run(job: dict, mesh, device) -> tuple:
+    """(a), (b) and (c) of [rwkv_axis] on ``mesh`` (the (1, 2) mesh of
+    SPMD ranks, or a 1 x 1 mesh: one device) in this process: (the
+    scalars, the tensors: (b)'s last logits and step logits, (c)'s last
+    logits, layer 1's f32 time-mix output and the kernel's rows). On one
+    device (a)'s last params and (c)'s layer-1 input are saved beside the
+    job for the ranks, which compare (a)'s params leaf by leaf."""
+    import contextlib
+
+    import torch
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.config import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.dist import COMM
+    from repro_torch.models import build_model
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models.common import full_value
+    from repro_torch.models.transformer import group_params
+    from repro_torch.optimizer.adamw import zip_map
+    from repro_torch.runtime.serve_loop import generate
+    from repro_torch.runtime.train_loop import Trainer
+    from repro_torch.sharding.rules import place
+    cfg_a, tc_a, cfg_b = _rwkv_axis_configs(job)
+    cuda = torch.device(device).type == "cuda"
+    spmd = getattr(mesh, "device_mesh", None) is not None
+    first = not spmd or mesh.device_mesh.get_rank() == 0
+    seq, work = job["seq"], Path(job["dir"])
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fresh():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    def flat(x):
+        return full_value(x)[0].float().cpu()
+
+    out, tensors = {}, {}
+    # (a) the Trainer, RWKV_AXIS_TRAIN_STEPS steps
+    fresh()
+    marks = []
+
+    def mark(step):
+        sync()
+        marks.append((time.perf_counter(), COMM.seconds, COMM.calls,
+                      COMM.bytes))
+    kern = zero_counts()
+    with Trainer(cfg_a, tc_a, mesh, fail_injector=mark,
+                 device=device) as tr:
+        kept = _keep_states(tr)
+        rep = tr.run(job["train_steps"], resume=False)
+        mark(job["train_steps"])
+        mode = tr.model.rwkv_mode
+        fallbacks = (tr.ruleset.fallback_report()
+                     if tr.ruleset is not None else [])
+        path = work / "a_params.pt"
+        leaves = dict(flatten_with_paths(kept[-1][0]))
+        del kept
+        cosines = {}
+        if not spmd:
+            torch.save({k: t.cpu() for k, t in leaves.items()}, path)
+        else:
+            # every rank gathers (a collective), rank 0 compares
+            want = torch.load(path, mmap=True, weights_only=True)
+            for key, t in leaves.items():
+                t = full_value(t)
+                if first:
+                    cosines[key] = _leaf_cosine(t, want[key].to(t.device))
+                del t
+            del want
+        del leaves
+    pairs = list(zip(marks, marks[1:]))
+    out["a"] = {
+        "layers": cfg_a.num_layers, "shape": job["train_shape"],
+        "mode": mode, "losses": rep.losses,
+        "step_ms": [1e3 * (b[0] - a[0]) for a, b in pairs],
+        "comm_s": [b[1] - a[1] for a, b in pairs],
+        "comm_calls": [b[2] - a[2] for a, b in pairs],
+        "comm_bytes": [b[3] - a[3] for a, b in pairs],
+        "peak_gb": peak(), "launches": read_counts(kern),
+        "param_cosines": cosines, "fallbacks": fallbacks}
+    del tr, rep
+
+    # (b) the factored prefill plan at PREFILL_32K, decode plan steps,
+    # generate
+    fresh()
+    params = build_model(cfg_b).init(torch.Generator(device).manual_seed(0))
+    gen = torch.Generator(device).manual_seed(40)
+    n = job["decode_steps"]
+    tokens = torch.randint(1, cfg_b.vocab_size, (1, seq + n), generator=gen,
+                           device=device, dtype=torch.int32)
+    plan = steps.make_prefill_plan(
+        cfg_b, InputShape("prefill_32k_b1", seq, 1, "prefill"), mesh,
+        last_logit=True)
+    placed = (zip_map(place, params, plan.arg_shardings[0]) if spmd
+              else params)
+    kern = zero_counts()
+    (last, cache), t, calls, comm = _timed(
+        lambda: plan.step_fn(placed, {"tokens": tokens[:, :seq]}), cuda)
+    b = {"layers": cfg_b.num_layers, "prefill_ms": 1e3 * t,
+         "prefill_comm_calls": calls, "prefill_comm_s": comm,
+         "prefill_launches": read_counts(kern),
+         "fallbacks": plan.ruleset.fallback_report()}
+    tensors["b_last"] = flat(last)
+    del last
+    dplan = steps.make_plan(
+        cfg_b, InputShape("decode_32k_b1", seq, 1, "decode"), mesh)
+    logits, b["steps"], b["layouts"] = [], [], []
+    kern = zero_counts()
+    for i in range(n):
+        pos = seq + i
+        (lg, cache), t, calls, comm = _timed(
+            lambda: dplan.step_fn(placed, {"tokens": tokens[:, pos:pos + 1],
+                                           "pos": pos, "cache": cache}),
+            cuda)
+        b["steps"].append({"ms": 1e3 * t, "comm_calls": calls,
+                           "comm_s": comm})
+        if spmd:
+            b["layouts"].append(_cache_layout(cache,
+                                              dplan.out_shardings[1]))
+        logits.append(flat(lg))
+    b["decode_launches"] = read_counts(kern)
+    tensors["b_steps"] = torch.stack(logits)
+    del cache, lg
+    b["peak_gb"] = peak()
+    model = steps.build_model_for_scale(cfg_b, ruleset=dplan.ruleset)
+    placed = (zip_map(place, params, dplan.arg_shardings[0]) if spmd
+              else params)
+    prompt = tokens[:, :job["gen_prompt"]]
+
+    def generated(model):
+        kern = zero_counts()
+        toks, t, calls, comm = _timed(lambda: generate(
+            model, placed, prompt, job["gen_tokens"]), cuda)
+        res = {"tokens": toks[0].tolist(), "ms": 1e3 * t,
+               "comm_calls": calls, "comm_s": comm,
+               "launches": read_counts(kern)}
+        if not spmd:
+            # each generated token's one-device top-2 gap, the same steps
+            # teacher-forced on the tokens
+            g = torch.as_tensor(toks, device=device)
+            with torch.inference_mode():
+                lg, c = model.prefill(placed, prompt)
+                res["gaps"] = [_gap(lg[0, -1].float())]
+                for i in range(job["gen_tokens"] - 1):
+                    lg, c = model.decode_step(placed, g[:, i:i + 1],
+                                              prompt.shape[1] + i, c)
+                    res["gaps"].append(_gap(lg[0, -1].float()))
+        return res
+    b["generate"] = generated(model)
+    out["b"] = b
+
+    # (c) the kernel mode: the prefill, generate, layer 1's time-mix in f32
+    fresh()
+    kmodel = build_model(cfg_b)
+    kmodel.prefill_last_only = True
+    kern = zero_counts()
+    (last, cache), t, calls, comm = _timed(
+        lambda: kmodel.prefill(placed, tokens[:, :seq]), cuda)
+    c = {"prefill_ms": 1e3 * t, "prefill_comm_calls": calls,
+         "prefill_comm_s": comm, "prefill_launches": read_counts(kern)}
+    tensors["c_last"] = flat(last[:, -1])
+    del last, cache
+    kmodel.prefill_last_only = False
+    c["generate"] = generated(kmodel)
+    path = work / "layer_input.pt"
+    if not spmd:
+        inputs = []
+        inner = rwkv_mod.timemix_apply
+
+        def recorded(p, x, *args, **kw):
+            inputs.append(x)
+            return inner(p, x, *args, **kw)
+        rwkv_mod.timemix_apply = recorded
+        try:
+            kmodel.hidden(params, tokens[:, :seq])
+        finally:
+            rwkv_mod.timemix_apply = inner
+        torch.save(inputs[1].cpu(), path)
+        del inputs
+    x = torch.load(path).to(device).float()
+    p = {k: v.float() for k, v in group_params(placed, 1)["p0"]["time"]
+         .items()}
+    ctx = contextlib.nullcontext()
+    if spmd:
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        ctx = implicit_replication()
+        x = place(x, dplan.ruleset.sharding(("batch", "seq", None),
+                                            x.shape))
+    kern = zero_counts()
+    with torch.no_grad(), ctx:
+        y, t, calls, comm = _timed(
+            lambda: rwkv_mod.timemix_apply(p, x, cfg_b, mode="kernel"), cuda)
+        c.update(layer_ms=1e3 * t, layer_comm_calls=calls,
+                 layer_comm_s=comm, layer_launches=read_counts(kern))
+        tensors["c_layer_y"] = full_value(y)[0].float().cpu()
+        del x, p, y
+        # the kernel alone on one set of inputs at (c)'s prefill shape
+        # (drawn alike on every rank): a rank's rows, digested, against
+        # the one device's rows of the same heads
+        H = cfg_b.d_model // cfg_b.rwkv.head_dim
+        shape = (1, seq, H, cfg_b.rwkv.head_dim)
+        gen = torch.Generator(device).manual_seed(42)
+        r, k, v = (0.5 * torch.randn(shape, generator=gen, device=device)
+                   for _ in range(3))
+        lw = -torch.exp(2.0 * torch.randn(shape, generator=gen,
+                                          device=device) - 1.0)
+        u = 0.3 * torch.randn(shape[2:], generator=gen, device=device)
+        if spmd:
+            body = dplan.ruleset.sharding(rwkv_mod._BODY_AXES, shape)
+            r, k, v, lw = (place(t, body) for t in (r, k, v, lw))
+            u = place(u, dplan.ruleset.sharding(("act_heads", "head_dim"),
+                                                u.shape))
+        kern = zero_counts()
+        y = rwkv_mod.recurrence("kernel", r, k, v, lw, u)
+        c["rows_launches"] = read_counts(kern)
+        if spmd:
+            y = y.to_local()
+            c["rows_shape"] = list(y.shape)
+            c["rows_digest"] = _leaf_digest(y)
+        else:
+            hl = H // job["mesh"][1]
+            c["rows_digests"] = [_leaf_digest(y[:, :, j * hl:(j + 1) * hl])
+                                 for j in range(job["mesh"][1])]
+        del r, k, v, lw, u, y
+    out["c"] = c
+    del params, placed
+    return out, tensors
+
+
+def rwkv_axis_phase(dev, kernels: list, smoke: bool = False) -> dict:
+    """[rwkv_axis]: (a), (b) and (c) above, on two SPMD ranks against one
+    device, and the ``wkv6_intra_chunk_rwkv_axis`` entry of ``kernels``
+    (the kernel at a rank's share of (c)'s prefill)."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(RWKV_AXIS_DIR, ignore_errors=True)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    world = AXIS_MESH[0] * AXIS_MESH[1]
+    job = {"phase": "rwkv_axis", "world": world, "mesh": list(AXIS_MESH),
+           "device": dev.type, "smoke": smoke, "seq": LAUNCH_SEQ,
+           "train_layers": RWKV_AXIS_TRAIN_LAYERS,
+           "train_steps": RWKV_AXIS_TRAIN_STEPS,
+           "train_shape": list(RWKV_AXIS_TRAIN_SHAPE),
+           "serve_layers": RWKV_AXIS_SERVE_LAYERS,
+           "decode_steps": RWKV_AXIS_DECODE_STEPS,
+           "gen_prompt": RWKV_AXIS_GEN_PROMPT,
+           "gen_tokens": RWKV_AXIS_GEN_TOKENS, "dir": str(RWKV_AXIS_DIR)}
+    where = (f"{world} cards" if cards >= world else
+             f"{dev.type}:0 x{world}" if dev.type == "cuda" else
+             f"the CPU x{world}")
+    errors = []
+
+    def gate(ok: bool, msg: str) -> None:
+        if not ok:
+            errors.append(msg)
+            log(f"[rwkv_axis] GATE FAILED: {msg}")
+
+    from repro_torch.launch import mesh as t_mesh
+    RWKV_AXIS_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    one, one_t = rwkv_axis_run(dict(job, tag="single"),
+                               t_mesh.make_test_mesh(1, 1, device=dev), dev)
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dict(job, tag="mesh"))
+    ranks_s = time.perf_counter() - t0
+    rt = [torch.load(RWKV_AXIS_DIR / "mesh" / f"tensors{r['rank']}.pt",
+                     map_location="cpu", weights_only=False) for r in ranks]
+    r0 = ranks[0]
+    cfg_b = _rwkv_axis_configs(dict(job, tag="single"))[2]
+    H = cfg_b.d_model // cfg_b.rwkv.head_dim
+    hl = H // AXIS_MESH[1]
+    cuda = dev.type == "cuda"
+    log(f"[rwkv_axis] {cfg_b.name}: mesh {tuple(AXIS_MESH)} over {where}: "
+        f"backend {r0['backend']}, ranks on "
+        + ", ".join(r["device"] for r in ranks)
+        + f"; one device {one_s:.1f} s, the ranks {ranks_s:.1f} s (start-up "
+        f"included); {H} heads of {cfg_b.rwkv.head_dim}, {hl} a rank")
+    report = {"mesh": list(AXIS_MESH), "where": where,
+              "backend": r0["backend"], "single": one, "ranks": ranks,
+              "one_seconds": one_s, "ranks_seconds": ranks_s}
+
+    def none_launched(got: dict) -> bool:
+        return not any(got.values())
+
+    def wkv6_only(got: dict, want: int) -> bool:
+        return got["wkv6"] == want and not any(
+            c for k, c in got.items() if k != "wkv6")
+
+    # (a)
+    a1 = one["a"]
+    rel = [abs(x - y) / abs(y) for x, y in zip(r0["a"]["losses"],
+                                              a1["losses"])]
+    agree = all(r["a"]["losses"] == r0["a"]["losses"] for r in ranks)
+    pc = r0["a"]["param_cosines"]
+    worst = min(pc, key=pc.get) if pc else None
+    log(f"[rwkv_axis] (a) {a1['layers']} layers, Trainer ({a1['mode']} "
+        f"mode) at {a1['shape'][0]} x {a1['shape'][1]}: losses mesh "
+        + ", ".join(repr(x) for x in r0["a"]["losses"]) + "; one device "
+        + ", ".join(repr(x) for x in a1["losses"])
+        + f"; |rel| max {max(rel):.3e} (bar {RWKV_AXIS_LOSS_REL:g}); ranks "
+        f"agree {agree}; step {RWKV_AXIS_TRAIN_STEPS}'s params: "
+        f"{len(pc)} leaves, min cosine {pc.get(worst, float('nan')):.7f} "
+        f"({worst}; gate >= {AXIS_PARAM_COS}). One device: steps "
+        + ", ".join(f"{t:.1f}" for t in a1["step_ms"])
+        + f" ms, peak {_gb(a1['peak_gb'])} GB. Mesh: " + "; ".join(
+            f"rank {r['rank']}: steps "
+            + ", ".join(f"{t:.1f}" for t in r["a"]["step_ms"])
+            + " ms, collectives "
+            + ", ".join(str(n) for n in r["a"]["comm_calls"]) + " calls, "
+            + ", ".join(f"{1e3 * t:.1f}" for t in r["a"]["comm_s"])
+            + " ms, " + ", ".join(f"{n / 1e6:.1f}"
+                                  for n in r["a"]["comm_bytes"])
+            + f" MB; peak {_gb(r['a']['peak_gb'])} GB" for r in ranks)
+        + "; rule fallbacks " + "; ".join(r0["a"]["fallbacks"]))
+    gate(agree and max(rel) <= RWKV_AXIS_LOSS_REL,
+         f"(a) losses {r0['a']['losses']} against {a1['losses']}")
+    gate(bool(pc) and min(pc.values()) >= AXIS_PARAM_COS,
+         f"(a) params cosine {pc.get(worst)} at {worst}")
+    for r in [one] + ranks:
+        gate(r["a"]["mode"] == "direct" and none_launched(
+            r["a"]["launches"]),
+             f"(a) {r['a']['mode']} mode, launches {r['a']['launches']}")
+
+    # (b)
+    b1 = one["b"]
+    cos = _cosine(rt[0]["b_last"], one_t["b_last"])
+    top = _top1_in_ties(rt[0]["b_last"], one_t["b_last"])
+    steps_cos = [_cosine(g, w) for g, w in zip(rt[0]["b_steps"],
+                                               one_t["b_steps"])]
+    steps_top = [_top1_in_ties(g, w) for g, w in zip(rt[0]["b_steps"],
+                                                     one_t["b_steps"])]
+    bad_layout = [(r["rank"], i, k, v) for r in ranks
+                  for i, lay in enumerate(r["b"]["layouts"])
+                  for k, v in lay.items() if v["placements"] != v["plan"]]
+    wkv_layout = r0["b"]["layouts"][-1]["p0/wkv"]["placements"]
+
+    def gen_check(tag: str, what: dict, want: dict):
+        toks = [r[tag]["generate"]["tokens"] for r in ranks]
+        first = next((i for i, (x, y) in enumerate(zip(toks[0],
+                                                      want["tokens"]))
+                      if x != y), None)
+        gate(all(t == toks[0] for t in toks),
+             f"({tag}) the ranks' generate tokens differ: {toks}")
+        gate(first is None or want["gaps"][first] < DAX_TIE_REL,
+             f"({tag}) generate differs at token {first}")
+        return toks[0], first
+    b_tok, b_first = gen_check("b", r0["b"], b1["generate"])
+    log(f"[rwkv_axis] (b) {b1['layers']} layers, factored: one device "
+        f"prefill plan {b1['prefill_ms']:.1f} ms at {LAUNCH_SEQ} tokens, "
+        f"decode steps " + ", ".join(f"{st['ms']:.1f}" for st in b1["steps"])
+        + f" ms, generate {b1['generate']['ms']:.1f} ms, peak "
+        f"{_gb(b1['peak_gb'])} GB. Mesh: " + "; ".join(
+            f"rank {r['rank']}: prefill plan {r['b']['prefill_ms']:.1f} ms "
+            f"({r['b']['prefill_comm_calls']} collectives, "
+            f"{1e3 * r['b']['prefill_comm_s']:.1f} ms), decode steps "
+            + ", ".join(f"{st['ms']:.1f}" for st in r["b"]["steps"])
+            + f" ms ({r['b']['steps'][-1]['comm_calls']} collectives a step, "
+            + ", ".join(f"{1e3 * st['comm_s']:.1f}"
+                        for st in r["b"]["steps"])
+            + f" ms of them), generate {r['b']['generate']['ms']:.1f} ms "
+            f"({r['b']['generate']['comm_calls']} collectives, "
+            f"{1e3 * r['b']['generate']['comm_s']:.1f} ms), peak "
+            f"{_gb(r['b']['peak_gb'])} GB" for r in ranks)
+        + f". Against one device: last logits cosine {cos:.7f}, top-1 "
+        f"among ties {top}; steps " + ", ".join(f"{x:.7f}" for x in steps_cos)
+        + f" (gate >= {LAUNCH_DECODE_COS}), top-1 among ties "
+        f"{all(steps_top)}; the state in the plan's layout at every step: "
+        f"{not bad_layout} (wkv {wkv_layout}); generate mesh {b_tok}, one "
+        f"device {b1['generate']['tokens']}, first difference at {b_first} "
+        "(top-2 gaps " + ", ".join(f"{g:.2e}" for g in b1["generate"]["gaps"])
+        + ")")
+    gate(cos >= LAUNCH_DECODE_COS and top,
+         f"(b) prefill last logits cosine {cos}, top-1 {top}")
+    gate(all(x >= LAUNCH_DECODE_COS for x in steps_cos) and all(steps_top),
+         f"(b) step logits cosine {steps_cos}, top-1 among ties {steps_top}")
+    gate(not bad_layout and "Shard(dim=1)" not in wkv_layout,
+         f"(b) the state's layout: {bad_layout[:3]}, wkv {wkv_layout}")
+    for r in [one] + ranks:
+        for what in ("prefill_launches", "decode_launches"):
+            gate(none_launched(r["b"][what]),
+                 f"(b) {what} {r['b'][what]} (the factored mode)")
+
+    # (c)
+    c1 = one["c"]
+    c_cos = _cosine(rt[0]["c_last"], one_t["c_last"])
+    c_top = _top1_in_ties(rt[0]["c_last"], one_t["c_last"])
+    layer_cos = torch.nn.functional.cosine_similarity(
+        rt[0]["c_layer_y"].double(), one_t["c_layer_y"].double(),
+        dim=1).min().item()
+    bitwise = [r["c"]["rows_digest"]
+               == c1["rows_digests"][r["coordinate"][1]] for r in ranks]
+    c_tok, c_first = gen_check("c", r0["c"], c1["generate"])
+    log(f"[rwkv_axis] (c) {b1['layers']} layers, kernel mode: one device "
+        f"prefill {c1['prefill_ms']:.1f} ms ({c1['prefill_launches']['wkv6']}"
+        f" WKV6 launches), generate {c1['generate']['ms']:.1f} ms. Mesh: "
+        + "; ".join(
+            f"rank {r['rank']}: prefill {r['c']['prefill_ms']:.1f} ms "
+            f"({r['c']['prefill_comm_calls']} collectives, "
+            f"{1e3 * r['c']['prefill_comm_s']:.1f} ms; WKV6 "
+            f"{r['c']['prefill_launches']['wkv6']} launches; the kernel "
+            f"alone on {r['c']['rows_shape']}), generate {r['c']['generate']['ms']:.1f}"
+            f" ms, layer 1 f32 {r['c']['layer_ms']:.1f} ms "
+            f"({r['c']['layer_comm_calls']} collectives)" for r in ranks)
+        + f". Against one device: last logits cosine {c_cos:.7f}, top-1 "
+        f"among ties {c_top}; layer 1's time-mix in f32, min row cosine "
+        f"{layer_cos:.9f} (gate >= {LAYER_COS_MIN}); the kernel's rows on a "
+        f"rank's {hl} heads bitwise one device's: {bitwise}; generate mesh "
+        f"{c_tok}, one device {c1['generate']['tokens']}, first difference "
+        f"at {c_first}")
+    gate(c_cos >= LAUNCH_DECODE_COS and c_top,
+         f"(c) prefill last logits cosine {c_cos}, top-1 {c_top}")
+    gate(layer_cos >= LAYER_COS_MIN, f"(c) layer 1 cosine {layer_cos}")
+    gate(all(bitwise), f"(c) the kernel's rows bitwise: {bitwise}")
+    layers = cfg_b.num_layers
+    for r in [one] + ranks:
+        gate(not cuda or wkv6_only(r["c"]["prefill_launches"], layers),
+             f"(c) prefill launches {r['c']['prefill_launches']}, "
+             f"{layers} WKV6 wanted")
+        for what in ("layer_launches", "rows_launches"):
+            gate(not cuda or wkv6_only(r["c"][what], 1),
+                 f"(c) {what} {r['c'][what]}")
+    report["a"] = {"loss_rel": rel, "ranks_agree": agree,
+                   "param_min_cosine": pc.get(worst)}
+    report["b"] = {"prefill_cosine": cos, "step_cosine": steps_cos,
+                   "step_top1": steps_top, "layout_ok": not bad_layout,
+                   "generate_first_difference": b_first}
+    report["c"] = {"prefill_cosine": c_cos, "layer_min_cosine": layer_cos,
+                   "rows_bitwise": bitwise,
+                   "generate_first_difference": c_first}
+    del rt, one_t
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the kernel at a rank's share of (c)'s prefill
+    if cuda:
+        from repro_torch.kernels.wkv6 import ops as w_ops
+        from repro_torch.kernels.wkv6 import ref as w_ref
+        from repro_torch.models.rwkv import CHUNK
+        shape = (1, LAUNCH_SEQ // CHUNK, CHUNK, hl, cfg_b.rwkv.head_dim)
+        args = [torch.tensor(x, device=dev) for x in
+                wkv6_inputs(np.random.default_rng(2), *shape)]
+        got = w_ops.wkv6_intra_chunk(*args)
+        want = w_ref.wkv6_intra_chunk(*args, sub=w_ref.SUB)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        rel_err = max(float((g - w).abs().max() / w.abs().max())
+                      for g, w in zip(got, want))
+        gate(rel_err <= WKV6_TOL, f"WKV6 at {shape}: rel err {rel_err}")
+        del got, want, args
+        wt = wkv6_times(dev, shape)
+        launches = sum(r["c"]["prefill_launches"]["wkv6"] for r in ranks)
+        kernels.append(
+            {"name": "wkv6_intra_chunk_rwkv_axis", "route": "cuda",
+             "source": "src/repro_torch/csrc/wkv6.cu",
+             "replaces": "src/repro/kernels/wkv6/wkv6.py:93",
+             "launches": launches, "max_abs_err": err, "ms": wt["ms"],
+             "plain_ms": wt["plain_ms"], "bound_ms": wt["bound_ms"],
+             "bound_by": wt["bound_by"], "library_ms": None})
+        log(f"[times] wkv6_intra_chunk_rwkv_axis at {shape} (a rank's heads "
+            f"of (c)'s prefill): {wt['ms']:.4f} ms, plain (sub-chunk) "
+            f"{wt['plain_ms']:.4f} ms, bound {wt['bound_ms']:.4f} ms "
+            f"({wt['bound_by']}; bytes {wt['byte_bound_ms']:.4f} ms, "
+            f"exponentials {wt['exp_bound_ms']:.4f} ms), max abs err "
+            f"{err:.3e} (rel {rel_err:.2e}, bar {WKV6_TOL:g}); {launches} "
+            f"launches over the ranks in (c)'s prefill")
+        report["wkv6"] = dict(wt, max_abs_err=err, launches=launches)
+    shutil.rmtree(RWKV_AXIS_DIR, ignore_errors=True)
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[rwkv_axis] phase {report['phase_seconds']:.1f} s")
+    if errors:
+        fail("[rwkv_axis] " + "; ".join(errors))
+    return report
+
+
 def main() -> None:
     t_main = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").exists():
@@ -7325,6 +7887,9 @@ def main() -> None:
 
     # -- 24d. the MoE family on a model axis: experts over "model" -------
     report["moe_axis"] = moe_axis_phase(dev, kernels)
+
+    # -- 24e. the RWKV6 family on a model axis: heads over "model" -------
+    report["rwkv_axis"] = rwkv_axis_phase(dev, kernels)
 
     # -- 25. the launch layer's cell plans ---------------------------------
     report["launch"] = launch_phase(dev, kernels)

@@ -17,10 +17,11 @@ switches on ``optimizer.compression``. ``MeshConfig`` (with
 ``SINGLE_POD``, ``MULTI_POD`` and ``TEST_MESH``), ``ServeConfig`` and
 ``RunConfig`` are copies as well; ``launch.mesh`` makes a mesh of a
 ``MeshConfig``. ``ProxyConfig.contrastive_impl`` takes ``"auto"``, ``"kernel"``
-and ``"ref"``: the port's kernel wrappers pick the CUDA kernel or the
-plain version by the device the tensors lie on, so all three run the
-same arithmetic there; ``"interpret"`` (Pallas interpret mode) has no
-torch meaning and is refused.
+and ``"ref"``, the proxy trainer's phase-2 forward
+(``kernels.contrastive.ops.phase2_loss``): the device's choice, the
+CUDA kernel (CPU latents raise), or the plain objective on any device;
+``"interpret"`` (Pallas interpret mode) has no torch meaning and is
+refused.
 """
 from __future__ import annotations
 
@@ -307,8 +308,9 @@ class ProxyConfig:
     aug_noise: float = 0.05        # Gaussian embedding augmentation per batch
     weight_decay: float = 0.01
     qsim_variant: str = "perpos"   # "perpos" (DPR form) | "sum" (literal eq.1)
-    # phase-2 loss forward: "auto" | "kernel" | "ref", all the device's
-    # choice in the port (the module docstring); "interpret" is refused
+    # phase-2 loss forward (kernels.contrastive.ops.phase2_loss's impl):
+    # "auto" (the device's choice) | "kernel" | "ref"; "interpret" is
+    # refused
     contrastive_impl: str = "auto"
     seed: int = 0
 

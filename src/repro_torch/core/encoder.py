@@ -36,19 +36,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def encoder_init(generator: torch.Generator, cfg: ProxyConfig) -> Params:
-    """Random params drawn on ``generator`` (and on its device)."""
+def encoder_init(generator: torch.Generator, cfg: ProxyConfig,
+                 dtype: torch.dtype = torch.float32) -> Params:
+    """Random params of ``dtype`` drawn on ``generator`` (and on its
+    device; the weights drawn in float32 and cast)."""
     dims = [cfg.embed_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) \
         + [cfg.latent_dim]
     dev = generator.device
     layers = {}
     for i in range(cfg.num_layers):
         layers[f"l{i}"] = {
-            "w": dense_init(generator, dims[i], (dims[i + 1],)),
-            "b": torch.zeros(dims[i + 1], device=dev),
+            "w": dense_init(generator, dims[i], (dims[i + 1],), dtype),
+            "b": torch.zeros(dims[i + 1], dtype=dtype, device=dev),
         }
-    proj = {"w": dense_init(generator, cfg.latent_dim, (cfg.proj_dim,)),
-            "b": torch.zeros(cfg.proj_dim, device=dev)}
+    proj = {"w": dense_init(generator, cfg.latent_dim, (cfg.proj_dim,),
+                            dtype),
+            "b": torch.zeros(cfg.proj_dim, dtype=dtype, device=dev)}
     return {"layers": layers, "proj": proj}
 
 

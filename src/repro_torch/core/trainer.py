@@ -30,10 +30,12 @@ binary classifier) are config rewrites of the same step loop, or its
 BCE kind.
 
 The JAX package's compiled programs (``_compiled_trainer``,
-``_compiled_multi_init``, ``_donate``) and ``train_proxy``'s ``method``
-("scan" or "steps", one compiled program or one per step) have no torch
-meaning: the port runs the step loop eagerly, and takes seeds or a
-``DrawPlan`` where the JAX package takes PRNG keys.
+``_compiled_multi_init``, ``_donate``) have no torch counterpart: the
+port runs the step loop eagerly, and takes seeds or a ``DrawPlan``
+where the JAX package takes PRNG keys. ``train_proxy``,
+``train_proxy_variant`` and ``_train_mlp_classifier`` take the JAX
+package's ``method`` ("scan" or "steps": there one compiled program or
+one a step); both values run the same loop here, another raises.
 """
 from __future__ import annotations
 
@@ -129,6 +131,14 @@ def _pad_sample(embeds: np.ndarray, labels: np.ndarray,
     return (np.asarray(embeds, np.float32), labels.astype(np.float32), n)
 
 
+METHODS = ("scan", "steps")
+
+
+def _check_method(method: str) -> None:
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; one of {METHODS}")
+
+
 def _proxy_opt_cfg(cfg: ProxyConfig, weight_decay: Optional[float] = None
                    ) -> OptimizerConfig:
     wd = cfg.weight_decay if weight_decay is None else weight_decay
@@ -151,7 +161,8 @@ def _loss_phase1(params, e_qs, xb, yb, cfg: ProxyConfig) -> torch.Tensor:
 def _loss_phase2(params, e_qs, xb, yb, cfg: ProxyConfig) -> torch.Tensor:
     zq = _project(params, e_qs.unsqueeze(1)).squeeze(1)
     return contrastive_ops.phase2_loss(zq, _project(params, xb), yb,
-                                       cfg.temperature, cfg.lambda_supcon)
+                                       cfg.temperature, cfg.lambda_supcon,
+                                       impl=cfg.contrastive_impl)
 
 
 def _mlp_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -318,13 +329,15 @@ def _like(tree: Params, flat: Sequence[torch.Tensor]) -> Params:
 
 
 def train_proxy(seed: int, e_q, embeds, labels, cfg: ProxyConfig, *,
-                plan: Optional[DrawPlan] = None,
-                device="cuda") -> ProxyTrainResult:
+                plan: Optional[DrawPlan] = None, device="cuda",
+                method: str = "scan") -> ProxyTrainResult:
     """Train one proxy on an oracle-labelled sample: the one-lane case of
-    :func:`train_proxy_multi` (``plan``, if given, has Q=1).
+    :func:`train_proxy_multi` (``plan``, if given, has Q=1; ``method``
+    as in the module's docstring).
 
     e_q: (D,) query embedding; embeds: (n, D); labels: (n,) {0,1}.
     """
+    _check_method(method)
     res = train_proxy_multi([seed], np.asarray(e_q, np.float32)[None],
                             [embeds], [labels], cfg, plan=plan,
                             device=device)
@@ -334,7 +347,7 @@ def train_proxy(seed: int, e_q, embeds, labels, cfg: ProxyConfig, *,
 
 def train_proxy_variant(seed: int, e_q, embeds, labels, cfg: ProxyConfig,
                         variant: str, *, plan: Optional[DrawPlan] = None,
-                        device="cuda") -> Dict:
+                        device="cuda", method: str = "scan") -> Dict:
     """Ablation variants for the paper's Fig. 9/11: ``"qsim"`` (phase 1
     only), ``"qsim+supcon"``, ``"qsim+polar"``, ``"full"``, or ``"mlp"``
     (a binary classifier; score it with :func:`mlp_classifier_scores`).
@@ -345,12 +358,13 @@ def train_proxy_variant(seed: int, e_q, embeds, labels, cfg: ProxyConfig,
     phase-2 objectives alone are ``lambda_supcon`` 1.0 and 0.0. ``plan``
     (Q=1) gives the run's draws, as for :func:`train_proxy`.
     """
+    _check_method(method)
     if variant == "full":
         return train_proxy(seed, e_q, embeds, labels, cfg, plan=plan,
-                           device=device).params
+                           device=device, method=method).params
     if variant == "mlp":
         return _train_mlp_classifier(seed, embeds, labels, cfg, plan=plan,
-                                     device=device)
+                                     device=device, method=method)
     rewrites = {
         "qsim": dict(phase1_steps=cfg.phase1_steps + cfg.phase2_steps,
                      phase2_steps=0),
@@ -361,12 +375,12 @@ def train_proxy_variant(seed: int, e_q, embeds, labels, cfg: ProxyConfig,
         raise ValueError(f"unknown variant {variant!r}")
     cfg_v = dataclasses.replace(cfg, rebalance=False, **rewrites[variant])
     return train_proxy(seed, e_q, embeds, labels, cfg_v, plan=plan,
-                       device=device).params
+                       device=device, method=method).params
 
 
 def _train_mlp_classifier(seed: int, embeds, labels, cfg: ProxyConfig, *,
                           plan: Optional[DrawPlan] = None,
-                          device="cuda") -> Dict:
+                          device="cuda", method: str = "scan") -> Dict:
     """Baseline: a plain MLP binary classifier on embeddings (paper Fig.
     9 'MLP'), trained by the same step loop with the BCE loss, no
     augmentation, no rebalancing and no weight decay, for ``phase1_steps
@@ -378,6 +392,7 @@ def _train_mlp_classifier(seed: int, embeds, labels, cfg: ProxyConfig, *,
     rebalance seeds and noise are unused. Without it, params and indices
     come from a ``torch.Generator`` seeded by ``seed``.
     """
+    _check_method(method)
     dev = resolve_device(device)
     total, bs = cfg.phase1_steps + cfg.phase2_steps, cfg.batch_size
     e_np = np.asarray(embeds, np.float32)

@@ -17,10 +17,12 @@ its params), ``device_batch`` and ``restore(shardings=)``, which place
 every tensor's shard on its rank's device (``rank_device``);
 ``spmd_mesh`` finds it in a mesh or a tree of shardings, and refuses a
 mesh of more than one device from one controller there. On such a mesh
-the dense and MoE families run (``SPMD_FAMILIES``; an MoE model's
-experts over the model axis, ``models.moe.moe_apply_mesh``); the RWKV6,
-Mamba2/zamba2, encoder-decoder and vlm families' ``Trainer`` and plans
-raise ``NotImplementedError`` naming the slices that will take them
+the dense, MoE and RWKV6 families run (``SPMD_FAMILIES``; an MoE
+model's experts over the model axis, ``models.moe.moe_apply_mesh``; an
+RWKV6 model's recurrence on each rank's heads,
+``kernels.wkv6.ops.RankHeads``); the Mamba2/zamba2, encoder-decoder and
+vlm families' ``Trainer`` and plans raise ``NotImplementedError`` naming
+the slices that will take them
 (``FAMILY_SLICE``), through ``check_one_device``, which accepts a mesh
 of one device. The streaming data loops (the scoring executor, the
 embedding service and the offline indexer) accept a mesh of any size
@@ -45,9 +47,9 @@ MODEL_AXIS_SLICE = ("needs SPMD processes, one a mesh position "
                     "(launch.dist.init_spmd, or torchrun), and a mesh over "
                     "their world (launch.mesh.make_test_mesh or make_mesh)")
 # the model families whose Trainer and plans run on a mesh of SPMD ranks
-SPMD_FAMILIES = ("dense", "moe")
+SPMD_FAMILIES = ("dense", "moe", "ssm")
 FAMILY_SLICE = (
-    "waits for the next model-axis slices: the RWKV6, Mamba2/zamba2, "
+    "waits for the next model-axis slices: the Mamba2/zamba2, "
     "encoder-decoder and vlm families under a model axis")
 
 

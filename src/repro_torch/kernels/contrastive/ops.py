@@ -10,9 +10,14 @@ small, so recomputing beats plumbing residuals out of the kernel),
 returning no gradient for the labels, as the JAX package's custom_vjp
 does (``repro/kernels/contrastive/ops.py``). ``losses`` is the
 evaluation entry of the JAX package's ``ops`` (all four loss values).
-Its ``force_ref``/``interpret`` switches and ``phase2_loss``'s ``impl``
-have no torch meaning: the tensors' device picks the kernel or the
-plain version (``ProxyConfig.contrastive_impl`` takes the same names).
+Both take the JAX package's switches: ``losses(force_ref=True)`` and
+``phase2_loss(impl="ref")`` compute the plain objective on any device
+and launch nothing; ``impl="kernel"`` launches the kernel (and raises
+for CPU tensors); ``impl="auto"`` and ``losses``' default let the
+tensors' device pick the kernel or the plain version.
+``interpret=True`` and ``impl="interpret"`` (Pallas interpret mode)
+have no counterpart and raise. ``ProxyConfig.contrastive_impl`` is the
+proxy trainer's ``impl``.
 The JAX package's ``custom_vjp`` pieces (``_phase2_kernel``,
 ``_phase2_fwd``, ``_phase2_bwd``) are ``_Phase2`` here. A call is one
 operator, ``repro_torch::contrastive_losses`` (``kernels._cost``), on
@@ -26,12 +31,14 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _cost
+from repro_torch.kernels import INTERPRET, _cost
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.contrastive import ref
 
 MAX_N = 512      # the Pallas kernel's limits, kept by the CUDA kernel
 MAX_P = 256
+# phase2_loss's impl: the JAX package's, less "interpret"
+IMPLS = ("auto", "kernel", "ref")
 
 KERNEL = CudaKernel(
     "contrastive", "contrastive_launch",
@@ -116,10 +123,16 @@ _cost.register_cost(_contrastive_op, contrastive_work)
 
 
 def losses(z_q: torch.Tensor, z_d: torch.Tensor, y: torch.Tensor,
-           tau: float, lam: float) -> torch.Tensor:
+           tau: float, lam: float, *, force_ref: bool = False,
+           interpret: bool = False) -> torch.Tensor:
     """The four loss values, [qsim, supcon, polar, lam * supcon + (1 -
     lam) * polar]: the kernel for CUDA tensors, the plain version for CPU
-    ones (``contrastive_losses``)."""
+    ones (``contrastive_losses``); with ``force_ref`` the plain version on
+    any device."""
+    if interpret:
+        raise ValueError(INTERPRET)
+    if force_ref:
+        return ref.ref_losses(z_q, z_d, y, tau, lam)
     return contrastive_losses(z_q, z_d, y, tau, lam)
 
 
@@ -148,8 +161,30 @@ class _Phase2(torch.autograd.Function):
         return gq, gd, None, None, None
 
 
-def phase2_loss(z_q, z_d, y, tau: float, lam: float) -> torch.Tensor:
+def check_impl(impl: str) -> None:
+    """Refuse an ``impl`` the port has no counterpart of, with the wording
+    of ``ProxyConfig``'s check."""
+    if impl == "interpret":
+        raise ValueError(
+            "contrastive impl='interpret' is Pallas interpret mode, which "
+            f"the port has no counterpart of; use one of {IMPLS} (the "
+            "tensors' device picks the CUDA kernel or the plain version)")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown contrastive impl {impl!r}; one of "
+                         f"{IMPLS}")
+
+
+def phase2_loss(z_q, z_d, y, tau: float, lam: float,
+                impl: str = "auto") -> torch.Tensor:
     """lam * L_supcon + (1 - lam) * L_polar per lane, differentiable
-    w.r.t. the latents; the forward value comes from the kernel on the
-    card and from the plain version on the CPU."""
+    w.r.t. the latents. ``impl="auto"``: the forward value from the
+    kernel on the card and from the plain version on the CPU;
+    ``"kernel"``: the kernel, raising for CPU tensors; ``"ref"``: plain
+    autograd of the plain objective on any device, no launch."""
+    check_impl(impl)
+    if impl == "ref":
+        return ref.ref_phase2(z_q, z_d, y, tau, lam)
+    if impl == "kernel" and z_d.device.type == "cpu":
+        raise ValueError("contrastive impl='kernel' launches the CUDA "
+                         "kernel, and the latents are on the CPU")
     return _Phase2.apply(z_q, z_d, y, tau, lam)

@@ -26,10 +26,24 @@ the JAX package's switches: ``force_ref=True`` runs the plain chunked
 recurrence (``ref.wkv6_chunked``, the pairwise form: the time-mix's
 ``"direct"`` mode) on any device; ``interpret=True`` (Pallas interpret
 mode) has no counterpart and raises.
+
+On a mesh of SPMD ranks the recurrence runs on each rank's heads
+(``RankHeads``, the WKV6 counterpart of the flash wrapper's
+``HeadShards``): r, k, v and the log-decay (b, s, H, K) with the batch
+over their row dimensions and H over the model axis, u (H, K) by its
+rows, go to plain local tensors, any of the three recurrences runs on
+them (this kernel's grid is one block a (batch, chunk, head), so a
+rank's launch computes exactly its heads' rows), and y and the final
+state are wrapped back with the same placements. Nothing is exchanged
+inside the recurrence. Where H does not split over the model axis the
+heads are gathered instead, and every rank of that axis runs them all.
+The local tensors declare their gradients' placements, so the plain
+recurrences stay differentiable through them.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -144,6 +158,55 @@ def wkv6_work(r, k, v, cum, lw, u) -> _cost.KernelWork:
 
 
 _cost.register_cost(_wkv6_op, wkv6_work)
+
+
+class RankHeads:
+    """Where each rank's share of a DTensor WKV6 lies: ``local(r, k, v,
+    lw, u)`` gives the rank's rows of its heads as plain tensors (the
+    batch over the mesh dimensions that shard it, H over those that
+    shard the heads, everything else gathered), ``y`` and ``state``
+    wrap the results back."""
+
+    def __init__(self, r):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        self.mesh = r.device_mesh
+        self.shape = tuple(r.shape)
+        pl = [p if (p.is_shard(0) or p.is_shard(2)) else Replicate()
+              for p in r.placements]
+        hdims = [i for i, p in enumerate(pl) if p.is_shard(2)]
+        if self.shape[2] % math.prod(self.mesh.size(d) for d in hdims):
+            # uneven head shards: the heads are gathered instead
+            pl = [Replicate() if p.is_shard(2) else p for p in pl]
+        self.pl = tuple(pl)
+        per = lambda row, head, other: tuple(
+            row if p.is_shard(0) else head if p.is_shard(2) else other
+            for p in pl)
+        self.u_pl = per(Replicate(), Shard(0), Replicate())
+        # u's gradient: each row shard's sum over its own batch rows
+        self.u_grad = per(Partial(), Shard(0), Replicate())
+        self.state_pl = per(Shard(0), Shard(1), Replicate())
+
+    def local(self, r, k, v, lw, u):
+        """The rank's r, k, v, lw (b_l, s, H_l, K) and u (H_l, K)."""
+        out = [t.redistribute(self.mesh, self.pl).to_local(
+            grad_placements=self.pl).contiguous() for t in (r, k, v, lw)]
+        return out + [u.redistribute(self.mesh, self.u_pl).to_local(
+            grad_placements=self.u_grad).contiguous()]
+
+    def _wrap(self, t, pl, shape):
+        from torch.distributed.tensor import DTensor
+        # contiguous, as the global shape's strides say it is
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(t.contiguous(), self.mesh, pl,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=stride)
+
+    def y(self, y):
+        return self._wrap(y, self.pl, self.shape)
+
+    def state(self, S):
+        b, _, H, K = self.shape
+        return self._wrap(S, self.state_pl, (b, H, K, K))
 
 
 def wkv6_chunked(r, k, v, cum, lw, u, return_state: bool = False):

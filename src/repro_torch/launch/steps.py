@@ -21,10 +21,13 @@ the rules (recording divisibility fallbacks in the plan's ``ruleset``)
 and redistributing a DTensor to the resolved placements (a plain
 tensor passes through). A step runs on its mesh's one device, or on a
 mesh of SPMD processes (``launch.mesh``: a ``DeviceMesh`` over the
-world, any (data, model) shape), for the dense and MoE families (an MoE
-model's experts over the model axis, ``models.moe.moe_apply_mesh``; a
-microbatch routes its own dispatch chunks, as the JAX package's scan
-does): there each step
+world, any (data, model) shape), for the dense, MoE and RWKV6 families
+(an MoE model's experts over the model axis,
+``models.moe.moe_apply_mesh``; a microbatch routes its own dispatch
+chunks, as the JAX package's scan does; an RWKV6 model's factored
+recurrence on each rank's heads, ``models.rwkv.recurrence``, the decode
+state's heads replicated over "model" as the JAX package lays it out):
+there each step
 places the params by its ``arg_shardings`` and runs on DTensors (each
 rank its shards) inside ``spmd_context``. The train step places the
 AdamW state as its params and the batch by the input shardings; the
@@ -131,9 +134,16 @@ def _mesh_size(mesh) -> int:
 def _resolver(ruleset: RuleSet) -> Callable:
     """The plan's constraint: resolve ``logical_axes`` against the mesh
     (recording fallbacks) and redistribute a DTensor there; a plain
-    tensor is returned as it is (on one device; on a mesh of more from
-    one controller a real one raises)."""
+    tensor is returned as it is (on one device; on a mesh of SPMD ranks,
+    where it is a rank's local piece, without resolving; on a mesh of
+    more from one controller a real one raises)."""
+    spmd = getattr(ruleset.mesh, "device_mesh", None) is not None
+
     def constrain(x, logical_axes):
+        if spmd and not isinstance(x, DTensor):
+            # a rank's local piece (a recurrence on its own heads): as it
+            # is, and its local shape records no fallback
+            return x
         sh = ruleset.sharding(logical_axes, x.shape)
         if isinstance(x, DTensor):
             return x.redistribute(x.device_mesh, placements(sh, x.shape))

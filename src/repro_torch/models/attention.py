@@ -53,7 +53,7 @@ the backward here is plain PyTorch too.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate
@@ -220,7 +220,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, *, causal: bool, window: int = 0,
                     q_offset: int = 0, q_block: int = 512,
-                    kv_block: int = 512) -> torch.Tensor:
+                    kv_block: int = 512,
+                    causal_skip: bool = False) -> torch.Tensor:
     """Memory-efficient attention with recompute in the backward, GQA
     residuals unexpanded (``repro.models.attention.flash_attention``).
     q: (b, sq, h, hd); k, v: (b, skv, kv_heads, hd) -> (b, sq, h, hd) in
@@ -228,7 +229,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     requiring one) it is ``flash_ops.attention``, the kernel on the card
     and its plain version on the CPU; with one, ``_FlashAttention``.
     ``q_block`` and ``kv_block`` set the backward's tiles and, on the CPU,
-    the forward's."""
+    the forward's. ``causal_skip`` (the JAX package's switch to skip the
+    masked tiles) is accepted and changes nothing: the kernel skips them
+    itself."""
+    del causal_skip
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
         return flash_ops.attention(q, k, v, scale=scale, causal=causal,
@@ -241,11 +245,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                positions: torch.Tensor, causal: bool = True,
                window: int = 0, impl: str = "flash", kv_out: bool = False,
-               use_rope: bool = True):
+               causal_skip: bool = False, use_rope: bool = True
+               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full-sequence attention, with RoPE unless ``use_rope`` is False.
-    x: (b, s, d) -> y (b, s, d); with ``kv_out``, (y, {"k": K (after
-    RoPE), "v": V}), both unexpanded (b, s, kv_heads, head_dim), for a
-    KV cache."""
+    x: (b, s, d) -> (y (b, s, d), kv or None), as the JAX package returns
+    it: with ``kv_out`` kv is {"k": K (after RoPE), "v": V}, both
+    unexpanded (b, s, kv_heads, head_dim), for a KV cache.
+    ``causal_skip`` is accepted and changes nothing (``flash_attention``;
+    the plain paths compute every tile)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     b, s, d = x.shape
@@ -258,7 +265,8 @@ def attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / (cfg.head_dim ** 0.5)
     if impl == "flash":
-        out = flash_attention(q, k, v, scale, causal=causal, window=window)
+        out = flash_attention(q, k, v, scale, causal=causal, window=window,
+                              causal_skip=causal_skip)
     elif impl == "einsum":
         mask = attention_mask(s, s, causal=causal, window=window,
                               device=x.device)
@@ -269,7 +277,7 @@ def attn_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                 _expand_kv(v, groups), scale, causal=causal,
                                 window=window)
     y = _out_proj(out, params["wo"])
-    return (y, {"k": k, "v": v}) if kv_out else y
+    return y, ({"k": k, "v": v} if kv_out else None)
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:

@@ -156,7 +156,7 @@ class EncDecLM:
             h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
             x = x + attn.attn_apply(p["attn"], h, cfg, positions=positions,
                                     causal=False, impl=self.attn_impl,
-                                    use_rope=False)
+                                    use_rope=False)[0]
             h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
             return x + mlp_mod.mlp_apply(p["mlp"], h, cfg)
 
@@ -180,12 +180,10 @@ class EncDecLM:
 
         def body(x, p):
             h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-            y = attn.attn_apply(p["self_attn"], h, cfg, positions=positions,
-                                causal=True, impl=self.attn_impl,
-                                kv_out=collect_cache, use_rope=False)
-            kv = None
-            if collect_cache:
-                y, kv = y
+            y, kv = attn.attn_apply(p["self_attn"], h, cfg,
+                                    positions=positions, causal=True,
+                                    impl=self.attn_impl,
+                                    kv_out=collect_cache, use_rope=False)
             x = x + y
             h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
             cross_kv = attn.encode_kv(p["cross_attn"], enc_out)

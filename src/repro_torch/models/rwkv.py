@@ -40,6 +40,23 @@ token. ``timemix_decode`` and ``channelmix_decode`` step it
 (``rwkv_state_spec`` gives its shapes). ``timemix_axes`` and
 ``channelmix_axes`` are the blocks' logical-axes tables
 (``sharding.rules``).
+
+On a mesh of SPMD ranks (DTensor params and inputs, the rules'
+placements: the inner channels and heads over "model", the batch over
+the data axes) the blocks run on DTensors, and each mode's recurrence
+on each rank's heads (``wkv6_ops.RankHeads``): the factored mode's
+chunk loop and the kernel's launch see plain local tensors, so the
+chunk constraints are no-ops there, and nothing is exchanged inside the
+recurrence. A weight's "embed" dimension, which FSDP shards over the
+same axis as the batch, is gathered before its products
+(``common.whole_dim``; its gradient reduce-scattered back). The
+channel-mix's second product is a partial sum over "model": it is
+reduced once, onto the receptance's shards, before the gate's product,
+and the output gathered to the input's placements. The decode state
+keeps the JAX package's layout (``STATE_AXES``: the WKV state's heads
+replicated over "model"): a prefill's final state and each decode
+step's new one are computed on the rank's heads and brought together
+once a layer.
 """
 from __future__ import annotations
 
@@ -47,12 +64,14 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6 import ref as wkv6_ref
-from repro_torch.models.common import Params, constrain, dense_init, randn
+from repro_torch.models.common import (Params, constrain, dense_init,
+                                       randn, whole_dim)
 
 LORA_RANK = 64
 CHUNK = 128
@@ -109,7 +128,25 @@ def timemix_axes(cfg: ModelConfig) -> Params:
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
     """x_prev: x moved one token later, zeros at the first."""
+    if isinstance(x, DTensor):
+        # the same values by a concatenation: DTensor's pad (torch 2.11)
+        # gives a tensor on a 2-D mesh a single placement
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _embed_whole(p: Params, axes: Params) -> Params:
+    """The block's weights with every "embed" dimension brought together
+    (``common.whole_dim``: an FSDP shard over "data" all-gathered); a
+    plain tensor, or a weight whose "embed" dimension is not sharded, as
+    it is."""
+    out = {}
+    for name, w in p.items():
+        for dim, logical in enumerate(axes[name]):
+            if logical == "embed":
+                w = whole_dim(w, dim)
+        out[name] = w
+    return out
 
 
 def _token_shift_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
@@ -213,6 +250,23 @@ WKV6 = {"kernel": wkv6_ops.wkv6, "direct": wkv6_ref.wkv6_by_chunks,
 MODES = tuple(WKV6)
 
 
+def recurrence(mode: str, r, k, v, lw, u, return_state: bool = False):
+    """Mode ``mode``'s WKV6 on r, k, v, lw (b, s, H, K) float32 and u (H,
+    K): y, or (y, the final state (b, H, K, K)) with ``return_state``.
+    DTensors run on each rank's heads (``wkv6_ops.RankHeads``), placed
+    as the JAX package's chunk constraints place them first."""
+    fn = WKV6[mode]
+    if not isinstance(r, DTensor):
+        return fn(r, k, v, lw, u, chunk=CHUNK, return_state=return_state)
+    r, k, v, lw = (constrain(t, _BODY_AXES) for t in (r, k, v, lw))
+    heads = wkv6_ops.RankHeads(r)
+    out = fn(*heads.local(r, k, v, lw, u), chunk=CHUNK,
+             return_state=return_state)
+    if not return_state:
+        return heads.y(out)
+    return heads.y(out[0]), heads.state(out[1])
+
+
 def timemix_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig,
                    x_prev: torch.Tensor = None):
     """The time-mix up to the recurrence. x: (b, s, d) -> r, k, v and the
@@ -221,6 +275,7 @@ def timemix_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig,
     (b, s, d); None takes ``x`` shifted one token, zeros at the first."""
     b, s, d = x.shape
     H, K = _heads(cfg), cfg.rwkv.head_dim
+    p = _embed_whole(p, timemix_axes(cfg))
     m = _token_shift_mix(p, x, _shift(x) if x_prev is None else x_prev)
     lw = _decay(p, m["w"])                                 # (b, s, d) f32
     lw = constrain(lw, ("batch", None, "act_mlp"))
@@ -239,7 +294,11 @@ def timemix_output(p: Params, y: torch.Tensor, g: torch.Tensor,
     b, s = g.shape[:2]
     y = _groupnorm_heads(y.reshape(b, s, -1).to(g.dtype), p["ln_x"],
                          _heads(cfg), cfg.norm_eps)
-    return (y * g) @ p["wo"]
+    out = (y * g) @ whole_dim(p["wo"], 1)
+    if isinstance(out, DTensor):
+        # a partial sum over "model", reduced once and placed as g's rows
+        out = out.redistribute(out.device_mesh, _rows(g))
+    return out
 
 
 def timemix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -253,10 +312,11 @@ def timemix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if mode != "factored":
         r, k, v, lw = (constrain(t, _BODY_AXES) for t in (r, k, v, lw))
     if not return_state:
-        return timemix_output(p, WKV6[mode](r, k, v, lw, p["u"],
-                                            chunk=CHUNK), g, cfg)
-    y, S = WKV6[mode](r, k, v, lw, p["u"], chunk=CHUNK, return_state=True)
-    return timemix_output(p, y, g, cfg), {"wkv": S, "shift_t": x[:, -1]}
+        return timemix_output(p, recurrence(mode, r, k, v, lw, p["u"]), g,
+                              cfg)
+    y, S = recurrence(mode, r, k, v, lw, p["u"], return_state=True)
+    return (timemix_output(p, y, g, cfg),
+            {"wkv": _state_layout(S, r), "shift_t": x[:, -1]})
 
 
 def channelmix_init(generator: torch.Generator, cfg: ModelConfig,
@@ -283,18 +343,42 @@ def channelmix_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Squared-ReLU channel-mix with a sigmoid receptance gate, both
     taken in float32 and cast back. x: (b, s, d) -> (b, s, d);
     ``x_prev`` as in ``timemix_inputs``."""
+    p = _embed_whole(p, channelmix_axes(cfg))
     sx = (_shift(x) if x_prev is None else x_prev) - x
     xk = x + sx * p["mu_k"]
     xr = x + sx * p["mu_r"]
     k = torch.square(F.relu((xk @ p["wk"]).float())).to(x.dtype)
     r = torch.sigmoid((xr @ p["wr"]).float()).to(x.dtype)
-    return r * (k @ p["wv"])
+    kv = k @ p["wv"]
+    if not isinstance(kv, DTensor):
+        return r * kv
+    # a partial sum over "model": reduced onto r's shards (a
+    # reduce-scatter where r is sharded), and the product gathered
+    # everywhere but over x's rows
+    kv = kv.redistribute(kv.device_mesh, r.placements)
+    return (r * kv).redistribute(x.device_mesh, _rows(x))
 
 
 # -- decode (recurrent, one token) -------------------------------------------
 
 STATE_AXES = {"wkv": ("batch", None, None, None),
               "shift_t": ("batch", "embed"), "shift_c": ("batch", "embed")}
+
+
+def _rows(x) -> list:
+    """Placements of a DTensor laid out as ``x``'s rows: Shard(0) where x
+    has it, Replicate elsewhere."""
+    return [p if p.is_shard(0) else Replicate() for p in x.placements]
+
+
+def _state_layout(S, like):
+    """A DTensor WKV state (b, H, K, K) computed on each rank's heads in
+    ``STATE_AXES``' layout: its batch placed as ``like``'s (b, ...)
+    rows, everything else brought together (one all-gather over the
+    heads' axis); a plain tensor as it is."""
+    if not isinstance(S, DTensor):
+        return S
+    return S.redistribute(S.device_mesh, _rows(like))
 
 
 def rwkv_state_spec(cfg: ModelConfig, batch: int, dtype
@@ -326,7 +410,11 @@ def timemix_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     o = (torch.einsum("bhk,bhkv->bhv", rh, S)
          + torch.einsum("bhk,hk,bhk->bh", rh, p["u"], kh)[..., None] * vh)
     new = dict(state)
-    new["wkv"] = w[..., None] * S + kh[..., None] * vh[:, :, None, :]
+    S_new = w[..., None] * S + kh[..., None] * vh[:, :, None, :]
+    if isinstance(S, DTensor):
+        # computed on the rank's heads, brought back to the state's layout
+        S_new = S_new.redistribute(S.device_mesh, S.placements)
+    new["wkv"] = S_new
     new["shift_t"] = x[:, 0]
     return timemix_output(p, o[:, None], g, cfg), new
 

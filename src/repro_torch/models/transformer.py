@@ -398,13 +398,11 @@ class TransformerLM:
 
                 def attn_block(x, p, window=window):
                     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-                    y = attn.attn_apply(p["attn"], h, cfg,
-                                        positions=positions, causal=True,
-                                        window=window, impl=self.attn_impl,
-                                        kv_out=collect_cache)
-                    kv = None
-                    if collect_cache:
-                        y, kv = y
+                    y, kv = attn.attn_apply(p["attn"], h, cfg,
+                                            positions=positions, causal=True,
+                                            window=window,
+                                            impl=self.attn_impl,
+                                            kv_out=collect_cache)
                     x = x + y
                     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
                     aux = None

@@ -41,10 +41,12 @@ each rank's heads, the loss from the vocabulary's shards), each
 gradient placed as its param before AdamW; the loss and grad norm are
 read replicated; checkpoints are gathered and written by rank 0 with
 the JAX Trainer's ``mesh_signature``, and a restore places them on the
-current mesh. The dense and MoE families run on an SPMD mesh of more
-than one device (``device.SPMD_FAMILIES``; an MoE model with its
-experts over the model axis, its dispatch ``moe_dispatch``); the others
-raise ``NotImplementedError`` naming their slice.
+current mesh. The dense, MoE and RWKV6 families run on an SPMD mesh of
+more than one device (``device.SPMD_FAMILIES``; an MoE model with its
+experts over the model axis, its dispatch ``moe_dispatch``; an RWKV6
+model's "direct" recurrence on each rank's heads,
+``models.rwkv.recurrence``); the others raise ``NotImplementedError``
+naming their slice.
 """
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ from repro_torch.core.oracle import CachedOracle, SimulatedOracle
 from repro_torch.data import make_corpus, make_query
 from repro_torch.engine.predicate import SemanticPredicate
 from repro_torch.engine.registry import available_strategies, get_strategy
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_synthetic_data_is_bitwise_equal():

@@ -40,6 +40,7 @@ from repro_torch.engine import (InMemoryStore, QueryOptimizer,
                                 ScaleDocEngine, ScoringStats,
                                 SemanticPredicate, SemanticTopK,
                                 SimulatedOracle)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TARGET = 0.9
 SCORE_TOL = 1e-6

@@ -47,6 +47,7 @@ from repro_torch.models import build_model, params_from_jax
 from repro_torch.runtime.serve_loop import EmbeddingService, generate
 from torch_kernel_inputs import FLASH, _attention_inputs
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 NEW_ARCHS = ("gemma3-12b", "codeqwen1.5-7b", "internvl2-1b")
 REL = 1e-5

@@ -151,6 +151,43 @@ def test_phase2_function_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_contrastive_ref_launches_nothing_on_card(cuda):
+    """The JAX package's switches on the card: ``phase2_loss(impl="ref")``,
+    ``losses(force_ref=True)`` and a proxy trained with
+    ``ProxyConfig(contrastive_impl="ref")`` launch no contrastive kernel
+    (``KERNEL.launches`` unchanged) and give the plain values;
+    ``impl="kernel"`` and ``"auto"`` launch it once a call."""
+    from repro_torch.config import ProxyConfig
+    from repro_torch.core import trainer as t_trainer
+    zq, zd, y = (_t(x, cuda) for x in _contrastive_inputs(128, 64, 0.3,
+                                                          q=4))
+    want = c_ref.ref_phase2(zq, zd, y, 0.07, 0.2)
+    for impl, launches in (("ref", 0), ("kernel", 1), ("auto", 1)):
+        before = c_ops.KERNEL.launches
+        got = c_ops.phase2_loss(zq, zd, y, 0.07, 0.2, impl=impl)
+        torch.cuda.synchronize()
+        assert c_ops.KERNEL.launches - before == launches, impl
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **LOSS)
+    before = c_ops.KERNEL.launches
+    plain = c_ops.losses(zq, zd, y, 0.07, 0.2, force_ref=True)
+    assert c_ops.KERNEL.launches == before
+    assert torch.equal(plain, c_ref.ref_losses(zq, zd, y, 0.07, 0.2))
+    rng = np.random.default_rng(3)
+    embeds = rng.normal(size=(300, 32)).astype(np.float32)
+    labels = (rng.random(300) < 0.4).astype(np.int32)
+    for impl, per_step in (("ref", 0), ("auto", 1)):
+        cfg = ProxyConfig(embed_dim=32, hidden_dim=64, latent_dim=64,
+                          proj_dim=16, phase1_steps=3, phase2_steps=4,
+                          contrastive_impl=impl)
+        before = c_ops.KERNEL.launches
+        t_trainer.train_proxy(0, embeds[0], embeds, labels, cfg,
+                              device=cuda)
+        torch.cuda.synchronize()
+        assert c_ops.KERNEL.launches - before == per_step * 4, impl
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["memory", "memmap"])
 def test_executor_on_card_matches_cpu(cuda, kind, tmp_path):
     """The pinned-staging, side-stream pipeline on the card gives the
@@ -1803,3 +1840,82 @@ def test_model_axis_moe_block_against_one_device(cuda, tmp_path, where):
                                               kept.cpu().numpy())
                 np.testing.assert_array_equal(got["experts"],
                                               experts.cpu().numpy())
+
+
+# -- the model axis: the RWKV6 recurrence on each rank's heads ---------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["cuda:0 twice", "two cards"])
+def test_model_axis_rwkv_block_against_one_device(cuda, tmp_path, where):
+    """The WKV6 recurrence alone (``models.rwkv.recurrence``, each rank on
+    its heads through ``kernels.wkv6.ops.RankHeads``) on a (1, 2) mesh of
+    SPMD ranks (cuda:0 twice over repro_gloo, or cuda:0 and cuda:1 over
+    NCCL; ``tests/torch_rwkv_axis_ranks.py``'s ``layer`` job) against
+    one card, rwkv6-7b SMOKE's 4 heads of 16: in the kernel mode each
+    rank's rows of y (its 2 heads) bitwise the one-device launch's, one
+    launch a rank; the direct and factored modes within 1e-5 of max
+    |one device| and launching nothing; y and the state within 1e-5
+    gathered; no collective inside the call."""
+    import json
+    import os
+    import socket
+    import subprocess
+    from pathlib import Path
+
+    import torch_rwkv_axis_ranks as W
+    from repro_torch.config import get_smoke_arch
+    from repro_torch.models import build_model, rwkv
+    if where == "two cards":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards: the ranks take cuda:0 and "
+                        "cuda:1")
+        env, want_dev = {}, ["cuda:0", "cuda:1"]
+    else:
+        env, want_dev = {"CUDA_VISIBLE_DEVICES": "0"}, ["cuda:0", "cuda:0"]
+    cfg = get_smoke_arch(W.ARCH)
+    torch.save(_np_tree(build_model(cfg).init(
+        torch.Generator().manual_seed(0))), tmp_path / "params.pt")
+    here = Path(__file__).resolve().parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    full_env = dict(os.environ, **env, PYTHONPATH=str(here.parent / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_rwkv_axis_ranks.py"), "--rank",
+         str(r), "--world", "2", "--port", str(port), "--device", "cuda",
+         "--params", str(tmp_path / "params.pt"), "--cases",
+         json.dumps([dict(rules="default", jobs=["layer"])]), "--out",
+         str(tmp_path)], env=full_env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(
+        t[-3000:] for t in logs)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    assert [r["device"] for r in ranks] == want_dev
+    inputs = [torch.as_tensor(t, device=cuda) for t in W.layer_input(cfg)]
+
+    def rel(got, want):
+        want = want.float().cpu().numpy()
+        return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+    for mode in rwkv.MODES:
+        before = w_ops.KERNEL.launches
+        with torch.no_grad():
+            y, S = rwkv.recurrence(mode, *inputs, return_state=True)
+        torch.cuda.synchronize(cuda)
+        assert w_ops.KERNEL.launches - before == int(mode == "kernel")
+        H = y.shape[2] // 2
+        for res in ranks:
+            got = res["default"]["layer"][mode]
+            j = res["coordinate"][1]
+            mine = y[:, :, j * H:(j + 1) * H].cpu().numpy()
+            assert got["collectives"] == 0
+            assert got["launches"] == int(mode == "kernel")
+            assert rel(got["y"], y) <= 1e-5 and rel(got["state"], S) <= 1e-5
+            if mode == "kernel":
+                np.testing.assert_array_equal(got["y_local"], mine)
+            else:
+                assert float(np.abs(got["y_local"] - mine).max()) <= \
+                    1e-5 * float(np.abs(mine).max())

@@ -38,6 +38,7 @@ from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import rwkv as t_rwkv
 from repro_torch.runtime.serve_loop import generate
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ("llama3-8b", "rwkv6-7b", "smollm-360m")
 REL = 1e-5
@@ -390,9 +391,9 @@ def test_attn_apply_kv_out_matches_jax():
     for n in ("k", "v"):
         assert tuple(kv[n].shape) == (2, 9, tcfg.num_kv_heads, tcfg.head_dim)
         assert _rel(kv[n], want_kv[n]) < REL
-    y_only = t_attn.attn_apply(tp, torch.tensor(x), tcfg,
-                               positions=torch.tensor(pos))
-    assert torch.equal(y_only, y)
+    y_only, none = t_attn.attn_apply(tp, torch.tensor(x), tcfg,
+                                     positions=torch.tensor(pos))
+    assert torch.equal(y_only, y) and none is None
 
 
 def test_rwkv_state_spec_matches_jax():

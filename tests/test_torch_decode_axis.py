@@ -64,6 +64,7 @@ from repro_torch.runtime.serve_loop import generate
 from repro_torch.sharding.rules import dim_range
 from torch_jax_state import no_jax_constrainer  # noqa: F401
 import torch_decode_axis_ranks as R
+from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent

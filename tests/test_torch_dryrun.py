@@ -43,6 +43,7 @@ from repro_torch.launch import dryrun, roofline, steps
 from repro_torch.launch.hlo_analysis import CostCounter, analyze_step
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.models import build_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 META = torch.device("meta")

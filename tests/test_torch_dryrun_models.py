@@ -36,6 +36,7 @@ from repro_torch.models import build_model
 from repro_torch.models.common import param_specs
 from repro_torch.optimizer import adamw
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 META = torch.device("meta")
 B, S = 4, 64

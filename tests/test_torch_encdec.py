@@ -40,6 +40,7 @@ from repro_torch.models import common as t_common
 from repro_torch.models.common import tree_map
 from repro_torch.runtime.serve_loop import EmbeddingService, generate
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "whisper-base"
 REL = 1e-5

@@ -28,6 +28,7 @@ from repro_torch.data import make_corpus, make_query
 from repro_torch.engine import (InMemoryStore, ScaleDocEngine,
                                 SemanticPredicate, SemanticTopK,
                                 SimulatedOracle)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TARGET = 0.9
 SCORE_TOL = 1e-6

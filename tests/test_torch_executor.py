@@ -16,6 +16,7 @@ from repro_torch.core import scoring as t_scoring
 from repro_torch.core.encoder import params_from_jax
 from repro_torch.engine import (InMemoryStore, MemmapStore,
                                 ScoringExecutor, as_store)
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 D = 48

@@ -28,6 +28,7 @@ from repro_torch.models import params_from_jax
 from torch_kernel_inputs import (FLASH, _attention_inputs,
                                  assert_flash_long_close)
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = FLASH[torch.float32]
 
@@ -202,9 +203,9 @@ def test_attn_apply_matches_jax(impl, window):
     x = np.random.default_rng(1).normal(size=(2, 19, 32)).astype(np.float32)
     want, _ = j_attn.attn_apply(jp, jnp.asarray(x), jcfg,
                                 positions=jnp.arange(19), window=window)
-    got = t_attn.attn_apply(tp, torch.tensor(x), tcfg,
-                            positions=torch.arange(19), window=window,
-                            impl=impl)
+    got, _ = t_attn.attn_apply(tp, torch.tensor(x), tcfg,
+                               positions=torch.arange(19), window=window,
+                               impl=impl)
     np.testing.assert_allclose(_np(got), _np(want), **F32)
 
 

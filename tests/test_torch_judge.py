@@ -31,6 +31,7 @@ from repro_torch.engine import ScaleDocEngine
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.runtime.serve_loop import EmbeddingService
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 N_ASK = 64

@@ -24,6 +24,7 @@ from repro_torch.kernels.fused_scoring import ops as s_ops
 from torch_kernel_inputs import (F32, FUSED_RAGGED_N, FUSED_WIDTHS, LOSS,
                                  _contrastive_inputs, _degenerate,
                                  _scoring_inputs, _t)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # contrastive: plain version vs the Pallas kernel (interpret mode)

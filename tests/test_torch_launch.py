@@ -46,6 +46,7 @@ from repro_torch.models import common, params_from_jax
 from repro_torch.optimizer import adamw
 from repro_torch.sharding import rules
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 MESHES = {"1x1": {"data": 1, "model": 1},
           "16x16": {"data": 16, "model": 16},

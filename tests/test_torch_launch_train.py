@@ -34,6 +34,7 @@ from repro_torch.launch import steps
 from repro_torch.models import build_model, common, params_from_jax
 from repro_torch.optimizer import adamw
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _carry(tree):

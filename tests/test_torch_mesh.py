@@ -48,6 +48,7 @@ from repro_torch.models import params_from_jax
 from repro_torch.runtime.serve_loop import EmbeddingService
 from repro_torch.sharding.rules import shard_rows
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 MESH = Mesh(OrderedDict(data=4), (CPU,) * 4)

@@ -52,6 +52,7 @@ from repro_torch.optimizer import adamw, compression
 from repro_torch.runtime.train_loop import Trainer
 from torch_jax_state import no_jax_constrainer  # noqa: F401
 import torch_model_axis_ranks as R
+from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -388,16 +389,19 @@ def test_injected_failure_replays_bitwise(runs):
 
 def test_what_stays_refused_names_its_slice(runs):
     """On a (1, 2) mesh of SPMD ranks: the prefill and decode plans'
-    steps and the Trainer of a family outside the dense and MoE ones
-    (zamba2-2.7b, rwkv6-7b) raise NotImplementedError naming the slices
-    that will take them; llama3-8b's and qwen3-moe-30b-a3b's prefill and
-    decode plans run (``tests/test_torch_decode_axis.py`` and
-    ``tests/test_torch_moe_axis.py`` hold their values)."""
+    steps and the Trainer of a family outside the dense, MoE and RWKV6
+    ones (zamba2-2.7b, internvl2-1b) raise NotImplementedError naming the
+    slices that will take them; llama3-8b's, qwen3-moe-30b-a3b's and
+    rwkv6-7b's prefill and decode plans and rwkv6-7b's Trainer run
+    (``tests/test_torch_decode_axis.py``, ``tests/test_torch_moe_axis.py``
+    and ``tests/test_torch_rwkv_axis.py`` hold their values)."""
     msgs = runs["ranks"][1, 2][0]["refusals"]
-    for arch in ("llama3-8b", "qwen3-moe-30b-a3b"):
+    for arch in ("llama3-8b", "qwen3-moe-30b-a3b", "rwkv6-7b"):
         for kind in ("prefill", "decode"):
             assert msgs[f"{arch}/{kind}"] == "ran"
-    for arch in ("zamba2-2.7b", "rwkv6-7b"):
+    assert msgs["rwkv6-7b"] == "ran"
+    assert "Mamba2/zamba2" in FAMILY_SLICE and "RWKV6" not in FAMILY_SLICE
+    for arch in ("zamba2-2.7b", "internvl2-1b"):
         for what in (arch, f"{arch}/prefill", f"{arch}/decode"):
             assert "families under a model axis" in msgs[what], what
             assert FAMILY_SLICE in msgs[what], what

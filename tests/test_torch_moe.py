@@ -35,6 +35,7 @@ from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import moe as t_moe
 from repro_torch.runtime.serve_loop import EmbeddingService, generate
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ("qwen3-moe-30b-a3b", "dbrx-132b")
 DISPATCHES = ("onehot", "sort")

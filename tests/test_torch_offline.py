@@ -46,6 +46,7 @@ from repro_torch.models import common as t_common
 from repro_torch.models import params_from_jax
 from repro_torch.runtime.serve_loop import EmbeddingService
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_DOCS, DOC_LEN, BATCH = 96, 12, 8
 # tests/test_ingest.py's service config

@@ -1,5 +1,5 @@
-"""The port's four repaired faults against the JAX package (one test or
-more for each):
+"""The port's repaired faults against the JAX package (one test or more
+for each):
 
 1. the ``Trainer`` builds its model in ``rwkv_mode="direct"``, as the
    JAX ``Trainer`` does, and trains RWKV6 (loss 1e-5 of the JAX
@@ -11,8 +11,16 @@ more for each):
 4. the JAX arguments the port had dropped: ``force_ref=True`` (the
    plain version on any device), ``use_kernel=False`` (the plain path on
    the device), ``interpret=True`` (refused with a stated message) and
-   ``mesh``/``shardings`` (one device accepted, more refused).
+   ``mesh``/``shardings`` (one device accepted, more refused);
+5. the contrastive kernel's switches: ``losses(force_ref=, interpret=)``,
+   ``phase2_loss(impl=)`` and ``ProxyConfig.contrastive_impl`` passed
+   through by the proxy trainer (``"ref"`` launches nothing);
+6. signatures and a return as in JAX: ``attn_apply`` returns ``(y, kv
+   or None)`` and takes ``causal_skip`` (as ``flash_attention`` does),
+   the proxy trainer's entry points take ``method``, ``encoder_init``
+   takes ``dtype``.
 """
+import inspect
 import dataclasses
 from collections import OrderedDict
 
@@ -23,6 +31,11 @@ import pytest
 import torch
 
 from repro.config import OptimizerConfig as JOpt
+from repro.config import ProxyConfig as JProxy
+from repro.core import encoder as j_encoder
+from repro.core import trainer as j_trainer
+from repro.kernels.contrastive import ops as j_c_ops
+from repro.models import attention as j_attn
 from repro.config import get_smoke_arch as j_smoke
 from repro.models import build_model as j_build_model
 from repro.optimizer import adamw as j_adamw
@@ -30,12 +43,15 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.config import (CascadeConfig, InputShape, OptimizerConfig,
                                 ProxyConfig, TrainConfig, get_smoke_arch)
 from repro_torch.core import scoring as t_scoring
+from repro_torch.core import trainer as t_trainer
 from repro_torch.core.encoder import encoder_init
 from repro_torch.core.pipeline import ScaleDocPipeline
 from repro_torch.data import make_corpus
 from repro_torch.data.loader import device_batch
 from repro_torch.engine import ScaleDocEngine
 from repro_torch.engine.executor import ScoringExecutor
+from repro_torch.kernels.contrastive import ops as c_ops
+from repro_torch.kernels.contrastive import ref as c_ref
 from repro_torch.kernels.flash_attention import ops as f_ops
 from repro_torch.kernels.flash_attention import ref as f_ref
 from repro_torch.kernels.fused_scoring import ops as s_ops
@@ -45,6 +61,7 @@ from repro_torch.launch.hlo_analysis import CostCounter
 from repro_torch.launch.mesh import (Mesh, make_production_mesh,
                                      make_test_mesh)
 from repro_torch.models import EncDecLM, TransformerLM, build_model
+from repro_torch.models import attention as t_attn
 from repro_torch.models import params_from_jax
 from repro_torch.models.common import tree_map
 from repro_torch.optimizer import adamw
@@ -52,6 +69,7 @@ from repro_torch.runtime.serve_loop import EmbeddingService
 from repro_torch.runtime.train_loop import Trainer
 from repro_torch.sharding.rules import NamedSharding, P
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = InputShape("tiny", seq_len=32, global_batch=4, kind="train")
 MANY = make_production_mesh()                 # 16 x 16, abstract
@@ -288,3 +306,194 @@ def test_a_mesh_of_one_device_is_taken_and_more_refused(tmp_path):
     with pytest.raises(NotImplementedError, match="more than one device"):
         ckpt.restore(str(tmp_path / "c"), 1, tree,
                      shardings={"w": NamedSharding(MANY, P("data"))})
+
+
+# -- 5. the contrastive kernel's switches --------------------------------------
+
+def _contrastive_inputs(seed=0, q=3, n=24, p=16):
+    rng = np.random.default_rng(seed)
+    z_q = rng.normal(size=(q, p)).astype(np.float32)
+    z_d = rng.normal(size=(q, n, p)).astype(np.float32)
+    z_q /= np.linalg.norm(z_q, axis=-1, keepdims=True)
+    z_d /= np.linalg.norm(z_d, axis=-1, keepdims=True)
+    y = (rng.random((q, n)) < 0.4).astype(np.float32)
+    return z_q, z_d, y
+
+
+def test_contrastive_switches_are_jaxs():
+    """``losses(force_ref=True)`` is the plain version and launches
+    nothing, its default the kernel's operator (the plain version on the
+    CPU), both equal to JAX's ``losses``; ``phase2_loss(impl="ref")`` is
+    plain autograd of the plain objective (value and gradient against
+    JAX's ``impl="ref"``, no launch), ``"auto"`` the kernel's Function,
+    ``"kernel"`` raises for CPU latents; ``interpret`` is refused."""
+    z_q, z_d, y = _contrastive_inputs()
+    tq, td, ty = (torch.tensor(a) for a in (z_q, z_d, y))
+    tau, lam = 0.1, 0.5
+    want = np.asarray(jax.vmap(lambda a, b, c: j_c_ops.losses(
+        a, b, c, tau, lam, force_ref=True))(jnp.asarray(z_q),
+                                            jnp.asarray(z_d), jnp.asarray(y)))
+    plain = c_ops.losses(tq, td, ty, tau, lam, force_ref=True)
+    assert torch.equal(plain, c_ref.ref_losses(tq, td, ty, tau, lam))
+    np.testing.assert_allclose(plain.numpy(), want, rtol=1e-5, atol=1e-6)
+    assert _kernel_ops(lambda: c_ops.losses(tq, td, ty, tau, lam,
+                                            force_ref=True)) == 0
+    assert _kernel_ops(lambda: c_ops.losses(tq, td, ty, tau, lam)) == 1
+    np.testing.assert_allclose(c_ops.losses(tq, td, ty, tau, lam).numpy(),
+                               want, rtol=1e-5, atol=1e-6)
+
+    def jax_phase2(zd):
+        return jnp.sum(jax.vmap(lambda a, b, c: j_c_ops.phase2_loss(
+            a, b, c, tau, lam, impl="ref"))(jnp.asarray(z_q), zd,
+                                            jnp.asarray(y)))
+    jval, jgrad = jax.value_and_grad(jax_phase2)(jnp.asarray(z_d))
+    for impl, launches in (("ref", 0), ("auto", 1)):
+        zd = td.clone().requires_grad_(True)
+        assert _kernel_ops(lambda: c_ops.phase2_loss(
+            tq, zd, ty, tau, lam, impl=impl)) == launches
+        val = c_ops.phase2_loss(tq, zd, ty, tau, lam, impl=impl).sum()
+        (grad,) = torch.autograd.grad(val, zd)
+        np.testing.assert_allclose(val.item(), float(jval), rtol=1e-5)
+        np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad),
+                                   rtol=1e-4, atol=1e-6)
+    with pytest.raises(ValueError, match="on the CPU"):
+        c_ops.phase2_loss(tq, td, ty, tau, lam, impl="kernel")
+    with pytest.raises(ValueError, match="interpret mode, which the port "
+                                         "has no counterpart of"):
+        c_ops.phase2_loss(tq, td, ty, tau, lam, impl="interpret")
+    with pytest.raises(ValueError, match="unknown contrastive impl"):
+        c_ops.phase2_loss(tq, td, ty, tau, lam, impl="pallas")
+    with pytest.raises(ValueError, match="interpret mode"):
+        c_ops.losses(tq, td, ty, tau, lam, interpret=True)
+    with pytest.raises(ValueError, match="interpret mode, which the port "
+                                         "has no counterpart of"):
+        ProxyConfig(contrastive_impl="interpret")
+
+
+def test_proxy_trainer_passes_contrastive_impl():
+    """The proxy trainer's phase-2 loss takes ``ProxyConfig.
+    contrastive_impl`` as its ``impl``, as JAX's ``_loss_phase2`` does:
+    ``"ref"`` launches nothing, ``"auto"`` the kernel once a step, and
+    both give the same loss and gradients; ``"kernel"`` raises on CPU
+    latents."""
+    rng = np.random.default_rng(4)
+    base = ProxyConfig(embed_dim=16, hidden_dim=32, latent_dim=32,
+                       proj_dim=8)
+    params = encoder_init(torch.Generator().manual_seed(0), base)
+    e_qs = torch.tensor(rng.normal(size=(1, 16)).astype(np.float32))
+    xb = torch.tensor(rng.normal(size=(1, 12, 16)).astype(np.float32))
+    yb = torch.tensor((rng.random((1, 12)) < 0.5).astype(np.float32))
+    got = {}
+    for impl, launches in (("ref", 0), ("auto", 1)):
+        cfg = dataclasses.replace(base, contrastive_impl=impl)
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        assert _kernel_ops(lambda: t_trainer._loss_phase2(
+            live, e_qs, xb, yb, cfg)) == launches
+        loss = t_trainer._loss_phase2(live, e_qs, xb, yb, cfg).sum()
+        got[impl] = (loss.item(), torch.autograd.grad(
+            loss, live["layers"]["l0"]["w"]))
+    np.testing.assert_allclose(got["ref"][0], got["auto"][0], rtol=1e-6)
+    torch.testing.assert_close(got["ref"][1], got["auto"][1], rtol=1e-5,
+                               atol=1e-7)
+    with pytest.raises(ValueError, match="on the CPU"):
+        t_trainer._loss_phase2(params, e_qs, xb, yb, dataclasses.replace(
+            base, contrastive_impl="kernel"))
+
+
+# -- 6. signatures and a return as in JAX --------------------------------------
+
+def test_attn_apply_returns_y_and_kv_or_none_and_takes_causal_skip():
+    """``attn_apply`` returns ``(y, kv or None)`` as JAX's does, and takes
+    ``causal_skip`` (as does ``flash_attention``), which changes no
+    value."""
+    cfg = dataclasses.replace(get_smoke_arch("llama3-8b"), dtype="float32")
+    jcfg = dataclasses.replace(j_smoke("llama3-8b"), dtype="float32")
+    jp = j_attn.attn_init(jax.random.PRNGKey(0), jcfg, jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    x = np.random.default_rng(5).normal(size=(2, 11, cfg.d_model)).astype(
+        np.float32)
+    pos = np.arange(11)
+    for impl in t_attn.IMPLS:
+        for kv_out in (False, True):
+            want = j_attn.attn_apply(jp, jnp.asarray(x), jcfg,
+                                     positions=jnp.asarray(pos),
+                                     kv_out=kv_out, causal_skip=True)
+            outs = [t_attn.attn_apply(tp, torch.tensor(x), cfg,
+                                      positions=torch.tensor(pos),
+                                      impl=impl, kv_out=kv_out,
+                                      causal_skip=skip)
+                    for skip in (False, True)]
+            for got in outs:
+                assert isinstance(got, tuple) and len(got) == 2
+                assert (got[1] is None) == (want[1] is None) == (not kv_out)
+                np.testing.assert_allclose(got[0].numpy(),
+                                           np.asarray(want[0]), rtol=1e-5,
+                                           atol=1e-5)
+            assert torch.equal(outs[0][0], outs[1][0])
+    q = torch.tensor(x[:, :, :32]).reshape(2, 11, 2, 16)
+    assert torch.equal(
+        t_attn.flash_attention(q, q, q, 0.25, causal=True, causal_skip=True),
+        t_attn.flash_attention(q, q, q, 0.25, causal=True))
+    for fn in (t_attn.attn_apply, t_attn.flash_attention):
+        assert "causal_skip" in inspect.signature(fn).parameters
+
+
+def test_proxy_trainer_entry_points_take_method():
+    """``train_proxy``, ``train_proxy_variant`` and
+    ``_train_mlp_classifier`` take JAX's ``method`` with its default;
+    "scan" and "steps" run the same loop (bitwise equal params), another
+    value raises as in JAX."""
+    for name in ("train_proxy", "train_proxy_variant",
+                 "_train_mlp_classifier"):
+        want = inspect.signature(getattr(j_trainer, name)).parameters
+        got = inspect.signature(getattr(t_trainer, name)).parameters
+        assert got["method"].default == want["method"].default == "scan"
+    cfg = ProxyConfig(embed_dim=16, hidden_dim=32, latent_dim=32,
+                      proj_dim=8, phase1_steps=3, phase2_steps=3,
+                      batch_size=16)
+    rng = np.random.default_rng(6)
+    embeds = rng.normal(size=(40, 16)).astype(np.float32)
+    labels = (rng.random(40) < 0.4).astype(np.int32)
+    runs = {m: [t_trainer.train_proxy(1, embeds[0], embeds, labels, cfg,
+                                      device="cpu", method=m).params,
+                t_trainer.train_proxy_variant(1, embeds[0], embeds, labels,
+                                              cfg, "qsim", device="cpu",
+                                              method=m),
+                t_trainer._train_mlp_classifier(1, embeds, labels, cfg,
+                                                device="cpu", method=m)]
+            for m in ("scan", "steps")}
+    for a, b in zip(runs["scan"], runs["steps"]):
+        for (_, x), (_, y) in zip(ckpt.flatten_with_paths(a),
+                                  ckpt.flatten_with_paths(b)):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="unknown method"):
+        t_trainer.train_proxy(1, embeds[0], embeds, labels, cfg,
+                              device="cpu", method="loop")
+    with pytest.raises(ValueError, match="unknown method"):
+        t_trainer.train_proxy_variant(1, embeds[0], embeds, labels, cfg,
+                                      "mlp", device="cpu", method="loop")
+
+
+def test_encoder_init_takes_dtype():
+    """``encoder_init(generator, cfg, dtype=torch.float32)`` as JAX's
+    ``encoder_init(key, cfg, dtype=jnp.float32)``: float32 by default
+    (the same draws as before the argument), every leaf of ``dtype``
+    otherwise, the weights the float32 draws cast."""
+    assert inspect.signature(j_encoder.encoder_init).parameters[
+        "dtype"].default == jnp.float32
+    assert inspect.signature(encoder_init).parameters[
+        "dtype"].default == torch.float32
+    cfg = ProxyConfig(embed_dim=16, hidden_dim=32, latent_dim=32, proj_dim=8)
+    f32 = encoder_init(torch.Generator().manual_seed(2), cfg)
+    bf16 = encoder_init(torch.Generator().manual_seed(2), cfg,
+                        dtype=torch.bfloat16)
+    jf = j_encoder.encoder_init(jax.random.PRNGKey(0), JProxy(
+        embed_dim=16, hidden_dim=32, latent_dim=32, proj_dim=8),
+        dtype=jnp.bfloat16)
+    want = {k for k, _ in ckpt.flatten_with_paths(jax.tree.map(
+        np.asarray, jf))}
+    assert {k for k, _ in ckpt.flatten_with_paths(bf16)} == want
+    for (_, a), (_, b) in zip(ckpt.flatten_with_paths(f32),
+                              ckpt.flatten_with_paths(bf16)):
+        assert a.dtype == torch.float32 and b.dtype == torch.bfloat16
+        assert torch.equal(a.to(torch.bfloat16), b)

@@ -26,6 +26,7 @@ from repro_torch.core.oracle import CachedOracle, SimulatedOracle
 from repro_torch.engine import predicate as tp
 from repro_torch.engine.optimizer import QueryOptimizer, SelectivityStats
 from repro_torch.runtime import trace as ttrace
+from torch_threads import one_torch_thread  # noqa: F401
 
 try:
     from hypothesis import given, settings, strategies as st

@@ -16,6 +16,7 @@ from repro_torch.config import OptimizerConfig, ProxyConfig
 from repro_torch.core import encoder as tenc
 from repro_torch.core import losses as tlosses
 from repro_torch.optimizer import adamw as tadamw
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # float32, the reference kernel tolerance
 CFG = dict(embed_dim=32, hidden_dim=64, latent_dim=32, proj_dim=16)

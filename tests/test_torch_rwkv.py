@@ -38,6 +38,7 @@ from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import rwkv as t_rwkv
 from repro_torch.runtime.serve_loop import EmbeddingService
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "rwkv6-7b"
 REL = 1e-5

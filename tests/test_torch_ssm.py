@@ -44,6 +44,7 @@ from repro_torch.models import ssm as t_ssm
 from repro_torch.models.transformer import kernel_layers
 from repro_torch.runtime.serve_loop import EmbeddingService, generate
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "zamba2-2.7b"
 F32 = dict(rtol=1e-5, atol=1e-5)

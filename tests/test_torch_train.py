@@ -51,6 +51,7 @@ from repro_torch.optimizer import compression as t_comp
 from repro_torch.runtime import fault as t_fault
 from repro_torch.runtime.train_loop import Trainer
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-5

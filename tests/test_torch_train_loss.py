@@ -30,6 +30,7 @@ from repro_torch.models import common as t_common
 from repro_torch.models.common import tree_map
 from repro_torch.runtime.train_loop import grad_tree
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 GRAD_REL = 1e-4

@@ -26,6 +26,7 @@ from repro.core.encoder import encoder_init
 from repro_torch.config import ProxyConfig
 from repro_torch.core import trainer as ttr
 from repro_torch.core.encoder import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIM = 32
 CFG = dict(embed_dim=DIM, hidden_dim=64, latent_dim=32, proj_dim=16,

@@ -12,6 +12,7 @@ from repro_torch.config import ProxyConfig
 from repro_torch.core import trainer as ttr
 from test_torch_trainer import (CFG, DRIFT, _assert_params_close,
                                 _balanced_n, _lane_draws, _sample)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_plan_matches_jax_multi():

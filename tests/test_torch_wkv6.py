@@ -22,6 +22,7 @@ from repro.kernels.wkv6.wkv6 import wkv6_intra_chunk as j_intra
 from repro_torch.kernels.wkv6 import ops, ref
 from torch_wkv6_inputs import wkv6_inputs, wkv6_sequence
 from torch_jax_state import no_jax_constrainer  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 

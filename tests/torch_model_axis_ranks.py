@@ -258,17 +258,18 @@ def restore_job(rank, mesh, device, src: Path, res) -> None:
 
 def refusal_job(mesh, device, res) -> None:
     """What the model axis leaves refused, each message: the prefill and
-    decode plans' steps and the Trainer of a family outside the dense
-    and MoE ones; and that llama3-8b's and qwen3-moe-30b-a3b's prefill
-    and decode plans run ("ran")."""
+    decode plans' steps and the Trainer of a family outside the dense,
+    MoE and RWKV6 ones; and that llama3-8b's, qwen3-moe-30b-a3b's and
+    rwkv6-7b's prefill and decode plans, and rwkv6-7b's Trainer, run
+    ("ran")."""
     from repro_torch.config import get_smoke_arch as smoke
     from repro_torch.models import build_model
     from repro_torch.runtime.train_loop import Trainer
     shapes = (("prefill", InputShape("p", 16, 2, "prefill")),
               ("decode", InputShape("d", 16, 2, "decode")))
     msgs = {}
-    for arch in ("llama3-8b", "qwen3-moe-30b-a3b", "zamba2-2.7b",
-                 "rwkv6-7b"):
+    for arch in ("llama3-8b", "qwen3-moe-30b-a3b", "rwkv6-7b",
+                 "zamba2-2.7b", "internvl2-1b"):
         cfg = smoke(arch)
         model = build_model(cfg)
         params = model.init(torch.Generator(device).manual_seed(0))
@@ -283,10 +284,11 @@ def refusal_job(mesh, device, res) -> None:
                 msgs[f"{arch}/{kind}"] = "ran"
             except NotImplementedError as exc:
                 msgs[f"{arch}/{kind}"] = str(exc)
-    for arch in ("zamba2-2.7b", "rwkv6-7b"):
+    for arch in ("rwkv6-7b", "zamba2-2.7b", "internvl2-1b"):
         try:
             Trainer(smoke(arch), train_config(Path("unused")), mesh,
-                    device=device)
+                    device=device).close()
+            msgs[arch] = "ran"
         except NotImplementedError as exc:
             msgs[arch] = str(exc)
     res["refusals"] = msgs

@@ -30,7 +30,8 @@ tensor; and what the model-axis prefill and decode run besides (a
 product leaving partial sums reduced to replicated, a lookup into a
 vocabulary-sharded table, ``torch.stack`` and ``t[g]`` of sharded
 layers, a process-group all-reduce of the maximum over one mesh
-dimension). Each runs under ``torch.inference_mode()`` and under
+dimension), and the RWKV6 token shift of a replicated activation, by
+``F.pad`` and by a concatenation (``models.rwkv._shift``). Each runs under ``torch.inference_mode()`` and under
 ``torch.no_grad()``, and records its output's placements (or its
 exception) and whether the gathered value equals the operator on the
 full tensors. Rank 0 writes ``gloo_probe_ops_<backend>.json``.
@@ -221,7 +222,8 @@ def rank_main(rank: int, world: int, port: int, device: str,
 OPS = ("index_copy_dim1", "where_plain_mask", "roll_dim1",
        "slice_assign_dim1", "softmax_shard3", "argmax_shard_last",
        "partial_to_replicate_product", "embedding_vocab_sharded",
-       "stack_dim0", "select_dim0", "all_reduce_max_group")
+       "stack_dim0", "select_dim0", "all_reduce_max_group",
+       "pad_shift_dim1", "cat_shift_dim1")
 
 
 def ops_main(rank: int, world: int, port: int, device: str,
@@ -262,6 +264,7 @@ def ops_main(rank: int, world: int, port: int, device: str,
     mask = torch.arange(8, device=dev) <= 5
     scores, logits = rnd(2, 2, 1, 8), rnd(2, 16)
     a, b = rnd(8, 6), rnd(6, 4)
+    act = rnd(2, 8, 6)
     table, ids = rnd(16, 4), torch.tensor([[1, 9, 15]], device=dev)
     slot = torch.tensor([5], device=dev)
 
@@ -307,7 +310,14 @@ def ops_main(rank: int, world: int, port: int, device: str,
                 (put(a, R, Shard(1)), put(b, R, Shard(0))), (a, b)),
             "embedding_vocab_sharded": (
                 lambda t: replicated(torch.nn.functional.embedding(ids, t)),
-                (put(table, R, Shard(0)),), (table,))}
+                (put(table, R, Shard(0)),), (table,)),
+            "pad_shift_dim1": (
+                lambda x: torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+                - x, (put(act, R, R),), (act,)),
+            "cat_shift_dim1": (
+                lambda x: torch.cat([torch.zeros_like(x[:, :1]),
+                                     x[:, :-1]], dim=1) - x,
+                (put(act, R, R),), (act,))}
 
     def run(name, fn, args, plain, mode):
         entry = {}
